@@ -1,0 +1,238 @@
+// Shared building blocks of the port's int8 kernels (K1 conv_int8, K2
+// matmul_int8, K3 basic_block): a block-tile int8 GEMM on the tensor cores
+// with mma.sync.m16n8k32 (s8 x s8 -> s32), fed through shared memory by a
+// two-stage cp.async pipeline, and the fp32 epilogue the reference uses.
+//
+// What bounds these kernels on an H100: the card's ridge is ~590 int8
+// operations per byte (1979 TOP/s over 3.35 TB/s). ResNet's 3x3 convs sit
+// near it (56^2 x 64) or far above it (7^2 x 512: bound by operations); the
+// 1x1/s2 downsamples and the fc are far below it (bound by bytes). So the
+// design keeps every operand byte read once from device memory per block
+// tile and does all int8 math on the tensor cores.
+// This first version is simple on purpose: mma.sync (not wgmma), cp.async
+// (not TMA), two stages, 256 threads; shared-memory rows are padded to 80
+// bytes so the 32-bit fragment reads of a warp hit 32 distinct banks.
+//
+// Tiles: BM x BN outputs per block, K in steps of BK = 64 bytes (two
+// m16n8k32 steps). A rows are output pixels (implicit GEMM: the loader
+// gathers them from the NHWC input, zero-filling padding); B rows are
+// output channels of a K-major [N, Kp] weight, Kp a multiple of 64.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace dlq {
+
+constexpr int BK = 64;           // K bytes per pipeline stage
+constexpr int LDS = BK + 16;     // padded shared-memory row stride (bytes)
+constexpr int THREADS = 256;     // 8 warps per block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global->shared copy; zero-fills the destination when !valid
+// (src-size 0 reads nothing, so `src` only has to be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The reference's epilogue: y = fma(float(acc), scale, bias) — XLA contracts
+// `acc * s + b` into one fused multiply-add — then relu.
+__device__ __forceinline__ float epi_fma(int acc, float scale, float bias, bool relu) {
+  float y = __fmaf_rn(__int2float_rn(acc), scale, bias);
+  return relu ? fmaxf(y, 0.0f) : y;
+}
+
+// int8 requant: clip(rint(y / s), lo, 127); division (not a reciprocal
+// multiply) and round-half-to-even, as the reference computes it.
+__device__ __forceinline__ int8_t requant_div(float y, float s, float lo) {
+  float q = rintf(__fdiv_rn(y, s));
+  return static_cast<int8_t>(fminf(fmaxf(q, lo), 127.0f));
+}
+
+// A BM x BN int32 accumulator tile spread over 8 warps (WARPS_M x WARPS_N).
+// Fragment layout of m16n8k32 (PTX ISA): lane = 4*g + t; A regs hold rows
+// g / g+8, bytes 4t.. and 4t+16..; B regs hold column g, bytes 4t.., 4t+16..;
+// C regs hold rows g / g+8, columns 2t, 2t+1.
+template <int BM, int BN, int WARPS_M, int WARPS_N>
+struct MmaTile {
+  static_assert(WARPS_M * WARPS_N * 32 == THREADS, "8 warps");
+  static constexpr int WM = BM / WARPS_M;
+  static constexpr int WN = BN / WARPS_N;
+  static constexpr int MI = WM / 16;
+  static constexpr int NI = WN / 8;
+  static_assert(MI * 16 == WM && NI * 8 == WN, "warp tile");
+
+  int acc[MI][NI][4];
+  int warp_m, warp_n, g, t;
+
+  __device__ __forceinline__ MmaTile() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    warp_m = warp / WARPS_N;
+    warp_n = warp % WARPS_N;
+    g = lane >> 2;
+    t = lane & 3;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+  }
+
+  // One BK-deep step from shared memory: As [BM][LDS], Bs [BN][LDS].
+  __device__ __forceinline__ void step(const int8_t* As, const int8_t* Bs) {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int8_t* p = As + (warp_m * WM + i * 16 + g) * LDS + kk + t * 4;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int8_t* q = Bs + (warp_n * WN + j * 8 + g) * LDS + kk + t * 4;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(q);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(q + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    }
+  }
+
+  // Visit every accumulator: f(row_in_tile, col_in_tile, value).
+  template <class F>
+  __device__ __forceinline__ void for_each(F&& f) const {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = warp_m * WM + i * 16 + g + (r >> 1) * 8;
+          const int col = warp_n * WN + j * 8 + t * 2 + (r & 1);
+          f(row, col, acc[i][j][r]);
+        }
+  }
+};
+
+// B loader: rows n0..n0+BN-1 of a K-major [N, Kp] int8 weight (rows >= N
+// zero-filled), 16-byte chunks, BN*4 chunks per stage.
+template <int BN>
+__device__ __forceinline__ void load_b(int8_t* Bs, const int8_t* __restrict__ w, int N, int Kp,
+                                       int n0, int kt) {
+#pragma unroll
+  for (int j = 0; j < BN * (BK / 16) / THREADS; ++j) {
+    const int chunk = threadIdx.x + j * THREADS;
+    const int r = chunk >> 2, q = chunk & 3;
+    const int n = n0 + r;
+    const bool v = n < N;
+    const int8_t* src = v ? w + (size_t)n * Kp + (size_t)kt * BK + q * 16 : w;
+    cp_async16(Bs + r * LDS + q * 16, src, v);
+  }
+}
+
+// A loader of an implicit-GEMM conv over an NHWC int8 input: each of this
+// thread's chunks (fixed rows for the whole K loop) knows its row's image
+// base pointer and the input coordinate of its top-left tap.
+struct ConvGeom {
+  int H, W, C, KW, K;  // input H, W, C; kernel width; K = KH*KW*C
+};
+
+template <int BM>
+struct GatherA {
+  static constexpr int CH = BM * (BK / 16) / THREADS;  // chunks per thread
+  const int8_t* base[CH];  // image base (nullptr: row outside the GEMM)
+  int ih0[CH], iw0[CH];
+
+  __device__ __forceinline__ void set(int j, const int8_t* b, int h0, int w0) {
+    base[j] = b;
+    ih0[j] = h0;
+    iw0[j] = w0;
+  }
+  __device__ __forceinline__ static int row(int j) { return (threadIdx.x + j * THREADS) >> 2; }
+  __device__ __forceinline__ static int quad(int j) { return (threadIdx.x + j * THREADS) & 3; }
+
+  // Vector path, C % 16 == 0: a chunk never straddles two taps.
+  __device__ __forceinline__ void load_vec(int8_t* As, const ConvGeom& gm, int kt,
+                                           const int8_t* any) const {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int k = kt * BK + quad(j) * 16;
+      const int tap = k / gm.C, c = k - tap * gm.C;
+      const int kh = tap / gm.KW, kw = tap - kh * gm.KW;
+      const int ih = ih0[j] + kh, iw = iw0[j] + kw;
+      const bool v = base[j] != nullptr && k < gm.K && ih >= 0 && ih < gm.H && iw >= 0 &&
+                     iw < gm.W;
+      const int8_t* src = v ? base[j] + ((size_t)ih * gm.W + iw) * gm.C + c : any;
+      cp_async16(As + row(j) * LDS + quad(j) * 16, src, v);
+    }
+  }
+
+  // Byte path for any C (the C=3 stems): synchronous gather.
+  __device__ __forceinline__ void load_bytes(int8_t* As, const ConvGeom& gm, int kt) const {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      int8_t* dst = As + row(j) * LDS + quad(j) * 16;
+#pragma unroll 4
+      for (int b = 0; b < 16; ++b) {
+        const int k = kt * BK + quad(j) * 16 + b;
+        int8_t v = 0;
+        if (base[j] != nullptr && k < gm.K) {
+          const int tap = k / gm.C, c = k - tap * gm.C;
+          const int kh = tap / gm.KW, kw = tap - kh * gm.KW;
+          const int ih = ih0[j] + kh, iw = iw0[j] + kw;
+          if (ih >= 0 && ih < gm.H && iw >= 0 && iw < gm.W)
+            v = base[j][((size_t)ih * gm.W + iw) * gm.C + c];
+        }
+        dst[b] = v;
+      }
+    }
+  }
+};
+
+// The K loop: two shared-memory stages, tile kt+1 in flight while kt
+// computes. `load(stage_A, stage_B, kt)` issues one stage's copies.
+template <class Tile, int BM, int BN, class Load>
+__device__ __forceinline__ void mainloop(Tile& tile, int8_t* As, int8_t* Bs, int KT, Load&& load) {
+  tile.zero();
+  load(As, Bs, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < KT) load(As + (s ^ 1) * BM * LDS, Bs + (s ^ 1) * BN * LDS, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile.step(As + s * BM * LDS, Bs + s * BN * LDS);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace dlq

@@ -1,0 +1,214 @@
+"""Persistent batched inference engine (the counterpart of
+``dlq_tpu.engine``).
+
+Weights live on the device once, the deploy context (with its K-major
+repacked weights) is built once, and batches stream through at a fixed
+batch size: short batches are zero-padded and the padding rows dropped.
+PyTorch runs eagerly, so there is no compile step; ``dispatch`` enqueues a
+batch on the current CUDA stream and returns without waiting, and
+``classify`` keeps up to ``pipeline`` batches in flight.
+
+Entry points run on the card (``device=None``) and raise without one unless
+the caller passes ``device="cpu"``. Mesh, tensor-parallel and wire options
+of the reference engine are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from dlq_tpu_torch.device import DeviceLike, resolve_device
+from dlq_tpu_torch.quant.calibrate import calibrate
+from dlq_tpu_torch.quant.model_quant import DeployCtx, make_sites_fn, quantize_weights
+from dlq_tpu_torch.quant.qconfig import QConfig
+from dlq_tpu_torch.quant.quantize import QTensor
+from dlq_tpu_torch.timing import StageTimer
+
+
+@dataclasses.dataclass
+class EngineStats:
+    batches: int = 0
+    images: int = 0          # every image submitted (sync or async)
+    images_timed: int = 0    # images covered by a timed window
+    ms_total: float = 0.0    # wall ms of the timed windows only
+
+    @property
+    def images_per_sec(self) -> float:
+        """Throughput over the timed windows only (``__call__`` brackets each
+        synchronous batch, ``classify`` its whole stream; ``dispatch`` is
+        asynchronous and untimed)."""
+        return self.images_timed / (self.ms_total / 1e3) if self.ms_total else 0.0
+
+
+def to_device(tree: Any, device: torch.device) -> Any:
+    """Move every tensor (and QTensor) in nested dicts/lists to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, QTensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
+def pad_to_batch(x: torch.Tensor, batch: int):
+    """Zero-pad axis 0 up to ``batch`` on the tensor's own device; returns
+    (padded, real rows)."""
+    n = x.shape[0]
+    if n == batch:
+        return x, n
+    if n > batch:
+        raise ValueError(f"batch {n} > engine batch {batch}")
+    return torch.cat([x, x.new_zeros((batch - n,) + tuple(x.shape[1:]))]), n
+
+
+class Engine:
+    """One forward + resident params; call it like a function."""
+
+    def __init__(self, forward: Callable[[Any, torch.Tensor], torch.Tensor], params: Any, *,
+                 batch: int = 32, device: DeviceLike = None,
+                 input_dtype: torch.dtype = torch.float32, name: str = "engine"):
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.name = name
+        self.input_dtype = input_dtype
+        self.timer = StageTimer()
+        self.stats = EngineStats()
+        self._fn = forward
+        self.params = params
+
+    # ---------------- constructors ----------------
+
+    @staticmethod
+    def fp32(model_forward, params, cfg, *, device: DeviceLike = None, **kw) -> "Engine":
+        dev = resolve_device(device)
+        return Engine(lambda p, x: model_forward(p, x, cfg), to_device(params, dev),
+                      device=dev, **kw)
+
+    @staticmethod
+    def quantized(qforward, flat_params, cfg, qcfg: QConfig,
+                  calib_batches: Optional[Iterable] = None,
+                  act_scales: Optional[Dict[str, torch.Tensor]] = None,
+                  *, device: DeviceLike = None, **kw) -> "Engine":
+        """PTQ an fp32 flat-param model into a deployed W8A8 engine
+        (DeployCtx). ``calib_batches`` is required unless the config is
+        weight-only or ``act_scales`` are given."""
+        dev = resolve_device(device)
+        flat = to_device(flat_params, dev)
+        if not qcfg.weight_only and act_scales is None:
+            if calib_batches is None:
+                raise ValueError("activation quantization needs calib_batches or act_scales")
+            batches = (torch.as_tensor(np.asarray(b), dtype=torch.float32, device=dev)
+                       for b in calib_batches)
+            act_scales = calibrate(make_sites_fn(qforward, cfg), flat, batches, qcfg)
+        act_scales = to_device(act_scales or {}, dev)
+        qflat = quantize_weights(flat, qcfg)
+        ctx = DeployCtx(qflat, act_scales, qcfg)
+        eng = Engine(lambda c, x: qforward(c, x, cfg), ctx, device=dev, **kw)
+        eng.act_scales = act_scales
+        eng.qflat = qflat
+        eng.qcfg = qcfg
+        return eng
+
+    @staticmethod
+    def from_store(qmanifest: str, ctx: str = "deploy", *, device: DeviceLike = None,
+                   **kw) -> "Engine":
+        """Cold-start an engine from a quantized store (``quant.store``), no
+        calibration data or fp32 weights. ResNet-18/34 only in this slice;
+        ctx: "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
+        interchange)."""
+        from dlq_tpu_torch.manifest import Manifest
+        from dlq_tpu_torch.quant import model_quant as MQ
+        from dlq_tpu_torch.quant.store import load_quantized
+
+        dev = resolve_device(device)
+        man = Manifest.load(qmanifest)
+        model = man.model
+        if not model.startswith("resnet"):
+            raise NotImplementedError(
+                f"from_store: model {model!r} is not ported yet (ROADMAP.md, queue A)")
+        from dlq_tpu_torch.models.resnet import (
+            ResNetConfig, qforward, qforward_fused, qforward_fused2,
+        )
+
+        mcfg = man.meta.get("config", {})
+        cfg = ResNetConfig(depth=int(model[6:]), num_classes=mcfg.get("num_classes", 1000),
+                           small_input=bool(mcfg.get("small_input", False)))
+        ctxs = {"deploy": (MQ.DeployCtx, qforward), "pallas": (MQ.PallasDeployCtx, qforward),
+                "fused": (MQ.FusedDeployCtx, qforward_fused),
+                "fused2": (MQ.FullFusedCtx, qforward_fused2)}
+        if ctx not in ctxs:
+            raise ValueError(f"ctx must be one of {sorted(ctxs)}, got {ctx!r}")
+        Ctx, qf = ctxs[ctx]
+        qflat, act_scales, qcfg = load_quantized(qmanifest)
+        c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg)
+        eng = Engine(lambda cc, x: qf(cc, x, cfg), c, device=dev, name=f"{model}_{ctx}", **kw)
+        eng.qcfg = qcfg
+        eng.model_cfg = cfg
+        return eng
+
+    # ---------------- execution ----------------
+
+    def _input(self, x) -> tuple:
+        """A batch as a padded tensor on the engine's device: a tensor is
+        padded where it lies (numpy on the host), then moved once."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        xp, n = pad_to_batch(x, self.batch)
+        return xp.to(self.device, self.input_dtype), n
+
+    def __call__(self, x) -> torch.Tensor:
+        """Run one batch (padding included); returns the logits of the real
+        rows, after the device has finished them."""
+        xt, n = self._input(x)
+        t0 = time.perf_counter()
+        with self.timer.stage("forward"), torch.inference_mode():
+            out = self.timer.sync(self._fn(self.params, xt))
+        self.stats.batches += 1
+        self.stats.images += n
+        self.stats.images_timed += n
+        self.stats.ms_total += (time.perf_counter() - t0) * 1e3
+        return out[:n]
+
+    def dispatch(self, x) -> torch.Tensor:
+        """Asynchronous single-batch submit: pads, uploads and enqueues the
+        forward; returns the device logits of the real rows without waiting."""
+        xt, n = self._input(x)
+        with torch.inference_mode():
+            out = self._fn(self.params, xt)
+        self.stats.batches += 1
+        self.stats.images += n
+        return out[:n]
+
+    def classify(self, images, top: int = 1, pipeline: int = 2) -> np.ndarray:
+        """Stream any number of images; returns argmax class indices (or the
+        ``top`` best). ``images``: numpy or a tensor (sliced where it lies).
+        Up to ``pipeline`` batches are in flight before the oldest is
+        fetched."""
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
+        preds = []
+        pending: list = []
+
+        def drain():
+            logits = pending.pop(0).float().cpu().numpy()
+            preds.append(np.argsort(-logits, -1)[:, :top] if top > 1
+                         else np.argmax(logits, -1))
+
+        t0 = time.perf_counter()
+        for i in range(0, len(images), self.batch):
+            pending.append(self.dispatch(images[i: i + self.batch]))
+            while len(pending) >= max(1, pipeline):
+                drain()
+        while pending:
+            drain()
+        self.stats.ms_total += (time.perf_counter() - t0) * 1e3
+        self.stats.images_timed += len(images)
+        return np.concatenate(preds)

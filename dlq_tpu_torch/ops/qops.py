@@ -1,0 +1,101 @@
+"""Quantized conv / dense ops (the counterpart of ``dlq_tpu.ops.qops``).
+
+Numerics contract, shared with the reference:
+  * activations quantized symmetric int8 with a static per-site scale,
+    round half-to-even;
+  * int8 x int8 -> int32 accumulation;
+  * fp32 epilogue y = fma(float(acc), act_scale * w_scale[oc], bias[oc]),
+    then relu — one fused multiply-add, as XLA contracts ``acc * s + b``.
+
+Every int8 conv goes through K1 (``ops.conv_int8``), every int8 dense
+through K2 (``ops.matmul_int8``). The reference's ``mm1x1`` rewrite (a
+1x1/s1 conv as an int8 dot) computes the same values as K1 does for such a
+conv; ResNet-18/34 have none.
+Weight-only schemes (no activation scale) dequantize and run a float
+conv/matmul, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dlq_tpu_torch.models.common import conv2d
+from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, pack_conv_weight
+from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
+from dlq_tpu_torch.quant.quantize import QTensor, dequantize, quantize_act, unpack_to_layout
+
+
+def int_weight_packed(qw: QTensor) -> PackedConv:
+    """K-major packed int8 weights of a conv (HWIO) or dense (IO) site;
+    int4 per-OC weights unpack exactly to int8 first."""
+    if qw.group is not None:
+        raise ValueError("group-wise scales cannot fold into the int8 epilogue; "
+                         "use the weight-only path")
+    w = unpack_to_layout(qw).to(torch.int8)
+    return pack_dense_weight(w) if w.ndim == 2 else pack_conv_weight(w)
+
+
+def combined_scale(act_scale: float, qw: QTensor, n: int) -> torch.Tensor:
+    """fp32 [n] act_scale * w_scale (per-tensor scales broadcast)."""
+    return torch.broadcast_to(qw.scale.float() * act_scale, (n,)).contiguous()
+
+
+def bias_or_zeros(bias: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
+    return torch.zeros(n, device=device) if bias is None else bias.float().contiguous()
+
+
+def _int(v) -> int:
+    if isinstance(v, int):
+        return v
+    if v[0] != v[1]:
+        raise NotImplementedError("asymmetric stride/padding is not ported")
+    return int(v[0])
+
+
+def qconv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor], act_scale: float,
+            stride=1, padding=0, groups: int = 1, fuse_relu: bool = False,
+            act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
+    """W8A8 conv: quantize the input with the calibrated static scale, int8
+    conv with int32 accumulation, fp32 per-channel epilogue (+bias, +relu).
+    ``packed``: the site's K-major weights, when the caller keeps them."""
+    if groups != 1:
+        raise NotImplementedError("grouped/depthwise int8 conv is not ported yet "
+                                  "(ROADMAP.md, queue A item 5)")
+    pk = int_weight_packed(qw) if packed is None else packed
+    xq = quantize_act(x, act_scale, act_qmax)
+    comb = combined_scale(act_scale, qw, pk.oc)
+    return conv_int8(xq, pk, _int(stride), _int(padding), comb,
+                     bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
+
+
+def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
+           act_scale: Optional[float] = None, fuse_relu: bool = False,
+           act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
+    """Quantized dense. int8/int2 weights (or per-OC int4, unpacked exactly)
+    + act_scale -> W8A8 int8 GEMM (K2) with int32 accumulation; no act_scale
+    -> weight-only: dequantized fp32 matmul. qw.values: [I, O]."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if act_scale is not None:
+        pk = int_weight_packed(qw) if packed is None else packed
+        xq = quantize_act(x2, act_scale, act_qmax)
+        y = matmul_int8(xq, pk, combined_scale(act_scale, qw, pk.oc),
+                        bias_or_zeros(bias, pk.oc, x.device))
+    else:
+        w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
+        y = x2 @ w
+        if bias is not None:
+            y = y + bias
+    if fuse_relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def dequant_conv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
+                   stride=1, padding=0, groups: int = 1, fuse_relu: bool = False) -> torch.Tensor:
+    """Weight-only conv: dequantized weights, float conv (TF32 off)."""
+    w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
+    y = conv2d(x, w, stride=stride, padding=padding, groups=groups, bias=bias)
+    return torch.clamp_min(y, 0.0) if fuse_relu else y

@@ -1,0 +1,289 @@
+"""Whole-model PTQ and the quantized deploy contexts (the counterpart of
+``dlq_tpu.quant.model_quant``).
+
+Models define ONE ``qforward(ctx, x, cfg)``; the context decides the
+arithmetic:
+
+  ObserveCtx      fp32 compute; records each quantized op's input (calibration)
+  DeployCtx       W8A8: int8 convs on K1, int8 dense on K2, fp32 interchange
+  PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
+                  same kernels as DeployCtx
+  FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue)
+  FullFusedCtx    every inter-op tensor int8 (stem, maxpool, junctions)
+  PallasBlockCtx  FullFusedCtx + identity BasicBlocks as one K3 launch
+
+A context is built once per engine: it repacks every int8 weight K-major for
+the kernels when it is constructed, keeps the activation scales both as
+exact fp32 host values (kernel arguments, host-side scale arithmetic) and as
+0-dim device tensors (divisors of device ops), and caches the per-site
+combined epilogue scales.
+
+Not ported yet (ROADMAP.md): tensor-parallel wire routing, depthwise convs,
+the dpx/s2d/down_mm conv rewrites, the s2d and uint8 stems,
+DynamicDeployCtx, SimulateCtx.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
+from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8
+from dlq_tpu_torch.ops.qops import (
+    bias_or_zeros, combined_scale, dequant_conv2d,
+    int_weight_packed, qconv2d, qdense,
+)
+from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
+from dlq_tpu_torch.quant.qconfig import QConfig
+from dlq_tpu_torch.quant.quantize import (
+    QTensor, dequantize, effective_weight_scheme, f32, fdiv, quantize_act, quantize_tensor,
+)
+
+FlatParams = Dict[str, Dict[str, Any]]  # site -> {"w": f32 | "qw": QTensor, "b": f32}
+
+
+def quantize_weights(flat: FlatParams, qcfg: QConfig) -> FlatParams:
+    """fp32 flat params -> quantized flat params (weights only; biases fp32).
+    Conv weights (HWIO) quantize per-OC on axis -1; group-wise and int4
+    weights quantize on the 2D [H*W*I, O] view."""
+    out: FlatParams = {}
+    for site, p in flat.items():
+        w = p["w"]
+        scheme = effective_weight_scheme(tuple(w.shape), qcfg.scheme_for(site))
+        if scheme.group is not None or scheme.bits == 4:
+            k = int(np.prod(w.shape[:-1]))
+            qw = quantize_tensor(w.reshape(k, w.shape[-1]), scheme)
+        else:
+            qw = quantize_tensor(w, scheme)
+        qw.orig_shape = tuple(w.shape)
+        out[site] = {"qw": qw, "b": p.get("b")}
+    return out
+
+
+class ObserveCtx:
+    """fp32 forward over folded params; records op inputs at ``self.sites``."""
+
+    def __init__(self, flat: FlatParams):
+        self.flat = flat
+        self.sites: Dict[str, torch.Tensor] = {}
+
+    def has(self, name):
+        return name in self.flat
+
+    def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False):
+        self.sites[name] = x
+        p = self.flat[name]
+        y = conv2d(x, p["w"], stride=stride, padding=padding, groups=groups, bias=p.get("b"))
+        return relu(y) if fuse_relu else y
+
+    def dense(self, name, x, *, fuse_relu=False):
+        self.sites[name] = x
+        p = self.flat[name]
+        y = dense(x, p["w"], p.get("b"))
+        return relu(y) if fuse_relu else y
+
+
+class QAct:
+    """A quantized activation traveling between ops: int8 values + scale
+    (an exact fp32 value held as a Python float)."""
+
+    def __init__(self, q: torch.Tensor, scale: float):
+        self.q = q
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+class DeployCtx:
+    """W8A8 deploy with fp32 interchange: every int8 conv on K1, every int8
+    dense on K2; weight-only schemes dequantize."""
+
+    def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
+                 qcfg: QConfig):
+        self.qflat = qflat
+        self.act_scales = act_scales or {}
+        self.qcfg = qcfg
+        # host fp32 values (kernel arguments, scalar math) and device
+        # tensors (divisors of device ops), per calibration site
+        self.scale = {k: f32(v) for k, v in self.act_scales.items()}
+        self.scale_t = {k: v.float().reshape(()) for k, v in self.act_scales.items()}
+        # K-major int8 weights, repacked once per site
+        self.packed: Dict[str, PackedConv] = {}
+        if not qcfg.weight_only:
+            for site, p in qflat.items():
+                if p["qw"].group is None:
+                    self.packed[site] = int_weight_packed(p["qw"])
+        self._comb: Dict[Any, torch.Tensor] = {}
+        self._bias: Dict[str, torch.Tensor] = {}
+
+    def has(self, name):
+        return name in self.qflat
+
+    def bias(self, name: str) -> torch.Tensor:
+        b = self._bias.get(name)
+        if b is None:
+            p = self.qflat[name]
+            b = self._bias[name] = bias_or_zeros(p.get("b"), self.packed[name].oc,
+                                                 p["qw"].values.device)
+        return b
+
+    def comb(self, name: str, s_in: float) -> torch.Tensor:
+        """fp32 [OC] s_in * w_scale for site ``name`` (cached)."""
+        key = (name, s_in)
+        c = self._comb.get(key)
+        if c is None:
+            c = self._comb[key] = combined_scale(s_in, self.qflat[name]["qw"],
+                                                 self.packed[name].oc)
+        return c
+
+    def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False):
+        p = self.qflat[name]
+        if self.qcfg.weight_only:
+            return dequant_conv2d(x, p["qw"], p.get("b"), stride=stride, padding=padding,
+                                  groups=groups, fuse_relu=fuse_relu)
+        return qconv2d(x, p["qw"], p.get("b"), self.scale_t[name], stride=stride,
+                       padding=padding, groups=groups, fuse_relu=fuse_relu,
+                       act_qmax=self.qcfg.acts.qmax, packed=self.packed[name])
+
+    def dense(self, name, x, *, fuse_relu=False):
+        p = self.qflat[name]
+        if self.qcfg.weight_only:
+            return qdense(x, p["qw"], p.get("b"), act_scale=None, fuse_relu=fuse_relu)
+        return qdense(x, p["qw"], p.get("b"), act_scale=self.scale_t[name],
+                      fuse_relu=fuse_relu, act_qmax=self.qcfg.acts.qmax,
+                      packed=self.packed[name])
+
+
+class PallasDeployCtx(DeployCtx):
+    """The reference's Pallas-routed W8A8 deploy context (``ctx="pallas"``).
+
+    On this card it is the same as DeployCtx: DeployCtx already sends every
+    int8 conv through K1 (the port of ``int8_conv3x3_s1``) and every dense
+    through K2 (the port of ``int8_matmul``), with the same int32
+    accumulation and fp32 epilogue."""
+
+
+class FusedDeployCtx(DeployCtx):
+    """W8A8 with int8 interchange: a conv given ``out_site`` requantizes its
+    output to that site's calibrated scale in the kernel epilogue and
+    returns a QAct; without ``out_site`` it returns fp32."""
+
+    def __init__(self, qflat, act_scales, qcfg):
+        super().__init__(qflat, act_scales, qcfg)
+        if qcfg.weight_only or qcfg.acts.qmax != 127:
+            raise NotImplementedError("int8 interchange needs 8-bit activations")
+
+    def quant(self, site: str, y: torch.Tensor) -> QAct:
+        return QAct(quantize_act(y, self.scale_t[site], self.qcfg.acts.qmax), self.scale[site])
+
+    def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False,
+             out_site: Optional[str] = None):
+        if groups != 1:
+            raise NotImplementedError("grouped/depthwise int8 conv is not ported yet "
+                                      "(ROADMAP.md, queue A item 5)")
+        if isinstance(x, QAct):
+            xq, s_in = x.q, x.scale
+        else:
+            s_in = self.scale[name]
+            xq = quantize_act(x, self.scale_t[name], self.qcfg.acts.qmax)
+        out_scale = None if out_site is None else self.scale[out_site]
+        y = conv_int8(xq, self.packed[name], stride, padding, self.comb(name, s_in),
+                      self.bias(name), relu=fuse_relu, out_scale=out_scale)
+        return y if out_site is None else QAct(y, out_scale)
+
+    def add(self, a: QAct, b: QAct) -> QAct:
+        """a + b in the int domain (no relu); both at the same scale."""
+        qmax = self.qcfg.acts.qmax
+        acc = a.q.to(torch.int32) + b.q.to(torch.int32)
+        return QAct(torch.clamp(acc, -qmax, qmax).to(torch.int8), a.scale)
+
+    def dense(self, name, x, *, fuse_relu=False):
+        if isinstance(x, QAct):
+            # int8 GEMM straight on the already-quantized activation
+            lead = x.q.shape[:-1]
+            y = matmul_int8(x.q.reshape(-1, x.q.shape[-1]), self.packed[name],
+                            self.comb(name, x.scale), self.bias(name))
+            if fuse_relu:
+                y = torch.clamp_min(y, 0.0)
+            return y.reshape(lead + (y.shape[-1],))
+        return super().dense(name, x, fuse_relu=fuse_relu)
+
+
+class FullFusedCtx(FusedDeployCtx):
+    """Fully-int8 interchange: every inter-op tensor is int8, including the
+    stem->maxpool chain and the residual junctions, which add in the int
+    domain at the consumer's scale (TFLite-style shared-scale adds)."""
+
+    def requant(self, x: QAct, site: str) -> QAct:
+        """int8 -> int8 rescale to another site's scale: round(q * (s_in / s_out))."""
+        s_out = self.scale[site]
+        qmax = self.qcfg.acts.qmax
+        r = float(np.float32(x.scale) / np.float32(s_out))
+        q = torch.clamp(torch.round(x.q.to(torch.float32) * r), -qmax, qmax)
+        return QAct(q.to(torch.int8), s_out)
+
+    def add_relu(self, a: QAct, b: QAct) -> QAct:
+        """relu(a + b) in the int domain; both addends share a scale."""
+        acc = a.q.to(torch.int32) + b.q.to(torch.int32)
+        return QAct(torch.clamp(acc, 0, self.qcfg.acts.qmax).to(torch.int8), a.scale)
+
+    def maxpool(self, x: QAct, window=3, stride=2, padding=1) -> QAct:
+        return QAct(maxpool2d(x.q, window, stride, padding), x.scale)
+
+    def conv_stem_bf16(self, name: str, x: torch.Tensor, *, out_site: str,
+                       stride=2, padding=3) -> QAct:
+        """Mixed-precision stem: bf16 operands (dequantized int8 weights),
+        fp32 accumulation and fp32 output, bias, then the int8 requant with
+        relu folded into the clip. Computed as an fp32 conv (TF32 off) of the
+        bf16-rounded operands: a bf16 conv on CUDA would round its output."""
+        p = self.qflat[name]
+        qw: QTensor = p["qw"]
+        w = dequantize(qw).reshape(qw.layout_shape).to(torch.bfloat16).float()
+        y = conv2d(x.to(torch.bfloat16).float(), w, stride=stride, padding=padding)
+        if p.get("b") is not None:
+            y = y + p["b"]
+        q = torch.clamp(torch.round(fdiv(y, self.scale_t[out_site])), 0.0, self.qcfg.acts.qmax)
+        return QAct(q.to(torch.int8), self.scale[out_site])
+
+    def gap_dense(self, name: str, x: QAct) -> torch.Tensor:
+        """int32 global-average pool + quantized fc on the pooled vector."""
+        acc = x.q.sum(dim=(1, 2), dtype=torch.int32)
+        hw = x.q.shape[1] * x.q.shape[2]
+        g = acc.to(torch.float32) * float(np.float32(x.scale) / np.float32(hw))
+        return self.dense(name, g)
+
+
+class PallasBlockCtx(FullFusedCtx):
+    """FullFusedCtx + K3 for identity residual blocks: blocks present in
+    ``block_packs`` (``ops.block_fused.pack_fused_blocks``) run as one
+    kernel — conv chain, requants, int8 residual add and relu; everything
+    else falls through to FullFusedCtx."""
+
+    def __init__(self, qflat, act_scales, qcfg, block_packs=None):
+        super().__init__(qflat, act_scales, qcfg)
+        self.block_packs = block_packs or {}
+
+    def fused_block(self, site: str, x: QAct, nxt: Optional[str]):
+        """Run ``site``'s whole residual block fused if packed; else None."""
+        from dlq_tpu_torch.ops.block_fused import basic_block_fused
+
+        pack = self.block_packs.get(site)
+        if pack is None or nxt is None:
+            return None
+        return QAct(basic_block_fused(x.q, pack), self.scale[nxt])
+
+
+def make_sites_fn(qforward: Callable, cfg) -> Callable:
+    """(flat_params, x) -> {site: input activation}, for ``calibrate``."""
+
+    def sites_fn(flat: FlatParams, x):
+        ctx = ObserveCtx(flat)
+        qforward(ctx, x, cfg)
+        return ctx.sites
+
+    return sites_fn

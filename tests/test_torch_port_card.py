@@ -1,0 +1,61 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Needs an NVIDIA card and nvcc, and skips without them. It imports no JAX,
+so it also runs on a machine without JAX, with the JAX-side conftest left
+out:
+
+    python -m pytest --noconftest -m gpu -q tests/test_torch_port_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dlq_tpu_torch.ops.block_fused import basic_block_fused, basic_block_plain, pack_basic_block
+from dlq_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain, pack_conv_weight
+from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, matmul_int8_plain, pack_dense_weight
+from dlq_tpu_torch.quant.model_quant import quantize_weights
+from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+
+
+def _i8(rng, shape, lo=-127):
+    return torch.from_numpy(rng.integers(lo, 128, shape).astype(np.int8))
+
+
+def _epi(rng, oc, k, dev):
+    """Per-OC scales putting y near unit scale, and biases."""
+    scale = (rng.uniform(0.5, 1.5, oc) / (73.0 * 73.0 * np.sqrt(k))).astype(np.float32)
+    bias = rng.normal(0, 0.3, oc).astype(np.float32)
+    return torch.from_numpy(scale).to(dev), torch.from_numpy(bias).to(dev)
+
+
+@pytest.mark.gpu
+def test_kernels_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    # (H, C, OC, k, stride, relu, out_scale): the main path's 3x3/s1, 3x3/s2
+    # and 1x1/s2 geometries, the C=3 stem, and a 1x1/s1 conv
+    for (h, c, oc, k, s, relu, osc) in [(12, 64, 64, 3, 1, True, 0.025), (12, 64, 128, 3, 2, False, None),
+                                        (12, 128, 256, 1, 2, False, 0.025), (20, 3, 64, 7, 2, True, None),
+                                        (12, 128, 256, 1, 1, True, 0.025)]:
+        x = _i8(rng, (3, h, h, c)).to(dev)
+        pk = pack_conv_weight(_i8(rng, (k, k, c, oc)).to(dev))
+        args = (x, pk, s, k // 2, *_epi(rng, oc, k * k * c, dev), relu, osc)
+        assert torch.equal(conv_int8(*args), conv_int8_plain(*args))
+    x = _i8(rng, (37, 512)).to(dev)
+    pk = pack_dense_weight(_i8(rng, (512, 1000)).to(dev))
+    args = (x, pk, *_epi(rng, 1000, 512, dev))
+    assert torch.equal(matmul_int8(*args), matmul_int8_plain(*args))
+    # one identity block at 14x14x128 with quantized weights and site scales
+    flat = {n: {"w": torch.from_numpy(rng.normal(0, 0.05, (3, 3, 128, 128)).astype(np.float32)),
+                "b": torch.from_numpy(rng.normal(0, 0.2, 128).astype(np.float32))}
+            for n in ("b.conv1", "b.conv2")}
+    qflat = {n: {"qw": p["qw"].to(dev), "b": p["b"].to(dev)}
+             for n, p in quantize_weights(flat, INT8_PER_CHANNEL).items()}
+    scales = {n: torch.tensor(v, dtype=torch.float32, device=dev)
+              for n, v in (("b.conv1", 0.05), ("b.conv2", 0.35), ("n.conv1", 0.08))}
+    pack = pack_basic_block(qflat, scales, "b", "n.conv1")
+    xb = _i8(rng, (3, 14, 14, 128), lo=0).to(dev)
+    assert torch.equal(basic_block_fused(xb, pack), basic_block_plain(xb, pack))
