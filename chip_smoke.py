@@ -1,30 +1,44 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18 W8A8, 224 px).
+"""Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18 and ResNet-50
+W8A8, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 Phases, one JSON line each:
   1. environment: torch, nvcc, the card's name and power limit, kernel build time;
-  2. every kernel (K1 conv_int8, K2 matmul_int8, K3 basic_block) at every
-     distinct shape the main paths give it at batch 256, held against its plain
-     PyTorch version on the card (int8 and fp32 outputs bit-identical), with
-     CUDA-event times of the kernel, the plain version, the library call
-     where one exists, and the least time the card could take (the bound);
-  3. the main path: ResNet-18 (seeded random weights) calibrated and quantized
-     with Engine.quantized, saved as a store, loaded with
-     Engine.from_store(ctx="fused2") and driven through classify; gates as
-     bench.py: top-1 agreement 1.0 and logits cosine >= 0.999 against the
-     port's fp32 engine; launch counts per forward; the stem's own time;
-     then a torch.profiler window over a few forwards (device time by
-     kernel, device idle share);
-  4. the same store under PallasBlockCtx (identity blocks as K3), with
-     its own profile;
-  5. ctx="deploy" and ctx="pallas" at batch 64.
-Then the card's name and power limit, the kernel summary line and, last,
-{"ok": true, "device": {...}}. Any failed gate raises before those lines.
+  2. every kernel (K1 conv_int8, K2 matmul_int8, K3 basic_block, K4
+     bottleneck_block) at every distinct shape and epilogue the main paths of
+     both models give it at batch 256, held against its plain PyTorch version
+     on the card (int8 and fp32 outputs bit-identical), with CUDA-event times
+     of the kernel, the plain version, the library call where one exists
+     (torch._int_mm for K2), and the least time the card could take (the bound);
+  3. the main path of each model: seeded random weights calibrated and
+     quantized with Engine.quantized, saved as a store, loaded with
+     Engine.from_store(ctx="fused2") and driven through classify; gates:
+     logits cosine >= 0.999 against the port's fp32 engine and, on
+     ResNet-18, top-1 agreement 1.0 as bench.py gates it (ResNet-50's
+     random-weight logits pick one or two classes for the whole batch, with
+     runner-up margins below the int8 logit error, so its agreement is
+     reported with those margins); on both, the same forward through the
+     kernels' plain versions on the card gives bit-identical int8 stage
+     outputs and logits;
+     launch counts per forward, per kernel and per shape; then a
+     torch.profiler window over a few forwards (device time by kernel,
+     device idle share);
+  4. the same store under PallasBlockCtx (identity BasicBlocks as K3,
+     identity Bottlenecks as K4), gated against fused2 (logits; int8 stage
+     outputs on ResNet-18, each K4 block against its FullFusedCtx
+     composition on ResNet-50) and its plain-version twin, with its own
+     profile;
+  5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2.
+Each main path is driven with every launch count set to 0 just before it
+and read just after. Then the card's name and power limit, the kernel
+summary line and, last, {"ok": true, "device": {...}}. Any failed gate
+raises before those lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -39,7 +53,20 @@ PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (hopper-kernels guide table)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 BATCH = 256
 SEED = 0
+NB = 4                    # classify batches per main path
 NO_INT8_CONV = "none: no PyTorch call computes an int8 conv with int32 accumulation on CUDA"
+INT_MM = "torch._int_mm (int32 product only, no epilogue)"
+
+# launches per forward of each kernel on each path (ResNet-18: 2-2-2-2
+# BasicBlocks; ResNet-50: 3-4-6-3 Bottlenecks, 1x1/s1 convs on K2)
+PER_FORWARD = {
+    "r18_fused2": {"conv_int8": 19, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0},
+    "r18_block": {"conv_int8": 15, "matmul_int8": 1, "basic_block": 2, "bottleneck_block": 0},
+    "r18_deploy": {"conv_int8": 20, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0},
+    "r50_fused2": {"conv_int8": 19, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0},
+    "r50_block": {"conv_int8": 8, "matmul_int8": 12, "basic_block": 0, "bottleneck_block": 11},
+    "r50_deploy": {"conv_int8": 20, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0},
+}
 
 
 def emit(obj) -> None:
@@ -67,32 +94,111 @@ def time_ms(fn, iters=20, warmup=2, reps=3) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# the shapes each main path gives each kernel, with launches per forward
 # ---------------------------------------------------------------------------
 
 def conv_cases():
-    """Every (geometry, epilogue) K1 gets on the fused2 / block main paths of
-    ResNet-18 at 224 px: (H, C, OC, k, stride, relu, int8_out, launches per
-    fused2 forward, launches per PallasBlockCtx forward)."""
-    return [
-        (56, 64, 64, 3, 1, True, True, 2, 2),       # layer1.x.conv1
-        (56, 64, 64, 3, 1, False, True, 2, 2),      # layer1.x.conv2
-        (56, 64, 128, 3, 2, True, True, 1, 1),      # layer2.0.conv1
-        (56, 64, 128, 1, 2, False, True, 1, 1),     # layer2.0.down
-        (28, 128, 128, 3, 1, True, True, 1, 0),     # layer2.1.conv1
-        (28, 128, 128, 3, 1, False, True, 2, 1),    # layer2.0.conv2, layer2.1.conv2
-        (28, 128, 256, 3, 2, True, True, 1, 1),     # layer3.0.conv1
-        (28, 128, 256, 1, 2, False, True, 1, 1),    # layer3.0.down
-        (14, 256, 256, 3, 1, True, True, 1, 0),     # layer3.1.conv1
-        (14, 256, 256, 3, 1, False, True, 2, 1),    # layer3.0.conv2, layer3.1.conv2
-        (14, 256, 512, 3, 2, True, True, 1, 1),     # layer4.0.conv1
-        (14, 256, 512, 1, 2, False, True, 1, 1),    # layer4.0.down
-        (7, 512, 512, 3, 1, True, True, 1, 1),      # layer4.1.conv1
-        (7, 512, 512, 3, 1, False, True, 1, 1),     # layer4.0.conv2
-        (7, 512, 512, 3, 1, False, False, 1, 1),    # layer4.1.conv2 (fp32 final junction)
-        (224, 3, 64, 7, 2, True, False, 0, 0),      # the deploy/pallas stem (byte-gather path)
-    ]
+    """K1: (H, C, OC, k, stride, relu, int8_out) -> launches per forward per path."""
+    return {
+        # ResNet-18 (rows of layer1.x.conv1 shared with ResNet-50's layer1.x.conv2)
+        (56, 64, 64, 3, 1, True, True): {"r18_fused2": 2, "r18_block": 2,
+                                         "r50_fused2": 3, "r50_block": 1},
+        (56, 64, 64, 3, 1, False, True): {"r18_fused2": 2, "r18_block": 2},      # layer1.x.conv2
+        (56, 64, 128, 3, 2, True, True): {"r18_fused2": 1, "r18_block": 1},      # layer2.0.conv1
+        (56, 64, 128, 1, 2, False, True): {"r18_fused2": 1, "r18_block": 1},     # layer2.0.down
+        (28, 128, 128, 3, 1, True, True): {"r18_fused2": 1, "r50_fused2": 3},    # l2.1.conv1 / l2.1-3.conv2
+        (28, 128, 128, 3, 1, False, True): {"r18_fused2": 2, "r18_block": 1},    # layer2.x.conv2
+        (28, 128, 256, 3, 2, True, True): {"r18_fused2": 1, "r18_block": 1},     # layer3.0.conv1
+        (28, 128, 256, 1, 2, False, True): {"r18_fused2": 1, "r18_block": 1},    # layer3.0.down
+        (14, 256, 256, 3, 1, True, True): {"r18_fused2": 1, "r50_fused2": 5},    # l3.1.conv1 / l3.1-5.conv2
+        (14, 256, 256, 3, 1, False, True): {"r18_fused2": 2, "r18_block": 1},    # layer3.x.conv2
+        (14, 256, 512, 3, 2, True, True): {"r18_fused2": 1, "r18_block": 1},     # layer4.0.conv1
+        (14, 256, 512, 1, 2, False, True): {"r18_fused2": 1, "r18_block": 1},    # layer4.0.down
+        (7, 512, 512, 3, 1, True, True): {"r18_fused2": 1, "r18_block": 1,       # l4.1.conv1 /
+                                          "r50_fused2": 2, "r50_block": 1},      # l4.1-2.conv2
+        (7, 512, 512, 3, 1, False, True): {"r18_fused2": 1, "r18_block": 1},     # layer4.0.conv2
+        (7, 512, 512, 3, 1, False, False): {"r18_fused2": 1, "r18_block": 1},    # fp32 final junction
+        (224, 3, 64, 7, 2, True, False): {},       # the deploy/pallas stem (byte-gather path)
+        # ResNet-50: the strided 3x3 conv2 and the 1x1/s2 downsamples
+        (56, 128, 128, 3, 2, True, True): {"r50_fused2": 1, "r50_block": 1},     # layer2.0.conv2
+        (28, 256, 256, 3, 2, True, True): {"r50_fused2": 1, "r50_block": 1},     # layer3.0.conv2
+        (14, 512, 512, 3, 2, True, True): {"r50_fused2": 1, "r50_block": 1},     # layer4.0.conv2
+        (56, 256, 512, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},    # layer2.0.down
+        (28, 512, 1024, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},   # layer3.0.down
+        (14, 1024, 2048, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},  # layer4.0.down
+    }
 
+
+def matmul_cases():
+    """K2: (rows per image, K, N, relu, int8_out) -> launches per forward per
+    path; M = batch x rows per image (the 1x1/s1 convs' [N*H*W, C] view)."""
+    return {
+        (1, 512, 1000, False, False): {"r18_fused2": 1, "r18_block": 1},          # ResNet-18 fc
+        (56 * 56, 64, 64, True, True): {"r50_fused2": 1, "r50_block": 1},         # layer1.0.conv1
+        (56 * 56, 64, 256, False, True): {"r50_fused2": 4, "r50_block": 2},       # l1 conv3, l1.0.down
+        (56 * 56, 256, 64, True, True): {"r50_fused2": 2},                        # layer1.1-2.conv1
+        (56 * 56, 256, 128, True, True): {"r50_fused2": 1, "r50_block": 1},       # layer2.0.conv1
+        (28 * 28, 128, 512, False, True): {"r50_fused2": 4, "r50_block": 1},      # layer2.x.conv3
+        (28 * 28, 512, 128, True, True): {"r50_fused2": 3},                       # layer2.1-3.conv1
+        (28 * 28, 512, 256, True, True): {"r50_fused2": 1, "r50_block": 1},       # layer3.0.conv1
+        (14 * 14, 256, 1024, False, True): {"r50_fused2": 6, "r50_block": 1},     # layer3.x.conv3
+        (14 * 14, 1024, 256, True, True): {"r50_fused2": 5},                      # layer3.1-5.conv1
+        (14 * 14, 1024, 512, True, True): {"r50_fused2": 1, "r50_block": 1},      # layer4.0.conv1
+        (7 * 7, 512, 2048, False, True): {"r50_fused2": 2, "r50_block": 1},       # layer4.0-1.conv3
+        (7 * 7, 512, 2048, False, False): {"r50_fused2": 1, "r50_block": 1},      # fp32 final junction
+        (7 * 7, 2048, 512, True, True): {"r50_fused2": 2, "r50_block": 1},        # layer4.1-2.conv1
+        (1, 2048, 1000, False, False): {"r50_fused2": 1, "r50_block": 1},         # ResNet-50 fc
+        (56 * 56, 256, 64, True, False): {},      # the deploy/pallas routing (fp32 + relu)
+    }
+
+
+def basic_cases():
+    """K3: (H, C) -> launches per forward per path."""
+    return {(28, 128): {"r18_block": 1}, (14, 256): {"r18_block": 1}}   # layer2.1, layer3.1
+
+
+def bottleneck_cases():
+    """K4: (H, C4, CM) -> launches per forward per path."""
+    return {(56, 256, 64): {"r50_block": 2}, (28, 512, 128): {"r50_block": 3},
+            (14, 1024, 256): {"r50_block": 5}, (7, 2048, 512): {"r50_block": 1}}
+
+
+def _conv_key(case):
+    h, c, oc, k, s, relu, int8_out = case
+    return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
+
+
+def _mm_key(case):
+    hw, k, n, relu, int8_out = case
+    return (BATCH * hw, k, n, relu, int8_out)
+
+
+KEYS = {"conv_int8": (conv_cases, _conv_key),
+        "matmul_int8": (matmul_cases, _mm_key),
+        "basic_block": (basic_cases, lambda c: (BATCH, c[0], c[0], c[1])),
+        "bottleneck_block": (bottleneck_cases, lambda c: (BATCH, c[0], c[0], c[1], c[2]))}
+
+
+def expected_by_shape(path: str, forwards: int):
+    """Launches per kernel and shape key that the case tables give a main
+    path over ``forwards`` forwards."""
+    return {name: {key(case): per[path] * forwards for case, per in cases().items() if per.get(path)}
+            for name, (cases, key) in KEYS.items()}
+
+
+def _check_tables():
+    """The case tables add up to the per-forward totals."""
+    for path, totals in PER_FORWARD.items():
+        if path.endswith("deploy"):
+            continue
+        got = {k: sum(v.values()) for k, v in expected_by_shape(path, 1).items()}
+        if got != totals:
+            raise AssertionError(f"{path}: case tables give {got}, expected {totals}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
 
 def _rand_int8(gen, shape, dev, lo=-127):
     return torch.randint(lo, 128, shape, generator=gen, device=dev, dtype=torch.int8)
@@ -107,12 +213,31 @@ def _epi_params(gen, oc, k, dev):
     return scale, bias, 0.05 / 40.0
 
 
+def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=2,
+         library=None, **extra):
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"{kernel} {shape}: max_abs_err {err}")
+    b_ms, b_by = bound(ops, nbytes)
+    row = {"kernel": kernel, "key": key, "shape": shape, **extra, "max_abs_err": err,
+           "ms": time_ms(fn),
+           "plain_ms": time_ms(plain, iters=plain_iters, warmup=1, reps=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(library) if library is not None else None,
+           "library": INT_MM if library is not None else NO_INT8_CONV,
+           "launches_per_forward": per}
+    emit_row(row)
+    return row
+
+
 def check_conv_kernels(dev):
     from dlq_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain, out_hw, pack_conv_weight
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for (h, c, oc, k, s, relu, int8_out, n_f2, n_blk) in conv_cases():
+    for case, per in conv_cases().items():
+        h, c, oc, k, s, relu, int8_out = case
         pad = k // 2
         x = _rand_int8(gen, (BATCH, h, h, c), dev)
         pk = pack_conv_weight(_rand_int8(gen, (k, k, c, oc), dev))
@@ -120,27 +245,18 @@ def check_conv_kernels(dev):
         osc = osc if int8_out else None
         got = conv_int8(x, pk, s, pad, scale, bias, relu, osc)
         ref = conv_int8_plain(x, pk, s, pad, scale, bias, relu, osc)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"conv_int8 {h}x{h}x{c}->{oc} k{k}s{s}: max_abs_err {err}")
         oh, ow = out_hw(h, h, k, k, s, pad)
-        ops = 2.0 * BATCH * oh * ow * oc * k * k * c
         # input bytes the conv reads: all of x, or for k < stride (the 1x1/s2
         # downsamples) only the pixels under a tap
         x_bytes = min(x.numel(), BATCH * oh * ow * k * k * c)
-        nbytes = x_bytes + k * k * c * oc + 8 * oc + got.numel() * got.element_size()
-        b_ms, b_by = bound(ops, nbytes)
-        row = {"kernel": "conv_int8", "key": (BATCH, h, h, c, oc, k, k, s, pad, relu, int8_out),
-               "shape": f"{BATCH}x{h}x{h}x{c}->{oc} {k}x{k}/s{s}",
-               "relu": relu, "out": "int8" if int8_out else "fp32", "max_abs_err": err,
-               "ms": time_ms(lambda: conv_int8(x, pk, s, pad, scale, bias, relu, osc)),
-               "plain_ms": time_ms(lambda: conv_int8_plain(x, pk, s, pad, scale, bias, relu, osc),
-                                   iters=2, warmup=1, reps=1),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": NO_INT8_CONV,
-               "launches_fused2": n_f2, "launches_block": n_blk}
-        emit_row(row)
-        rows.append(row)
+        rows.append(_row(
+            "conv_int8", _conv_key(case), f"{BATCH}x{h}x{h}x{c}->{oc} {k}x{k}/s{s}", got, ref,
+            lambda: conv_int8(x, pk, s, pad, scale, bias, relu, osc),
+            lambda: conv_int8_plain(x, pk, s, pad, scale, bias, relu, osc),
+            2.0 * BATCH * oh * ow * oc * k * k * c,
+            x_bytes + k * k * c * oc + 8 * oc + got.numel() * got.element_size(), per,
+            relu=relu, out="int8" if int8_out else "fp32"))
+        del x, got, ref
     return rows
 
 
@@ -148,28 +264,26 @@ def check_matmul_kernel(dev):
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, matmul_int8_plain, pack_dense_weight
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    m, k, n = BATCH, 512, 1000                       # the fc
-    x = _rand_int8(gen, (m, k), dev)
-    pk = pack_dense_weight(_rand_int8(gen, (k, n), dev))
-    scale, bias, _ = _epi_params(gen, n, k, dev)
-    got = matmul_int8(x, pk, scale, bias)
-    ref = matmul_int8_plain(x, pk, scale, bias)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"matmul_int8 fc: max_abs_err {err}")
-    wt = pk.wk[:, :k].t()                            # [K, N], column-major
-    b_ms, b_by = bound(2.0 * m * n * k, m * k + k * n + 8 * n + 4 * m * n)
-    row = {"kernel": "matmul_int8", "key": (m, k, n), "shape": f"{m}x{k}@{k}x{n}",
-           "relu": False, "out": "fp32",
-           "max_abs_err": err, "ms": time_ms(lambda: matmul_int8(x, pk, scale, bias)),
-           "plain_ms": time_ms(lambda: matmul_int8_plain(x, pk, scale, bias), iters=5),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(lambda: torch._int_mm(x, wt)),
-           "library": "torch._int_mm (int32 product only, no epilogue)",
-           "launches_fused2": 1, "launches_block": 1}
-    emit_row(row)
-    return [row]
+    rows = []
+    for case, per in matmul_cases().items():
+        hw, k, n, relu, int8_out = case
+        m = BATCH * hw
+        x = _rand_int8(gen, (m, k), dev)
+        pk = pack_dense_weight(_rand_int8(gen, (k, n), dev))
+        scale, bias, osc = _epi_params(gen, n, k, dev)
+        osc = osc if int8_out else None
+        got = matmul_int8(x, pk, scale, bias, relu, osc)
+        ref = matmul_int8_plain(x, pk, scale, bias, relu, osc)
+        wt = pk.wk[:, :k].t()                            # [K, N], column-major
+        rows.append(_row(
+            "matmul_int8", _mm_key(case), f"{m}x{k}@{k}x{n}", got, ref,
+            lambda: matmul_int8(x, pk, scale, bias, relu, osc),
+            lambda: matmul_int8_plain(x, pk, scale, bias, relu, osc),
+            2.0 * m * n * k, m * k + k * n + 8 * n + got.numel() * got.element_size(), per,
+            plain_iters=5, library=lambda: torch._int_mm(x, wt),
+            relu=relu, out="int8" if int8_out else "fp32"))
+        del x, got, ref
+    return rows
 
 
 def check_block_kernel(dev):
@@ -178,7 +292,7 @@ def check_block_kernel(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = []
-    for h, c in ((28, 128), (14, 256)):               # layer2.1, layer3.1
+    for (h, c), per in basic_cases().items():
         x = _rand_int8(gen, (BATCH, h, h, c), dev, lo=0)   # block inputs are post-relu
         s1, b1, _ = _epi_params(gen, c, 9 * c, dev)
         s2, b2, _ = _epi_params(gen, c, 9 * c, dev)
@@ -186,22 +300,36 @@ def check_block_kernel(dev):
                 "w2": pack_conv_weight(_rand_int8(gen, (3, 3, c, c), dev)), "s2": s2, "b2": b2,
                 "inv": (float(np.float32(40.0 / 0.05)), float(np.float32(40.0 / 0.05)),
                         float(np.float32(0.7)))}
-        got = basic_block_fused(x, pack)
-        ref = basic_block_plain(x, pack)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"basic_block {h}x{h}x{c}: max_abs_err {err}")
-        ops = 2.0 * 2 * BATCH * h * h * c * 9 * c
-        b_ms, b_by = bound(ops, 2 * x.numel() + 2 * 9 * c * c + 16 * c)
-        row = {"kernel": "basic_block", "key": (BATCH, h, h, c), "shape": f"{BATCH}x{h}x{h}x{c}",
-               "relu": True,
-               "out": "int8", "max_abs_err": err, "ms": time_ms(lambda: basic_block_fused(x, pack)),
-               "plain_ms": time_ms(lambda: basic_block_plain(x, pack), iters=2, warmup=1, reps=1),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": NO_INT8_CONV,
-               "launches_fused2": 0, "launches_block": 1}
-        emit_row(row)
-        rows.append(row)
+        rows.append(_row(
+            "basic_block", (BATCH, h, h, c), f"{BATCH}x{h}x{h}x{c}",
+            basic_block_fused(x, pack), basic_block_plain(x, pack),
+            lambda: basic_block_fused(x, pack), lambda: basic_block_plain(x, pack),
+            2.0 * 2 * BATCH * h * h * c * 9 * c, 2 * x.numel() + 2 * 9 * c * c + 16 * c, per,
+            relu=True, out="int8"))
+    return rows
+
+
+def check_bottleneck_kernel(dev):
+    from dlq_tpu_torch.ops.block_fused import bottleneck_block_fused, bottleneck_block_plain
+    from dlq_tpu_torch.ops.conv_int8 import pack_conv_weight
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    inv = float(np.float32(40.0 / 0.05))
+    rows = []
+    for (h, c4, cm), per in bottleneck_cases().items():
+        x = _rand_int8(gen, (BATCH, h, h, c4), dev, lo=0)  # block inputs are post-relu
+        pack = {"inv": (inv, inv, inv, float(np.float32(0.7)))}
+        for i, (k, c, oc) in enumerate(((1, c4, cm), (3, cm, cm), (1, cm, c4)), 1):
+            pack[f"w{i}"] = pack_conv_weight(_rand_int8(gen, (k, k, c, oc), dev))
+            pack[f"s{i}"], pack[f"b{i}"], _ = _epi_params(gen, oc, k * k * c, dev)
+        w_bytes = c4 * cm + 9 * cm * cm + cm * c4
+        rows.append(_row(
+            "bottleneck_block", (BATCH, h, h, c4, cm), f"{BATCH}x{h}x{h}x{c4} mid {cm}",
+            bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack),
+            lambda: bottleneck_block_fused(x, pack), lambda: bottleneck_block_plain(x, pack),
+            2.0 * BATCH * h * h * w_bytes, 2 * x.numel() + w_bytes + 8 * (2 * cm + c4), per,
+            relu=True, out="int8"))
+        del x
     return rows
 
 
@@ -210,11 +338,12 @@ def check_block_kernel(dev):
 # ---------------------------------------------------------------------------
 
 def _wrappers():
-    from dlq_tpu_torch.ops.block_fused import basic_block_fused
+    from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
 
-    return {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused}
+    return {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
+            "bottleneck_block": bottleneck_block_fused}
 
 
 def reset_counts():
@@ -230,26 +359,10 @@ def read_counts():
             {k: dict(fn.by_shape) for k, fn in ws.items()})
 
 
-def expect_counts(got, per_forward, forwards, what):
-    want = {k: v * forwards for k, v in per_forward.items()}
+def expect_counts(got, path, forwards, what):
+    want = {k: v * forwards for k, v in PER_FORWARD[path].items()}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want} ({forwards} forwards)")
-
-
-def expected_by_shape(path: str, forwards: int):
-    """Launches per kernel and shape key that ``conv_cases`` and the block
-    sites give a main path over ``forwards`` forwards."""
-    col = {"fused2": 7, "block": 8}[path]
-    conv = {}
-    for case in conv_cases():
-        h, c, oc, k, s, relu, int8_out = case[:7]
-        if case[col]:
-            key = (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
-            conv[key] = conv.get(key, 0) + case[col] * forwards
-    block = ({(BATCH, 28, 28, 128): forwards, (BATCH, 14, 14, 256): forwards}
-             if path == "block" else {})
-    return {"conv_int8": conv, "matmul_int8": {(BATCH, 512, 1000): forwards},
-            "basic_block": block}
 
 
 def expect_by_shape(got, path, forwards, what):
@@ -258,76 +371,186 @@ def expect_by_shape(got, path, forwards, what):
         raise AssertionError(f"{what}: launches per shape {got}, expected {want}")
 
 
-def gate(logits, ref, what, min_cos):
+def gate(logits, ref, what, min_cos, top1=True):
+    """Cosine >= ``min_cos`` and, with ``top1``, top-1 agreement 1.0."""
     from dlq_tpu_torch import numerics
 
     agree = numerics.top1_agreement(logits, ref)
     cos = numerics.diff(logits, ref).cosine
-    if agree < 1.0 or cos < min_cos:
-        raise AssertionError(f"{what}: top-1 agreement {agree}, cosine {cos} (need 1.0, {min_cos})")
+    if (top1 and agree < 1.0) or cos < min_cos:
+        raise AssertionError(f"{what}: top-1 agreement {agree}, cosine {cos} "
+                             f"(need {1.0 if top1 else 'any'}, {min_cos})")
     return agree, cos
 
 
-def main_paths(dev, card):
+def top1_report(logits, ref):
+    """Why top-1 agreement is not a gate on a random-weight ResNet-50: how
+    many distinct classes the reference logits pick over the batch, and, for
+    each disagreeing image, the reference margin between its top two
+    classes beside the largest logit difference on that image."""
+    top2 = np.sort(ref, -1)[:, -2:]
+    err = np.abs(logits - ref).max(-1)
+    bad = np.nonzero(logits.argmax(-1) != ref.argmax(-1))[0]
+    return {"ref_argmax_classes": int(len(np.unique(ref.argmax(-1)))),
+            "ref_logit_std_over_classes": float(ref.std(-1).mean()),
+            "ref_margin_median": float(np.median(top2[:, 1] - top2[:, 0])),
+            "logit_err_max": float(err.max()),
+            "disagreeing": [{"image": int(i), "ref_margin": float(top2[i, 1] - top2[i, 0]),
+                             "logit_err": float(err[i])} for i in bad]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel call of the contexts to its plain PyTorch version
+    (on the same card): the reference numerics of the same forward."""
+    from dlq_tpu_torch.ops import block_fused, conv_int8, matmul_int8, qops
+    from dlq_tpu_torch.quant import model_quant
+
+    subs = [(model_quant, "conv_int8", conv_int8.conv_int8_plain),
+            (model_quant, "matmul_int8", matmul_int8.matmul_int8_plain),
+            (qops, "conv_int8", conv_int8.conv_int8_plain),
+            (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
+            (block_fused, "basic_block_fused", block_fused.basic_block_plain),
+            (block_fused, "bottleneck_block_fused", block_fused.bottleneck_block_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in subs]
+    for m, n, f in subs:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def plain_equivalence(eng, x, cfg, qf, logits, taps, stages, what):
+    """The forward through the kernels equals the same forward through the
+    plain versions: int8 stage taps and logits bit-identical (no kernel may
+    launch inside the plain run)."""
+    reset_counts()
+    with plain_kernels():
+        lp, tp = _taps(eng, x, cfg, qf)
+    if any(read_counts()[0].values()):
+        raise AssertionError(f"{what}: a kernel launched inside the plain run {read_counts()[0]}")
+    diff = {k: float(np.abs(taps[k] - tp[k]).max()) for k in stages}
+    diff["logits"] = float(np.abs(logits - lp).max())
+    if any(diff.values()):
+        raise AssertionError(f"{what}: kernels vs plain versions differ {diff}")
+    return diff
+
+
+def block_contract(ctx, packs, x, cfg):
+    """Each packed Bottleneck against the FullFusedCtx composition on the
+    same int8 input: the fused2 forward's own block inputs, taken where it
+    reaches each block. Returns {site: (fraction of equal int8 outputs,
+    largest difference in steps)}; pallas_block.py:20-28 lets ~1e-4 of the
+    elements of one block differ by one step."""
+    from dlq_tpu_torch.models.resnet import qforward_fused2
+    from dlq_tpu_torch.ops.block_fused import bottleneck_block_fused
+
+    out = {}
+
+    def probe(site, y, nxt):
+        if site not in packs:
+            return None
+        z = ctx.conv(f"{site}.conv1", y, fuse_relu=True, out_site=f"{site}.conv2")
+        z = ctx.conv(f"{site}.conv2", z, stride=1, padding=1, fuse_relu=True,
+                     out_site=f"{site}.conv3")
+        ref = ctx.add_relu(ctx.conv(f"{site}.conv3", z, out_site=nxt), ctx.requant(y, nxt))
+        got = bottleneck_block_fused(y.q, packs[site])
+        out[site] = (float((got == ref.q).float().mean()),
+                     int((got.int() - ref.q.int()).abs().max()))
+        return ref
+
+    ctx.fused_block = probe
+    try:
+        with torch.inference_mode():
+            qforward_fused2(ctx, torch.from_numpy(x).to(ctx.scale_t["stem"].device), cfg)
+    finally:
+        del ctx.fused_block
+    return out
+
+
+def drive(eng, images, path, what):
+    """Warm, then classify ``NB`` batches with the counts set to 0 just
+    before and read just after; checks the launches per kernel and shape."""
+    eng.classify(images[:BATCH])                   # warm (first launches)
+    eng.stats.images_timed, eng.stats.ms_total = 0, 0.0
+    reset_counts()
+    preds = eng.classify(images, pipeline=2)
+    counts, shapes = read_counts()
+    expect_counts(counts, path, NB, what)
+    expect_by_shape(shapes, path, NB, what)
+    return preds, counts, shapes
+
+
+def main_paths(dev, card, depth, images):
+    """fused2, PallasBlockCtx, deploy and pallas of ResNet-``depth``; returns
+    {path: (counts, shapes)} of the two timed main paths."""
     from dlq_tpu_torch.engine import Engine
     from dlq_tpu_torch.models.resnet import (
         ResNetConfig, flatten_folded, fold_resnet, folded_forward, init_resnet, qforward,
         qforward_fused2,
     )
     from dlq_tpu_torch.ops.block_fused import pack_fused_blocks
-    from dlq_tpu_torch.quant.model_quant import PallasBlockCtx
+    from dlq_tpu_torch.quant.model_quant import FullFusedCtx, PallasBlockCtx
     from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
     from dlq_tpu_torch.quant.store import load_quantized, save_quantized
 
-    cfg = ResNetConfig(depth=18, num_classes=1000)
+    model, tag = f"resnet{depth}", f"r{depth}"
+    cfg = ResNetConfig(depth=depth, num_classes=1000)
     folded = fold_resnet(init_resnet(SEED, cfg), cfg)
     flat = flatten_folded(folded)
-    rng = np.random.default_rng(SEED)
-    calib = [rng.normal(0, 1, (8, 224, 224, 3)).astype(np.float32)]
-    nb = 4
-    images = rng.normal(0, 1, (nb * BATCH, 224, 224, 3)).astype(np.float32)
+    calib = [np.random.default_rng(SEED + depth).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)]
     x0 = images[:BATCH]
 
-    fp32 = Engine.fp32(folded_forward, folded, cfg, batch=BATCH, device=dev, name="resnet18_fp32")
+    fp32 = Engine.fp32(folded_forward, folded, cfg, batch=BATCH, device=dev, name=f"{model}_fp32")
     ref_logits = fp32(x0).float().cpu().numpy()
+    del fp32
 
     t0 = time.perf_counter()
     eng_q = Engine.quantized(qforward, flat, cfg, INT8_PER_CHANNEL, calib_batches=calib,
                              batch=BATCH, device=dev)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        save_quantized(tmp, "resnet18", eng_q.qflat, eng_q.act_scales, INT8_PER_CHANNEL,
+        save_quantized(tmp, model, eng_q.qflat, eng_q.act_scales, INT8_PER_CHANNEL,
                        meta={"config": {"num_classes": 1000, "small_input": False}})
+        del eng_q
         eng = Engine.from_store(tmp, ctx="fused2", batch=BATCH, device=dev)
         setup_s = time.perf_counter() - t0
-        eng.classify(images[:BATCH])                   # warm (first launches)
-        eng.stats.images_timed, eng.stats.ms_total = 0, 0.0
 
         # ---- phase 3: the fused2 main path ----
-        reset_counts()
-        preds = eng.classify(images, pipeline=2)
-        counts, shapes = read_counts()
-        expect_counts(counts, {"conv_int8": 19, "matmul_int8": 1, "basic_block": 0}, nb, "fused2")
-        expect_by_shape(shapes, "fused2", nb, "fused2")
+        path = f"{tag}_fused2"
+        preds, counts, shapes = drive(eng, images, path, f"{model} fused2")
         logits_f2, taps_f2 = _taps(eng, x0, cfg, qforward_fused2)
         if not np.array_equal(preds[:BATCH], logits_f2.argmax(-1)):
-            raise AssertionError("fused2: classify and the taps forward disagree")
-        agree, cos = gate(logits_f2, ref_logits, "fused2 vs fp32", 0.999)
+            raise AssertionError(f"{model} fused2: classify and the taps forward disagree")
+        # ResNet-50's random-weight logits collapse onto one or two classes
+        # with a runner-up margin below the int8 path's logit error, so its
+        # top-1 agreement (with fp32 here, with fused2 in phase 4) is reported,
+        # not gated (top1_report); every forward is held bit-identical to its
+        # plain-version twin instead
+        top1 = depth == 18
+        agree, cos = gate(logits_f2, ref_logits, f"{model} fused2 vs fp32", 0.999, top1=top1)
+        int8_stages = ("stem", "layer1", "layer2", "layer3")
+        plain_f2 = plain_equivalence(eng, x0, cfg, qforward_fused2, logits_f2, taps_f2,
+                                     int8_stages, f"{model} fused2")
         xt = torch.from_numpy(x0).to(dev)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
         # the 224 px stem alone (bf16 conv, int8 requant, int8 maxpool): no kernel of this port
         with torch.inference_mode():
             stem_ms = time_ms(lambda: eng.params.maxpool(
                 eng.params.conv_stem_bf16("stem", xt, out_site="layer1.0.conv1")), iters=10)
-        emit({"phase": "main_path_fused2", "model": "resnet18", "size": 224, "batch": BATCH,
-              "batches": nb, "img_per_s_classify": eng.stats.images_per_sec,
+        emit({"phase": "main_path_fused2", "model": model, "size": 224, "batch": BATCH,
+              "batches": NB, "img_per_s_classify": eng.stats.images_per_sec,
               "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
               "stem_maxpool_ms": stem_ms,
-              "launches": counts, "launches_per_forward": {k: v / nb for k, v in counts.items()},
+              "launches": counts, "launches_per_forward": {k: v / NB for k, v in counts.items()},
               "top1_agreement_vs_fp32": agree, "logits_cosine_vs_fp32": cos,
-              "setup_s": setup_s, "card": card})
-        profile_forward(eng, xt, "fused2")
-        out["fused2"] = (counts, shapes)
+              "top1_gated": top1, "top1_vs_fp32": top1_report(logits_f2, ref_logits),
+              "max_abs_vs_plain_versions": plain_f2, "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, f"{model}_fused2")
+        out[path] = (counts, shapes)
+        del eng
 
         # ---- phase 4: PallasBlockCtx on the same store ----
         qflat, scales, qcfg = load_quantized(tmp)
@@ -335,34 +558,48 @@ def main_paths(dev, card):
                  for k, v in qflat.items()}
         scales = {k: v.to(dev) for k, v in scales.items()}
         packs = pack_fused_blocks(qflat, scales, cfg)
-        if set(packs) != {"layer2.1", "layer3.1"}:
-            raise AssertionError(f"block sites {sorted(packs)}")
+        want_sites = ({"layer2.1", "layer3.1"} if depth == 18 else
+                      {f"layer{s + 1}.{b}" for s, n in enumerate(cfg.blocks_per_stage)
+                       for b in range(1, n)} - {"layer4.2"})
+        if set(packs) != want_sites:
+            raise AssertionError(f"{model} block sites {sorted(packs)}")
         blk = Engine(lambda c, x: qforward_fused2(c, x, cfg),
                      PallasBlockCtx(qflat, scales, qcfg, packs), batch=BATCH, device=dev,
-                     name="resnet18_block")
-        blk.classify(images[:BATCH])
-        blk.stats.images_timed, blk.stats.ms_total = 0, 0.0
-        reset_counts()
-        preds_b = blk.classify(images, pipeline=2)
-        counts_b, shapes_b = read_counts()
-        expect_counts(counts_b, {"conv_int8": 15, "matmul_int8": 1, "basic_block": 2}, nb,
-                      "PallasBlockCtx")
-        expect_by_shape(shapes_b, "block", nb, "PallasBlockCtx")
+                     name=f"{model}_block")
+        path = f"{tag}_block"
+        preds_b, counts_b, shapes_b = drive(blk, images, path, f"{model} PallasBlockCtx")
         logits_b, taps_b = _taps(blk, x0, cfg, qforward_fused2)
-        agree_b, cos_b = gate(logits_b, logits_f2, "PallasBlockCtx vs fused2", 0.9999)
-        eq = {k: float((taps_b[k] == taps_f2[k]).mean()) for k in ("layer2", "layer3")}
-        if min(eq.values()) < 0.999:
-            raise AssertionError(f"PallasBlockCtx block outputs agree on {eq} (< 0.999)")
+        agree_b, cos_b = gate(logits_b, logits_f2, f"{model} PallasBlockCtx vs fused2", 0.9999,
+                              top1=top1)
+        stages = ("layer2", "layer3") if depth == 18 else ("layer1", "layer2", "layer3")
+        eq = {k: float((taps_b[k] == taps_f2[k]).mean()) for k in stages}
+        per_block = None
+        if depth == 18 and min(eq.values()) < 0.999:
+            raise AssertionError(f"{model} PallasBlockCtx block outputs agree on {eq} (< 0.999)")
+        if depth != 18:
+            # ResNet-50 chains up to 5 packed blocks per stage, and each
+            # block's ~1e-4 one-step differences feed the next: the contract
+            # is held per block, on the fused2 forward's own block inputs
+            per_block = block_contract(FullFusedCtx(qflat, scales, qcfg), packs, x0, cfg)
+            if set(per_block) != set(packs) or any(
+                    f < 0.999 or d > 1 for f, d in per_block.values()):
+                raise AssertionError(f"{model} K4 vs the fused2 composition per block {per_block}")
+        plain_b = plain_equivalence(blk, x0, cfg, qforward_fused2, logits_b, taps_b,
+                                    int8_stages, f"{model} PallasBlockCtx")
+        del taps_b, taps_f2
         ms_b = time_ms(lambda: blk._fn(blk.params, xt), iters=10)
-        emit({"phase": "main_path_block", "batch": BATCH, "batches": nb,
+        emit({"phase": "main_path_block", "model": model, "batch": BATCH, "batches": NB,
               "img_per_s_classify": blk.stats.images_per_sec, "ms_per_batch": ms_b,
               "img_per_s_device": BATCH / (ms_b / 1e3), "launches": counts_b,
-              "launches_per_forward": {k: v / nb for k, v in counts_b.items()},
+              "launches_per_forward": {k: v / NB for k, v in counts_b.items()},
               "top1_agreement_vs_fused2": agree_b, "logits_cosine_vs_fused2": cos_b,
-              "block_output_equal_fraction": eq, "preds_equal_fused2": float((preds_b == preds).mean()),
-              "card": card})
-        profile_forward(blk, xt, "block")
-        out["PallasBlockCtx"] = (counts_b, shapes_b)
+              "top1_gated": top1, "top1_vs_fused2": top1_report(logits_b, logits_f2),
+              "block_output_equal_fraction": eq, "per_block_equal_fraction_max_step": per_block,
+              "max_abs_vs_plain_versions": plain_b,
+              "preds_equal_fused2": float((preds_b == preds).mean()), "card": card})
+        profile_forward(blk, xt, f"{model}_block")
+        out[path] = (counts_b, shapes_b)
+        del blk
 
         # ---- phase 5: fp32-interchange contexts at batch 64 ----
         for name in ("deploy", "pallas"):
@@ -370,11 +607,20 @@ def main_paths(dev, card):
             reset_counts()
             lg = e(x0[:64]).float().cpu().numpy()
             c = read_counts()[0]
-            expect_counts(c, {"conv_int8": 20, "matmul_int8": 1, "basic_block": 0}, 1, name)
-            agree_d, cos_d = gate(lg, ref_logits[:64], f"{name} vs fp32", 0.999)
-            emit({"phase": f"ctx_{name}", "batch": 64, "launches": c,
-                  "top1_agreement_vs_fp32": agree_d, "logits_cosine_vs_fp32": cos_d})
-    out["forwards"] = nb
+            expect_counts(c, f"{tag}_deploy", 1, f"{model} {name}")
+            agree_d, cos_d = gate(lg, ref_logits[:64], f"{model} {name} vs fp32", 0.999,
+                                  top1=top1)
+            reset_counts()
+            with plain_kernels(), torch.inference_mode():
+                lp = e._fn(e.params, torch.from_numpy(x0[:64]).to(dev)).float().cpu().numpy()
+            if any(read_counts()[0].values()) or not np.array_equal(lp, lg):
+                raise AssertionError(f"{model} {name}: kernels vs plain versions differ")
+            emit({"phase": f"ctx_{name}", "model": model, "batch": 64, "launches": c,
+                  "top1_agreement_vs_fp32": agree_d, "logits_cosine_vs_fp32": cos_d,
+                  "top1_gated": top1, "top1_vs_fp32": top1_report(lg, ref_logits[:64]),
+                  "logits_equal_plain_versions": True})
+            del e
+    torch.cuda.empty_cache()
     return out
 
 
@@ -400,7 +646,7 @@ def profile_forward(eng, xt, what, forwards=3):
           "device_ms_per_forward": dev_us / forwards / 1e3 if dev_us else "not measured",
           "device_idle_share": 1.0 - dev_us / wall_us if dev_us else "not measured",
           "top_kernels": [{"name": e.key[:160], "ms_per_forward": e.self_device_time_total / forwards / 1e3,
-                           "launches_per_forward": e.count / forwards} for e in kern[:12]]})
+                           "launches_per_forward": e.count / forwards} for e in kern[:16]]})
 
 
 def _taps(eng, x, cfg, qf):
@@ -412,41 +658,50 @@ def _taps(eng, x, cfg, qf):
 
 
 def summary(rows, paths):
-    """One entry per kernel. ``launches`` is the count of the main path's
-    run (``forwards`` forwards at batch 256; fused2 for K1/K2,
-    PallasBlockCtx for K3); ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``library_ms`` are per forward: each shape's time times its launches
-    per forward, as counted per shape on that run."""
+    """One entry per kernel. The top-level ``launches`` and per-forward
+    ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are those of the
+    kernel's main path (``main``); ``paths`` gives them for every timed path
+    that launches the kernel. Per-forward figures weight each shape's time
+    by its launches per forward, as counted per shape on that path's run of
+    ``NB`` forwards."""
     meta = {
         "conv_int8": ("dlq_tpu_torch/csrc/conv_int8.cu",
-                      "dlq_tpu/ops/pallas_conv.py:143 int8_conv3x3_s1 (+ :317 int8_conv3x3_s1_dp)",
-                      "fused2"),
+                      "dlq_tpu/ops/pallas_conv.py:143 int8_conv3x3_s1 (+ :317 int8_conv3x3_s1_dp, "
+                      ":472 int8_conv3x3_s1_dp2)", "r50_fused2"),
         "matmul_int8": ("dlq_tpu_torch/csrc/matmul_int8.cu",
-                        "dlq_tpu/ops/pallas_matmul.py:61 int8_matmul", "fused2"),
+                        "dlq_tpu/ops/pallas_matmul.py:61 int8_matmul", "r50_fused2"),
         "basic_block": ("dlq_tpu_torch/csrc/basic_block.cu",
-                        "dlq_tpu/ops/pallas_block.py:155 basic_block_fused", "PallasBlockCtx"),
+                        "dlq_tpu/ops/pallas_block.py:155 basic_block_fused", "r18_block"),
+        "bottleneck_block": ("dlq_tpu_torch/csrc/bottleneck_block.cu",
+                             "dlq_tpu/ops/pallas_block.py:243 bottleneck_block_fused", "r50_block"),
     }
-    nf = paths["forwards"]
     out = []
-    for name, (src, repl, path) in meta.items():
-        counts, shapes = paths[path]
+    for name, (src, repl, main) in meta.items():
         rs = [r for r in rows if r["kernel"] == name]
-        w = [shapes[name].get(r["key"], 0) / nf for r in rs]
+        per_path = []
+        for path, (counts, shapes) in paths.items():
+            if not counts[name]:
+                continue
+            w = [shapes[name].get(r["key"], 0) / NB for r in rs]
 
-        def tot(f):
-            vals = [r[f] for r in rs]
-            return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
+            def tot(f):
+                vals = [r[f] for r in rs]
+                return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
 
-        bounds = [(n * r["bound_ms"], r["bound_by"]) for n, r in zip(w, rs) if n]
+            bounds = [(n * r["bound_ms"], r["bound_by"]) for n, r in zip(w, rs) if n]
+            per_path.append({"path": path, "launches": counts[name], "forwards": NB,
+                             "launches_per_forward": counts[name] / NB,
+                             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+                             "bound_ms": tot("bound_ms"), "bound_by": max(bounds)[1],
+                             "library_ms": tot("library_ms")})
+        m = next(p for p in per_path if p["path"] == main)
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                    "launches": counts[name], "forwards": nf,
-                    "launches_per_forward": counts[name] / nf,
-                    "max_abs_err": max(r["max_abs_err"] for r in rs),
-                    "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
-                    "bound_by": max(bounds)[1] if bounds else rs[0]["bound_by"],
-                    "library_ms": tot("library_ms"), "library": rs[0]["library"],
-                    "per": f"launches: the {path} run of {nf} forwards; times: one {path} "
-                           f"forward at batch {BATCH}"})
+                    "launches": m["launches"], "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                    "library": rs[0]["library"], "main": main,
+                    "per": f"launches: the {main} run of {NB} forwards; times: one forward "
+                           f"at batch {BATCH}", "paths": per_path})
     return out
 
 
@@ -456,6 +711,7 @@ def main() -> int:
         return 1
     from dlq_tpu_torch import _build
 
+    _check_tables()
     dev = torch.device("cuda")
     card = card_line()
     nvcc_v = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True,
@@ -466,8 +722,11 @@ def main() -> int:
           "nvcc": nvcc_v, "card": card, "device_name": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0, "build_s_per_source": secs})
 
-    rows = check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
-    paths = main_paths(dev, card)
+    rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
+            + check_bottleneck_kernel(dev))
+    torch.cuda.empty_cache()
+    images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
+    paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}
     kernels = summary(rows, paths)
     print(card_line())
     emit({"kernels": kernels})

@@ -1,15 +1,22 @@
-// K2: int8 GEMM with the fused fp32 epilogue of K1.
+// K2: int8 GEMM with K1's fused fp32 / int8 epilogue.
 //
-// Replaces dlq_tpu/ops/pallas_matmul.py:int8_matmul:
+// Replaces dlq_tpu/ops/pallas_matmul.py:int8_matmul (fp32 out, optional
+// relu) and carries the int8-out epilogue of the reference's mm1x1 rewrite
+// (FullFusedCtx.conv on a 1x1/s1 conv, model_quant.py:403-430):
 //   acc = x[M, K] @ w^T (w K-major [N, Kp], int32 accumulation)
-//   out = fma(float(acc), scale[n], bias[n])  (fp32)
+//   y = fma(float(acc), scale[n], bias[n]), relu
+//   out = y (fp32) | clip(rint(y / out_scale), relu ? 0 : -127, 127) (int8)
 //
-// Bound: bytes at the ResNet fc (M = batch, K = 512, N = 1000: every weight
-// byte is used by only M rows); operations only for large square products. Design: the same block-tile tensor-core GEMM as K1
-// with a plain row loader (A rows are contiguous K-byte rows), so each
-// operand byte is read once per block tile and the epilogue writes the
-// output once. The TPU kernel's sequential K grid axis with a VMEM
-// accumulator becomes the in-block K loop with register accumulators.
+// Bound: bytes at the ResNet fc (M = batch: every weight byte is used by
+// only M rows) and at the 1x1 body convs of ResNet-50 (M = N*H*W up to
+// 802,816 rows, K and N 64..2048: 64 to ~1000 int8 operations per byte, the
+// narrow ones far below the card's ridge of ~590). Design: the same
+// block-tile tensor-core GEMM as K1 with a plain row loader (A rows are
+// contiguous K-byte rows), so each operand byte is read once per block tile,
+// and the epilogue writes the output once, int8 when the consumer takes
+// int8. 128x64 tiles for N <= 64 (ResNet-50 layer1's reduce convs), 128x128
+// otherwise. The TPU kernel's sequential K grid axis with a VMEM accumulator
+// becomes the in-block K loop with register accumulators.
 #include "igemm.cuh"
 
 namespace {
@@ -21,8 +28,10 @@ struct Args {
   const int8_t* w;
   const float* scale;
   const float* bias;
-  float* out;
+  void* out;
   int M, N, K, Kp;
+  int relu, out_int8;
+  float out_scale;
 };
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC>
@@ -55,10 +64,17 @@ __global__ void __launch_bounds__(THREADS) matmul_int8_kernel(const Args a) {
   MmaTile<BM, BN, WARPS_M, WARPS_N> tile;
   mainloop<decltype(tile), BM, BN>(tile, As, Bs, a.Kp / BK, load);
 
+  const bool relu = a.relu != 0;
+  const float lo = relu ? 0.0f : -127.0f;
   tile.for_each([&](int row, int col, int v) {
     const int m = m0 + row, n = n0 + col;
     if (m >= a.M || n >= a.N) return;
-    a.out[(size_t)m * a.N + n] = epi_fma(v, a.scale[n], a.bias[n], false);
+    const float y = epi_fma(v, a.scale[n], a.bias[n], relu);
+    const size_t o = (size_t)m * a.N + n;
+    if (a.out_int8)
+      static_cast<int8_t*>(a.out)[o] = requant_div(y, a.out_scale, lo);
+    else
+      static_cast<float*>(a.out)[o] = y;
   });
 }
 
@@ -75,9 +91,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int dlq_matmul_int8(const int8_t* x, const int8_t* w, const float* scale,
-                               const float* bias, float* out, int M, int N, int K, int Kp,
-                               void* stream) {
-  Args a{x, w, scale, bias, out, M, N, K, Kp};
+                               const float* bias, void* out, int M, int N, int K, int Kp,
+                               int relu, int out_int8, float out_scale, void* stream) {
+  Args a{x, w, scale, bias, out, M, N, K, Kp, relu, out_int8, out_scale};
   if (Kp % BK != 0 || Kp < K) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

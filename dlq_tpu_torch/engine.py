@@ -121,9 +121,10 @@ class Engine:
     def from_store(qmanifest: str, ctx: str = "deploy", *, device: DeviceLike = None,
                    **kw) -> "Engine":
         """Cold-start an engine from a quantized store (``quant.store``), no
-        calibration data or fp32 weights. ResNet-18/34 only in this slice;
-        ctx: "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
-        interchange)."""
+        calibration data or fp32 weights. ResNet-18/34/50/101/152 in this
+        port; ctx: "deploy" | "pallas" | "fused" | "fused2" (fused2 =
+        fully-int8 interchange). "fused" is BasicBlock-only (ResNet-18/34),
+        as the reference's ``qforward_fused`` is."""
         from dlq_tpu_torch.manifest import Manifest
         from dlq_tpu_torch.quant import model_quant as MQ
         from dlq_tpu_torch.quant.store import load_quantized
@@ -146,6 +147,10 @@ class Engine:
                 "fused2": (MQ.FullFusedCtx, qforward_fused2)}
         if ctx not in ctxs:
             raise ValueError(f"ctx must be one of {sorted(ctxs)}, got {ctx!r}")
+        if ctx == "fused" and cfg.bottleneck:
+            raise NotImplementedError(
+                f"ctx='fused' is BasicBlock-only; {model} runs with ctx='fused2', "
+                "'deploy' or 'pallas'")
         Ctx, qf = ctxs[ctx]
         qflat, act_scales, qcfg = load_quantized(qmanifest)
         c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg)

@@ -3,9 +3,10 @@
 ``from_jax_flat`` takes fp32 flat params ``{site: {"w": ndarray, "b":
 ndarray | None}}`` (e.g. ``flatten_folded`` output converted with
 ``np.asarray``); ``from_jax_qflat`` takes the fields of each site's
-``QTensor`` as numpy values plus the activation scales. Both return the
-port's tensors on ``device`` (default: the card). Layouts are the same in
-both packages, so nothing is transposed.
+``QTensor`` as numpy values plus the activation scales. Both carry any
+flat site set (a Bottleneck net's ``layer*.*.conv3`` sites included) and
+return the port's tensors on ``device`` (default: the card). Layouts are
+the same in both packages, so nothing is transposed.
 """
 
 from __future__ import annotations

@@ -1,11 +1,16 @@
-"""ResNet-18/34 in NHWC with per-stage taps (the counterpart of
+"""ResNet-18/34/50/101/152 in NHWC with per-stage taps (the counterpart of
 ``dlq_tpu.models.resnet``): stem conv7x7/s2/p3 -> bn -> relu ->
-maxpool3x3/s2/p1 (or the 3x3/s1 ``small_input`` stem without maxpool), four
-stages of BasicBlocks whose first block in stages 2-4 strides and takes a
-1x1/s2 conv+BN downsample, then GAP -> FC.
+maxpool3x3/s2/p1 (or the 3x3/s1 ``small_input`` stem without maxpool), then
+four stages of residual blocks, then GAP -> FC.
 
-Bottleneck depths (50/101/152) are not ported yet: ``ResNetConfig`` raises
-``NotImplementedError`` for them (ROADMAP.md, queue A item 4).
+ResNet-18/34 stack BasicBlocks (3x3 -> 3x3); 50/101/152 stack torchvision
+Bottlenecks (1x1 reduce -> 3x3 -> 1x1 expand x4, the stride on the 3x3).
+The first block of a stage takes a 1x1 conv+BN downsample shortcut when it
+strides or changes width: stages 2-4, and on a Bottleneck net also
+``layer1.0`` (1x1/s1, 64 -> 256).
+
+``qforward_fused`` (int8 inside each block, fp32 junctions) is
+BasicBlock-only, as the reference's is.
 """
 
 from __future__ import annotations
@@ -42,20 +47,25 @@ class ResNetConfig:
     small_input: bool = False
 
     def __post_init__(self):
-        if self.depth in (50, 101, 152):
-            raise NotImplementedError(
-                f"ResNet-{self.depth} (Bottleneck blocks) is not ported yet; "
-                "see ROADMAP.md, queue A item 4")
-        if self.depth not in (18, 34):
-            raise ValueError(f"unsupported ResNet depth {self.depth}")
+        if self.depth not in _BLOCKS:
+            raise ValueError(f"unsupported ResNet depth {self.depth} "
+                             f"(one of {sorted(_BLOCKS)})")
 
     @property
     def blocks_per_stage(self) -> Tuple[int, ...]:
-        return {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}[self.depth]
+        return _BLOCKS[self.depth]
 
     @property
     def bottleneck(self) -> bool:
-        return False
+        return self.depth >= 50
+
+    @property
+    def expansion(self) -> int:
+        return 4 if self.bottleneck else 1
+
+
+_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+           101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 def _init_block(rng, cin: int, cout: int, stride: int) -> Params:
@@ -64,6 +74,23 @@ def _init_block(rng, cin: int, cout: int, stride: int) -> Params:
         "bn1": init_bn(cout),
         "conv2": kaiming_normal(rng, (3, 3, cout, cout), fan_out=9 * cout),
         "bn2": init_bn(cout),
+    }
+    if stride != 1 or cin != cout:
+        p["down_conv"] = kaiming_normal(rng, (1, 1, cin, cout), fan_out=cout)
+        p["down_bn"] = init_bn(cout)
+    return p
+
+
+def _init_bottleneck(rng, cin: int, width: int, stride: int) -> Params:
+    """1x1 reduce -> 3x3 -> 1x1 expand (x4), torchvision Bottleneck layout."""
+    cout = width * 4
+    p: Params = {
+        "conv1": kaiming_normal(rng, (1, 1, cin, width), fan_out=width),
+        "bn1": init_bn(width),
+        "conv2": kaiming_normal(rng, (3, 3, width, width), fan_out=9 * width),
+        "bn2": init_bn(width),
+        "conv3": kaiming_normal(rng, (1, 1, width, cout), fan_out=cout),
+        "bn3": init_bn(cout),
     }
     if stride != 1 or cin != cout:
         p["down_conv"] = kaiming_normal(rng, (1, 1, cin, cout), fan_out=cout)
@@ -84,8 +111,11 @@ def init_resnet(seed: int, cfg: ResNetConfig) -> Params:
         blocks: List[Params] = []
         for b in range(nblocks):
             stride = 2 if (s > 0 and b == 0) else 1
-            blocks.append(_init_block(rng, cin, width, stride))
-            cin = width
+            if cfg.bottleneck:
+                blocks.append(_init_bottleneck(rng, cin, width, stride))
+            else:
+                blocks.append(_init_block(rng, cin, width, stride))
+            cin = width * cfg.expansion
         params[f"layer{s+1}"] = blocks
     bound = 1.0 / (cin ** 0.5)
     params["fc"] = {
@@ -93,6 +123,18 @@ def init_resnet(seed: int, cfg: ResNetConfig) -> Params:
         "b": torch.zeros(cfg.num_classes),
     }
     return params
+
+
+def bottleneck_block(x: torch.Tensor, p: Params, stride: int, eps: float = BN_EPS) -> torch.Tensor:
+    """1x1->bn->relu -> 3x3(stride)->bn->relu -> 1x1->bn (+shortcut) -> relu."""
+    y = relu(batchnorm_inference(conv2d(x, p["conv1"]), p["bn1"], eps))
+    y = relu(batchnorm_inference(conv2d(y, p["conv2"], stride=stride, padding=1), p["bn2"], eps))
+    y = batchnorm_inference(conv2d(y, p["conv3"]), p["bn3"], eps)
+    if "down_conv" in p:
+        sc = batchnorm_inference(conv2d(x, p["down_conv"], stride=stride), p["down_bn"], eps)
+    else:
+        sc = x
+    return relu(y + sc)
 
 
 def basic_block(x: torch.Tensor, p: Params, stride: int, eps: float = BN_EPS) -> torch.Tensor:
@@ -119,9 +161,10 @@ def resnet_forward(params: Params, x: torch.Tensor, cfg: ResNetConfig, taps: boo
         y = maxpool2d(y, 3, 2, 1)
     if taps:
         t["stem"] = y
+    block_fn = bottleneck_block if cfg.bottleneck else basic_block
     for s in range(4):
         for b, bp in enumerate(params[f"layer{s+1}"]):
-            y = basic_block(y, bp, 2 if (s > 0 and b == 0) else 1)
+            y = block_fn(y, bp, 2 if (s > 0 and b == 0) else 1)
         if taps:
             t[f"layer{s+1}"] = y
     g = global_avgpool(y)
@@ -143,6 +186,8 @@ def fold_resnet(params: Params, cfg: ResNetConfig) -> Params:
             fb: Params = {}
             fb["conv1_w"], fb["conv1_b"] = fold_bn(bp["conv1"], None, bp["bn1"])
             fb["conv2_w"], fb["conv2_b"] = fold_bn(bp["conv2"], None, bp["bn2"])
+            if "conv3" in bp:
+                fb["conv3_w"], fb["conv3_b"] = fold_bn(bp["conv3"], None, bp["bn3"])
             if "down_conv" in bp:
                 fb["down_w"], fb["down_b"] = fold_bn(bp["down_conv"], None, bp["down_bn"])
             blocks.append(fb)
@@ -167,8 +212,13 @@ def folded_forward(folded: Params, x: torch.Tensor, cfg: ResNetConfig, taps: boo
     for s in range(4):
         for b, fb in enumerate(folded[f"layer{s+1}"]):
             stride = 2 if (s > 0 and b == 0) else 1
-            z = relu(conv2d(y, fb["conv1_w"], stride=stride, padding=1, bias=fb["conv1_b"]))
-            z = conv2d(z, fb["conv2_w"], stride=1, padding=1, bias=fb["conv2_b"])
+            if "conv3_w" in fb:  # bottleneck
+                z = relu(conv2d(y, fb["conv1_w"], bias=fb["conv1_b"]))
+                z = relu(conv2d(z, fb["conv2_w"], stride=stride, padding=1, bias=fb["conv2_b"]))
+                z = conv2d(z, fb["conv3_w"], bias=fb["conv3_b"])
+            else:
+                z = relu(conv2d(y, fb["conv1_w"], stride=stride, padding=1, bias=fb["conv1_b"]))
+                z = conv2d(z, fb["conv2_w"], stride=1, padding=1, bias=fb["conv2_b"])
             if "down_w" in fb:
                 sc = conv2d(y, fb["down_w"], stride=stride, padding=0, bias=fb["down_b"])
             else:
@@ -191,6 +241,8 @@ def flatten_folded(folded: Params) -> Dict[str, Dict[str, torch.Tensor]]:
         for b, fb in enumerate(folded[f"layer{s+1}"]):
             flat[f"layer{s+1}.{b}.conv1"] = {"w": fb["conv1_w"], "b": fb["conv1_b"]}
             flat[f"layer{s+1}.{b}.conv2"] = {"w": fb["conv2_w"], "b": fb["conv2_b"]}
+            if "conv3_w" in fb:
+                flat[f"layer{s+1}.{b}.conv3"] = {"w": fb["conv3_w"], "b": fb["conv3_b"]}
             if "down_w" in fb:
                 flat[f"layer{s+1}.{b}.down"] = {"w": fb["down_w"], "b": fb["down_b"]}
     flat["fc"] = {"w": folded["fc"]["w"], "b": folded["fc"]["b"]}
@@ -213,8 +265,13 @@ def qforward(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False):
         for b in range(cfg.blocks_per_stage[s]):
             stride = 2 if (s > 0 and b == 0) else 1
             site = f"layer{s+1}.{b}"
-            z = ctx.conv(f"{site}.conv1", y, stride=stride, padding=1, fuse_relu=True)
-            z = ctx.conv(f"{site}.conv2", z, stride=1, padding=1)
+            if cfg.bottleneck:
+                z = ctx.conv(f"{site}.conv1", y, fuse_relu=True)
+                z = ctx.conv(f"{site}.conv2", z, stride=stride, padding=1, fuse_relu=True)
+                z = ctx.conv(f"{site}.conv3", z)
+            else:
+                z = ctx.conv(f"{site}.conv1", y, stride=stride, padding=1, fuse_relu=True)
+                z = ctx.conv(f"{site}.conv2", z, stride=1, padding=1)
             down = f"{site}.down"
             sc = ctx.conv(down, y, stride=stride, padding=0) if ctx.has(down) else y
             y = relu(z + sc)
@@ -231,7 +288,12 @@ def qforward(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False):
 def qforward_fused(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False):
     """INT8-interchange inside each BasicBlock (use with FusedDeployCtx):
     conv1 emits the int8 tensor conv2 consumes; block-boundary tensors stay
-    fp32. The 1x1 downsample shares conv1's quantized input."""
+    fp32. The 1x1 downsample shares conv1's quantized input. BasicBlock nets
+    only, as the reference's (``nb = {18: ..., 34: ...}[cfg.depth]``)."""
+    if cfg.bottleneck:
+        raise NotImplementedError(
+            f"qforward_fused is BasicBlock-only (ResNet-18/34), as the reference's; "
+            f"run ResNet-{cfg.depth} with qforward_fused2 (ctx='fused2') or qforward")
     t: Dict[str, torch.Tensor] = {}
     if cfg.small_input:
         y = ctx.conv("stem", x, stride=1, padding=1, fuse_relu=True)
@@ -300,9 +362,15 @@ def qforward_fused2(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False)
                 if fb is not None:
                     y = fb
                     continue
-            z = ctx.conv(f"{site}.conv1", y, stride=stride, padding=1,
-                         fuse_relu=True, out_site=f"{site}.conv2")
-            z = ctx.conv(f"{site}.conv2", z, stride=1, padding=1, out_site=nxt)
+            if cfg.bottleneck:
+                z = ctx.conv(f"{site}.conv1", y, fuse_relu=True, out_site=f"{site}.conv2")
+                z = ctx.conv(f"{site}.conv2", z, stride=stride, padding=1,
+                             fuse_relu=True, out_site=f"{site}.conv3")
+                z = ctx.conv(f"{site}.conv3", z, out_site=nxt)
+            else:
+                z = ctx.conv(f"{site}.conv1", y, stride=stride, padding=1,
+                             fuse_relu=True, out_site=f"{site}.conv2")
+                z = ctx.conv(f"{site}.conv2", z, stride=1, padding=1, out_site=nxt)
             if nxt is None:
                 if ctx.has(down):
                     y = relu(z + ctx.conv(down, y, stride=stride, padding=0))

@@ -128,9 +128,16 @@ def check_launch_args(what: str, x: torch.Tensor, pk: PackedConv, scale: torch.T
     if x.dtype != torch.int8 or not x.is_contiguous() or x.shape[-1] != pk.c or x.data_ptr() % 16:
         raise ValueError(f"{what}: need contiguous, 16-byte aligned int8 input with "
                          f"{pk.c} channels last, got {x.dtype} {tuple(x.shape)}")
+    check_weights(what, x.device, pk, scale, bias)
+
+
+def check_weights(what: str, device: torch.device, pk: PackedConv, scale: torch.Tensor,
+                  bias: torch.Tensor) -> None:
+    """Raise unless the packed weights and the fp32 [OC] scale and bias are
+    contiguous on ``device``."""
     for t, name in ((pk.wk, "weights"), (scale, "scale"), (bias, "bias")):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous on {x.device}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {device}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32 or \
             scale.shape != (pk.oc,) or bias.shape != (pk.oc,):
         raise ValueError(f"{what}: scale and bias must be fp32 [{pk.oc}]")

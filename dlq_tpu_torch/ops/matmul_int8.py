@@ -1,19 +1,22 @@
-"""K2: int8 GEMM with K1's fused fp32 epilogue.
+"""K2: int8 GEMM with K1's fused fp32 / int8 epilogue.
 
 Replaces ``dlq_tpu/ops/pallas_matmul.py:int8_matmul`` (kernel in
 ``csrc/matmul_int8.cu``). Computes, for x int8 [M, K] and int8 weights,
 
-    acc = x @ w  (int32),  out = fma(float(acc), scale[n], bias[n])  (fp32)
+    acc = x @ w  (int32),  y = fma(float(acc), scale[n], bias[n]);  y = max(y, 0) if relu
+    out = y (fp32)   or   clip(rint(y / out_scale), relu ? 0 : -127, 127) (int8)
 
-It serves the W8A8 dense (the ResNet fc). The weight is a ``PackedConv`` of
-a 1x1 kernel: K-major ``[N, Kp]``, repacked once at load
-(``pack_dense_weight``). The relu and int8-requant epilogues of the
-reference's ``mm1x1`` traffic come with the Bottleneck slice; ResNet-18/34
-have no 1x1/s1 conv.
+It serves the W8A8 dense (the ResNet fc, ``int8_matmul``'s fp32 epilogue
+with its ``fuse_relu``) and every 1x1/s1 conv as the reference's ``mm1x1``
+rewrite: the conv on the free ``[N*H*W, C]`` view of NHWC, fp32 out under
+the fp32-interchange contexts, int8 out (the consumer's requant) under the
+int8-interchange ones. The weight is a ``PackedConv`` of a 1x1 kernel:
+K-major ``[N, Kp]``, repacked once at load (``pack_dense_weight``).
 
 ``matmul_int8`` launches the kernel for a CUDA tensor and runs
 ``matmul_int8_plain`` for a CPU tensor. ``matmul_int8.launches`` counts
-kernel launches, ``matmul_int8.by_shape`` counts them per (M, K, N).
+kernel launches, ``matmul_int8.by_shape`` counts them per (M, K, N, relu,
+int8 out).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -37,37 +41,45 @@ def pack_dense_weight(w_ko: torch.Tensor) -> PackedConv:
 
 
 def matmul_int8_plain(x: torch.Tensor, pk: PackedConv, scale: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor, relu: bool = False,
+                      out_scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of K2: exact float64 GEMM (K*127^2 < 2^53), then
-    the shared fp32 epilogue."""
+    the shared epilogue."""
     acc = x.double() @ pk.wk[:, : pk.k].double().t()
-    return epilogue_plain(acc, scale, bias, False, None)
+    return epilogue_plain(acc, scale, bias, relu, out_scale)
 
 
 @functools.cache
 def _entry():
     fn = _build.library("matmul_int8").dlq_matmul_int8
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def matmul_int8(x: torch.Tensor, pk: PackedConv, scale: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
-    """int8 [M, K] @ packed int8 weights with the fused epilogue; fp32 [M, N]."""
+                bias: torch.Tensor, relu: bool = False,
+                out_scale: Optional[float] = None) -> torch.Tensor:
+    """int8 [M, K] @ packed int8 weights with the fused epilogue; fp32 [M, N],
+    or int8 [M, N] at ``out_scale`` (the consumer's activation scale)."""
     if pk.kh != 1 or pk.kw != 1:
         raise ValueError("matmul_int8: weights must be a packed 1x1 / dense kernel")
     if x.device.type == "cpu":
-        return matmul_int8_plain(x, pk, scale, bias)
+        return matmul_int8_plain(x, pk, scale, bias, relu, out_scale)
     check_launch_args("matmul_int8", x, pk, scale, bias)
     m, k = x.shape
     n = pk.oc
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    out = torch.empty((m, n), device=x.device,
+                      dtype=torch.float32 if out_scale is None else torch.int8)
     rc = _entry()(x.data_ptr(), pk.wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), m, n, k, pk.wk.shape[1], _build.stream_ptr(x.device))
+                  out.data_ptr(), m, n, k, pk.wk.shape[1], int(relu),
+                  int(out_scale is not None),
+                  float(out_scale) if out_scale is not None else 1.0,
+                  _build.stream_ptr(x.device))
     _build.check(rc, "matmul_int8")
     matmul_int8.launches += 1
-    matmul_int8.by_shape[(m, k, n)] += 1
+    matmul_int8.by_shape[(m, k, n, bool(relu), out_scale is not None)] += 1
     return out
 
 

@@ -7,10 +7,11 @@ Numerics contract, shared with the reference:
   * fp32 epilogue y = fma(float(acc), act_scale * w_scale[oc], bias[oc]),
     then relu — one fused multiply-add, as XLA contracts ``acc * s + b``.
 
-Every int8 conv goes through K1 (``ops.conv_int8``), every int8 dense
-through K2 (``ops.matmul_int8``). The reference's ``mm1x1`` rewrite (a
-1x1/s1 conv as an int8 dot) computes the same values as K1 does for such a
-conv; ResNet-18/34 have none.
+Every int8 dense goes through K2 (``ops.matmul_int8``). A groups-1
+1x1/s1/p0 conv takes the reference's ``mm1x1`` rewrite (``qops.py:384-387``,
+on by default in its deploy contexts): K2 on the free ``[N*H*W, C]`` view of
+the NHWC input (``conv1x1_int8``). Every other int8 conv (3x3, the 1x1/s2
+downsamples, the stems) goes through K1 (``ops.conv_int8``).
 Weight-only schemes (no activation scale) dequantize and run a float
 conv/matmul, as the reference leaves them to XLA.
 """
@@ -54,11 +55,27 @@ def _int(v) -> int:
     return int(v[0])
 
 
+def is_mm1x1(pk: PackedConv, stride, padding) -> bool:
+    """Does this (groups-1) conv take the ``mm1x1`` route: 1x1/s1/p0?"""
+    return (pk.kh, pk.kw) == (1, 1) and _int(stride) == 1 and _int(padding) == 0
+
+
+def conv1x1_int8(xq: torch.Tensor, pk: PackedConv, scale: torch.Tensor, bias: torch.Tensor,
+                 relu: bool = False, out_scale: Optional[float] = None) -> torch.Tensor:
+    """A 1x1/s1 int8 conv as K2 on the ``[N*H*W, C]`` view (a free reshape of
+    contiguous NHWC); returns NHWC, fp32 or int8 at ``out_scale``."""
+    lead = xq.shape[:-1]
+    y = matmul_int8(xq.reshape(-1, xq.shape[-1]), pk, scale, bias, relu=relu,
+                    out_scale=out_scale)
+    return y.reshape(lead + (pk.oc,))
+
+
 def qconv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor], act_scale: float,
             stride=1, padding=0, groups: int = 1, fuse_relu: bool = False,
             act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
     """W8A8 conv: quantize the input with the calibrated static scale, int8
-    conv with int32 accumulation, fp32 per-channel epilogue (+bias, +relu).
+    conv with int32 accumulation (K2 for a 1x1/s1 conv, K1 otherwise), fp32
+    per-channel epilogue (+bias, +relu).
     ``packed``: the site's K-major weights, when the caller keeps them."""
     if groups != 1:
         raise NotImplementedError("grouped/depthwise int8 conv is not ported yet "
@@ -66,8 +83,10 @@ def qconv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor], act_scal
     pk = int_weight_packed(qw) if packed is None else packed
     xq = quantize_act(x, act_scale, act_qmax)
     comb = combined_scale(act_scale, qw, pk.oc)
-    return conv_int8(xq, pk, _int(stride), _int(padding), comb,
-                     bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
+    b = bias_or_zeros(bias, pk.oc, x.device)
+    if is_mm1x1(pk, stride, padding):
+        return conv1x1_int8(xq, pk, comb, b, relu=fuse_relu)
+    return conv_int8(xq, pk, _int(stride), _int(padding), comb, b, relu=fuse_relu)
 
 
 def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
@@ -82,14 +101,14 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
         pk = int_weight_packed(qw) if packed is None else packed
         xq = quantize_act(x2, act_scale, act_qmax)
         y = matmul_int8(xq, pk, combined_scale(act_scale, qw, pk.oc),
-                        bias_or_zeros(bias, pk.oc, x.device))
+                        bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
     else:
         w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
         y = x2 @ w
         if bias is not None:
             y = y + bias
-    if fuse_relu:
-        y = torch.clamp_min(y, 0.0)
+        if fuse_relu:
+            y = torch.clamp_min(y, 0.0)
     return y.reshape(lead + (y.shape[-1],))
 
 

@@ -5,12 +5,14 @@ Models define ONE ``qforward(ctx, x, cfg)``; the context decides the
 arithmetic:
 
   ObserveCtx      fp32 compute; records each quantized op's input (calibration)
-  DeployCtx       W8A8: int8 convs on K1, int8 dense on K2, fp32 interchange
+  DeployCtx       W8A8: int8 convs on K1, 1x1/s1 convs (``mm1x1``) and int8
+                  dense on K2, fp32 interchange
   PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
                   same kernels as DeployCtx
   FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue)
   FullFusedCtx    every inter-op tensor int8 (stem, maxpool, junctions)
-  PallasBlockCtx  FullFusedCtx + identity BasicBlocks as one K3 launch
+  PallasBlockCtx  FullFusedCtx + identity BasicBlocks as one K3 launch and
+                  identity Bottlenecks as one K4 launch
 
 A context is built once per engine: it repacks every int8 weight K-major for
 the kernels when it is constructed, keeps the activation scales both as
@@ -19,8 +21,9 @@ exact fp32 host values (kernel arguments, host-side scale arithmetic) and as
 combined epilogue scales.
 
 Not ported yet (ROADMAP.md): tensor-parallel wire routing, depthwise convs,
-the dpx/s2d/down_mm conv rewrites, the s2d and uint8 stems,
-DynamicDeployCtx, SimulateCtx.
+the dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
+conv on K1, as under the reference's default ``rewrites=("mm1x1",)``), the
+s2d and uint8 stems, DynamicDeployCtx, SimulateCtx.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ import torch
 from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
 from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8
 from dlq_tpu_torch.ops.qops import (
-    bias_or_zeros, combined_scale, dequant_conv2d,
-    int_weight_packed, qconv2d, qdense,
+    bias_or_zeros, combined_scale, conv1x1_int8, dequant_conv2d,
+    int_weight_packed, is_mm1x1, qconv2d, qdense,
 )
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
 from dlq_tpu_torch.quant.qconfig import QConfig
@@ -171,7 +174,9 @@ class PallasDeployCtx(DeployCtx):
 class FusedDeployCtx(DeployCtx):
     """W8A8 with int8 interchange: a conv given ``out_site`` requantizes its
     output to that site's calibrated scale in the kernel epilogue and
-    returns a QAct; without ``out_site`` it returns fp32."""
+    returns a QAct; without ``out_site`` it returns fp32. A 1x1/s1 conv runs
+    on K2 (the reference's ``mm1x1``, ``model_quant.py:403-430``), every
+    other conv on K1."""
 
     def __init__(self, qflat, act_scales, qcfg):
         super().__init__(qflat, act_scales, qcfg)
@@ -192,8 +197,13 @@ class FusedDeployCtx(DeployCtx):
             s_in = self.scale[name]
             xq = quantize_act(x, self.scale_t[name], self.qcfg.acts.qmax)
         out_scale = None if out_site is None else self.scale[out_site]
-        y = conv_int8(xq, self.packed[name], stride, padding, self.comb(name, s_in),
-                      self.bias(name), relu=fuse_relu, out_scale=out_scale)
+        pk = self.packed[name]
+        if is_mm1x1(pk, stride, padding):
+            y = conv1x1_int8(xq, pk, self.comb(name, s_in), self.bias(name), relu=fuse_relu,
+                             out_scale=out_scale)
+        else:
+            y = conv_int8(xq, pk, stride, padding, self.comb(name, s_in), self.bias(name),
+                          relu=fuse_relu, out_scale=out_scale)
         return y if out_site is None else QAct(y, out_scale)
 
     def add(self, a: QAct, b: QAct) -> QAct:
@@ -207,9 +217,7 @@ class FusedDeployCtx(DeployCtx):
             # int8 GEMM straight on the already-quantized activation
             lead = x.q.shape[:-1]
             y = matmul_int8(x.q.reshape(-1, x.q.shape[-1]), self.packed[name],
-                            self.comb(name, x.scale), self.bias(name))
-            if fuse_relu:
-                y = torch.clamp_min(y, 0.0)
+                            self.comb(name, x.scale), self.bias(name), relu=fuse_relu)
             return y.reshape(lead + (y.shape[-1],))
         return super().dense(name, x, fuse_relu=fuse_relu)
 
@@ -259,10 +267,11 @@ class FullFusedCtx(FusedDeployCtx):
 
 
 class PallasBlockCtx(FullFusedCtx):
-    """FullFusedCtx + K3 for identity residual blocks: blocks present in
-    ``block_packs`` (``ops.block_fused.pack_fused_blocks``) run as one
-    kernel — conv chain, requants, int8 residual add and relu; everything
-    else falls through to FullFusedCtx."""
+    """FullFusedCtx + one kernel per identity residual block: blocks present
+    in ``block_packs`` (``ops.block_fused.pack_fused_blocks``) run as K3
+    (BasicBlock) or K4 (Bottleneck, a pack with ``"w3"``) — conv chain,
+    requants, int8 residual add and relu; everything else falls through to
+    FullFusedCtx."""
 
     def __init__(self, qflat, act_scales, qcfg, block_packs=None):
         super().__init__(qflat, act_scales, qcfg)
@@ -270,12 +279,13 @@ class PallasBlockCtx(FullFusedCtx):
 
     def fused_block(self, site: str, x: QAct, nxt: Optional[str]):
         """Run ``site``'s whole residual block fused if packed; else None."""
-        from dlq_tpu_torch.ops.block_fused import basic_block_fused
+        from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
 
         pack = self.block_packs.get(site)
         if pack is None or nxt is None:
             return None
-        return QAct(basic_block_fused(x.q, pack), self.scale[nxt])
+        fn = bottleneck_block_fused if "w3" in pack else basic_block_fused
+        return QAct(fn(x.q, pack), self.scale[nxt])
 
 
 def make_sites_fn(qforward: Callable, cfg) -> Callable:

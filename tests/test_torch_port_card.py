@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from dlq_tpu_torch.ops.block_fused import basic_block_fused, basic_block_plain, pack_basic_block
+from dlq_tpu_torch.ops.block_fused import (
+    basic_block_fused, basic_block_plain, bottleneck_block_fused, bottleneck_block_plain,
+    pack_basic_block, pack_bottleneck_block,
+)
 from dlq_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain, pack_conv_weight
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, matmul_int8_plain, pack_dense_weight
 from dlq_tpu_torch.quant.model_quant import quantize_weights
@@ -44,10 +47,14 @@ def test_kernels_on_card():
         pk = pack_conv_weight(_i8(rng, (k, k, c, oc)).to(dev))
         args = (x, pk, s, k // 2, *_epi(rng, oc, k * k * c, dev), relu, osc)
         assert torch.equal(conv_int8(*args), conv_int8_plain(*args))
-    x = _i8(rng, (37, 512)).to(dev)
-    pk = pack_dense_weight(_i8(rng, (512, 1000)).to(dev))
-    args = (x, pk, *_epi(rng, 1000, 512, dev))
-    assert torch.equal(matmul_int8(*args), matmul_int8_plain(*args))
+    # the fc, and 1x1/s1 body convs with relu and int8 epilogues (N = 64 takes
+    # the 128x64 tile)
+    for (m, k, n, relu, osc) in [(37, 512, 1000, False, None), (300, 256, 64, True, 0.025),
+                                 (300, 64, 256, False, 0.025), (300, 128, 512, True, None)]:
+        x = _i8(rng, (m, k)).to(dev)
+        pk = pack_dense_weight(_i8(rng, (k, n)).to(dev))
+        args = (x, pk, *_epi(rng, n, k, dev), relu, osc)
+        assert torch.equal(matmul_int8(*args), matmul_int8_plain(*args))
     # one identity block at 14x14x128 with quantized weights and site scales
     flat = {n: {"w": torch.from_numpy(rng.normal(0, 0.05, (3, 3, 128, 128)).astype(np.float32)),
                 "b": torch.from_numpy(rng.normal(0, 0.2, 128).astype(np.float32))}
@@ -59,3 +66,26 @@ def test_kernels_on_card():
     pack = pack_basic_block(qflat, scales, "b", "n.conv1")
     xb = _i8(rng, (3, 14, 14, 128), lo=0).to(dev)
     assert torch.equal(basic_block_fused(xb, pack), basic_block_plain(xb, pack))
+
+
+@pytest.mark.gpu
+def test_bottleneck_kernel_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    # (H, C4, CM): a partial 8x8 tile edge (12), the 7x7 stage, CM = 64 and 512
+    for h, c4, cm in [(12, 256, 64), (7, 512, 128), (7, 2048, 512)]:
+        flat = {}
+        for name, shape in (("b.conv1", (1, 1, c4, cm)), ("b.conv2", (3, 3, cm, cm)),
+                            ("b.conv3", (1, 1, cm, c4))):
+            flat[name] = {"w": torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32)),
+                          "b": torch.from_numpy(rng.normal(0, 0.2, shape[-1]).astype(np.float32))}
+        qflat = {n: {"qw": p["qw"].to(dev), "b": p["b"].to(dev)}
+                 for n, p in quantize_weights(flat, INT8_PER_CHANNEL).items()}
+        scales = {n: torch.tensor(v, dtype=torch.float32, device=dev)
+                  for n, v in (("b.conv1", 0.05), ("b.conv2", 0.08), ("b.conv3", 0.04),
+                               ("n.conv1", 0.07))}
+        pack = pack_bottleneck_block(qflat, scales, "b", "n.conv1")
+        x = _i8(rng, (3, h, h, c4), lo=0).to(dev)
+        assert torch.equal(bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack))

@@ -24,7 +24,9 @@ import torch
 from dlq_tpu.ops import qops as jqops
 from dlq_tpu.ops.pallas_block import basic_block_fused as j_basic_block_fused
 from dlq_tpu.ops.pallas_block import pack_basic_block as j_pack_basic_block
-from dlq_tpu.ops.pallas_conv import int8_conv3x3_s1, int8_conv3x3_s1_dp, pack_w_dual
+from dlq_tpu.ops.pallas_conv import (
+    int8_conv3x3_s1, int8_conv3x3_s1_dp, int8_conv3x3_s1_dp2, pack_w_dual,
+)
 from dlq_tpu.ops.pallas_matmul import int8_matmul
 from dlq_tpu.quant import model_quant as JM
 from dlq_tpu.quant.qconfig import INT8_PER_CHANNEL as J_INT8_PC
@@ -96,6 +98,23 @@ def test_conv_int8_vs_int8_conv3x3_s1_dp_int8_out(relu):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_int8_vs_int8_conv3x3_s1_dp2(relu):
+    """``_dp2`` computes the same function as ``_dp`` (multi-buffered slabs);
+    K1's int8 epilogue at C=64 carries both."""
+    rng = np.random.default_rng(17 + relu)
+    x, w = _i8(rng, (2, 8, 8, 64)), _i8(rng, (3, 3, 64, 64))
+    scale, bias, osc = _epi(rng, 64, 9 * 64)
+    ref = np.asarray(int8_conv3x3_s1_dp2(
+        jnp.asarray(x), pack_w_dual(jnp.asarray(w)), jnp.asarray(scale), jnp.asarray(bias),
+        out_scale=jnp.asarray(osc), fuse_relu=relu, out_int8=True, interpret=True))
+    got = conv_int8(_t(x), pack_conv_weight(_t(w)), 1, 1, _t(scale), _t(bias), relu=relu,
+                    out_scale=float(osc))
+    assert got.dtype == torch.int8
+    _assert_spread(ref)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @jax.jit
 def _xla_epilogue(acc, scale, bias, out_scale):
     """FullFusedCtx's conv epilogue (int8 out, no relu), scales as arguments."""
@@ -121,8 +140,8 @@ def test_conv_int8_vs_xla_conv_int8_strided(k, stride, pad, c, oc, h):
 
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv_int8_1x1_s1_vs_int8_matmul(relu):
-    """A 1x1/s1 conv runs on K1; it equals the reference's mm1x1 form, the
-    int8 GEMM on the [N*H*W, C] view."""
+    """K1 computes a 1x1/s1 conv too (the contexts route those to K2, as the
+    reference's mm1x1 does); it equals the int8 GEMM on the [N*H*W, C] view."""
     rng = np.random.default_rng(21 + relu)
     x, w = _i8(rng, (2, 8, 8, 128)), _i8(rng, (1, 1, 128, 256))
     scale, bias, _ = _epi(rng, 256, 128)

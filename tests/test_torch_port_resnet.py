@@ -237,5 +237,6 @@ def test_engine_quantized_on_cpu(small):
     lq, lf = q(x).numpy(), f(x).numpy()
     assert numerics.top1_agreement(lq, lf) == 1.0
     assert numerics.diff(lq, lf).cosine > 0.999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.ResNetConfig(depth=50)
+    assert TR.ResNetConfig(depth=50).bottleneck and not tcfg.bottleneck
+    with pytest.raises(ValueError, match="unsupported ResNet depth"):
+        TR.ResNetConfig(depth=42)
