@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18 and ResNet-50
-W8A8, 224 px).
+"""Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
+DeiT-Tiny W8A8, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -29,7 +29,21 @@ Phases, one JSON line each:
      outputs on ResNet-18, each K4 block against its FullFusedCtx
      composition on ResNet-50) and its plain-version twin, with its own
      profile;
-  5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2.
+  5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2;
+  6. DeiT-Tiny (224 px, dim 192, depth 12, 3 heads, 1000 classes, seeded
+     random weights): K5 vit_pre_w8, K6 mhsa and K7 vit_post_w8 at every
+     shape of its block path and K2 at its deploy shapes, at batch 256,
+     held against their plain versions (>= 0.999 of the outputs equal, the
+     rest one rounding step apart: the kernels sum in another order), with
+     torch._int_mm and scaled_dot_product_attention as yardsticks; then
+     Engine.quantized, save_quantized with extras, Engine.from_store(
+     ctx="block") driven through classify (K5, K6, K7 12 launches each per
+     forward), gated against the fp32 forward (cosine >= 0.998: the
+     reference's own W8A8 error on random weights) and its plain-version
+     twin (cosine >= 0.9999), with top-1 reported beside the fp32 margins,
+     and profiled; vit_forward_blockfused_w8 (one layer per
+     launch chain, bf16 between layers) and ctx="deploy" (K2 50 and K6 12
+     per forward) at batch 64, gated the same way.
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -50,23 +64,42 @@ import numpy as np
 import torch
 
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (hopper-kernels guide table)
+PEAK_BF16 = 989e12        # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 BATCH = 256
 SEED = 0
 NB = 4                    # classify batches per main path
 NO_INT8_CONV = "none: no PyTorch call computes an int8 conv with int32 accumulation on CUDA"
 INT_MM = "torch._int_mm (int32 product only, no epilogue)"
+SDPA = "torch.nn.functional.scaled_dot_product_attention (bf16 [B, heads, N, hd], no mask)"
+VIT_TOL = (0.999, 0.0625)  # ViT kernels vs plain: fraction equal, largest difference
+DEIT_FP32_COS = 0.998      # DeiT-Tiny W8A8 logits vs fp32 (see deit_paths)
+DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see deit_paths)
+# one block-path layer (K5 -> K6 -> K7) vs its plain versions on the same
+# input: an int8 code that lands one step apart (another sum order in LN,
+# softmax or the bf16 rounding of attn) moves its whole row of the layer's
+# fp32 output by about one FC2 step (~0.003), so >= 0.97 of valid outputs
+# are equal and none is more than VIT_TOL[1] apart
+LAYER_TOL = (0.97, VIT_TOL[1])
 
 # launches per forward of each kernel on each path (ResNet-18: 2-2-2-2
-# BasicBlocks; ResNet-50: 3-4-6-3 Bottlenecks, 1x1/s1 convs on K2)
+# BasicBlocks; ResNet-50: 3-4-6-3 Bottlenecks, 1x1/s1 convs on K2; DeiT-Tiny:
+# 12 layers of K5 -> K6 -> K7, 6 per chunk; its deploy path: 50 dense sites)
+_CNN = {"vit_pre_w8": 0, "mhsa": 0, "vit_post_w8": 0}
+_VIT = {"conv_int8": 0, "basic_block": 0, "bottleneck_block": 0}
 PER_FORWARD = {
-    "r18_fused2": {"conv_int8": 19, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0},
-    "r18_block": {"conv_int8": 15, "matmul_int8": 1, "basic_block": 2, "bottleneck_block": 0},
-    "r18_deploy": {"conv_int8": 20, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0},
-    "r50_fused2": {"conv_int8": 19, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0},
-    "r50_block": {"conv_int8": 8, "matmul_int8": 12, "basic_block": 0, "bottleneck_block": 11},
-    "r50_deploy": {"conv_int8": 20, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0},
+    "r18_fused2": {"conv_int8": 19, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0, **_CNN},
+    "r18_block": {"conv_int8": 15, "matmul_int8": 1, "basic_block": 2, "bottleneck_block": 0, **_CNN},
+    "r18_deploy": {"conv_int8": 20, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0, **_CNN},
+    "r50_fused2": {"conv_int8": 19, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0, **_CNN},
+    "r50_block": {"conv_int8": 8, "matmul_int8": 12, "basic_block": 0, "bottleneck_block": 11, **_CNN},
+    "r50_deploy": {"conv_int8": 20, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0, **_CNN},
+    "deit_block": {"matmul_int8": 0, "vit_pre_w8": 12, "mhsa": 12, "vit_post_w8": 12, **_VIT},
+    "deit_blockfused": {"matmul_int8": 0, "vit_pre_w8": 12, "mhsa": 12, "vit_post_w8": 12, **_VIT},
+    "deit_deploy": {"matmul_int8": 50, "vit_pre_w8": 0, "mhsa": 12, "vit_post_w8": 0, **_VIT},
 }
+# paths run at batch 64 and checked by totals only (the shape tables are at batch 256)
+TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy")
 
 
 def emit(obj) -> None:
@@ -82,8 +115,8 @@ def card_line() -> str:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS):
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -149,6 +182,13 @@ def matmul_cases():
         (7 * 7, 2048, 512, True, True): {"r50_fused2": 2, "r50_block": 1},        # layer4.1-2.conv1
         (1, 2048, 1000, False, False): {"r50_fused2": 1, "r50_block": 1},         # ResNet-50 fc
         (56 * 56, 256, 64, True, False): {},      # the deploy/pallas routing (fp32 + relu)
+        # DeiT-Tiny's deploy path (checked at batch 64 by totals only)
+        (196, 768, 192, False, False): {},        # patch embed
+        (197, 192, 576, False, False): {},        # l*.qkv
+        (197, 192, 192, False, False): {},        # l*.proj
+        (197, 192, 768, False, False): {},        # l*.fc1
+        (197, 768, 192, False, False): {},        # l*.fc2
+        (1, 192, 1000, False, False): {},         # head
     }
 
 
@@ -161,6 +201,30 @@ def bottleneck_cases():
     """K4: (H, C4, CM) -> launches per forward per path."""
     return {(56, 256, 64): {"r50_block": 2}, (28, 512, 128): {"r50_block": 3},
             (14, 1024, 256): {"r50_block": 5}, (7, 2048, 512): {"r50_block": 1}}
+
+
+# DeiT-Tiny at batch 256: Np 200 rows (197 tokens), Dp 192, Hp 768, 3 heads of 64
+VIT_NP, VIT_N, VIT_DP, VIT_HP, VIT_HEADS, VIT_HD = 200, 197, 192, 768, 3, 64
+
+
+def vit_pre_cases():
+    """K5: residual dtype -> launches per forward per path (bf16 at each of the
+    two chunks' first layer, fp32 inside a chunk)."""
+    return {"bfloat16": {"deit_block": 2}, "float32": {"deit_block": 10}}
+
+
+def mhsa_cases():
+    """K6: (rows, n_valid) -> launches per forward per path (the deploy
+    path's 197 unpadded rows are checked at batch 64 by totals only)."""
+    return {(VIT_NP, VIT_N): {"deit_block": 12}, (VIT_N, VIT_N): {}}
+
+
+def vit_post_cases():
+    """K7: (residual dtype in, dtype out) -> launches per forward per path: a
+    chunk's first layer bf16 -> fp32, its middle four fp32 -> fp32, its last
+    fp32 -> bf16; bf16 -> bf16 is vit_forward_blockfused_w8's form."""
+    return {("bfloat16", "float32"): {"deit_block": 2}, ("float32", "float32"): {"deit_block": 8},
+            ("float32", "bfloat16"): {"deit_block": 2}, ("bfloat16", "bfloat16"): {}}
 
 
 def _conv_key(case):
@@ -176,7 +240,10 @@ def _mm_key(case):
 KEYS = {"conv_int8": (conv_cases, _conv_key),
         "matmul_int8": (matmul_cases, _mm_key),
         "basic_block": (basic_cases, lambda c: (BATCH, c[0], c[0], c[1])),
-        "bottleneck_block": (bottleneck_cases, lambda c: (BATCH, c[0], c[0], c[1], c[2]))}
+        "bottleneck_block": (bottleneck_cases, lambda c: (BATCH, c[0], c[0], c[1], c[2])),
+        "vit_pre_w8": (vit_pre_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
+        "mhsa": (mhsa_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1])),
+        "vit_post_w8": (vit_post_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -189,7 +256,7 @@ def expected_by_shape(path: str, forwards: int):
 def _check_tables():
     """The case tables add up to the per-forward totals."""
     for path, totals in PER_FORWARD.items():
-        if path.endswith("deploy"):
+        if path in TOTALS_ONLY:
             continue
         got = {k: sum(v.values()) for k, v in expected_by_shape(path, 1).items()}
         if got != totals:
@@ -214,18 +281,24 @@ def _epi_params(gen, oc, k, dev):
 
 
 def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=2,
-         library=None, **extra):
+         library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, **extra):
+    """One kernel shape: held against its plain version (bit-identical, or
+    with ``tol`` = (fraction of outputs equal, largest difference)), timed
+    beside the plain version, the library call and the bound."""
     torch.cuda.synchronize()
-    err = float((got.float() - ref.float()).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"{kernel} {shape}: max_abs_err {err}")
-    b_ms, b_by = bound(ops, nbytes)
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    equal = float((diff == 0).float().mean())
+    if (tol is None and err != 0.0) or (tol is not None and (equal < tol[0] or err > tol[1])):
+        raise AssertionError(f"{kernel} {shape}: max_abs_err {err}, equal fraction {equal} "
+                             f"(need {tol or 'bit-identical'})")
+    b_ms, b_by = bound(ops, nbytes, peak)
     row = {"kernel": kernel, "key": key, "shape": shape, **extra, "max_abs_err": err,
-           "ms": time_ms(fn),
+           "equal_fraction": equal, "ms": time_ms(fn),
            "plain_ms": time_ms(plain, iters=plain_iters, warmup=1, reps=1),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(library) if library is not None else None,
-           "library": INT_MM if library is not None else NO_INT8_CONV,
+           "library": library_name if library is not None else NO_INT8_CONV,
            "launches_per_forward": per}
     emit_row(row)
     return row
@@ -333,17 +406,108 @@ def check_bottleneck_kernel(dev):
     return rows
 
 
+def _vit_layer(gen, dev):
+    """One packed DeiT-Tiny W8A8 layer with random int8 weights (K-major),
+    folded scales that put the GEMM outputs near unit scale, biases, LN
+    rows and inverse activation scales."""
+    dp, hp = VIT_DP, VIT_HP
+
+    def w(n, k):
+        return _rand_int8(gen, (n, k), dev)
+
+    def sc(n, k):
+        return ((0.5 + torch.rand(n, generator=gen, device=dev)) / (60.0 * 73.0 * math.sqrt(k))
+                ).float().contiguous()
+
+    def b(n):
+        return (0.1 * torch.randn(n, generator=gen, device=dev)).float().contiguous()
+
+    ln = torch.stack([0.5 + torch.rand(dp, generator=gen, device=dev),
+                      0.1 * torch.randn(dp, generator=gen, device=dev)]).float().contiguous()
+    return {"inv_act": (40.0, 30.0, 40.0, 30.0),
+            "wqkv": w(3 * dp, dp), "sqkv": sc(3 * dp, dp), "bqkv": b(3 * dp),
+            "wproj": w(dp, dp), "sproj": sc(dp, dp), "bproj": b(dp), "ln1": ln, "ln2": ln.clone(),
+            "wfc1": w(hp, dp), "sfc1": sc(hp, dp), "bfc1": b(hp),
+            "wfc2": w(dp, hp), "sfc2": sc(dp, hp), "bfc2": b(dp)}
+
+
+def check_vit_kernels(dev):
+    """K5, K6 and K7 at every shape and dtype form of DeiT-Tiny's block path
+    at batch 256 (and K6 at the deploy path's unpadded 197 rows)."""
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w8, vit_block_pre_plain, vit_block_pre_w8,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    blk = _vit_layer(gen, dev)
+    dp, hp, m = VIT_DP, VIT_HP, BATCH * VIT_NP
+    y32 = torch.randn((BATCH, VIT_NP, dp), generator=gen, device=dev)
+    ys = {"float32": y32, "bfloat16": y32.to(torch.bfloat16)}
+    x1, x2 = _rand_int8(gen, (m, dp), dev), _rand_int8(gen, (m, hp), dev)
+    wq, wp, w1, w2 = (blk[k].t() for k in ("wqkv", "wproj", "wfc1", "wfc2"))  # [K, N] views
+    rows = []
+    for case, per in vit_pre_cases().items():
+        y = ys[case]
+        rows.append(_row(
+            "vit_pre_w8", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv",
+            vit_block_pre_w8(y, blk, dp), vit_block_pre_plain(y, blk, dp),
+            lambda: vit_block_pre_w8(y, blk, dp), lambda: vit_block_pre_plain(y, blk, dp),
+            2.0 * m * dp * 3 * dp,
+            y.numel() * y.element_size() + 3 * dp * dp + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2, per,
+            library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16"))
+    qkv = vit_block_pre_plain(y32, blk, dp)
+    for (n, n_valid), per in mhsa_cases().items():
+        t = qkv[:, :n].contiguous()
+        views = (t[..., :dp], t[..., dp: 2 * dp], t[..., 2 * dp:])
+        q4, k4, v4 = (v.reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2).contiguous()
+                      for v in views)
+        rows.append(_row(
+            "mhsa", (BATCH, n, VIT_HEADS, VIT_HD, n_valid),
+            f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys",
+            mhsa(*views, VIT_HEADS, n_valid), mhsa_plain(*views, VIT_HEADS, n_valid),
+            lambda: mhsa(*views, VIT_HEADS, n_valid), lambda: mhsa_plain(*views, VIT_HEADS, n_valid),
+            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, 4 * BATCH * n * dp * 2, per,
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
+            tol=VIT_TOL, peak=PEAK_BF16, library_name=SDPA, out="bf16"))
+        del t, q4, k4, v4
+    a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
+    for (din, dout), per in vit_post_cases().items():
+        y, odt = ys[din], getattr(torch, dout)
+        multi = (din, dout) != ("bfloat16", "bfloat16")
+
+        def kern():
+            return vit_block_post_w8(y, a, blk, dp, True, odt, multi)
+
+        def plain():
+            return vit_block_post_plain(y, a, blk, dp, True, odt, multi)
+
+        rows.append(_row(
+            "vit_post_w8", (BATCH, VIT_NP, dp, hp, din, dout),
+            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}", kern(), plain(), kern, plain,
+            2.0 * m * (dp * dp + 2 * dp * hp),
+            y.numel() * y.element_size() + a.numel() * 2 + dp * dp + 2 * dp * hp
+            + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
+            library=lambda: (torch._int_mm(x1, wp), torch._int_mm(x1, w1), torch._int_mm(x2, w2)),
+            tol=VIT_TOL, library_name=INT_MM + ", the three products", residual=din, out=dout))
+    del qkv, a, ys, y32, x1, x2
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
 # ---------------------------------------------------------------------------
 
 def _wrappers():
+    from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
+    from dlq_tpu_torch.ops.vit_block import vit_block_post_w8, vit_block_pre_w8
 
     return {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
-            "bottleneck_block": bottleneck_block_fused}
+            "bottleneck_block": bottleneck_block_fused, "vit_pre_w8": vit_block_pre_w8,
+            "mhsa": mhsa, "vit_post_w8": vit_block_post_w8}
 
 
 def reset_counts():
@@ -403,10 +567,14 @@ def top1_report(logits, ref):
 def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
-    from dlq_tpu_torch.ops import block_fused, conv_int8, matmul_int8, qops
+    from dlq_tpu_torch.ops import attention, block_fused, conv_int8, matmul_int8, qops, vit_block
     from dlq_tpu_torch.quant import model_quant
 
-    subs = [(model_quant, "conv_int8", conv_int8.conv_int8_plain),
+    subs = [(vit_block, "vit_block_pre_w8", vit_block.vit_block_pre_plain),
+            (vit_block, "vit_block_post_w8", vit_block.vit_block_post_plain),
+            (vit_block, "mhsa", attention.mhsa_plain),
+            (attention, "mhsa", attention.mhsa_plain),
+            (model_quant, "conv_int8", conv_int8.conv_int8_plain),
             (model_quant, "matmul_int8", matmul_int8.matmul_int8_plain),
             (qops, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
@@ -553,7 +721,7 @@ def main_paths(dev, card, depth, images):
         del eng
 
         # ---- phase 4: PallasBlockCtx on the same store ----
-        qflat, scales, qcfg = load_quantized(tmp)
+        qflat, scales, qcfg, _ = load_quantized(tmp)
         qflat = {k: {n: (t.to(dev) if t is not None else None) for n, t in v.items()}
                  for k, v in qflat.items()}
         scales = {k: v.to(dev) for k, v in scales.items()}
@@ -624,6 +792,165 @@ def main_paths(dev, card, depth, images):
     return out
 
 
+def deit_paths(dev, card, images):
+    """DeiT-Tiny: the block main path (timed, batch 256), then
+    vit_forward_blockfused_w8 and ctx="deploy" at batch 64; returns
+    {"deit_block": (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.vit import (
+        ViTConfig, flatten_vit, init_vit, make_qforward, vit_extras, vit_forward,
+    )
+    from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w8, vit_forward_blockfused_w8
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import load_quantized, save_quantized, unflatten_extras
+
+    cfg = ViTConfig()   # DeiT-Tiny: 224 px, patch 16, dim 192, depth 12, 3 heads, 1000 classes
+    meta = {"config": {k: getattr(cfg, k) for k in ("num_classes", "image_size", "patch", "dim",
+                                                    "depth", "heads", "mlp_ratio")}}
+    params = to_device(init_vit(SEED, cfg), dev)
+    x0 = images[:BATCH]
+    xt = torch.from_numpy(x0).to(dev)
+    with torch.inference_mode():
+        ref = {g: vit_forward(params, xt, ViTConfig(gelu=g)).cpu().numpy()
+               for g in ("tanh", "exact")}
+    calib = [np.random.default_rng(SEED + 12).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)]
+    t0 = time.perf_counter()
+    qf = make_qforward(vit_extras(params), cfg.depth, cfg.heads, cfg.patch, cfg.dim)
+    eng_q = Engine.quantized(qf, flatten_vit(params), cfg, INT8_PER_CHANNEL, calib_batches=calib,
+                             batch=BATCH, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_quantized(tmp, "deit_tiny", eng_q.qflat, eng_q.act_scales, INT8_PER_CHANNEL,
+                       extras=vit_extras(params), meta=meta)
+        del eng_q
+        eng = Engine.from_store(tmp, ctx="block", batch=BATCH, device=dev)
+        setup_s = time.perf_counter() - t0
+
+        # ---- the block main path ----
+        preds, counts, shapes = drive(eng, images, "deit_block", "deit_tiny block")
+        with torch.inference_mode():
+            logits = eng(x0).float().cpu().numpy()
+        if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+            raise AssertionError("deit_tiny block: classify and the forward disagree")
+        # W8A8 over 12 random-weight layers sits at cosine ~0.9987-0.9989 of
+        # fp32 in the reference itself (its jitted deploy forward on the CPU:
+        # 0.99875, top-1 0.875 on 16 images), so the fp32 gate is 0.998 and
+        # top-1 is reported beside the fp32 margins (PERF.md, Findings)
+        agree, cos = gate(logits, ref["tanh"], "deit_tiny block vs fp32", DEIT_FP32_COS,
+                          top1=False)
+        # the random-weight net amplifies one-step differences over 12 layers
+        # (on the CPU, summing LN's moments in another order alone moves the
+        # logits to cosine 0.99977), so the kernels are held per layer on
+        # this forward's own inputs (layer_contract) and the twin at 0.999
+        lp = plain_twin(eng, x0, "deit_tiny block")
+        cos_p = gate(logits, lp, "deit_tiny block vs its plain versions", DEIT_TWIN_COS,
+                     top1=False)[1]
+        per_layer = layer_contract(eng.params, xt, cfg)
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        # the bound of the reference's one launch per chunk, as its I/O
+        # defines it: the bf16 stream in and out once per chunk, the int8
+        # weights once, every int8 GEMM and the bf16 attention products over
+        # the valid keys (the three-kernel split's bound is the sum of K5-K7's
+        # in the kernels line)
+        w_bytes = VIT_DP * 3 * VIT_DP + VIT_DP * VIT_DP + 2 * VIT_DP * VIT_HP
+        t_ops = cfg.depth * (2.0 * BATCH * VIT_NP * w_bytes / PEAK_INT8_OPS
+                             + 4.0 * BATCH * VIT_HEADS * VIT_NP * VIT_N * VIT_HD / PEAK_BF16)
+        t_bytes = (len(eng.params["_chunks"]) * 2 * BATCH * VIT_NP * VIT_DP * 2
+                   + cfg.depth * w_bytes) / PEAK_BYTES
+        emit({"phase": "main_path_deit_block", "model": "deit_tiny", "size": 224, "batch": BATCH,
+              "batches": NB, "layers_per_chunk": [len(c) for c in eng.params["_chunks"]],
+              "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
+              "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+              "launches_per_forward": {k: v / NB for k, v in counts.items()},
+              "logits_cosine_vs_fp32": cos, "top1_agreement_vs_fp32": agree, "top1_gated": False,
+              "top1_vs_fp32": top1_report(logits, ref["tanh"]),
+              "logits_cosine_vs_plain_versions": cos_p,
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(logits, lp),
+              "per_layer_equal_fraction_max_abs": per_layer,
+              "bound_one_launch_per_chunk_ms": max(t_ops, t_bytes) * 1e3,
+              "bound_one_launch_per_chunk_by": "operations" if t_ops >= t_bytes else "bytes",
+              "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, "deit_tiny_block")
+        out["deit_block"] = (counts, shapes)
+        del eng
+
+        # ---- one layer per K5/K6/K7 chain, bf16 between layers, batch 64 ----
+        qflat, scales, _, extras = load_quantized(tmp)
+        packed = pack_vit_blocks_w8(to_device(qflat, dev), to_device(scales, dev),
+                                    to_device(unflatten_extras(extras), dev), cfg, tight=True)
+        bf = Engine(lambda p, x: vit_forward_blockfused_w8(p, x, cfg, tight=True), packed,
+                    batch=64, device=dev, name="deit_tiny_blockfused")
+        for name, e, rk in (("blockfused", bf, "tanh"),
+                            ("deploy", Engine.from_store(tmp, ctx="deploy", batch=64, device=dev),
+                             "exact")):
+            reset_counts()
+            with torch.inference_mode():
+                lg = e(x0[:64]).float().cpu().numpy()
+            c = read_counts()[0]
+            expect_counts(c, f"deit_{name}", 1, f"deit_tiny {name}")
+            agree_d, cos_d = gate(lg, ref[rk][:64], f"deit_tiny {name} vs fp32", DEIT_FP32_COS,
+                                  top1=False)
+            lpd = plain_twin(e, x0[:64], f"deit_tiny {name}")
+            cos_pd = gate(lg, lpd, f"deit_tiny {name} vs its plain versions", DEIT_TWIN_COS,
+                          top1=False)[1]
+            emit({"phase": f"deit_{name}", "model": "deit_tiny", "batch": 64, "launches": c,
+                  "logits_cosine_vs_fp32": cos_d, "top1_agreement_vs_fp32": agree_d,
+                  "fp32_gelu": rk, "top1_gated": False,
+                  "top1_vs_fp32": top1_report(lg, ref[rk][:64]),
+                  "logits_cosine_vs_plain_versions": cos_pd,
+                  "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lpd)})
+            del e
+        del bf, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def layer_contract(packed, xt, cfg):
+    """Each layer of the block forward, K5 -> K6 -> K7 against the plain
+    versions on the same input: the stream the kernel forward itself
+    reaches that layer with. Returns [(fraction of valid outputs equal,
+    largest difference)] per layer; raises outside LAYER_TOL."""
+    from dlq_tpu_torch.ops import attention, vit_block as vb
+
+    n, d = cfg.seq_len, cfg.dim
+    out = []
+    with torch.inference_mode():
+        y = vb._token_stream(packed, xt, cfg, True)
+        for chunk in packed["_chunks"]:
+            for l, w in enumerate(chunk):
+                # the stream is bf16 between chunks, fp32 inside one
+                odt = torch.bfloat16 if l == len(chunk) - 1 else torch.float32
+                x = y
+
+                def layer(pre, mh, post):
+                    qkv = pre(x, w, d)
+                    dp = qkv.shape[-1] // 3
+                    a = mh(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d],
+                           cfg.heads, n, out_lanes=dp)
+                    return post(x, a, w, d, True, odt, True)
+
+                y = layer(vb.vit_block_pre_w8, attention.mhsa, vb.vit_block_post_w8)
+                ref = layer(vb.vit_block_pre_plain, attention.mhsa_plain,
+                            vb.vit_block_post_plain)
+                diff = (y[:, :n, :d].float() - ref[:, :n, :d].float()).abs()
+                out.append((float((diff == 0).float().mean()), float(diff.max())))
+    if min(f for f, _ in out) < LAYER_TOL[0] or max(e for _, e in out) > LAYER_TOL[1]:
+        raise AssertionError(f"deit_tiny block: per-layer kernels vs plain versions {out}")
+    return out
+
+
+def plain_twin(eng, x, what):
+    """The engine's forward on ``x`` with every kernel call routed to its
+    plain version (no kernel may launch inside it); fp32 logits."""
+    reset_counts()
+    with plain_kernels(), torch.inference_mode():
+        lp = eng._fn(eng.params, torch.from_numpy(x).to(eng.device)).float().cpu().numpy()
+    if any(read_counts()[0].values()):
+        raise AssertionError(f"{what}: a kernel launched inside the plain run {read_counts()[0]}")
+    return lp
+
+
 def profile_forward(eng, xt, what, forwards=3):
     """Where one forward's device time goes: torch.profiler (CUPTI) over a
     few back-to-back forwards; device kernel time by kernel name, and the
@@ -674,6 +1001,16 @@ def summary(rows, paths):
                         "dlq_tpu/ops/pallas_block.py:155 basic_block_fused", "r18_block"),
         "bottleneck_block": ("dlq_tpu_torch/csrc/bottleneck_block.cu",
                              "dlq_tpu/ops/pallas_block.py:243 bottleneck_block_fused", "r50_block"),
+        "vit_pre_w8": ("dlq_tpu_torch/csrc/vit_pre_w8.cu",
+                       "dlq_tpu/ops/pallas_vit_block.py:981 vit_block_pre_w8 (and the first third "
+                       "of each layer of :537 vit_multiblock_fused_w8, :632 vit_block_fused_w8)",
+                       "deit_block"),
+        "mhsa": ("dlq_tpu_torch/csrc/mhsa.cu",
+                 "dlq_tpu/ops/pallas_attention.py:61 fused_mhsa (and the attention of "
+                 "pallas_vit_block.py:537 / :632)", "deit_block"),
+        "vit_post_w8": ("dlq_tpu_torch/csrc/vit_post_w8.cu",
+                        "dlq_tpu/ops/pallas_vit_block.py:1017 vit_block_post_w8 (and the last "
+                        "two thirds of each layer of :537 / :632)", "deit_block"),
     }
     out = []
     for name, (src, repl, main) in meta.items():
@@ -723,10 +1060,11 @@ def main() -> int:
           "build_s": time.perf_counter() - t0, "build_s_per_source": secs})
 
     rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
-            + check_bottleneck_kernel(dev))
+            + check_bottleneck_kernel(dev) + check_vit_kernels(dev))
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
-    paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}
+    paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images),
+             **deit_paths(dev, card, images)}
     kernels = summary(rows, paths)
     print(card_line())
     emit({"kernels": kernels})

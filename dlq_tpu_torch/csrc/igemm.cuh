@@ -1,5 +1,6 @@
 // Shared building blocks of the port's int8 kernels (K1 conv_int8, K2
-// matmul_int8, K3 basic_block): a block-tile int8 GEMM on the tensor cores
+// matmul_int8, K3 basic_block, K4 bottleneck_block, K5 vit_pre_w8, K7
+// vit_post_w8): a block-tile int8 GEMM on the tensor cores
 // with mma.sync.m16n8k32 (s8 x s8 -> s32), fed through shared memory by a
 // two-stage cp.async pipeline, and the fp32 epilogue the reference uses.
 //
@@ -100,17 +101,21 @@ struct MmaTile {
   }
 
   // One BK-deep step from shared memory: As [BM][LDS], Bs [BN][LDS].
-  __device__ __forceinline__ void step(const int8_t* As, const int8_t* Bs) {
+  __device__ __forceinline__ void step(const int8_t* As, const int8_t* Bs) { step(As, LDS, Bs); }
+
+  // The same with A rows `lda` bytes apart (an A tile resident across the
+  // whole K loop; `As` points at this step's K offset).
+  __device__ __forceinline__ void step(const int8_t* As, int lda, const int8_t* Bs) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       uint32_t a[MI][4], b[NI][2];
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
-        const int8_t* p = As + (warp_m * WM + i * 16 + g) * LDS + kk + t * 4;
+        const int8_t* p = As + (warp_m * WM + i * 16 + g) * lda + kk + t * 4;
         a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
         a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 16);
       }
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
@@ -215,6 +220,30 @@ struct GatherA {
     }
   }
 };
+
+// The K loop with A resident in shared memory (As [BM][lda], all of K) and
+// only B streamed: rows n0..n0+BN-1 of a K-major [N, K] weight, two stages.
+// The caller has written As before the call (the first barrier inside
+// orders those writes before any read).
+template <class Tile, int BN>
+__device__ __forceinline__ void mainloop_resident_a(Tile& tile, const int8_t* As, int lda,
+                                                    int8_t* Bs, const int8_t* __restrict__ w,
+                                                    int N, int K, int n0) {
+  const int KT = K / BK;
+  tile.zero();
+  load_b<BN>(Bs, w, N, K, n0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < KT) load_b<BN>(Bs + (s ^ 1) * BN * LDS, w, N, K, n0, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile.step(As + kt * BK, lda, Bs + s * BN * LDS);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
 
 // The K loop: two shared-memory stages, tile kt+1 in flight while kt
 // computes. `load(stage_A, stage_B, kt)` issues one stage's copies.

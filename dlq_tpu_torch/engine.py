@@ -121,25 +121,30 @@ class Engine:
     def from_store(qmanifest: str, ctx: str = "deploy", *, device: DeviceLike = None,
                    **kw) -> "Engine":
         """Cold-start an engine from a quantized store (``quant.store``), no
-        calibration data or fp32 weights. ResNet-18/34/50/101/152 in this
-        port; ctx: "deploy" | "pallas" | "fused" | "fused2" (fused2 =
-        fully-int8 interchange). "fused" is BasicBlock-only (ResNet-18/34),
-        as the reference's ``qforward_fused`` is."""
+        calibration data or fp32 weights. ResNet-18/34/50/101/152 with ctx
+        "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
+        interchange; "fused" is BasicBlock-only, as the reference's
+        ``qforward_fused`` is), and DeiT (``deit_tiny``) with ctx "block"
+        (the W8A8 block kernels K5/K6/K7) | "deploy" (every dense on K2,
+        attention on K6 on the card)."""
         from dlq_tpu_torch.manifest import Manifest
-        from dlq_tpu_torch.quant import model_quant as MQ
         from dlq_tpu_torch.quant.store import load_quantized
 
         dev = resolve_device(device)
         man = Manifest.load(qmanifest)
         model = man.model
+        mcfg = man.meta.get("config", {})
+        qflat, act_scales, qcfg, extras = load_quantized(qmanifest)
+        if model == "deit_tiny":
+            return _vit_from_store(qflat, act_scales, qcfg, extras, mcfg, ctx, dev, **kw)
         if not model.startswith("resnet"):
             raise NotImplementedError(
                 f"from_store: model {model!r} is not ported yet (ROADMAP.md, queue A)")
         from dlq_tpu_torch.models.resnet import (
             ResNetConfig, qforward, qforward_fused, qforward_fused2,
         )
+        from dlq_tpu_torch.quant import model_quant as MQ
 
-        mcfg = man.meta.get("config", {})
         cfg = ResNetConfig(depth=int(model[6:]), num_classes=mcfg.get("num_classes", 1000),
                            small_input=bool(mcfg.get("small_input", False)))
         ctxs = {"deploy": (MQ.DeployCtx, qforward), "pallas": (MQ.PallasDeployCtx, qforward),
@@ -152,7 +157,6 @@ class Engine:
                 f"ctx='fused' is BasicBlock-only; {model} runs with ctx='fused2', "
                 "'deploy' or 'pallas'")
         Ctx, qf = ctxs[ctx]
-        qflat, act_scales, qcfg = load_quantized(qmanifest)
         c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg)
         eng = Engine(lambda cc, x: qf(cc, x, cfg), c, device=dev, name=f"{model}_{ctx}", **kw)
         eng.qcfg = qcfg
@@ -217,3 +221,58 @@ class Engine:
         self.stats.ms_total += (time.perf_counter() - t0) * 1e3
         self.stats.images_timed += len(images)
         return np.concatenate(preds)
+
+
+def _vit_from_store(qflat, act_scales, qcfg: QConfig, extras, mcfg, ctx: str,
+                    dev: torch.device, **kw) -> Engine:
+    """DeiT from a store (``dlq_tpu/engine.py:264-383``). ctx="block": the
+    stacked W8A8 forward (6 layers per chunk when the depth allows, else 1)
+    on per-channel int8 stores only; ctx="deploy": ``make_qforward`` under
+    DeployCtx, attention on K6 on the card and plain on the CPU."""
+    from dlq_tpu_torch.models.vit import ViTConfig, make_qforward
+    from dlq_tpu_torch.ops.vit_block import (
+        pack_vit_blocks_w8, stack_vit_blocks_w8, vit_forward_multiblock_w8,
+    )
+    from dlq_tpu_torch.quant.store import unflatten_extras
+
+    cfg = ViTConfig(**{k: mcfg[k] for k in ("num_classes", "image_size", "patch", "dim",
+                                            "depth", "heads", "mlp_ratio") if k in mcfg})
+    ex = to_device(unflatten_extras(extras), dev)
+    blk_qw = [p["qw"] for name, p in qflat.items()
+              if name.startswith("l") and "." in name and "qw" in p]
+    blk_bits = {(qw.bits, qw.group is None) for qw in blk_qw}
+    if ctx == "block":
+        # the reference's W8 routing guards (dlq_tpu/engine.py:279-302)
+        if not blk_qw:
+            raise ValueError("ctx='block' needs transformer-block (l<i>.*) weight sites, but "
+                             "this store has none: not a ViT-family artifact? use ctx='deploy'")
+        if blk_bits == {(4, True)}:
+            raise NotImplementedError(
+                "ctx='block' on int4 block weights (W4A8 / W4A16 block kernels) is not ported "
+                "yet (ROADMAP.md B.8, B.9); use ctx='deploy'")
+        if qcfg.weight_only:
+            raise ValueError("ctx='block' on a weight-only store needs per-OC int4 weights; "
+                             "group-wise or int8 weight-only stores have no fused block path: "
+                             "use ctx='deploy'")
+        if blk_bits != {(8, True)}:
+            raise ValueError("ctx='block' needs per-channel int8 (or per-OC int4) across ALL "
+                             f"transformer-block sites, got {sorted(blk_bits)}: use "
+                             "ctx='deploy'")
+        packed = pack_vit_blocks_w8(to_device(qflat, dev), to_device(act_scales, dev), ex,
+                                    cfg, tight=True)
+        lpk = 6 if cfg.depth % 6 == 0 else 1
+        packed["_chunks"] = stack_vit_blocks_w8(packed, lpk)
+        packed.pop("blocks")  # the forward reads only the chunks
+        eng = Engine(lambda p, x: vit_forward_multiblock_w8(p, x, cfg, tight=True), packed,
+                     device=dev, name="deit_tiny_block", **kw)
+    elif ctx == "deploy":
+        attn = "xla" if dev.type == "cpu" else "fused"
+        qf = make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim, attn_impl=attn)
+        c = DeployCtx(to_device(qflat, dev), to_device(act_scales, dev), qcfg)
+        eng = Engine(lambda cc, x: qf(cc, x, cfg), c, device=dev, name="deit_tiny_deploy", **kw)
+    else:
+        raise ValueError("deit_tiny supports ctx='deploy' or 'block' (the fused "
+                         "int8-interchange contexts are conv-model paths)")
+    eng.qcfg = qcfg
+    eng.model_cfg = cfg
+    return eng

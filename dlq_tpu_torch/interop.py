@@ -5,8 +5,10 @@ ndarray | None}}`` (e.g. ``flatten_folded`` output converted with
 ``np.asarray``); ``from_jax_qflat`` takes the fields of each site's
 ``QTensor`` as numpy values plus the activation scales. Both carry any
 flat site set (a Bottleneck net's ``layer*.*.conv3`` sites included) and
-return the port's tensors on ``device`` (default: the card). Layouts are
-the same in both packages, so nothing is transposed.
+return the port's tensors on ``device`` (default: the card).
+``from_jax_tree`` carries any nested dict/list of numpy arrays (a ViT's
+``init_vit`` params or ``vit_extras``). Layouts are the same in both
+packages, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -59,3 +61,18 @@ def from_jax_qflat(qflat_np: Mapping[str, Mapping[str, Any]],
         qflat[site] = {"qw": qw, "b": _t(p.get("b"), dev)}
     scales = {k: _t(np.asarray(v, np.float32), dev) for k, v in (act_scales_np or {}).items()}
     return qflat, scales
+
+
+def from_jax_tree(tree: Any, device: DeviceLike = None) -> Any:
+    """Nested dicts/lists/tuples of numpy arrays (or anything ``np.asarray``
+    takes) -> the same nesting of tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(conv(v) for v in t)
+        return _t(np.asarray(t), dev)
+
+    return conv(tree)

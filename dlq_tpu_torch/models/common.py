@@ -75,9 +75,25 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: IntPair = 1, padding: IntPa
     return y.contiguous()
 
 
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run CUDA fp32 matrix products in full fp32 (TF32 off) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x[..., I] @ w[I, O] + b (IO weight layout)."""
-    y = x @ w
+    """x[..., I] @ w[I, O] + b (IO weight layout), with the reference's dtype
+    contract (``dlq_tpu/models/common.py:84-86``): the product is taken in
+    fp32 (operands promoted, TF32 off), cast back to ``x.dtype``, then the
+    bias is added with type promotion (a bf16 ``x`` and an fp32 bias give
+    fp32)."""
+    with fp32_matmul():
+        y = torch.matmul(x.float(), w.float()).to(x.dtype)
     if b is not None:
         y = y + b
     return y

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from dlq_tpu_torch.models.common import conv2d
+from dlq_tpu_torch.models.common import conv2d, fp32_matmul
 from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, pack_conv_weight
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
 from dlq_tpu_torch.quant.quantize import QTensor, dequantize, quantize_act, unpack_to_layout
@@ -94,7 +94,10 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
            act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
     """Quantized dense. int8/int2 weights (or per-OC int4, unpacked exactly)
     + act_scale -> W8A8 int8 GEMM (K2) with int32 accumulation; no act_scale
-    -> weight-only: dequantized fp32 matmul. qw.values: [I, O]."""
+    -> weight-only: weights dequantized to ``x.dtype``, fp32 product.
+    qw.values: [I, O]. The result is cast to ``x.dtype`` after the bias and
+    relu, as the reference's (``dlq_tpu/ops/qops.py:488-492``): a bf16 input
+    gives a bf16 output."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if act_scale is not None:
@@ -104,11 +107,13 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
                         bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
     else:
         w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
-        y = x2 @ w
+        with fp32_matmul():
+            y = torch.matmul(x2.float(), w.float())
         if bias is not None:
             y = y + bias
         if fuse_relu:
             y = torch.clamp_min(y, 0.0)
+    y = y.to(x.dtype)
     return y.reshape(lead + (y.shape[-1],))
 
 

@@ -1,0 +1,430 @@
+"""The W8A8 ViT block path (the counterpart of ``dlq_tpu/ops/pallas_vit_block.py``).
+
+The reference runs L stacked W8A8 transformer layers per TPU kernel
+(``vit_multiblock_fused_w8``), one grid step holding a batch group's whole
+residual, qkv and scratch in VMEM. One sample's bf16 qkv alone (200 x 576 x
+2 bytes) is more than a Hopper block's shared memory, so the port cuts each
+layer where the reference itself cuts it (``vit_block_pre_w8`` / attention /
+``vit_block_post_w8``) into three kernels, each of which fits one block:
+
+  K5 ``vit_block_pre_w8`` (``csrc/vit_pre_w8.cu``): LN1 -> int8 quant -> int8
+     QKV GEMM -> ``acc·s + b`` -> bf16 qkv ``[B, Np, 3·Dp]``;
+  K6 ``ops.attention.mhsa`` (``csrc/mhsa.cu``): softmax(QKᵀ/√hd)V per head;
+  K7 ``vit_block_post_w8`` (``csrc/vit_post_w8.cu``): int8 proj + bias +
+     residual -> LN2 -> int8 FC1 + bias -> GELU -> int8 FC2 + bias + residual,
+     with the output dtype and the FC2 residual association of the
+     reference function it stands in for.
+
+Numerics, as the reference kernels compute them (checked bit for bit against
+them on the CPU at the test sizes):
+
+  * ``_ln_f32``: two-moment LayerNorm over the Dp lanes (pad lanes zero),
+    ``inv_n = 1/d_valid``, ``var = max(E[x²] − μ², 0)``, ``rsqrt(var + 1e-6)``;
+  * ``_quant_i8``: ``clip(rint(x · inv), ±127)`` with ``inv`` the fp32
+    rounding of ``1/act_scale`` taken in double (``:870-871``);
+  * epilogues ``fma(acc, s, b)`` (XLA contracts ``acc·s + b``); the
+    multiblock kernel's FC2 is ``z1 + fma(acc, s, b)`` (``:501``), the
+    single-block kernels' is ``fma(acc, s, z1) + b`` (``:364``, ``:976``);
+  * the residual is fp32 inside a chunk and bf16 at its ends.
+
+Every kernel wrapper launches its kernel for a CUDA tensor and runs its
+plain PyTorch version for a CPU tensor; ``.launches`` counts kernel
+launches and ``.by_shape`` counts them per shape.
+
+Weights are packed once (``pack_vit_blocks_w8``): int8, K-major ``[N, K]``
+(the layout the tensor-core fragments read), [q|k|v] column blocks of Dp
+lanes each, heads at hd offsets, zero-padded so pad lanes stay zero.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dlq_tpu_torch import _build
+from dlq_tpu_torch.models.common import fp32_matmul
+from dlq_tpu_torch.ops.attention import mhsa
+from dlq_tpu_torch.quant.quantize import dequantize, f32
+
+Block = Dict[str, Any]
+LN_EPS = 1e-6
+GELU_C = 0.7978845608028654  # sqrt(2/pi)
+SQRT_HALF = 0.7071067811865476
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def vit_pads(cfg, tight: bool = False) -> Tuple[int, int]:
+    """(Np, Dp) of the padded token stream, as the reference: tight pads Np
+    to 8 rows and Dp to the head-width grain (DeiT-Ti: 200, 192); loose
+    pads both to multiples of 128."""
+    N, D = cfg.seq_len, cfg.dim
+    hd = D // cfg.heads
+    if tight:
+        Np = _cdiv(max(N, 8), 8) * 8
+        gr = hd if hd % 64 == 0 else _cdiv(hd, 64) * 64
+        Dp = _cdiv(max(D, 128), gr) * gr
+    else:
+        Np = _cdiv(max(N, 128), 128) * 128
+        Dp = _cdiv(max(D, 128), 128) * 128
+    assert Dp % hd == 0, (Dp, hd)
+    return Np, Dp
+
+
+def mlp_pad(cfg) -> int:
+    """Hp: the MLP width padded to a multiple of 128."""
+    return _cdiv(cfg.mlp_ratio * cfg.dim, 128) * 128
+
+
+def _ln_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, d_valid: int,
+            eps: float = LN_EPS) -> torch.Tensor:
+    """Two-moment LN over the Dp lanes, exact over the d_valid prefix (pad
+    lanes are zero on entry and on exit, g/b being zero-padded)."""
+    inv_n = 1.0 / float(d_valid)
+    mu = x.sum(-1, keepdim=True) * inv_n
+    m2 = (x * x).sum(-1, keepdim=True) * inv_n
+    var = torch.clamp_min(m2 - mu * mu, 0.0)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+def _gelu_f32(f: torch.Tensor, tanh_approx: bool) -> torch.Tensor:
+    if tanh_approx:
+        return 0.5 * f * (1.0 + torch.tanh(GELU_C * (f + 0.044715 * f * f * f)))
+    return 0.5 * f * torch.erfc(-f * SQRT_HALF)
+
+
+def _quant_i8(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    """clip(rint(x · inv), ±127), as float values of the int8 codes."""
+    return torch.clamp(torch.round(x * inv_scale), -127.0, 127.0)
+
+
+def _igemm(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of int8 codes (float) against K-major int8 weights
+    [N, K], as fp32 (float64 product: K·127² < 2^53)."""
+    return torch.matmul(q.double(), wk.double().t()).float()
+
+
+def _epi(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.addcmul(b, acc, s)  # fma(acc, s, b)
+
+
+# ---------------------------------------------------------------------------
+# packing and embedding
+# ---------------------------------------------------------------------------
+
+def pack_vit_blocks_w8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
+                       extras: Dict[str, Any], cfg, tight: bool = False,
+                       smooth: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Pack a per-channel int8 ViT (``flatten_vit`` sites + ``vit_extras``)
+    for K5/K7: int8 K-major weights padded to (Dp, Hp), per-OC weight scales
+    folded with the calibrated activation scales into one fp32 row per
+    GEMM, fp32 biases, LN affines ``[2, Dp]`` and the four inverse
+    activation scales per layer. Tensors stay on the device of ``qflat``."""
+    if smooth:
+        raise NotImplementedError(
+            "pack_vit_blocks_w8: folding SmoothQuant vectors into the LN affines is not "
+            "ported yet (ROADMAP.md A.9)")
+    _, Dp = vit_pads(cfg, tight)
+    Hp = mlp_pad(cfg)
+
+    def padv(a, n):
+        a = a.float().reshape(-1)
+        return F.pad(a, (0, n - a.shape[0])).contiguous()
+
+    def site(name):
+        p = qflat[name]
+        qw = p["qw"]
+        if qw.bits != 8 or qw.group is not None:
+            raise ValueError(f"pack_vit_blocks_w8: {name} needs per-channel int8 weights")
+        wscale = torch.broadcast_to(qw.scale.float(), (qw.shape[-1],))
+        comb = torch.as_tensor(act_scales[name], dtype=torch.float32,
+                               device=wscale.device) * wscale
+        b = p.get("b")
+        b = torch.zeros(qw.shape[-1], device=wscale.device) if b is None else b.float()
+        return qw.values.reshape(qw.shape).to(torch.int8), comb, b
+
+    def kmajor(w_io, k, n):
+        """[K', N'] int8 IO -> zero-padded K-major [n, k]."""
+        return F.pad(w_io, (0, n - w_io.shape[1], 0, k - w_io.shape[0])).t().contiguous()
+
+    blocks: List[Block] = []
+    for i in range(cfg.depth):
+        wq8, sq, bq = site(f"l{i}.qkv")
+        wp8, sp, bp = site(f"l{i}.proj")
+        wf18, sf1, bf1 = site(f"l{i}.fc1")
+        wf28, sf2, bf2 = site(f"l{i}.fc2")
+        ln = extras["ln"][i]
+        blocks.append({
+            "inv_act": tuple(f32(1.0 / float(act_scales[f"l{i}.{s}"]))
+                             for s in ("qkv", "proj", "fc1", "fc2")),
+            "wqkv": torch.cat([kmajor(w, Dp, Dp) for w in torch.chunk(wq8, 3, -1)]),
+            "sqkv": torch.cat([padv(s, Dp) for s in torch.chunk(sq, 3)]),
+            "bqkv": torch.cat([padv(b, Dp) for b in torch.chunk(bq, 3)]),
+            "wproj": kmajor(wp8, Dp, Dp), "sproj": padv(sp, Dp), "bproj": padv(bp, Dp),
+            "ln1": torch.stack([padv(ln["ln1"]["g"], Dp), padv(ln["ln1"]["b"], Dp)]),
+            "ln2": torch.stack([padv(ln["ln2"]["g"], Dp), padv(ln["ln2"]["b"], Dp)]),
+            "wfc1": kmajor(wf18, Dp, Hp), "sfc1": padv(sf1, Hp), "bfc1": padv(bf1, Hp),
+            "wfc2": kmajor(wf28, Hp, Dp), "sfc2": padv(sf2, Dp), "bfc2": padv(bf2, Dp),
+        })
+    head_b = qflat["head"].get("b")
+    return {
+        "blocks": blocks,
+        "patch": {"w": dequantize(qflat["patch"]["qw"]).to(torch.bfloat16),
+                  "b": qflat["patch"]["b"].to(torch.bfloat16)},
+        "cls": extras["cls"].to(torch.bfloat16),
+        "pos": extras["pos"].to(torch.bfloat16),
+        "norm": {"g": extras["norm"]["g"].float(), "b": extras["norm"]["b"].float()},
+        "head": {"w": dequantize(qflat["head"]["qw"]).float(),
+                 "b": None if head_b is None else head_b.float()},
+    }
+
+
+def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[List[Block]]:
+    """Group the per-layer blocks into chunks of ``layers_per_kernel``: the
+    residual stays fp32 between the layers of a chunk and is bf16 between
+    chunks, as in the reference's stacked kernels. The port launches K5,
+    K6, K7 per layer, so a chunk is the list of its layers' blocks."""
+    blocks = packed["blocks"]
+    L = layers_per_kernel
+    if len(blocks) % L:
+        raise ValueError(f"{len(blocks)} layers do not split into chunks of {L}")
+    return [blocks[c: c + L] for c in range(0, len(blocks), L)]
+
+
+def embed_tokens(packed: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
+    """Patch embedding [B, H, W, C] -> bf16 [B, N-1, D]: the bf16-rounded
+    image against the bf16 patch weights with fp32 sums (an fp32 product of
+    bf16-rounded operands, TF32 off), rounded to bf16, plus the bf16 bias
+    (``pallas_vit_block.py:719-730``)."""
+    if x.dtype == torch.uint8:
+        raise NotImplementedError(
+            "embed_tokens: raw uint8 ingest with the preprocess fold is not ported yet "
+            "(ROADMAP.md A.9)")
+    from dlq_tpu_torch.models.vit import patchify
+
+    wf = packed["patch"]["w"]
+    xb = x.to(torch.bfloat16).float()
+    with fp32_matmul():
+        y = torch.matmul(patchify(xb, cfg.patch), wf.float()).to(torch.bfloat16)
+    return y + packed["patch"]["b"]
+
+
+def _token_stream(packed: Dict[str, Any], x: torch.Tensor, cfg, tight: bool) -> torch.Tensor:
+    """cls + patch tokens + pos (bf16), zero-padded to [B, Np, Dp]."""
+    N, D = cfg.seq_len, cfg.dim
+    Np, Dp = vit_pads(cfg, tight)
+    y = embed_tokens(packed, x, cfg)
+    cls = packed["cls"].to(torch.bfloat16).expand(x.shape[0], 1, D)
+    y = torch.cat([cls, y], dim=1) + packed["pos"]
+    return F.pad(y, (0, Dp - D, 0, Np - N)).contiguous()
+
+
+def _head(packed: Dict[str, Any], y: torch.Tensor, cfg) -> torch.Tensor:
+    """Final mean/var LayerNorm on the cls row, fp32 head."""
+    from dlq_tpu_torch.models.vit import layernorm
+
+    hf = layernorm(y[:, 0, :cfg.dim].float(), packed["norm"])
+    with fp32_matmul():
+        logits = torch.matmul(hf, packed["head"]["w"])
+    b = packed["head"]["b"]
+    return logits if b is None else logits + b
+
+
+# ---------------------------------------------------------------------------
+# K5: LN1 + int8 QKV
+# ---------------------------------------------------------------------------
+
+def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of K5 (``_block_pre_kernel_w8``)."""
+    xf = y.float()
+    h1 = _ln_f32(xf, w["ln1"][0], w["ln1"][1], d_valid)
+    acc = _igemm(_quant_i8(h1, w["inv_act"][0]), w["wqkv"])
+    return _epi(acc, w["sqkv"], w["bqkv"]).to(torch.bfloat16)
+
+
+@functools.cache
+def _pre_entry():
+    fn = _build.library("vit_pre_w8").dlq_vit_pre_w8
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _check_stream(what: str, t: torch.Tensor, dev, dtypes, lanes: int) -> None:
+    if (t.device != dev or t.dtype not in dtypes or t.ndim != 3 or t.shape[-1] != lanes
+            or not t.is_contiguous()):
+        raise ValueError(f"{what}: expected a contiguous {dtypes} [B, rows, {lanes}] tensor on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_params(what: str, dev, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: packed parameters must be contiguous on {dev}")
+
+
+def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """LN1 + int8 QKV of one layer on the padded stream y [B, Np, Dp] (bf16
+    or fp32); returns bf16 qkv [B, Np, 3·Dp]."""
+    if y.device.type == "cpu":
+        return vit_block_pre_plain(y, w, d_valid)
+    B, Np, Dp = y.shape
+    _check_stream("vit_block_pre_w8", y, y.device, (torch.bfloat16, torch.float32), Dp)
+    if w["wqkv"].shape != (3 * Dp, Dp) or Dp % 64:
+        raise ValueError(f"vit_block_pre_w8: wqkv {tuple(w['wqkv'].shape)} for Dp {Dp} "
+                         "(a multiple of 64)")
+    _check_params("vit_block_pre_w8", y.device, w["wqkv"], w["sqkv"], w["bqkv"], w["ln1"])
+    out = torch.empty((B, Np, 3 * Dp), dtype=torch.bfloat16, device=y.device)
+    rc = _pre_entry()(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
+                      w["wqkv"].data_ptr(), w["sqkv"].data_ptr(), w["bqkv"].data_ptr(),
+                      out.data_ptr(), B * Np, Dp, d_valid, w["inv_act"][0],
+                      _build.stream_ptr(y.device))
+    _build.check(rc, "vit_block_pre_w8")
+    vit_block_pre_w8.launches += 1
+    vit_block_pre_w8.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
+    return out
+
+
+vit_block_pre_w8.launches = 0
+vit_block_pre_w8.by_shape = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# K7: proj + residual + LN2 + MLP + residual
+# ---------------------------------------------------------------------------
+
+def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                         gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
+                         multi: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K7 (arguments as ``vit_block_post_w8``)."""
+    inv = w["inv_act"]
+    xf = y.float()
+    acc = _igemm(_quant_i8(attn.float(), inv[1]), w["wproj"])
+    z1 = xf + _epi(acc, w["sproj"], w["bproj"])
+    h2 = _ln_f32(z1, w["ln2"][0], w["ln2"][1], d_valid)
+    f = _epi(_igemm(_quant_i8(h2, inv[2]), w["wfc1"]), w["sfc1"], w["bfc1"])
+    acc = _igemm(_quant_i8(_gelu_f32(f, gelu_tanh), inv[3]), w["wfc2"])
+    if multi:
+        out = z1 + _epi(acc, w["sfc2"], w["bfc2"])
+    else:
+        out = torch.addcmul(z1, acc, w["sfc2"]) + w["bfc2"]
+    return out.to(y.dtype if out_dtype is None else out_dtype)
+
+
+@functools.cache
+def _post_entry():
+    fn = _build.library("vit_post_w8").dlq_vit_post_w8
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return fn
+
+
+def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                      gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
+                      multi: bool = False) -> torch.Tensor:
+    """proj + residual + LN2 + MLP + residual of one layer: y [B, Np, Dp]
+    bf16 or fp32, attn bf16. The defaults are the reference function's
+    (``vit_block_post_w8``: output in ``y.dtype``, FC2 residual
+    ``fma(acc, s, z1) + b``); ``multi`` takes the stacked kernel's
+    ``z1 + fma(acc, s, b)`` and ``out_dtype`` its fp32 in-chunk stream."""
+    out_dtype = y.dtype if out_dtype is None else out_dtype
+    if y.device.type == "cpu":
+        return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
+    B, Np, Dp = y.shape
+    Hp = w["wfc1"].shape[0]
+    _check_stream("vit_block_post_w8", y, y.device, (torch.bfloat16, torch.float32), Dp)
+    _check_stream("vit_block_post_w8", attn, y.device, (torch.bfloat16,), Dp)
+    if (attn.shape != y.shape or out_dtype not in (torch.bfloat16, torch.float32)
+            or w["wproj"].shape != (Dp, Dp) or w["wfc1"].shape != (Hp, Dp)
+            or w["wfc2"].shape != (Dp, Hp) or Dp % 64 or Hp % 64):
+        raise ValueError(f"vit_block_post_w8: y {tuple(y.shape)}, attn {tuple(attn.shape)}, "
+                         f"Hp {Hp}, out {out_dtype}: Dp and Hp must be multiples of 64")
+    _check_params("vit_block_post_w8", y.device, w["wproj"], w["sproj"], w["bproj"], w["ln2"],
+                  w["wfc1"], w["sfc1"], w["bfc1"], w["wfc2"], w["sfc2"], w["bfc2"])
+    out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
+    rc = _post_entry()(
+        y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(), *w["inv_act"],
+        w["wproj"].data_ptr(), w["sproj"].data_ptr(), w["bproj"].data_ptr(),
+        w["ln2"].data_ptr(), w["wfc1"].data_ptr(), w["sfc1"].data_ptr(), w["bfc1"].data_ptr(),
+        w["wfc2"].data_ptr(), w["sfc2"].data_ptr(), w["bfc2"].data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh), int(multi),
+        _build.stream_ptr(y.device))
+    _build.check(rc, "vit_block_post_w8")
+    vit_block_post_w8.launches += 1
+    vit_block_post_w8.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
+    return out
+
+
+vit_block_post_w8.launches = 0
+vit_block_post_w8.by_shape = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# compositions and forwards
+# ---------------------------------------------------------------------------
+
+def _attention(qkv: torch.Tensor, heads: int, hd: int, n_valid: int) -> torch.Tensor:
+    """K6 on the three lane slices of the qkv stream; [B, Np, Dp] bf16 with
+    the pad-head lanes zero."""
+    Dp = qkv.shape[-1] // 3
+    hw = heads * hd
+    return mhsa(qkv[..., :hw], qkv[..., Dp: Dp + hw], qkv[..., 2 * Dp: 2 * Dp + hw], heads,
+                n_valid, out_lanes=Dp)
+
+
+def vit_block_fused_w8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
+                       hd: int, gelu_tanh: bool = True) -> torch.Tensor:
+    """One W8A8 transformer block (``_block_kernel_w8``) as K5 -> K6 -> K7;
+    output in ``y.dtype``."""
+    a = _attention(vit_block_pre_w8(y, w, d_valid), heads, hd, n_valid)
+    return vit_block_post_w8(y, a, w, d_valid, gelu_tanh)
+
+
+def vit_multiblock_fused_w8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
+                            d_valid: int, heads: int, hd: int,
+                            gelu_tanh: bool = True) -> torch.Tensor:
+    """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``): the
+    residual is fp32 between the chunk's layers, ``y.dtype`` at its end."""
+    x = y
+    for l, w in enumerate(chunk):
+        a = _attention(vit_block_pre_w8(x, w, d_valid), heads, hd, n_valid)
+        last = l == len(chunk) - 1
+        x = vit_block_post_w8(x, a, w, d_valid, gelu_tanh,
+                              out_dtype=y.dtype if last else torch.float32, multi=True)
+    return x
+
+
+def vit_forward_multiblock_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                              layers_per_kernel: int = 12, gelu_tanh: bool = True,
+                              tight: bool = True) -> torch.Tensor:
+    """W8A8 forward on chunks of ``layers_per_kernel`` layers (``packed``
+    from ``pack_vit_blocks_w8(..., tight=tight)``; precomputed chunks under
+    ``"_chunks"`` are used as they are). fp32 logits."""
+    chunks = packed.get("_chunks") or stack_vit_blocks_w8(packed, layers_per_kernel)
+    y = _token_stream(packed, x, cfg, tight)
+    hd = cfg.dim // cfg.heads
+    for chunk in chunks:
+        y = vit_multiblock_fused_w8(y, chunk, n_valid=cfg.seq_len, d_valid=cfg.dim,
+                                    heads=cfg.heads, hd=hd, gelu_tanh=gelu_tanh)
+    return _head(packed, y, cfg)
+
+
+def vit_forward_blockfused_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                              gelu_tanh: bool = True, tight: bool = False) -> torch.Tensor:
+    """W8A8 forward one block at a time (``vit_block_fused_w8``: the residual
+    is bf16 between layers). ``tight`` must match the packing. fp32 logits."""
+    y = _token_stream(packed, x, cfg, tight)
+    hd = cfg.dim // cfg.heads
+    for w in packed["blocks"]:
+        y = vit_block_fused_w8(y, w, n_valid=cfg.seq_len, d_valid=cfg.dim, heads=cfg.heads,
+                               hd=hd, gelu_tanh=gelu_tanh)
+    return _head(packed, y, cfg)

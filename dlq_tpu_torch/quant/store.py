@@ -2,14 +2,16 @@
 
 Reads and writes the same store format as ``dlq_tpu.quant.store``: int8 /
 packed-int4 values (layout ``KO``, logical shape recorded), fp32 scales,
-fp32 biases, per-site activation scales, and the ``qconfig`` and
-``w_shapes`` meta blocks. Tensors come back on the CPU; engines move them.
+fp32 biases, per-site activation scales, the ``qconfig`` and ``w_shapes``
+meta blocks, and a model's fp32 ``extra.*`` tensors (a ViT's cls, pos and
+LayerNorm affines, nested names flattened with dots). Tensors come back on
+the CPU; engines move them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +33,12 @@ def save_quantized(
     qflat: FlatParams,
     act_scales: Optional[Dict[str, torch.Tensor]],
     qcfg: QConfig,
+    extras: Optional[Dict[str, Any]] = None,
     meta: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write a deployable quantized model directory; returns the manifest path."""
+    """Write a deployable quantized model directory; returns the manifest
+    path. ``extras``: nested dicts/lists of fp32 tensors stored as
+    ``extra.<dotted name>`` (``models.vit.vit_extras``)."""
     m = Manifest(root, model=model, meta={
         "qconfig": {
             "weights": dataclasses.asdict(qcfg.weights),
@@ -68,13 +73,16 @@ def save_quantized(
             m.add(f"{site}.b", _np(p["b"]).astype(np.float32), layout="O", kind="bias")
     for site, s in (act_scales or {}).items():
         m.add(f"{site}.act.scale", _np(s).astype(np.float32).reshape(-1), kind="act_scale")
+    for name, arr in _flatten_extras(extras or {}):
+        m.add(f"extra.{name}", _np(arr).astype(np.float32), kind="extra")
     return m.save()
 
 
-def load_quantized(root: str) -> Tuple[FlatParams, Dict[str, torch.Tensor], QConfig]:
-    """Read back (qflat, act_scales, qcfg), CPU tensors, ready for a deploy
-    context. A store's ``extra.*`` tensors (ViT extras) are not read by
-    this slice."""
+def load_quantized(root: str) -> Tuple[FlatParams, Dict[str, torch.Tensor], QConfig,
+                                       Dict[str, torch.Tensor]]:
+    """Read back (qflat, act_scales, qcfg, extras), CPU tensors, ready for a
+    deploy context; ``extras`` maps the flat dotted names to fp32 tensors
+    (``unflatten_extras`` rebuilds the nesting)."""
     m = Manifest.load(root)
     if "qconfig" not in m.meta:
         raise ValueError(
@@ -93,6 +101,7 @@ def load_quantized(root: str) -> Tuple[FlatParams, Dict[str, torch.Tensor], QCon
     w_shapes = m.meta.get("w_shapes", {})
     qflat: FlatParams = {}
     act_scales: Dict[str, torch.Tensor] = {}
+    extras: Dict[str, torch.Tensor] = {}
     for tm in m:
         if tm.kind == "qweight":
             site = tm.name[: -len(".w")]
@@ -113,6 +122,44 @@ def load_quantized(root: str) -> Tuple[FlatParams, Dict[str, torch.Tensor], QCon
             site = tm.name[: -len(".act.scale")]
             arr = m.read(tm.name)
             act_scales[site] = torch.from_numpy(arr.reshape(()) if arr.size == 1 else arr)
+        elif tm.kind == "extra":
+            extras[tm.name[len("extra."):]] = torch.from_numpy(m.read(tm.name))
     for p in qflat.values():
         p.setdefault("b", None)
-    return qflat, act_scales, qcfg
+    return qflat, act_scales, qcfg, extras
+
+
+def unflatten_extras(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of ``_flatten_extras``: dotted names -> nested dicts, with
+    all-numeric-key levels turned back into lists (per-layer LN affines)."""
+    root: Dict[str, Any] = {}
+    for name, v in flat.items():
+        parts = name.split(".")
+        cur = root
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+
+    def fix(d):
+        if isinstance(d, dict):
+            if d and all(k.isdigit() for k in d):
+                return [fix(d[str(i)]) for i in range(len(d))]
+            return {k: fix(v) for k, v in d.items()}
+        return d
+
+    return fix(root)
+
+
+def _flatten_extras(extras: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    for k, v in extras.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flatten_extras(v, name + ".")
+        elif isinstance(v, (list, tuple)):
+            for i, item in enumerate(v):
+                if isinstance(item, dict):
+                    yield from _flatten_extras(item, f"{name}.{i}.")
+                else:
+                    yield f"{name}.{i}", item
+        else:
+            yield name, v

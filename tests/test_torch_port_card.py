@@ -89,3 +89,76 @@ def test_bottleneck_kernel_on_card():
         pack = pack_bottleneck_block(qflat, scales, "b", "n.conv1")
         x = _i8(rng, (3, h, h, c4), lo=0).to(dev)
         assert torch.equal(bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack))
+
+
+def _vit_block(rng, dp, hp, dev):
+    """One packed W8A8 ViT layer at Dp/Hp (K-major int8 weights, folded
+    scales near unit outputs, biases, LN rows zero past d_valid)."""
+    def w(n, k):
+        return _i8(rng, (n, k)).to(dev)
+
+    def s(n, k):
+        return torch.from_numpy((rng.uniform(0.5, 1.5, n) / (60.0 * 73.0 * np.sqrt(k)))
+                                .astype(np.float32)).to(dev)
+
+    def b(n):
+        return torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)).to(dev)
+
+    ln = torch.from_numpy(np.stack([rng.uniform(0.5, 1.5, dp), rng.normal(0, 0.1, dp)])
+                          .astype(np.float32)).to(dev)
+    return {"inv_act": (40.0, 30.0, 40.0, 30.0),
+            "wqkv": w(3 * dp, dp), "sqkv": s(3 * dp, dp), "bqkv": b(3 * dp),
+            "wproj": w(dp, dp), "sproj": s(dp, dp), "bproj": b(dp), "ln1": ln, "ln2": ln.clone(),
+            "wfc1": w(hp, dp), "sfc1": s(hp, dp), "bfc1": b(hp),
+            "wfc2": w(dp, hp), "sfc2": s(dp, hp), "bfc2": b(dp)}
+
+
+def _agree(got, ref, min_equal, atol):
+    """Kernel vs plain version: the kernel sums in another order than
+    PyTorch, so a value on a rounding boundary (an int8 code, a bf16 step)
+    may land one step apart; held to ``min_equal`` of the elements equal
+    and ``atol`` at most."""
+    g, r = got.float(), ref.float()
+    eq = float((g == r).float().mean())
+    err = float((g - r).abs().max())
+    assert eq >= min_equal and err <= atol, (eq, err)
+
+
+@pytest.mark.gpu
+def test_vit_kernels_on_card():
+    """K5, K6, K7 against their plain versions: Dp 128 with d_valid 96
+    (pad lanes), 3 heads of 32 in Dp 128 (a pad-head slot), and Dp 192 /
+    hd 64; 3 x 24 = 72 and 2 x 200 = 400 rows (not multiples of the 64-row
+    tiles); n_valid < rows (masked keys)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w8, vit_block_pre_plain, vit_block_pre_w8,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    for (bsz, rows, d, dp, hp, heads) in [(3, 24, 96, 128, 384, 3), (2, 200, 192, 192, 768, 3)]:
+        n_valid = rows - 3
+        blk = _vit_block(rng, dp, hp, dev)
+        blk["ln1"][:, d:] = 0
+        blk["ln2"][:, d:] = 0
+        yn = rng.normal(0, 1, (bsz, rows, dp)).astype(np.float32)
+        yn[..., d:] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            y = torch.from_numpy(yn).to(dev, dt)
+            _agree(vit_block_pre_w8(y, blk, d), vit_block_pre_plain(y, blk, d), 0.99, 0.25)
+        qkv = vit_block_pre_plain(torch.from_numpy(yn).to(dev), blk, d)
+        hd = d // heads
+        views = (qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d])
+        a = mhsa(*views, heads, n_valid, out_lanes=dp)
+        _agree(a, mhsa_plain(*views, heads, n_valid, out_lanes=dp), 0.99, 0.05)
+        assert not a[..., heads * hd:].float().abs().any()
+        for dt, out_dt, multi in ((torch.bfloat16, torch.float32, True),
+                                  (torch.float32, torch.bfloat16, True),
+                                  (torch.bfloat16, torch.bfloat16, False)):
+            y = torch.from_numpy(yn).to(dev, dt)
+            got = vit_block_post_w8(y, a, blk, d, True, out_dt, multi)
+            assert got.dtype == out_dt
+            _agree(got, vit_block_post_plain(y, a, blk, d, True, out_dt, multi), 0.95, 0.25)

@@ -114,7 +114,7 @@ def _assert_qflat_equal(a, b):
 @pytest.mark.parametrize("preset", ["INT8_PER_CHANNEL", "INT4A8_PER_CHANNEL"])
 def test_store_from_jax_loads_into_port(tmp_path, preset):
     root, qflat, scales, qcfg = _small_store(tmp_path, preset)
-    tq, ts, tcfg = load_quantized(root)
+    tq, ts, tcfg, _ = load_quantized(root)
     _assert_qflat_equal(qflat, tq)
     assert set(ts) == set(scales)
     for k in scales:
@@ -125,7 +125,7 @@ def test_store_from_jax_loads_into_port(tmp_path, preset):
 
 def test_store_from_port_loads_into_jax(tmp_path):
     root, _, _, _ = _small_store(tmp_path)
-    tq, ts, tcfg = load_quantized(root)
+    tq, ts, tcfg, _ = load_quantized(root)
     root2 = str(tmp_path / "port")
     save_quantized(root2, "resnet18", tq, ts, tcfg, meta={"config": {"small_input": True}})
     jq, js, jcfg, _ = j_load(root2)
