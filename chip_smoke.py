@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
-DeiT-Tiny W8A8, 224 px).
+DeiT-Tiny W8A8, DeiT-Tiny W4A8, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -43,7 +43,19 @@ Phases, one JSON line each:
      twin (cosine >= 0.9999), with top-1 reported beside the fp32 margins,
      and profiled; vit_forward_blockfused_w8 (one layer per
      launch chain, bf16 between layers) and ctx="deploy" (K2 50 and K6 12
-     per forward) at batch 64, gated the same way.
+     per forward) at batch 64, gated the same way;
+  7. DeiT-Tiny W4A8 (the same weights quantized INT4A8_PER_CHANNEL): K8
+     vit_pre_w4a8 and K9 vit_post_w4a8 at every dtype form of its block
+     layer and K10 matmul_int4a8 at its six deploy shapes, at batch 256,
+     against their plain versions (K10 bit-identical), with torch._int_mm
+     on the materialized int8 weights as the yardstick; then the store
+     through Engine.from_store(ctx="block") (K8, K6, K9 12 launches each per
+     forward, bf16 between layers) driven through classify, gated against
+     the fp32 forward (cosine >= DEIT_W4A8_FP32_COS: the reference's own
+     W4A8 error on random weights), its plain-version twin and per layer,
+     and profiled; ctx="deploy" at batch 64 with int4_runtime="packed" (K10
+     50 per forward) and "int8" (K2 50), whose logits must be bit-identical;
+     and ctx="block" with int4_runtime="int8" (the W8 path: K5, K6, K7).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -75,6 +87,10 @@ SDPA = "torch.nn.functional.scaled_dot_product_attention (bf16 [B, heads, N, hd]
 VIT_TOL = (0.999, 0.0625)  # ViT kernels vs plain: fraction equal, largest difference
 DEIT_FP32_COS = 0.998      # DeiT-Tiny W8A8 logits vs fp32 (see deit_paths)
 DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see deit_paths)
+# DeiT-Tiny W4A8 logits vs fp32: the reference's own INT4A8 deploy forward
+# on these random weights is at cosine 0.95484 (16 images) and 0.95645 (256)
+# on the CPU (tools/deit_reference_error.py), top-1 0.56-0.57
+DEIT_W4A8_FP32_COS = 0.95
 # one block-path layer (K5 -> K6 -> K7) vs its plain versions on the same
 # input: an int8 code that lands one step apart (another sum order in LN,
 # softmax or the bf16 rounding of attn) moves its whole row of the layer's
@@ -82,27 +98,50 @@ DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see dei
 # are equal and none is more than VIT_TOL[1] apart
 LAYER_TOL = (0.97, VIT_TOL[1])
 
+KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
+           "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8")
+
+
+def _per(**launches):
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
 # launches per forward of each kernel on each path (ResNet-18: 2-2-2-2
 # BasicBlocks; ResNet-50: 3-4-6-3 Bottlenecks, 1x1/s1 convs on K2; DeiT-Tiny:
-# 12 layers of K5 -> K6 -> K7, 6 per chunk; its deploy path: 50 dense sites)
-_CNN = {"vit_pre_w8": 0, "mhsa": 0, "vit_post_w8": 0}
-_VIT = {"conv_int8": 0, "basic_block": 0, "bottleneck_block": 0}
+# 12 layers of K5 -> K6 -> K7, 6 per chunk; its deploy path: 50 dense sites;
+# DeiT-Tiny W4A8: 12 layers of K8 -> K6 -> K9, its deploy path's 50 dense
+# sites on K10, or on K2 with int4_runtime="int8")
 PER_FORWARD = {
-    "r18_fused2": {"conv_int8": 19, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0, **_CNN},
-    "r18_block": {"conv_int8": 15, "matmul_int8": 1, "basic_block": 2, "bottleneck_block": 0, **_CNN},
-    "r18_deploy": {"conv_int8": 20, "matmul_int8": 1, "basic_block": 0, "bottleneck_block": 0, **_CNN},
-    "r50_fused2": {"conv_int8": 19, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0, **_CNN},
-    "r50_block": {"conv_int8": 8, "matmul_int8": 12, "basic_block": 0, "bottleneck_block": 11, **_CNN},
-    "r50_deploy": {"conv_int8": 20, "matmul_int8": 34, "basic_block": 0, "bottleneck_block": 0, **_CNN},
-    "deit_block": {"matmul_int8": 0, "vit_pre_w8": 12, "mhsa": 12, "vit_post_w8": 12, **_VIT},
-    "deit_blockfused": {"matmul_int8": 0, "vit_pre_w8": 12, "mhsa": 12, "vit_post_w8": 12, **_VIT},
-    "deit_deploy": {"matmul_int8": 50, "vit_pre_w8": 0, "mhsa": 12, "vit_post_w8": 0, **_VIT},
+    "r18_fused2": _per(conv_int8=19, matmul_int8=1),
+    "r18_block": _per(conv_int8=15, matmul_int8=1, basic_block=2),
+    "r18_deploy": _per(conv_int8=20, matmul_int8=1),
+    "r50_fused2": _per(conv_int8=19, matmul_int8=34),
+    "r50_block": _per(conv_int8=8, matmul_int8=12, bottleneck_block=11),
+    "r50_deploy": _per(conv_int8=20, matmul_int8=34),
+    "deit_block": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
+    "deit_blockfused": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
+    "deit_deploy": _per(matmul_int8=50, mhsa=12),
+    "deit_block_w4a8": _per(vit_pre_w4a8=12, mhsa=12, vit_post_w4a8=12),
+    "deit_deploy_w4a8": _per(matmul_int4a8=50, mhsa=12),
+    "deit_deploy_w4a8_int8": _per(matmul_int8=50, mhsa=12),
+    "deit_block_w4a8_int8": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
 }
-# paths run at batch 64 and checked by totals only (the shape tables are at batch 256)
-TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy")
+# paths run at batch 64 and checked by totals only (the shape tables are at
+# batch 256; where a kernel's times are summed per forward on such a path,
+# its case table's launches per forward weight them)
+TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "deit_deploy_w4a8",
+               "deit_deploy_w4a8_int8", "deit_block_w4a8_int8")
+TOTALS_BATCH = 64
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase or kernel-row line also carries the seconds
+    since start."""
+    if "kernels" not in obj and "ok" not in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -215,8 +254,9 @@ def vit_pre_cases():
 
 def mhsa_cases():
     """K6: (rows, n_valid) -> launches per forward per path (the deploy
-    path's 197 unpadded rows are checked at batch 64 by totals only)."""
-    return {(VIT_NP, VIT_N): {"deit_block": 12}, (VIT_N, VIT_N): {}}
+    paths' 197 unpadded rows are checked at batch 64 by totals only)."""
+    return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12},
+            (VIT_N, VIT_N): {"deit_deploy_w4a8": 12}}
 
 
 def vit_post_cases():
@@ -225,6 +265,32 @@ def vit_post_cases():
     fp32 -> bf16; bf16 -> bf16 is vit_forward_blockfused_w8's form."""
     return {("bfloat16", "float32"): {"deit_block": 2}, ("float32", "float32"): {"deit_block": 8},
             ("float32", "bfloat16"): {"deit_block": 2}, ("bfloat16", "bfloat16"): {}}
+
+
+def vit_pre_w4a8_cases():
+    """K8: residual dtype -> launches per forward per path (bf16 at every
+    layer of the W4A8 block path; fp32 is the stacked form's)."""
+    return {"bfloat16": {"deit_block_w4a8": 12}, "float32": {}}
+
+
+def vit_post_w4a8_cases():
+    """K9: (residual dtype in, dtype out) -> launches per forward per path
+    (bf16 -> bf16 at every layer of the W4A8 block path; the others are the
+    stacked forms of vit_multiblock_fused_w4a8)."""
+    return {("bfloat16", "bfloat16"): {"deit_block_w4a8": 12}, ("bfloat16", "float32"): {},
+            ("float32", "float32"): {}, ("float32", "bfloat16"): {}}
+
+
+# DeiT-Tiny's deploy dense sites: (rows per image, K, N) -> sites per forward
+DEIT_DEPLOY_SITES = {(196, 768, 192): 1, (197, 192, 576): 12, (197, 192, 192): 12,
+                     (197, 192, 768): 12, (197, 768, 192): 12, (1, 192, 1000): 1}
+
+
+def matmul_int4a8_cases():
+    """K10: (rows per image, K, N, relu) -> launches per forward per path:
+    the W4A8 deploy path's sites (patch, l*.qkv, l*.proj, l*.fc1, l*.fc2,
+    head), driven at batch 64 and checked by totals."""
+    return {(hw, k, n, False): {"deit_deploy_w4a8": c} for (hw, k, n), c in DEIT_DEPLOY_SITES.items()}
 
 
 def _conv_key(case):
@@ -243,7 +309,10 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "bottleneck_block": (bottleneck_cases, lambda c: (BATCH, c[0], c[0], c[1], c[2])),
         "vit_pre_w8": (vit_pre_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
         "mhsa": (mhsa_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1])),
-        "vit_post_w8": (vit_post_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c))}
+        "vit_post_w8": (vit_post_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
+        "vit_pre_w4a8": (vit_pre_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
+        "vit_post_w4a8": (vit_post_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
+        "matmul_int4a8": (matmul_int4a8_cases, lambda c: (BATCH * c[0], *c[1:]))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -494,6 +563,107 @@ def check_vit_kernels(dev):
     return rows
 
 
+def _w4a8_layer(gen, dev):
+    """One packed DeiT-Tiny W4A8 layer: _vit_layer's scales (times 16: int4
+    weights have an rms of ~4.6 against int8's ~73), biases, LN rows and
+    inverse scales, with random int4 weights halves-packed K-major."""
+    from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor
+
+    blk = _vit_layer(gen, dev)
+    for name in ("wqkv", "wproj", "wfc1", "wfc2"):
+        n, k = blk[name].shape
+        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        blk[name] = pack_halves_kmajor(w, k, n)
+        blk["s" + name[1:]] = blk["s" + name[1:]] * 16.0
+    return blk
+
+
+def check_w4a8_kernels(dev):
+    """K8 and K9 at every dtype form of DeiT-Tiny's W4A8 layer at batch 256
+    (the block path's bf16 -> bf16 and the stacked forms), with
+    torch._int_mm on the materialized int8 weights as the yardstick; the
+    int4 weights count K/2 bytes in the bound."""
+    from dlq_tpu_torch.ops.attention import mhsa
+    from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w4a8, vit_block_pre_plain, vit_block_pre_w4a8,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    blk = _w4a8_layer(gen, dev)
+    dp, hp, m = VIT_DP, VIT_HP, BATCH * VIT_NP
+    y32 = torch.randn((BATCH, VIT_NP, dp), generator=gen, device=dev)
+    ys = {"float32": y32, "bfloat16": y32.to(torch.bfloat16)}
+    x1, x2 = _rand_int8(gen, (m, dp), dev), _rand_int8(gen, (m, hp), dev)
+    wq, wp, w1, w2 = (unpack_halves_kmajor(blk[k]).contiguous().t()
+                      for k in ("wqkv", "wproj", "wfc1", "wfc2"))   # int8 [K, N] views
+    rows = []
+    for case, per in vit_pre_w4a8_cases().items():
+        y = ys[case]
+        rows.append(_row(
+            "vit_pre_w4a8", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv, int4",
+            vit_block_pre_w4a8(y, blk, dp), vit_block_pre_plain(y, blk, dp),
+            lambda: vit_block_pre_w4a8(y, blk, dp), lambda: vit_block_pre_plain(y, blk, dp),
+            2.0 * m * dp * 3 * dp,
+            y.numel() * y.element_size() + 3 * dp * dp // 2 + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2,
+            per, library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16"))
+    qkv = vit_block_pre_plain(y32, blk, dp)
+    a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
+    for (din, dout), per in vit_post_w4a8_cases().items():
+        y, odt = ys[din], getattr(torch, dout)
+
+        def kern():
+            return vit_block_post_w4a8(y, a, blk, dp, True, odt, True)
+
+        def plain():
+            return vit_block_post_plain(y, a, blk, dp, True, odt, True)
+
+        rows.append(_row(
+            "vit_post_w4a8", (BATCH, VIT_NP, dp, hp, din, dout),
+            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, int4", kern(), plain(), kern, plain,
+            2.0 * m * (dp * dp + 2 * dp * hp),
+            y.numel() * y.element_size() + a.numel() * 2 + (dp * dp + 2 * dp * hp) // 2
+            + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
+            library=lambda: (torch._int_mm(x1, wp), torch._int_mm(x1, w1), torch._int_mm(x2, w2)),
+            tol=VIT_TOL, library_name=INT_MM + ", the three products on int8 weights",
+            residual=din, out=dout))
+    del qkv, a, ys, y32, x1, x2
+    return rows
+
+
+def check_int4a8_matmul(dev):
+    """K10 at DeiT-Tiny's six deploy shapes at batch 256, bit-identical to
+    its plain version, on int4 weights quantized from random ones and
+    repacked as the deploy context repacks them."""
+    from dlq_tpu_torch.ops.matmul_int4a8 import (
+        matmul_int4a8, matmul_int4a8_plain, pack_int4a8_weight, unpack_halves_kmajor,
+    )
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL
+    from dlq_tpu_torch.quant.quantize import quantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    for case, per in matmul_int4a8_cases().items():
+        hw, k, n, relu = case
+        m = BATCH * hw
+        x = _rand_int8(gen, (m, k), dev)
+        pk = pack_int4a8_weight(quantize_tensor(torch.randn((k, n), generator=gen, device=dev),
+                                                INT4A8_PER_CHANNEL.weights))
+        scale, bias, _ = _epi_params(gen, n, k, dev)
+        scale = scale * 16.0
+        w8 = unpack_halves_kmajor(pk.wp)[:, :k].contiguous().t()   # int8 [K, N], column-major
+        got = matmul_int4a8(x, pk, scale, bias, relu)
+        rows.append(_row(
+            "matmul_int4a8", (m, k, n, relu), f"{m}x{k}@{k}x{n} int4", got,
+            matmul_int4a8_plain(x, pk, scale, bias, relu),
+            lambda: matmul_int4a8(x, pk, scale, bias, relu),
+            lambda: matmul_int4a8_plain(x, pk, scale, bias, relu),
+            2.0 * m * n * k, m * k + k * n // 2 + 8 * n + got.numel() * 4, per, plain_iters=5,
+            library=lambda: torch._int_mm(x, w8), relu=relu, out="fp32"))
+        del x, got
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
 # ---------------------------------------------------------------------------
@@ -502,12 +672,18 @@ def _wrappers():
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
+    from dlq_tpu_torch.ops.matmul_int4a8 import matmul_int4a8
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
-    from dlq_tpu_torch.ops.vit_block import vit_block_post_w8, vit_block_pre_w8
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4a8, vit_block_pre_w8,
+    )
 
-    return {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
-            "bottleneck_block": bottleneck_block_fused, "vit_pre_w8": vit_block_pre_w8,
-            "mhsa": mhsa, "vit_post_w8": vit_block_post_w8}
+    ws = {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
+          "bottleneck_block": bottleneck_block_fused, "vit_pre_w8": vit_block_pre_w8,
+          "mhsa": mhsa, "vit_post_w8": vit_block_post_w8, "vit_pre_w4a8": vit_block_pre_w4a8,
+          "vit_post_w4a8": vit_block_post_w4a8, "matmul_int4a8": matmul_int4a8}
+    assert tuple(ws) == KERNELS
+    return ws
 
 
 def reset_counts():
@@ -567,17 +743,21 @@ def top1_report(logits, ref):
 def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
-    from dlq_tpu_torch.ops import attention, block_fused, conv_int8, matmul_int8, qops, vit_block
+    from dlq_tpu_torch.ops import (
+        attention, block_fused, conv_int8, matmul_int4a8, matmul_int8, qops, vit_block,
+    )
     from dlq_tpu_torch.quant import model_quant
 
     subs = [(vit_block, "vit_block_pre_w8", vit_block.vit_block_pre_plain),
             (vit_block, "vit_block_post_w8", vit_block.vit_block_post_plain),
+            (vit_block, "vit_block_pre_w4a8", vit_block.vit_block_pre_plain),
+            (vit_block, "vit_block_post_w4a8", vit_block.vit_block_post_plain),
             (vit_block, "mhsa", attention.mhsa_plain),
             (attention, "mhsa", attention.mhsa_plain),
             (model_quant, "conv_int8", conv_int8.conv_int8_plain),
-            (model_quant, "matmul_int8", matmul_int8.matmul_int8_plain),
             (qops, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
+            (qops, "matmul_int4a8", matmul_int4a8.matmul_int4a8_plain),
             (block_fused, "basic_block_fused", block_fused.basic_block_plain),
             (block_fused, "bottleneck_block_fused", block_fused.bottleneck_block_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in subs]
@@ -792,33 +972,44 @@ def main_paths(dev, card, depth, images):
     return out
 
 
-def deit_paths(dev, card, images):
-    """DeiT-Tiny: the block main path (timed, batch 256), then
-    vit_forward_blockfused_w8 and ctx="deploy" at batch 64; returns
-    {"deit_block": (counts, shapes)}."""
-    from dlq_tpu_torch import numerics
-    from dlq_tpu_torch.engine import Engine, to_device
-    from dlq_tpu_torch.models.vit import (
-        ViTConfig, flatten_vit, init_vit, make_qforward, vit_extras, vit_forward,
-    )
-    from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w8, vit_forward_blockfused_w8
-    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
-    from dlq_tpu_torch.quant.store import load_quantized, save_quantized, unflatten_extras
+def deit_model(dev, images):
+    """DeiT-Tiny (224 px, patch 16, dim 192, depth 12, 3 heads, 1000
+    classes) with numpy-seeded weights on the card, its fp32 logits on the
+    first batch (tanh and exact GELU), and the calibration batch."""
+    from dlq_tpu_torch.engine import to_device
+    from dlq_tpu_torch.models.vit import ViTConfig, init_vit, make_qforward, vit_extras, vit_forward
 
-    cfg = ViTConfig()   # DeiT-Tiny: 224 px, patch 16, dim 192, depth 12, 3 heads, 1000 classes
-    meta = {"config": {k: getattr(cfg, k) for k in ("num_classes", "image_size", "patch", "dim",
-                                                    "depth", "heads", "mlp_ratio")}}
+    cfg = ViTConfig()
     params = to_device(init_vit(SEED, cfg), dev)
     x0 = images[:BATCH]
     xt = torch.from_numpy(x0).to(dev)
     with torch.inference_mode():
         ref = {g: vit_forward(params, xt, ViTConfig(gelu=g)).cpu().numpy()
                for g in ("tanh", "exact")}
-    calib = [np.random.default_rng(SEED + 12).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)]
+    return {"cfg": cfg, "params": params, "x0": x0, "xt": xt, "ref": ref,
+            "meta": {"config": {k: getattr(cfg, k) for k in (
+                "num_classes", "image_size", "patch", "dim", "depth", "heads", "mlp_ratio")}},
+            "qf": make_qforward(vit_extras(params), cfg.depth, cfg.heads, cfg.patch, cfg.dim),
+            "calib": [np.random.default_rng(SEED + 12).normal(0, 1, (8, 224, 224, 3))
+                      .astype(np.float32)]}
+
+
+def deit_paths(dev, card, d, images):
+    """DeiT-Tiny W8A8: the block main path (timed, batch 256), then
+    vit_forward_blockfused_w8 and ctx="deploy" at batch 64; returns
+    ({"deit_block": (counts, shapes)}, the calibrated act scales)."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.vit import flatten_vit, vit_extras
+    from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w8, vit_forward_blockfused_w8
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import load_quantized, save_quantized, unflatten_extras
+
+    cfg, params, x0, xt, ref, meta = (d[k] for k in ("cfg", "params", "x0", "xt", "ref", "meta"))
     t0 = time.perf_counter()
-    qf = make_qforward(vit_extras(params), cfg.depth, cfg.heads, cfg.patch, cfg.dim)
-    eng_q = Engine.quantized(qf, flatten_vit(params), cfg, INT8_PER_CHANNEL, calib_batches=calib,
-                             batch=BATCH, device=dev)
+    eng_q = Engine.quantized(d["qf"], flatten_vit(params), cfg, INT8_PER_CHANNEL,
+                             calib_batches=d["calib"], batch=BATCH, device=dev)
+    act_scales = eng_q.act_scales
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         save_quantized(tmp, "deit_tiny", eng_q.qflat, eng_q.act_scales, INT8_PER_CHANNEL,
@@ -903,22 +1094,142 @@ def deit_paths(dev, card, images):
             del e
         del bf, packed
     torch.cuda.empty_cache()
+    return out, act_scales
+
+
+def deit_w4a8_paths(dev, card, d, act_scales, images):
+    """DeiT-Tiny W4A8: the same weights quantized INT4A8_PER_CHANNEL, with
+    the W8A8 store's act scales (calibration reads only the fp32 model and
+    the activation scheme, which the two configs share). The block main
+    path (timed, batch 256), then ctx="deploy" at batch 64 with
+    int4_runtime "packed" (K10) and "int8" (K2), whose logits must be
+    bit-identical, and ctx="block" with int4_runtime="int8" (the W8 block
+    path) at batch 64; returns {"deit_block_w4a8": (counts, shapes),
+    "deit_deploy_w4a8": (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models.vit import flatten_vit, vit_extras
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    cfg, params, x0, xt, ref, meta = (d[k] for k in ("cfg", "params", "x0", "xt", "ref", "meta"))
+    t0 = time.perf_counter()
+    eng_q = Engine.quantized(d["qf"], flatten_vit(params), cfg, INT4A8_PER_CHANNEL,
+                             act_scales=act_scales, batch=BATCH, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_quantized(tmp, "deit_tiny", eng_q.qflat, eng_q.act_scales, INT4A8_PER_CHANNEL,
+                       extras=vit_extras(params), meta=meta)
+        del eng_q
+        eng = Engine.from_store(tmp, ctx="block", batch=BATCH, device=dev)
+        setup_s = time.perf_counter() - t0
+        w_bytes = {k: sum(b[k].numel() * b[k].element_size() for b in eng.params["blocks"])
+                   for k in ("wqkv", "wproj", "wfc1", "wfc2")}
+        if eng.name != "deit_tiny_block_w4a8" or \
+                any(b["wqkv"].dtype != torch.uint8 for b in eng.params["blocks"]):
+            raise AssertionError(f"deit_tiny W4A8 block: engine {eng.name}, not 4-bit weights")
+
+        # ---- the W4A8 block main path ----
+        preds, counts, shapes = drive(eng, images, "deit_block_w4a8", "deit_tiny block_w4a8")
+        with torch.inference_mode():
+            logits = eng(x0).float().cpu().numpy()
+        if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+            raise AssertionError("deit_tiny block_w4a8: classify and the forward disagree")
+        # the reference's own W4A8 error on these random weights sets the
+        # fp32 gate (tools/deit_reference_error.py; PERF.md, Findings)
+        agree, cos = gate(logits, ref["tanh"], "deit_tiny block_w4a8 vs fp32", DEIT_W4A8_FP32_COS,
+                          top1=False)
+        lp = plain_twin(eng, x0, "deit_tiny block_w4a8")
+        cos_p = gate(logits, lp, "deit_tiny block_w4a8 vs its plain versions", DEIT_TWIN_COS,
+                     top1=False)[1]
+        per_layer = layer_contract(eng.params, xt, cfg)
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        emit({"phase": "main_path_deit_block_w4a8", "model": "deit_tiny", "size": 224,
+              "batch": BATCH, "batches": NB, "scheme": "INT4A8_PER_CHANNEL", "engine": eng.name,
+              "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
+              "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+              "launches_per_forward": {k: v / NB for k, v in counts.items()},
+              "block_weight_bytes_on_card": w_bytes,
+              "logits_cosine_vs_fp32": cos, "top1_agreement_vs_fp32": agree, "top1_gated": False,
+              "top1_vs_fp32": top1_report(logits, ref["tanh"]),
+              "logits_cosine_vs_plain_versions": cos_p,
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(logits, lp),
+              "per_layer_equal_fraction_max_abs": per_layer, "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, "deit_tiny_block_w4a8")
+        out["deit_block_w4a8"] = (counts, shapes)
+        del eng
+
+        # ---- ctx="deploy" at batch 64, both int4 runtimes ----
+        lg = {}
+        for rt, path in (("packed", "deit_deploy_w4a8"), ("int8", "deit_deploy_w4a8_int8")):
+            e = Engine.from_store(tmp, ctx="deploy", int4_runtime=rt, batch=TOTALS_BATCH,
+                                  device=dev)
+            reset_counts()
+            with torch.inference_mode():
+                lg[rt] = e(x0[:TOTALS_BATCH]).float().cpu().numpy()
+            c, sh = read_counts()
+            expect_counts(c, path, 1, f"deit_tiny deploy, int4_runtime={rt}")
+            if rt == "packed":
+                out[path] = (c, sh)
+            agree_d, cos_d = gate(lg[rt], ref["exact"][:TOTALS_BATCH],
+                                  f"deit_tiny deploy {rt} vs fp32", DEIT_W4A8_FP32_COS, top1=False)
+            lpd = plain_twin(e, x0[:TOTALS_BATCH], f"deit_tiny deploy {rt}")
+            cos_pd = gate(lg[rt], lpd, f"deit_tiny deploy {rt} vs its plain versions",
+                          DEIT_TWIN_COS, top1=False)[1]
+            emit({"phase": f"deit_deploy_w4a8_{rt}", "model": "deit_tiny", "batch": TOTALS_BATCH,
+                  "int4_runtime": rt, "launches": c, "logits_cosine_vs_fp32": cos_d,
+                  "top1_agreement_vs_fp32": agree_d, "fp32_gelu": "exact", "top1_gated": False,
+                  "top1_vs_fp32": top1_report(lg[rt], ref["exact"][:TOTALS_BATCH]),
+                  "logits_cosine_vs_plain_versions": cos_pd,
+                  "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg[rt], lpd)})
+            del e
+        # the same int32 sums and epilogue on K10 and K2, and K6 is
+        # deterministic: the two runtimes give the same logits bit for bit
+        diff = float(np.abs(lg["packed"] - lg["int8"]).max())
+        if diff != 0.0:
+            raise AssertionError(f"deit_tiny deploy: packed vs int8 runtime logits differ by {diff}")
+
+        # ---- ctx="block" with int4_runtime="int8": the W8 block path ----
+        e = Engine.from_store(tmp, ctx="block", int4_runtime="int8", batch=TOTALS_BATCH,
+                              device=dev)
+        if e.name != "deit_tiny_block":
+            raise AssertionError(f"deit_tiny block, int4_runtime=int8: engine {e.name}")
+        reset_counts()
+        with torch.inference_mode():
+            lg8 = e(x0[:TOTALS_BATCH]).float().cpu().numpy()
+        c = read_counts()[0]
+        expect_counts(c, "deit_block_w4a8_int8", 1, "deit_tiny block, int4_runtime=int8")
+        agree_b, cos_b = gate(lg8, ref["tanh"][:TOTALS_BATCH], "deit_tiny block int8 runtime vs fp32",
+                              DEIT_W4A8_FP32_COS, top1=False)
+        emit({"phase": "deit_block_w4a8_int8_runtime", "model": "deit_tiny",
+              "batch": TOTALS_BATCH, "engine": e.name, "launches": c,
+              "deploy_runtimes_logits_max_abs_diff": diff,
+              "logits_cosine_vs_fp32": cos_b, "top1_agreement_vs_fp32": agree_b,
+              "top1_gated": False})
+        del e
+    torch.cuda.empty_cache()
     return out
 
 
 def layer_contract(packed, xt, cfg):
-    """Each layer of the block forward, K5 -> K6 -> K7 against the plain
+    """Each layer of a block forward, its three kernels against the plain
     versions on the same input: the stream the kernel forward itself
-    reaches that layer with. Returns [(fraction of valid outputs equal,
-    largest difference)] per layer; raises outside LAYER_TOL."""
+    reaches that layer with. W8A8 chunks (``_chunks``: K5 -> K6 -> K7, fp32
+    inside a chunk) or W4A8 layers (``blocks``: K8 -> K6 -> K9, bf16 between
+    layers). Returns [(fraction of valid outputs equal, largest
+    difference)] per layer; raises outside LAYER_TOL."""
     from dlq_tpu_torch.ops import attention, vit_block as vb
 
     n, d = cfg.seq_len, cfg.dim
+    chunks = packed["_chunks"] if "_chunks" in packed else [[b] for b in packed["blocks"]]
     out = []
     with torch.inference_mode():
         y = vb._token_stream(packed, xt, cfg, True)
-        for chunk in packed["_chunks"]:
+        for chunk in chunks:
             for l, w in enumerate(chunk):
+                w4 = w["wqkv"].dtype == torch.uint8
+                pre, post = ((vb.vit_block_pre_w4a8, vb.vit_block_post_w4a8) if w4 else
+                             (vb.vit_block_pre_w8, vb.vit_block_post_w8))
                 # the stream is bf16 between chunks, fp32 inside one
                 odt = torch.bfloat16 if l == len(chunk) - 1 else torch.float32
                 x = y
@@ -930,13 +1241,13 @@ def layer_contract(packed, xt, cfg):
                            cfg.heads, n, out_lanes=dp)
                     return post(x, a, w, d, True, odt, True)
 
-                y = layer(vb.vit_block_pre_w8, attention.mhsa, vb.vit_block_post_w8)
+                y = layer(pre, attention.mhsa, post)
                 ref = layer(vb.vit_block_pre_plain, attention.mhsa_plain,
                             vb.vit_block_post_plain)
                 diff = (y[:, :n, :d].float() - ref[:, :n, :d].float()).abs()
                 out.append((float((diff == 0).float().mean()), float(diff.max())))
     if min(f for f, _ in out) < LAYER_TOL[0] or max(e for _, e in out) > LAYER_TOL[1]:
-        raise AssertionError(f"deit_tiny block: per-layer kernels vs plain versions {out}")
+        raise AssertionError(f"deit_tiny block forward: per-layer kernels vs plain versions {out}")
     return out
 
 
@@ -987,10 +1298,12 @@ def _taps(eng, x, cfg, qf):
 def summary(rows, paths):
     """One entry per kernel. The top-level ``launches`` and per-forward
     ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are those of the
-    kernel's main path (``main``); ``paths`` gives them for every timed path
-    that launches the kernel. Per-forward figures weight each shape's time
-    by its launches per forward, as counted per shape on that path's run of
-    ``NB`` forwards."""
+    kernel's main path (``main``); ``paths`` gives them for every path in
+    ``paths`` that launches the kernel. Per-forward figures weight each
+    shape's time (at batch ``BATCH``) by its launches per forward, as counted
+    per shape on that path's run of ``NB`` forwards, or, on a path checked by
+    totals (run once at batch ``TOTALS_BATCH``), as its case table gives
+    them."""
     meta = {
         "conv_int8": ("dlq_tpu_torch/csrc/conv_int8.cu",
                       "dlq_tpu/ops/pallas_conv.py:143 int8_conv3x3_s1 (+ :317 int8_conv3x3_s1_dp, "
@@ -1011,6 +1324,16 @@ def summary(rows, paths):
         "vit_post_w8": ("dlq_tpu_torch/csrc/vit_post_w8.cu",
                         "dlq_tpu/ops/pallas_vit_block.py:1017 vit_block_post_w8 (and the last "
                         "two thirds of each layer of :537 / :632)", "deit_block"),
+        "vit_pre_w4a8": ("dlq_tpu_torch/csrc/vit_pre_w4a8.cu",
+                         "dlq_tpu/ops/pallas_vit_block.py:1903 vit_block_fused_w4a8c (the first "
+                         "third of each layer; also of :1550 vit_block_fused_w4a8 and :1753 "
+                         "vit_multiblock_fused_w4a8)", "deit_block_w4a8"),
+        "vit_post_w4a8": ("dlq_tpu_torch/csrc/vit_post_w4a8.cu",
+                          "dlq_tpu/ops/pallas_vit_block.py:1903 vit_block_fused_w4a8c (the last "
+                          "two thirds of each layer; also of :1550 and :1753)", "deit_block_w4a8"),
+        "matmul_int4a8": ("dlq_tpu_torch/csrc/matmul_int4a8.cu",
+                          "dlq_tpu/ops/pallas_matmul.py:208 int4a8_matmul (+ :318 "
+                          "int4a8_matmul_cached)", "deit_deploy_w4a8"),
     }
     out = []
     for name, (src, repl, main) in meta.items():
@@ -1019,15 +1342,20 @@ def summary(rows, paths):
         for path, (counts, shapes) in paths.items():
             if not counts[name]:
                 continue
-            w = [shapes[name].get(r["key"], 0) / NB for r in rs]
+            if path in TOTALS_ONLY:
+                forwards, batch = 1, TOTALS_BATCH
+                w = [r["launches_per_forward"].get(path, 0) for r in rs]
+            else:
+                forwards, batch = NB, BATCH
+                w = [shapes[name].get(r["key"], 0) / NB for r in rs]
 
             def tot(f):
                 vals = [r[f] for r in rs]
                 return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
 
             bounds = [(n * r["bound_ms"], r["bound_by"]) for n, r in zip(w, rs) if n]
-            per_path.append({"path": path, "launches": counts[name], "forwards": NB,
-                             "launches_per_forward": counts[name] / NB,
+            per_path.append({"path": path, "launches": counts[name], "forwards": forwards,
+                             "batch": batch, "launches_per_forward": counts[name] / forwards,
                              "ms": tot("ms"), "plain_ms": tot("plain_ms"),
                              "bound_ms": tot("bound_ms"), "bound_by": max(bounds)[1],
                              "library_ms": tot("library_ms")})
@@ -1037,8 +1365,9 @@ def summary(rows, paths):
                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                     "library": rs[0]["library"], "main": main,
-                    "per": f"launches: the {main} run of {NB} forwards; times: one forward "
-                           f"at batch {BATCH}", "paths": per_path})
+                    "per": f"launches: the {main} run of {m['forwards']} forward(s) at batch "
+                           f"{m['batch']}; times: one forward at batch {BATCH}",
+                    "paths": per_path})
     return out
 
 
@@ -1060,11 +1389,16 @@ def main() -> int:
           "build_s": time.perf_counter() - t0, "build_s_per_source": secs})
 
     rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
-            + check_bottleneck_kernel(dev) + check_vit_kernels(dev))
+            + check_bottleneck_kernel(dev) + check_vit_kernels(dev) + check_w4a8_kernels(dev)
+            + check_int4a8_matmul(dev))
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
-    paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images),
-             **deit_paths(dev, card, images)}
+    paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}
+    deit = deit_model(dev, images)
+    deit_w8, act_scales = deit_paths(dev, card, deit, images)
+    paths.update(deit_w8)
+    paths.update(deit_w4a8_paths(dev, card, deit, act_scales, images))
+    del deit
     kernels = summary(rows, paths)
     print(card_line())
     emit({"kernels": kernels})

@@ -1,6 +1,7 @@
 // Shared building blocks of the port's int8 kernels (K1 conv_int8, K2
 // matmul_int8, K3 basic_block, K4 bottleneck_block, K5 vit_pre_w8, K7
-// vit_post_w8): a block-tile int8 GEMM on the tensor cores
+// vit_post_w8, and with int4 weights K8 vit_pre_w4a8, K9 vit_post_w4a8, K10
+// matmul_int4a8): a block-tile int8 GEMM on the tensor cores
 // with mma.sync.m16n8k32 (s8 x s8 -> s32), fed through shared memory by a
 // two-stage cp.async pipeline, and the fp32 epilogue the reference uses.
 //
@@ -28,6 +29,20 @@ namespace dlq {
 constexpr int BK = 64;           // K bytes per pipeline stage
 constexpr int LDS = BK + 16;     // padded shared-memory row stride (bytes)
 constexpr int THREADS = 256;     // 8 warps per block
+
+// int4 weights (W4A8: K8, K9, K10) are halves-packed and K-major: row n of
+// a [N, Kp/2] byte matrix, byte k holding W[k][n] in its low nibble and
+// W[k + Kp/2][n] in its high nibble. A stage streams BK4 = 32 bytes of each
+// row (64 K values: 32 of each half, the work of one BK stage of int8), rows
+// LDS4 = 48 bytes apart (again 32 distinct banks for a warp's fragment reads).
+constexpr int BK4 = 32;
+constexpr int LDS4 = BK4 + 16;
+
+// Sign-extend the low nibble of each byte of w to an int8 byte, branch-free:
+// (v ^ 8) - 8 per byte (__vsub4 does not borrow across bytes), so 0x8 -> -8.
+__device__ __forceinline__ uint32_t nib_lo(uint32_t w) {
+  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -127,6 +142,42 @@ struct MmaTile {
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    }
+  }
+
+  // One stage of an int4 weight (W4A8, see load_b4): Bs [BN][LDS4] holds 32
+  // halves-packed bytes per column, i.e. 32 K values of each half. Each
+  // 32-bit B word unpacks in registers into the fragment of the low half
+  // (A columns at Alo) and of the high half (A columns at Ahi): two
+  // m16n8k32 products per word pair, as the reference's two int8 dots.
+  __device__ __forceinline__ void step_w4(const int8_t* Alo, const int8_t* Ahi, int lda,
+                                          const int8_t* Bs) {
+    uint32_t b[NI][2], bh[NI][2];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int8_t* q = Bs + (warp_n * WN + j * 8 + g) * LDS4 + t * 4;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(q);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(q + 16);
+      b[j][0] = nib_lo(w0);
+      b[j][1] = nib_lo(w1);
+      bh[j][0] = nib_lo(w0 >> 4);
+      bh[j][1] = nib_lo(w1 >> 4);
+    }
+    mma_rows(Alo, lda, b);
+    mma_rows(Ahi, lda, bh);
+  }
+
+  // acc += A (32 K columns at As, rows lda bytes apart) x the B fragments b.
+  __device__ __forceinline__ void mma_rows(const int8_t* As, int lda, const uint32_t (&b)[NI][2]) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int8_t* p = As + (warp_m * WM + i * 16 + g) * lda + t * 4;
+      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(p),
+                             *reinterpret_cast<const uint32_t*>(p + 8 * lda),
+                             *reinterpret_cast<const uint32_t*>(p + 16),
+                             *reinterpret_cast<const uint32_t*>(p + 8 * lda + 16)};
+#pragma unroll
+      for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a, b[j]);
     }
   }
 
@@ -244,6 +295,61 @@ __device__ __forceinline__ void mainloop_resident_a(Tile& tile, const int8_t* As
   }
   cp_async_wait<0>();
 }
+
+// B loader of an int4 weight: stage kt of rows n0..n0+BN-1 of the packed
+// [N, Kh] bytes (Kh = Kp/2, a multiple of BK4; rows >= N zero-filled).
+template <int BN>
+__device__ __forceinline__ void load_b4(int8_t* Bs, const uint8_t* __restrict__ w, int N, int Kh,
+                                        int n0, int kt) {
+#pragma unroll
+  for (int j = 0; j < (BN * 2 + THREADS - 1) / THREADS; ++j) {
+    const int chunk = threadIdx.x + j * THREADS;
+    if (chunk >= BN * 2) break;
+    const int r = chunk >> 1, q = chunk & 1;
+    const int n = n0 + r;
+    const bool v = n < N;
+    const uint8_t* src = v ? w + (size_t)n * Kh + (size_t)kt * BK4 + q * 16 : w;
+    cp_async16(Bs + r * LDS4 + q * 16, src, v);
+  }
+}
+
+// mainloop_resident_a with an int4 weight (K8, K9): stage kt contracts A
+// columns [32 kt, 32 kt + 32) against the low nibbles and [K/2 + 32 kt, ...)
+// against the high nibbles of the same packed bytes.
+template <class Tile, int BN>
+__device__ __forceinline__ void mainloop_resident_a_w4(Tile& tile, const int8_t* As, int lda,
+                                                       int8_t* Bs, const uint8_t* __restrict__ w,
+                                                       int N, int K, int n0) {
+  const int Kh = K / 2, KT = Kh / BK4;
+  tile.zero();
+  load_b4<BN>(Bs, w, N, Kh, n0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < KT) load_b4<BN>(Bs + (s ^ 1) * BN * LDS4, w, N, Kh, n0, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile.step_w4(As + kt * BK4, As + Kh + kt * BK4, lda, Bs + s * BN * LDS4);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// The resident-A K loop of either weight format: int8 [N, K] or int4
+// halves-packed [N, K/2] bytes.
+template <bool W4, class Tile, int BN>
+__device__ __forceinline__ void mainloop_resident(Tile& tile, const int8_t* As, int lda,
+                                                  int8_t* Bs, const void* w, int N, int K, int n0) {
+  if constexpr (W4)
+    mainloop_resident_a_w4<Tile, BN>(tile, As, lda, Bs, static_cast<const uint8_t*>(w), N, K, n0);
+  else
+    mainloop_resident_a<Tile, BN>(tile, As, lda, Bs, static_cast<const int8_t*>(w), N, K, n0);
+}
+
+// Bytes of the two B stages of mainloop_resident.
+template <bool W4>
+constexpr int b_stage_bytes(int BN) { return 2 * BN * (W4 ? LDS4 : LDS); }
 
 // The K loop: two shared-memory stages, tile kt+1 in flight while kt
 // computes. `load(stage_A, stage_B, kt)` issues one stage's copies.

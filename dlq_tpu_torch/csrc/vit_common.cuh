@@ -1,4 +1,4 @@
-// Shared pieces of the ViT block kernels (K5 vit_pre_w8, K7 vit_post_w8):
+// Shared pieces of the ViT block kernels (K5/K8 vit_pre.cuh, K7/K9 vit_post.cuh):
 // the reference's two-moment LayerNorm of one row and its inverse-scale
 // int8 quantization (dlq_tpu/ops/pallas_vit_block.py:62-69, :286-287).
 //

@@ -118,23 +118,33 @@ class Engine:
         return eng
 
     @staticmethod
-    def from_store(qmanifest: str, ctx: str = "deploy", *, device: DeviceLike = None,
-                   **kw) -> "Engine":
+    def from_store(qmanifest: str, ctx: str = "deploy", int4_runtime: str = "packed", *,
+                   device: DeviceLike = None, **kw) -> "Engine":
         """Cold-start an engine from a quantized store (``quant.store``), no
         calibration data or fp32 weights. ResNet-18/34/50/101/152 with ctx
         "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
         interchange; "fused" is BasicBlock-only, as the reference's
         ``qforward_fused`` is), and DeiT (``deit_tiny``) with ctx "block"
-        (the W8A8 block kernels K5/K6/K7) | "deploy" (every dense on K2,
-        attention on K6 on the card)."""
+        (the W8A8 block kernels K5/K6/K7, or K8/K6/K9 on per-OC int4 weights
+        with activations) | "deploy" (every dense on K2, or K10 for a per-OC
+        int4 one; attention on K6 on the card).
+
+        int4_runtime: "packed" keeps per-OC int4 weights 4-bit on the card
+        (the W4A8 kernels); "int8" unpacks them to int8 once at load
+        (``materialize_int8``: the W8A8 kernels, the int4 store on disk
+        only). Group-wise int4 always stays packed."""
         from dlq_tpu_torch.manifest import Manifest
-        from dlq_tpu_torch.quant.store import load_quantized
+        from dlq_tpu_torch.quant.store import load_quantized, materialize_int8
 
         dev = resolve_device(device)
         man = Manifest.load(qmanifest)
         model = man.model
         mcfg = man.meta.get("config", {})
         qflat, act_scales, qcfg, extras = load_quantized(qmanifest)
+        if int4_runtime == "int8":
+            qflat = materialize_int8(qflat)
+        elif int4_runtime != "packed":
+            raise ValueError(f"int4_runtime must be 'packed' or 'int8', got {int4_runtime!r}")
         if model == "deit_tiny":
             return _vit_from_store(qflat, act_scales, qcfg, extras, mcfg, ctx, dev, **kw)
         if not model.startswith("resnet"):
@@ -227,44 +237,54 @@ def _vit_from_store(qflat, act_scales, qcfg: QConfig, extras, mcfg, ctx: str,
                     dev: torch.device, **kw) -> Engine:
     """DeiT from a store (``dlq_tpu/engine.py:264-383``). ctx="block": the
     stacked W8A8 forward (6 layers per chunk when the depth allows, else 1)
-    on per-channel int8 stores only; ctx="deploy": ``make_qforward`` under
-    DeployCtx, attention on K6 on the card and plain on the CPU."""
+    on per-channel int8 block sites, the W4A8 block forward (K8 -> K6 -> K9
+    per layer, bf16 between layers) on per-OC int4 block sites with
+    activations; ctx="deploy": ``make_qforward`` under DeployCtx, attention
+    on K6 on the card and plain on the CPU."""
     from dlq_tpu_torch.models.vit import ViTConfig, make_qforward
     from dlq_tpu_torch.ops.vit_block import (
-        pack_vit_blocks_w8, stack_vit_blocks_w8, vit_forward_multiblock_w8,
+        pack_vit_blocks_w4a8, pack_vit_blocks_w8, stack_vit_blocks_w8,
+        vit_forward_blockfused_w4a8c, vit_forward_multiblock_w8,
     )
     from dlq_tpu_torch.quant.store import unflatten_extras
 
     cfg = ViTConfig(**{k: mcfg[k] for k in ("num_classes", "image_size", "patch", "dim",
                                             "depth", "heads", "mlp_ratio") if k in mcfg})
     ex = to_device(unflatten_extras(extras), dev)
+    # route on the loaded block sites' effective widths (after int4_runtime)
     blk_qw = [p["qw"] for name, p in qflat.items()
               if name.startswith("l") and "." in name and "qw" in p]
     blk_bits = {(qw.bits, qw.group is None) for qw in blk_qw}
+    w4_blocks = bool(blk_qw) and blk_bits == {(4, True)}
     if ctx == "block":
-        # the reference's W8 routing guards (dlq_tpu/engine.py:279-302)
+        # the reference's routing guards (dlq_tpu/engine.py:279-302)
         if not blk_qw:
             raise ValueError("ctx='block' needs transformer-block (l<i>.*) weight sites, but "
                              "this store has none: not a ViT-family artifact? use ctx='deploy'")
-        if blk_bits == {(4, True)}:
-            raise NotImplementedError(
-                "ctx='block' on int4 block weights (W4A8 / W4A16 block kernels) is not ported "
-                "yet (ROADMAP.md B.8, B.9); use ctx='deploy'")
-        if qcfg.weight_only:
+        if qcfg.weight_only and not w4_blocks:
             raise ValueError("ctx='block' on a weight-only store needs per-OC int4 weights; "
                              "group-wise or int8 weight-only stores have no fused block path: "
                              "use ctx='deploy'")
-        if blk_bits != {(8, True)}:
+        if not w4_blocks and blk_bits != {(8, True)}:
             raise ValueError("ctx='block' needs per-channel int8 (or per-OC int4) across ALL "
                              f"transformer-block sites, got {sorted(blk_bits)}: use "
                              "ctx='deploy'")
-        packed = pack_vit_blocks_w8(to_device(qflat, dev), to_device(act_scales, dev), ex,
-                                    cfg, tight=True)
-        lpk = 6 if cfg.depth % 6 == 0 else 1
-        packed["_chunks"] = stack_vit_blocks_w8(packed, lpk)
-        packed.pop("blocks")  # the forward reads only the chunks
-        eng = Engine(lambda p, x: vit_forward_multiblock_w8(p, x, cfg, tight=True), packed,
-                     device=dev, name="deit_tiny_block", **kw)
+        if qcfg.weight_only:
+            raise NotImplementedError(
+                "ctx='block' on weight-only per-OC int4 weights (the W4A16 block kernels) is "
+                "not ported yet (ROADMAP.md B.9); use ctx='deploy'")
+        qd, sd = to_device(qflat, dev), to_device(act_scales, dev)
+        if w4_blocks:
+            packed = pack_vit_blocks_w4a8(qd, sd, ex, cfg, tight=True)
+            eng = Engine(lambda p, x: vit_forward_blockfused_w4a8c(p, x, cfg, tight=True),
+                         packed, device=dev, name="deit_tiny_block_w4a8", **kw)
+        else:
+            packed = pack_vit_blocks_w8(qd, sd, ex, cfg, tight=True)
+            lpk = 6 if cfg.depth % 6 == 0 else 1
+            packed["_chunks"] = stack_vit_blocks_w8(packed, lpk)
+            packed.pop("blocks")  # the forward reads only the chunks
+            eng = Engine(lambda p, x: vit_forward_multiblock_w8(p, x, cfg, tight=True), packed,
+                         device=dev, name="deit_tiny_block", **kw)
     elif ctx == "deploy":
         attn = "xla" if dev.type == "cpu" else "fused"
         qf = make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim, attn_impl=attn)

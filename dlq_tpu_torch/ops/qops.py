@@ -7,11 +7,17 @@ Numerics contract, shared with the reference:
   * fp32 epilogue y = fma(float(acc), act_scale * w_scale[oc], bias[oc]),
     then relu — one fused multiply-add, as XLA contracts ``acc * s + b``.
 
-Every int8 dense goes through K2 (``ops.matmul_int8``). A groups-1
+Every int8 dense goes through K2 (``ops.matmul_int8``), every per-OC int4
+dense with an activation scale (W4A8) through K10 (``ops.matmul_int4a8``),
+its weight kept 4-bit on the card. A groups-1
 1x1/s1/p0 conv takes the reference's ``mm1x1`` rewrite (``qops.py:384-387``,
 on by default in its deploy contexts): K2 on the free ``[N*H*W, C]`` view of
 the NHWC input (``conv1x1_int8``). Every other int8 conv (3x3, the 1x1/s2
-downsamples, the stems) goes through K1 (``ops.conv_int8``).
+downsamples, the stems) goes through K1 (``ops.conv_int8``). A per-OC int4
+conv weight is unpacked to int8 once, when its context is built, and runs on
+K1/K2; the reference unpacks it in the graph on every forward
+(``dlq_tpu/ops/qops.py:380``). Both are exact, and no Pallas kernel is
+involved.
 Weight-only schemes (no activation scale) dequantize and run a float
 conv/matmul, as the reference leaves them to XLA.
 """
@@ -24,6 +30,7 @@ import torch
 
 from dlq_tpu_torch.models.common import conv2d, fp32_matmul
 from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, pack_conv_weight
+from dlq_tpu_torch.ops.matmul_int4a8 import PackedInt4, matmul_int4a8, pack_int4a8_weight
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
 from dlq_tpu_torch.quant.quantize import QTensor, dequantize, quantize_act, unpack_to_layout
 
@@ -36,6 +43,23 @@ def int_weight_packed(qw: QTensor) -> PackedConv:
                          "use the weight-only path")
     w = unpack_to_layout(qw).to(torch.int8)
     return pack_dense_weight(w) if w.ndim == 2 else pack_conv_weight(w)
+
+
+def site_weight_packed(qw: QTensor):
+    """The packed weight a context keeps for a site: a per-OC int4 dense
+    stays 4-bit for K10 (``PackedInt4``), every other site is K-major int8
+    for K1/K2 (``int_weight_packed``)."""
+    if qw.bits == 4 and qw.group is None and len(qw.layout_shape) == 2:
+        return pack_int4a8_weight(qw)
+    return int_weight_packed(qw)
+
+
+def dense_int(xq: torch.Tensor, pk, scale: torch.Tensor, bias: torch.Tensor,
+              relu: bool = False) -> torch.Tensor:
+    """int8 [M, K] against a site's packed weight: K10 for int4, K2 for int8."""
+    if isinstance(pk, PackedInt4):
+        return matmul_int4a8(xq, pk, scale, bias, relu=relu)
+    return matmul_int8(xq, pk, scale, bias, relu=relu)
 
 
 def combined_scale(act_scale: float, qw: QTensor, n: int) -> torch.Tensor:
@@ -91,20 +115,21 @@ def qconv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor], act_scal
 
 def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
            act_scale: Optional[float] = None, fuse_relu: bool = False,
-           act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
-    """Quantized dense. int8/int2 weights (or per-OC int4, unpacked exactly)
-    + act_scale -> W8A8 int8 GEMM (K2) with int32 accumulation; no act_scale
-    -> weight-only: weights dequantized to ``x.dtype``, fp32 product.
+           act_qmax: int = 127, packed=None) -> torch.Tensor:
+    """Quantized dense. int8/int2 weights + act_scale -> W8A8 int8 GEMM (K2)
+    with int32 accumulation; per-OC int4 weights + act_scale -> W4A8 (K10);
+    no act_scale -> weight-only: weights dequantized to ``x.dtype``, fp32
+    product.
     qw.values: [I, O]. The result is cast to ``x.dtype`` after the bias and
     relu, as the reference's (``dlq_tpu/ops/qops.py:488-492``): a bf16 input
     gives a bf16 output."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if act_scale is not None:
-        pk = int_weight_packed(qw) if packed is None else packed
+        pk = site_weight_packed(qw) if packed is None else packed
         xq = quantize_act(x2, act_scale, act_qmax)
-        y = matmul_int8(xq, pk, combined_scale(act_scale, qw, pk.oc),
-                        bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
+        y = dense_int(xq, pk, combined_scale(act_scale, qw, pk.oc),
+                      bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
     else:
         w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
         with fp32_matmul():

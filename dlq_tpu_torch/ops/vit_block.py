@@ -1,6 +1,7 @@
-"""The W8A8 ViT block path (the counterpart of ``dlq_tpu/ops/pallas_vit_block.py``).
+"""The W8A8 and W4A8 ViT block paths (the counterpart of
+``dlq_tpu/ops/pallas_vit_block.py``).
 
-The reference runs L stacked W8A8 transformer layers per TPU kernel
+The reference runs L stacked quantized transformer layers per TPU kernel
 (``vit_multiblock_fused_w8``), one grid step holding a batch group's whole
 residual, qkv and scratch in VMEM. One sample's bf16 qkv alone (200 x 576 x
 2 bytes) is more than a Hopper block's shared memory, so the port cuts each
@@ -15,6 +16,14 @@ layer where the reference itself cuts it (``vit_block_pre_w8`` / attention /
      with the output dtype and the FC2 residual association of the
      reference function it stands in for.
 
+The W4A8 layer (``vit_block_fused_w4a8``, ``_w4a8c``,
+``vit_multiblock_fused_w4a8``) is K8 -> K6 -> K9: K8 ``vit_block_pre_w4a8``
+(``csrc/vit_pre_w4a8.cu``) and K9 ``vit_block_post_w4a8``
+(``csrc/vit_post_w4a8.cu``) are K5 and K7 with int4 weights, halves-packed
+on the padded grid (``pack_vit_blocks_w4a8``) and unpacked in registers; the
+int32 sums and everything around them are the W8A8 layer's. All three W4A8
+functions add FC2's residual as ``z1 + fma(acc, s, b)``.
+
 Numerics, as the reference kernels compute them (checked bit for bit against
 them on the CPU at the test sizes):
 
@@ -23,7 +32,7 @@ them on the CPU at the test sizes):
   * ``_quant_i8``: ``clip(rint(x · inv), ±127)`` with ``inv`` the fp32
     rounding of ``1/act_scale`` taken in double (``:870-871``);
   * epilogues ``fma(acc, s, b)`` (XLA contracts ``acc·s + b``); the
-    multiblock kernel's FC2 is ``z1 + fma(acc, s, b)`` (``:501``), the
+    multiblock kernel's FC2 is ``z1 + fma(acc, s, b)`` (``:501``), the W8
     single-block kernels' is ``fma(acc, s, z1) + b`` (``:364``, ``:976``);
   * the residual is fp32 inside a chunk and bf16 at its ends.
 
@@ -31,9 +40,10 @@ Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor; ``.launches`` counts kernel
 launches and ``.by_shape`` counts them per shape.
 
-Weights are packed once (``pack_vit_blocks_w8``): int8, K-major ``[N, K]``
-(the layout the tensor-core fragments read), [q|k|v] column blocks of Dp
-lanes each, heads at hd offsets, zero-padded so pad lanes stay zero.
+Weights are packed once (``pack_vit_blocks_w8``, ``pack_vit_blocks_w4a8``):
+K-major ``[N, K]`` int8 or ``[N, K/2]`` halves-packed int4 bytes (the
+layout the tensor-core fragments read), [q|k|v] column blocks of Dp lanes
+each, heads at hd offsets, zero-padded so pad lanes stay zero.
 """
 
 from __future__ import annotations
@@ -49,7 +59,8 @@ import torch.nn.functional as F
 from dlq_tpu_torch import _build
 from dlq_tpu_torch.models.common import fp32_matmul
 from dlq_tpu_torch.ops.attention import mhsa
-from dlq_tpu_torch.quant.quantize import dequantize, f32
+from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor, unpack_halves_kmajor
+from dlq_tpu_torch.quant.quantize import dequantize, f32, unpack_int4
 
 Block = Dict[str, Any]
 LN_EPS = 1e-6
@@ -107,7 +118,10 @@ def _quant_i8(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
 
 def _igemm(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     """Exact int32 sums of int8 codes (float) against K-major int8 weights
-    [N, K], as fp32 (float64 product: K·127² < 2^53)."""
+    [N, K], or int4 halves-packed ones [N, K/2] (uint8), as fp32 (float64
+    product: K·127² < 2^53)."""
+    if wk.dtype == torch.uint8:
+        wk = unpack_halves_kmajor(wk)
     return torch.matmul(q.double(), wk.double().t()).float()
 
 
@@ -119,59 +133,69 @@ def _epi(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # packing and embedding
 # ---------------------------------------------------------------------------
 
-def pack_vit_blocks_w8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
-                       extras: Dict[str, Any], cfg, tight: bool = False,
-                       smooth: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Pack a per-channel int8 ViT (``flatten_vit`` sites + ``vit_extras``)
-    for K5/K7: int8 K-major weights padded to (Dp, Hp), per-OC weight scales
-    folded with the calibrated activation scales into one fp32 row per
-    GEMM, fp32 biases, LN affines ``[2, Dp]`` and the four inverse
-    activation scales per layer. Tensors stay on the device of ``qflat``."""
+def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Dict[str, Any], extras: Dict[str, Any],
+                     cfg, tight: bool, smooth: Optional[Dict[str, Any]],
+                     w4: bool) -> Dict[str, Any]:
+    """The W8 (``w4=False``) and W4A8 block packings: weights K-major and
+    zero-padded to (Dp, Hp), int8 or halves-packed int4 on the padded grid;
+    per-OC weight scales folded with the calibrated activation scales into
+    one fp32 row per GEMM (pad lanes 0 for W8, 1.0 for W4A8, as each
+    reference packer pads); fp32 biases, LN affines ``[2, Dp]`` and the
+    four inverse activation scales per layer. Tensors stay on the device of
+    ``qflat``."""
+    what = "pack_vit_blocks_w4a8" if w4 else "pack_vit_blocks_w8"
     if smooth:
         raise NotImplementedError(
-            "pack_vit_blocks_w8: folding SmoothQuant vectors into the LN affines is not "
+            f"{what}: folding SmoothQuant vectors into the LN affines is not "
             "ported yet (ROADMAP.md A.9)")
     _, Dp = vit_pads(cfg, tight)
     Hp = mlp_pad(cfg)
+    fill = 1.0 if w4 else 0.0
 
-    def padv(a, n):
+    def padv(a, n, value=0.0):
         a = a.float().reshape(-1)
-        return F.pad(a, (0, n - a.shape[0])).contiguous()
+        return F.pad(a, (0, n - a.shape[0]), value=value).contiguous()
 
     def site(name):
         p = qflat[name]
         qw = p["qw"]
-        if qw.bits != 8 or qw.group is not None:
-            raise ValueError(f"pack_vit_blocks_w8: {name} needs per-channel int8 weights")
+        if qw.bits != (4 if w4 else 8) or qw.group is not None:
+            raise ValueError(f"{what}: {name} needs per-channel "
+                             f"{'int4' if w4 else 'int8'} weights")
+        grid = unpack_int4(qw.values, qw.shape) if w4 else qw.values.reshape(qw.shape)
         wscale = torch.broadcast_to(qw.scale.float(), (qw.shape[-1],))
         comb = torch.as_tensor(act_scales[name], dtype=torch.float32,
                                device=wscale.device) * wscale
         b = p.get("b")
         b = torch.zeros(qw.shape[-1], device=wscale.device) if b is None else b.float()
-        return qw.values.reshape(qw.shape).to(torch.int8), comb, b
+        return grid.to(torch.int8), comb, b
 
     def kmajor(w_io, k, n):
-        """[K', N'] int8 IO -> zero-padded K-major [n, k]."""
+        """[K', N'] int8 IO -> zero-padded K-major [n, k] int8, or [n, k/2]
+        halves-packed bytes."""
+        if w4:
+            return pack_halves_kmajor(w_io, k, n)
         return F.pad(w_io, (0, n - w_io.shape[1], 0, k - w_io.shape[0])).t().contiguous()
 
     blocks: List[Block] = []
     for i in range(cfg.depth):
-        wq8, sq, bq = site(f"l{i}.qkv")
-        wp8, sp, bp = site(f"l{i}.proj")
-        wf18, sf1, bf1 = site(f"l{i}.fc1")
-        wf28, sf2, bf2 = site(f"l{i}.fc2")
+        wq, sq, bq = site(f"l{i}.qkv")
+        wp, sp, bp = site(f"l{i}.proj")
+        wf1, sf1, bf1 = site(f"l{i}.fc1")
+        wf2, sf2, bf2 = site(f"l{i}.fc2")
         ln = extras["ln"][i]
+        qkv = torch.cat([F.pad(w, (0, Dp - w.shape[1])) for w in torch.chunk(wq, 3, -1)], -1)
         blocks.append({
             "inv_act": tuple(f32(1.0 / float(act_scales[f"l{i}.{s}"]))
                              for s in ("qkv", "proj", "fc1", "fc2")),
-            "wqkv": torch.cat([kmajor(w, Dp, Dp) for w in torch.chunk(wq8, 3, -1)]),
-            "sqkv": torch.cat([padv(s, Dp) for s in torch.chunk(sq, 3)]),
+            "wqkv": kmajor(qkv, Dp, 3 * Dp),
+            "sqkv": torch.cat([padv(s, Dp, fill) for s in torch.chunk(sq, 3)]),
             "bqkv": torch.cat([padv(b, Dp) for b in torch.chunk(bq, 3)]),
-            "wproj": kmajor(wp8, Dp, Dp), "sproj": padv(sp, Dp), "bproj": padv(bp, Dp),
+            "wproj": kmajor(wp, Dp, Dp), "sproj": padv(sp, Dp, fill), "bproj": padv(bp, Dp),
             "ln1": torch.stack([padv(ln["ln1"]["g"], Dp), padv(ln["ln1"]["b"], Dp)]),
             "ln2": torch.stack([padv(ln["ln2"]["g"], Dp), padv(ln["ln2"]["b"], Dp)]),
-            "wfc1": kmajor(wf18, Dp, Hp), "sfc1": padv(sf1, Hp), "bfc1": padv(bf1, Hp),
-            "wfc2": kmajor(wf28, Hp, Dp), "sfc2": padv(sf2, Dp), "bfc2": padv(bf2, Dp),
+            "wfc1": kmajor(wf1, Dp, Hp), "sfc1": padv(sf1, Hp, fill), "bfc1": padv(bf1, Hp),
+            "wfc2": kmajor(wf2, Hp, Dp), "sfc2": padv(sf2, Dp, fill), "bfc2": padv(bf2, Dp),
         })
     head_b = qflat["head"].get("b")
     return {
@@ -186,16 +210,39 @@ def pack_vit_blocks_w8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
     }
 
 
+def pack_vit_blocks_w8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
+                       extras: Dict[str, Any], cfg, tight: bool = False,
+                       smooth: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Pack a per-channel int8 ViT (``flatten_vit`` sites + ``vit_extras``)
+    for K5/K7: int8 K-major weights ``[N, K]`` (``_pack_vit_blocks``)."""
+    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, False)
+
+
+def pack_vit_blocks_w4a8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
+                         extras: Dict[str, Any], cfg, tight: bool = False,
+                         smooth: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Pack an ``INT4A8_PER_CHANNEL`` ViT for K8/K9
+    (``pallas_vit_block.py:1600``): the store's adjacent-row nibbles
+    unpacked, padded to (Dp, Hp), halves-packed at the padded K and stored
+    K-major, ``[N, Kp/2]`` bytes with byte k holding rows (k, k + Kp/2): the
+    reference's packing, transposed. The weights stay 4-bit."""
+    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, True)
+
+
 def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[List[Block]]:
     """Group the per-layer blocks into chunks of ``layers_per_kernel``: the
     residual stays fp32 between the layers of a chunk and is bf16 between
-    chunks, as in the reference's stacked kernels. The port launches K5,
-    K6, K7 per layer, so a chunk is the list of its layers' blocks."""
+    chunks, as in the reference's stacked kernels. The port launches three
+    kernels per layer, so a chunk is the list of its layers' blocks (of
+    either pack: ``stack_vit_blocks_w4a8`` is this function)."""
     blocks = packed["blocks"]
     L = layers_per_kernel
     if len(blocks) % L:
         raise ValueError(f"{len(blocks)} layers do not split into chunks of {L}")
     return [blocks[c: c + L] for c in range(0, len(blocks), L)]
+
+
+stack_vit_blocks_w4a8 = stack_vit_blocks_w8
 
 
 def embed_tokens(packed: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
@@ -238,11 +285,12 @@ def _head(packed: Dict[str, Any], y: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K5: LN1 + int8 QKV
+# K5 / K8: LN1 + QKV
 # ---------------------------------------------------------------------------
 
 def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
-    """Plain PyTorch version of K5 (``_block_pre_kernel_w8``)."""
+    """Plain PyTorch version of K5 (``_block_pre_kernel_w8``) and, on a
+    W4A8 pack, of K8."""
     xf = y.float()
     h1 = _ln_f32(xf, w["ln1"][0], w["ln1"][1], d_valid)
     acc = _igemm(_quant_i8(h1, w["inv_act"][0]), w["wqkv"])
@@ -250,8 +298,8 @@ def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor
 
 
 @functools.cache
-def _pre_entry():
-    fn = _build.library("vit_pre_w8").dlq_vit_pre_w8
+def _pre_entry(name: str):
+    fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
@@ -271,40 +319,62 @@ def _check_params(what: str, dev, *ts: torch.Tensor) -> None:
             raise ValueError(f"{what}: packed parameters must be contiguous on {dev}")
 
 
-def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
-    """LN1 + int8 QKV of one layer on the padded stream y [B, Np, Dp] (bf16
-    or fp32); returns bf16 qkv [B, Np, 3·Dp]."""
-    if y.device.type == "cpu":
-        return vit_block_pre_plain(y, w, d_valid)
+def _weight_shape(w: torch.Tensor, n: int, k: int, w4: bool) -> bool:
+    """Is ``w`` the K-major weight [n, k] of the format: int8, or int4
+    halves-packed [n, k/2] bytes?"""
+    return w.dtype == (torch.uint8 if w4 else torch.int8) and w.shape == (n, k // 2 if w4 else k)
+
+
+def _pre(wrapper, name: str, w4: bool, y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """Launch K5 (``name`` "vit_pre_w8") or K8 ("vit_pre_w4a8") and count it
+    on ``wrapper``."""
     B, Np, Dp = y.shape
-    _check_stream("vit_block_pre_w8", y, y.device, (torch.bfloat16, torch.float32), Dp)
-    if w["wqkv"].shape != (3 * Dp, Dp) or Dp % 64:
-        raise ValueError(f"vit_block_pre_w8: wqkv {tuple(w['wqkv'].shape)} for Dp {Dp} "
+    _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
+    if not _weight_shape(w["wqkv"], 3 * Dp, Dp, w4) or Dp % 64:
+        raise ValueError(f"{name}: wqkv {w['wqkv'].dtype} {tuple(w['wqkv'].shape)} for Dp {Dp} "
                          "(a multiple of 64)")
-    _check_params("vit_block_pre_w8", y.device, w["wqkv"], w["sqkv"], w["bqkv"], w["ln1"])
+    _check_params(name, y.device, w["wqkv"], w["sqkv"], w["bqkv"], w["ln1"])
     out = torch.empty((B, Np, 3 * Dp), dtype=torch.bfloat16, device=y.device)
-    rc = _pre_entry()(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
-                      w["wqkv"].data_ptr(), w["sqkv"].data_ptr(), w["bqkv"].data_ptr(),
-                      out.data_ptr(), B * Np, Dp, d_valid, w["inv_act"][0],
-                      _build.stream_ptr(y.device))
-    _build.check(rc, "vit_block_pre_w8")
-    vit_block_pre_w8.launches += 1
-    vit_block_pre_w8.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
+    rc = _pre_entry(name)(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
+                          w["wqkv"].data_ptr(), w["sqkv"].data_ptr(), w["bqkv"].data_ptr(),
+                          out.data_ptr(), B * Np, Dp, d_valid, w["inv_act"][0],
+                          _build.stream_ptr(y.device))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    wrapper.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
     return out
 
 
-vit_block_pre_w8.launches = 0
-vit_block_pre_w8.by_shape = collections.Counter()
+def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """LN1 + int8 QKV of one layer (K5) on the padded stream y [B, Np, Dp]
+    (bf16 or fp32); returns bf16 qkv [B, Np, 3·Dp]."""
+    if y.device.type == "cpu":
+        return vit_block_pre_plain(y, w, d_valid)
+    return _pre(vit_block_pre_w8, "vit_pre_w8", False, y, w, d_valid)
+
+
+def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """LN1 + QKV of one W4A8 layer (K8; ``pack_vit_blocks_w4a8`` weights),
+    as ``vit_block_pre_w8``."""
+    if y.device.type == "cpu":
+        return vit_block_pre_plain(y, w, d_valid)
+    return _pre(vit_block_pre_w4a8, "vit_pre_w4a8", True, y, w, d_valid)
+
+
+for _f in (vit_block_pre_w8, vit_block_pre_w4a8):
+    _f.launches = 0
+    _f.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
-# K7: proj + residual + LN2 + MLP + residual
+# K7 / K9: proj + residual + LN2 + MLP + residual
 # ---------------------------------------------------------------------------
 
 def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                          gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
                          multi: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of K7 (arguments as ``vit_block_post_w8``)."""
+    """Plain PyTorch version of K7 and, on a W4A8 pack, of K9 (arguments
+    as ``vit_block_post_w8``)."""
     inv = w["inv_act"]
     xf = y.float()
     acc = _igemm(_quant_i8(attn.float(), inv[1]), w["wproj"])
@@ -320,18 +390,48 @@ def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid:
 
 
 @functools.cache
-def _post_entry():
-    fn = _build.library("vit_post_w8").dlq_vit_post_w8
+def _post_entry(name: str):
+    fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 4
                    + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return fn
 
 
+def _post(wrapper, name: str, w4: bool, y: torch.Tensor, attn: torch.Tensor, w: Block,
+          d_valid: int, gelu_tanh: bool, out_dtype: torch.dtype, multi: bool) -> torch.Tensor:
+    """Launch K7 (``name`` "vit_post_w8") or K9 ("vit_post_w4a8") and count
+    it on ``wrapper``."""
+    B, Np, Dp = y.shape
+    Hp = w["wfc1"].shape[0]
+    _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
+    _check_stream(name, attn, y.device, (torch.bfloat16,), Dp)
+    if (attn.shape != y.shape or out_dtype not in (torch.bfloat16, torch.float32)
+            or not _weight_shape(w["wproj"], Dp, Dp, w4)
+            or not _weight_shape(w["wfc1"], Hp, Dp, w4)
+            or not _weight_shape(w["wfc2"], Dp, Hp, w4) or Dp % 64 or Hp % 64):
+        raise ValueError(f"{name}: y {tuple(y.shape)}, attn {tuple(attn.shape)}, "
+                         f"Hp {Hp}, out {out_dtype}: Dp and Hp must be multiples of 64")
+    _check_params(name, y.device, w["wproj"], w["sproj"], w["bproj"], w["ln2"],
+                  w["wfc1"], w["sfc1"], w["bfc1"], w["wfc2"], w["sfc2"], w["bfc2"])
+    out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
+    rc = _post_entry(name)(
+        y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(), *w["inv_act"],
+        w["wproj"].data_ptr(), w["sproj"].data_ptr(), w["bproj"].data_ptr(),
+        w["ln2"].data_ptr(), w["wfc1"].data_ptr(), w["sfc1"].data_ptr(), w["bfc1"].data_ptr(),
+        w["wfc2"].data_ptr(), w["sfc2"].data_ptr(), w["bfc2"].data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh), int(multi),
+        _build.stream_ptr(y.device))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    wrapper.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
+    return out
+
+
 def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                       gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
                       multi: bool = False) -> torch.Tensor:
-    """proj + residual + LN2 + MLP + residual of one layer: y [B, Np, Dp]
+    """proj + residual + LN2 + MLP + residual of one layer (K7): y [B, Np, Dp]
     bf16 or fp32, attn bf16. The defaults are the reference function's
     (``vit_block_post_w8``: output in ``y.dtype``, FC2 residual
     ``fma(acc, s, z1) + b``); ``multi`` takes the stacked kernel's
@@ -339,33 +439,26 @@ def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
-    B, Np, Dp = y.shape
-    Hp = w["wfc1"].shape[0]
-    _check_stream("vit_block_post_w8", y, y.device, (torch.bfloat16, torch.float32), Dp)
-    _check_stream("vit_block_post_w8", attn, y.device, (torch.bfloat16,), Dp)
-    if (attn.shape != y.shape or out_dtype not in (torch.bfloat16, torch.float32)
-            or w["wproj"].shape != (Dp, Dp) or w["wfc1"].shape != (Hp, Dp)
-            or w["wfc2"].shape != (Dp, Hp) or Dp % 64 or Hp % 64):
-        raise ValueError(f"vit_block_post_w8: y {tuple(y.shape)}, attn {tuple(attn.shape)}, "
-                         f"Hp {Hp}, out {out_dtype}: Dp and Hp must be multiples of 64")
-    _check_params("vit_block_post_w8", y.device, w["wproj"], w["sproj"], w["bproj"], w["ln2"],
-                  w["wfc1"], w["sfc1"], w["bfc1"], w["wfc2"], w["sfc2"], w["bfc2"])
-    out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
-    rc = _post_entry()(
-        y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(), *w["inv_act"],
-        w["wproj"].data_ptr(), w["sproj"].data_ptr(), w["bproj"].data_ptr(),
-        w["ln2"].data_ptr(), w["wfc1"].data_ptr(), w["sfc1"].data_ptr(), w["bfc1"].data_ptr(),
-        w["wfc2"].data_ptr(), w["sfc2"].data_ptr(), w["bfc2"].data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh), int(multi),
-        _build.stream_ptr(y.device))
-    _build.check(rc, "vit_block_post_w8")
-    vit_block_post_w8.launches += 1
-    vit_block_post_w8.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
-    return out
+    return _post(vit_block_post_w8, "vit_post_w8", False, y, attn, w, d_valid, gelu_tanh,
+                 out_dtype, multi)
 
 
-vit_block_post_w8.launches = 0
-vit_block_post_w8.by_shape = collections.Counter()
+def vit_block_post_w4a8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                        gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
+                        multi: bool = True) -> torch.Tensor:
+    """The same on a W4A8 pack (K9). Every W4A8 reference function adds
+    FC2's residual as ``z1 + fma(acc, s, b)`` (``pallas_vit_block.py:1542``,
+    ``:1739``, ``:1896``), so ``multi`` defaults to True here."""
+    out_dtype = y.dtype if out_dtype is None else out_dtype
+    if y.device.type == "cpu":
+        return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
+    return _post(vit_block_post_w4a8, "vit_post_w4a8", True, y, attn, w, d_valid, gelu_tanh,
+                 out_dtype, multi)
+
+
+for _f in (vit_block_post_w8, vit_block_post_w4a8):
+    _f.launches = 0
+    _f.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -381,26 +474,72 @@ def _attention(qkv: torch.Tensor, heads: int, hd: int, n_valid: int) -> torch.Te
                 n_valid, out_lanes=Dp)
 
 
+def _layer(pre, post, y: torch.Tensor, w: Block, n_valid: int, d_valid: int, heads: int,
+           hd: int, gelu_tanh: bool, out_dtype: torch.dtype, multi: bool) -> torch.Tensor:
+    """One layer as pre -> K6 -> post."""
+    a = _attention(pre(y, w, d_valid), heads, hd, n_valid)
+    return post(y, a, w, d_valid, gelu_tanh, out_dtype, multi)
+
+
 def vit_block_fused_w8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
                        hd: int, gelu_tanh: bool = True) -> torch.Tensor:
     """One W8A8 transformer block (``_block_kernel_w8``) as K5 -> K6 -> K7;
     output in ``y.dtype``."""
-    a = _attention(vit_block_pre_w8(y, w, d_valid), heads, hd, n_valid)
-    return vit_block_post_w8(y, a, w, d_valid, gelu_tanh)
+    return _layer(vit_block_pre_w8, vit_block_post_w8, y, w, n_valid, d_valid, heads, hd,
+                  gelu_tanh, y.dtype, False)
+
+
+def vit_block_fused_w4a8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
+                         hd: int, gelu_tanh: bool = True) -> torch.Tensor:
+    """One W4A8 transformer block as K8 -> K6 -> K9, output in ``y.dtype``,
+    FC2 residual ``z1 + fma(acc, s, b)``. Ports both ``vit_block_fused_w4a8``
+    and ``vit_block_fused_w4a8c``: the same function, bit-identical in the
+    reference (the ``c`` kernel only caches the nibble unpack across TPU grid
+    steps; its ``bt`` is TPU tiling with no numeric effect)."""
+    return _layer(vit_block_pre_w4a8, vit_block_post_w4a8, y, w, n_valid, d_valid, heads, hd,
+                  gelu_tanh, y.dtype, True)
+
+
+vit_block_fused_w4a8c = vit_block_fused_w4a8
+
+
+def _multiblock(pre, post, y: torch.Tensor, chunk: List[Block], n_valid: int, d_valid: int,
+                heads: int, hd: int, gelu_tanh: bool) -> torch.Tensor:
+    """L stacked layers: the residual is fp32 between the chunk's layers,
+    ``y.dtype`` at its end; FC2 residual ``z1 + fma(acc, s, b)``."""
+    x = y
+    for l, w in enumerate(chunk):
+        last = l == len(chunk) - 1
+        x = _layer(pre, post, x, w, n_valid, d_valid, heads, hd, gelu_tanh,
+                   y.dtype if last else torch.float32, True)
+    return x
 
 
 def vit_multiblock_fused_w8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
                             d_valid: int, heads: int, hd: int,
                             gelu_tanh: bool = True) -> torch.Tensor:
-    """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``): the
-    residual is fp32 between the chunk's layers, ``y.dtype`` at its end."""
-    x = y
-    for l, w in enumerate(chunk):
-        a = _attention(vit_block_pre_w8(x, w, d_valid), heads, hd, n_valid)
-        last = l == len(chunk) - 1
-        x = vit_block_post_w8(x, a, w, d_valid, gelu_tanh,
-                              out_dtype=y.dtype if last else torch.float32, multi=True)
-    return x
+    """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``)."""
+    return _multiblock(vit_block_pre_w8, vit_block_post_w8, y, chunk, n_valid, d_valid, heads,
+                       hd, gelu_tanh)
+
+
+def vit_multiblock_fused_w4a8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
+                              d_valid: int, heads: int, hd: int,
+                              gelu_tanh: bool = True) -> torch.Tensor:
+    """One chunk of L stacked W4A8 layers (``_multiblock_kernel_w4a8``),
+    K8 -> K6 -> K9 per layer; the reference's ``bt`` has no counterpart."""
+    return _multiblock(vit_block_pre_w4a8, vit_block_post_w4a8, y, chunk, n_valid, d_valid,
+                       heads, hd, gelu_tanh)
+
+
+def _forward(blocks, step, packed: Dict[str, Any], x: torch.Tensor, cfg, tight: bool,
+             gelu_tanh: bool) -> torch.Tensor:
+    """Token stream -> ``step`` over ``blocks`` (layers or chunks) -> head."""
+    y = _token_stream(packed, x, cfg, tight)
+    for w in blocks:
+        y = step(y, w, n_valid=cfg.seq_len, d_valid=cfg.dim, heads=cfg.heads,
+                 hd=cfg.dim // cfg.heads, gelu_tanh=gelu_tanh)
+    return _head(packed, y, cfg)
 
 
 def vit_forward_multiblock_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
@@ -410,21 +549,32 @@ def vit_forward_multiblock_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
     from ``pack_vit_blocks_w8(..., tight=tight)``; precomputed chunks under
     ``"_chunks"`` are used as they are). fp32 logits."""
     chunks = packed.get("_chunks") or stack_vit_blocks_w8(packed, layers_per_kernel)
-    y = _token_stream(packed, x, cfg, tight)
-    hd = cfg.dim // cfg.heads
-    for chunk in chunks:
-        y = vit_multiblock_fused_w8(y, chunk, n_valid=cfg.seq_len, d_valid=cfg.dim,
-                                    heads=cfg.heads, hd=hd, gelu_tanh=gelu_tanh)
-    return _head(packed, y, cfg)
+    return _forward(chunks, vit_multiblock_fused_w8, packed, x, cfg, tight, gelu_tanh)
+
+
+def vit_forward_multiblock_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                                layers_per_kernel: int = 6, gelu_tanh: bool = True,
+                                tight: bool = True) -> torch.Tensor:
+    """W4A8 forward on chunks of ``layers_per_kernel`` layers (``packed``
+    from ``pack_vit_blocks_w4a8``). fp32 logits."""
+    chunks = packed.get("_chunks") or stack_vit_blocks_w4a8(packed, layers_per_kernel)
+    return _forward(chunks, vit_multiblock_fused_w4a8, packed, x, cfg, tight, gelu_tanh)
 
 
 def vit_forward_blockfused_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
                               gelu_tanh: bool = True, tight: bool = False) -> torch.Tensor:
     """W8A8 forward one block at a time (``vit_block_fused_w8``: the residual
     is bf16 between layers). ``tight`` must match the packing. fp32 logits."""
-    y = _token_stream(packed, x, cfg, tight)
-    hd = cfg.dim // cfg.heads
-    for w in packed["blocks"]:
-        y = vit_block_fused_w8(y, w, n_valid=cfg.seq_len, d_valid=cfg.dim, heads=cfg.heads,
-                               hd=hd, gelu_tanh=gelu_tanh)
-    return _head(packed, y, cfg)
+    return _forward(packed["blocks"], vit_block_fused_w8, packed, x, cfg, tight, gelu_tanh)
+
+
+def vit_forward_blockfused_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                                gelu_tanh: bool = True, tight: bool = True) -> torch.Tensor:
+    """W4A8 forward one block at a time (K8 -> K6 -> K9 per layer, bf16
+    between layers): ``vit_forward_blockfused_w4a8`` and
+    ``vit_forward_blockfused_w4a8c`` (the engine's), one function. fp32
+    logits."""
+    return _forward(packed["blocks"], vit_block_fused_w4a8, packed, x, cfg, tight, gelu_tanh)
+
+
+vit_forward_blockfused_w4a8c = vit_forward_blockfused_w4a8

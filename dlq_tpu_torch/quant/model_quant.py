@@ -6,7 +6,7 @@ arithmetic:
 
   ObserveCtx      fp32 compute; records each quantized op's input (calibration)
   DeployCtx       W8A8: int8 convs on K1, 1x1/s1 convs (``mm1x1``) and int8
-                  dense on K2, fp32 interchange
+                  dense on K2, W4A8 dense on K10, fp32 interchange
   PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
                   same kernels as DeployCtx
   FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue)
@@ -15,10 +15,11 @@ arithmetic:
                   identity Bottlenecks as one K4 launch
 
 A context is built once per engine: it repacks every int8 weight K-major for
-the kernels when it is constructed, keeps the activation scales both as
-exact fp32 host values (kernel arguments, host-side scale arithmetic) and as
-0-dim device tensors (divisors of device ops), and caches the per-site
-combined epilogue scales.
+the kernels when it is constructed (a per-OC int4 dense weight stays 4-bit,
+repacked for K10; an int4 conv weight is unpacked to int8), keeps the
+activation scales both as exact fp32 host values (kernel arguments,
+host-side scale arithmetic) and as 0-dim device tensors (divisors of device
+ops), and caches the per-site combined epilogue scales.
 
 Not ported yet (ROADMAP.md): tensor-parallel wire routing, depthwise convs,
 the dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
@@ -34,12 +35,11 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
-from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8
+from dlq_tpu_torch.ops.conv_int8 import conv_int8
 from dlq_tpu_torch.ops.qops import (
-    bias_or_zeros, combined_scale, conv1x1_int8, dequant_conv2d,
-    int_weight_packed, is_mm1x1, qconv2d, qdense,
+    bias_or_zeros, combined_scale, conv1x1_int8, dense_int, dequant_conv2d, is_mm1x1, qconv2d,
+    qdense, site_weight_packed,
 )
-from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
 from dlq_tpu_torch.quant.qconfig import QConfig
 from dlq_tpu_torch.quant.quantize import (
     QTensor, dequantize, effective_weight_scheme, f32, fdiv, quantize_act, quantize_tensor,
@@ -104,7 +104,9 @@ class QAct:
 
 class DeployCtx:
     """W8A8 deploy with fp32 interchange: every int8 conv on K1, every int8
-    dense on K2; weight-only schemes dequantize."""
+    dense on K2, every per-OC int4 dense on K10 (W4A8; an int4 store read
+    with ``int4_runtime="int8"`` arrives materialized to int8 and runs on
+    K2); weight-only schemes dequantize."""
 
     def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
                  qcfg: QConfig):
@@ -115,12 +117,12 @@ class DeployCtx:
         # tensors (divisors of device ops), per calibration site
         self.scale = {k: f32(v) for k, v in self.act_scales.items()}
         self.scale_t = {k: v.float().reshape(()) for k, v in self.act_scales.items()}
-        # K-major int8 weights, repacked once per site
-        self.packed: Dict[str, PackedConv] = {}
+        # the kernels' weights, repacked once per site
+        self.packed: Dict[str, Any] = {}
         if not qcfg.weight_only:
             for site, p in qflat.items():
                 if p["qw"].group is None:
-                    self.packed[site] = int_weight_packed(p["qw"])
+                    self.packed[site] = site_weight_packed(p["qw"])
         self._comb: Dict[Any, torch.Tensor] = {}
         self._bias: Dict[str, torch.Tensor] = {}
 
@@ -216,8 +218,8 @@ class FusedDeployCtx(DeployCtx):
         if isinstance(x, QAct):
             # int8 GEMM straight on the already-quantized activation
             lead = x.q.shape[:-1]
-            y = matmul_int8(x.q.reshape(-1, x.q.shape[-1]), self.packed[name],
-                            self.comb(name, x.scale), self.bias(name), relu=fuse_relu)
+            y = dense_int(x.q.reshape(-1, x.q.shape[-1]), self.packed[name],
+                          self.comb(name, x.scale), self.bias(name), relu=fuse_relu)
             return y.reshape(lead + (y.shape[-1],))
         return super().dense(name, x, fuse_relu=fuse_relu)
 

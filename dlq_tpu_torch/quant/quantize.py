@@ -4,7 +4,8 @@ Same numeric contract as ``dlq_tpu.quant.quantize``: scales are fp32,
 rounding is half-to-even (``torch.round``), symmetric schemes clip to
 ``[-qmax, qmax]``, int4 values are nibble-packed along axis 0 (the
 contraction axis of a [K, O] weight): byte ``[k, o]`` holds row ``2k`` in
-the low nibble and row ``2k+1`` in the high nibble.
+the low nibble and row ``2k+1`` in the high nibble. The W4A8 kernels read a
+second packing, halves (``pack_int4_halves``), made once at load.
 """
 
 from __future__ import annotations
@@ -191,3 +192,24 @@ def unpack_int4(packed: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     hi = torch.where(hi >= 8, hi - 16, hi)
     out = torch.stack([lo, hi], dim=1).reshape((-1,) + tuple(packed.shape[1:]))
     return out[: shape[0]].reshape(shape)
+
+
+# Halves packing (the W4A8 kernels' operand): byte k holds values[k] in the
+# low nibble and values[k + K/2] in the high nibble, so a kernel contracts
+# the two halves against two contiguous slices of the activation.
+
+def pack_int4_halves(q: torch.Tensor) -> torch.Tensor:
+    """int8 [-8, 7] tensor [K, ...] -> uint8 [K/2, ...], top/bottom halves."""
+    if q.shape[0] % 2 != 0:
+        raise ValueError(f"axis 0 ({q.shape[0]}) must be even to pack")
+    h = q.shape[0] // 2
+    return (q[:h].view(torch.uint8) & 0xF) | ((q[h:].view(torch.uint8) & 0xF) << 4)
+
+
+def unpack_int4_halves(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4_halves``: uint8 [K/2, ...] -> int8 [K, ...]."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.cat([lo, hi], dim=0)

@@ -18,7 +18,7 @@ import torch
 
 from dlq_tpu_torch.manifest import Manifest, QuantMeta
 from dlq_tpu_torch.quant.qconfig import QConfig, QScheme
-from dlq_tpu_torch.quant.quantize import QTensor
+from dlq_tpu_torch.quant.quantize import QTensor, unpack_int4
 
 FlatParams = Dict[str, Dict[str, Any]]
 
@@ -127,6 +127,25 @@ def load_quantized(root: str) -> Tuple[FlatParams, Dict[str, torch.Tensor], QCon
     for p in qflat.values():
         p.setdefault("b", None)
     return qflat, act_scales, qcfg, extras
+
+
+def materialize_int8(qflat: FlatParams) -> FlatParams:
+    """Unpack every per-OC int4 QTensor to int8 once (exact: the same
+    integer values and scales, ``dlq_tpu/quant/store.py:132``): the store
+    stays 4-bit on disk, the runtime weights are int8 (``int4_runtime=
+    "int8"``). Group-wise int4 stays packed (its scales cannot fold into
+    the int8 epilogue)."""
+    out: FlatParams = {}
+    for site, p in qflat.items():
+        qw = p.get("qw")
+        if qw is not None and qw.bits == 4 and qw.group is None:
+            qw = QTensor(values=unpack_int4(qw.values, qw.shape).reshape(qw.layout_shape),
+                         scale=qw.scale, zero_point=None, bits=8, axis=qw.axis, group=None,
+                         shape=qw.layout_shape, orig_shape=qw.orig_shape)
+            out[site] = {**p, "qw": qw}
+        else:
+            out[site] = p
+    return out
 
 
 def unflatten_extras(flat: Dict[str, Any]) -> Dict[str, Any]:

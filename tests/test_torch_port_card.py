@@ -162,3 +162,62 @@ def test_vit_kernels_on_card():
             got = vit_block_post_w8(y, a, blk, d, True, out_dt, multi)
             assert got.dtype == out_dt
             _agree(got, vit_block_post_plain(y, a, blk, d, True, out_dt, multi), 0.95, 0.25)
+
+
+@pytest.mark.gpu
+def test_w4a8_kernels_on_card():
+    """K8, K9 and K10 against their plain versions. K8/K9: Dp 128 with
+    d_valid 96 (Kp/2 = 64, pad lanes) and Dp 192 (Kp/2 = 96, not a multiple
+    of K5/K7's 64-byte stage), 72 and 400 rows. K10 (bit-identical, the
+    int32 sums are exact): K = 192 (Kp/2 = 96), K = 96 (padded to Kp 128),
+    K = 10 (the byte path), N = 64 (the 128 x 64 tile) and N = 1000, relu on
+    and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import mhsa_plain
+    from dlq_tpu_torch.ops.matmul_int4a8 import (
+        matmul_int4a8, matmul_int4a8_plain, pack_halves_kmajor, pack_int4a8_weight,
+    )
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w4a8, vit_block_pre_plain, vit_block_pre_w4a8,
+    )
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL
+    from dlq_tpu_torch.quant.quantize import quantize_tensor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for (bsz, rows, d, dp, hp, heads) in [(3, 24, 96, 128, 384, 3), (2, 200, 192, 192, 768, 3)]:
+        blk = _vit_block(rng, dp, hp, dev)
+        for name, (n, k) in (("wqkv", (3 * dp, dp)), ("wproj", (dp, dp)), ("wfc1", (hp, dp)),
+                             ("wfc2", (dp, hp))):
+            w = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8))
+            blk[name] = pack_halves_kmajor(w, k, n).to(dev)
+            s = blk["s" + name[1:]]
+            s.mul_(73.0 / 4.6)   # int4 weights: rms ~4.6 against int8's ~73
+        blk["ln1"][:, d:] = 0
+        blk["ln2"][:, d:] = 0
+        yn = rng.normal(0, 1, (bsz, rows, dp)).astype(np.float32)
+        yn[..., d:] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            y = torch.from_numpy(yn).to(dev, dt)
+            _agree(vit_block_pre_w4a8(y, blk, d), vit_block_pre_plain(y, blk, d), 0.99, 0.25)
+        qkv = vit_block_pre_plain(torch.from_numpy(yn).to(dev), blk, d)
+        a = mhsa_plain(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d], heads,
+                       rows - 3, out_lanes=dp)
+        for dt, out_dt, multi in ((torch.bfloat16, torch.float32, True),
+                                  (torch.float32, torch.bfloat16, True),
+                                  (torch.bfloat16, torch.bfloat16, True),
+                                  (torch.float32, torch.float32, False)):
+            y = torch.from_numpy(yn).to(dev, dt)
+            got = vit_block_post_w4a8(y, a, blk, d, True, out_dt, multi)
+            assert got.dtype == out_dt
+            _agree(got, vit_block_post_plain(y, a, blk, d, True, out_dt, multi), 0.95, 0.25)
+    for (m, k, n, relu) in [(300, 192, 576, False), (37, 96, 1000, True), (300, 128, 64, True),
+                            (50, 10, 20, False), (129, 768, 192, True)]:
+        qw = quantize_tensor(torch.from_numpy(rng.normal(0, 0.1, (k, n)).astype(np.float32)),
+                             INT4A8_PER_CHANNEL.weights)
+        pk = pack_int4a8_weight(qw.to(dev))
+        x = _i8(rng, (m, k)).to(dev)
+        scale, bias = _epi(rng, n, k, dev)
+        args = (x, pk, scale * 16.0, bias, relu)
+        assert torch.equal(matmul_int4a8(*args), matmul_int4a8_plain(*args))

@@ -1,0 +1,72 @@
+"""The JAX reference's own quantization error on random-weight DeiT-Tiny.
+
+Its ``ctx="deploy"`` engine (the DeployCtx forward, jitted, on the CPU) on a
+store written by ``save_quantized``, against its fp32 forward (exact GELU,
+as the deploy forward), for INT8_PER_CHANNEL and INT4A8_PER_CHANNEL. The
+weights, the calibration batch and the images are those of
+``chip_smoke.py`` (the port's numpy-seeded ``init_vit``, seed 0), so the
+numbers say how close to fp32 the card's DeiT paths can be asked to come.
+
+    python tools/deit_reference_error.py [--images 16]
+
+Prints one JSON line per scheme: logits cosine, largest logit difference
+and top-1 agreement against fp32.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from dlq_tpu.engine import Engine  # noqa: E402
+from dlq_tpu.models import vit as JV  # noqa: E402
+from dlq_tpu.quant import model_quant as JM  # noqa: E402
+from dlq_tpu.quant.calibrate import calibrate  # noqa: E402
+from dlq_tpu.quant.qconfig import INT4A8_PER_CHANNEL, INT8_PER_CHANNEL  # noqa: E402
+from dlq_tpu.quant.store import save_quantized  # noqa: E402
+from dlq_tpu_torch.models.vit import ViTConfig, init_vit  # noqa: E402
+
+SEED = 0
+META = ("num_classes", "image_size", "patch", "dim", "depth", "heads", "mlp_ratio")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--images", type=int, default=16)
+    n = ap.parse_args().images
+    cfg = JV.ViTConfig()
+    params = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), init_vit(SEED, ViTConfig()))
+    flat, ex = JV.flatten_vit(params), JV.vit_extras(params)
+    x = np.random.default_rng(SEED).normal(0, 1, (n, 224, 224, 3)).astype(np.float32)
+    calib = [jnp.asarray(np.random.default_rng(SEED + 12).normal(0, 1, (8, 224, 224, 3)),
+                         jnp.float32)]
+    ref = np.asarray(JV.vit_forward(params, jnp.asarray(x), cfg))
+    qf = JV.make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim)
+    for name, qcfg in (("INT8_PER_CHANNEL", INT8_PER_CHANNEL),
+                       ("INT4A8_PER_CHANNEL", INT4A8_PER_CHANNEL)):
+        scales = calibrate(JM.make_sites_fn(qf, cfg), flat, calib, qcfg)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_quantized(tmp, "deit_tiny", JM.quantize_weights(flat, qcfg), scales, qcfg,
+                           extras=ex, meta={"config": {k: getattr(cfg, k) for k in META}})
+            got = np.asarray(Engine.from_store(tmp, ctx="deploy", batch=n)(x), np.float32)
+        a, b = got.reshape(-1).astype(np.float64), ref.reshape(-1).astype(np.float64)
+        print(json.dumps({
+            "scheme": name, "images": n, "platform": "cpu",
+            "logits_cosine_vs_fp32": float(a @ b / np.linalg.norm(a) / np.linalg.norm(b)),
+            "logit_err_max": float(np.abs(got - ref).max()),
+            "top1_agreement_vs_fp32": float((got.argmax(-1) == ref.argmax(-1)).mean())}),
+            flush=True)
+
+
+if __name__ == "__main__":
+    main()
