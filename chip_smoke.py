@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
-DeiT-Tiny W8A8, DeiT-Tiny W4A8, 224 px).
+DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -55,7 +55,20 @@ Phases, one JSON line each:
      W4A8 error on random weights), its plain-version twin and per layer,
      and profiled; ctx="deploy" at batch 64 with int4_runtime="packed" (K10
      50 per forward) and "int8" (K2 50), whose logits must be bit-identical;
-     and ctx="block" with int4_runtime="int8" (the W8 path: K5, K6, K7).
+     and ctx="block" with int4_runtime="int8" (the W8 path: K5, K6, K7);
+  8. DeiT-Tiny W4A16 (the same weights quantized weight-only): K11
+     vit_pre_w4 and K12 vit_post_w4 at every dtype form of its block layer
+     and K13 matmul_int4 at its two G128 deploy shapes, at batch 256,
+     against their plain versions (fp32 sums in another order: W4A16_TOL,
+     K13_REL), with a bf16 torch.matmul on the dequantized weights as the
+     yardstick; then an INT4_WEIGHT_ONLY_PER_OC store through
+     Engine.from_store(ctx="block") (deit_tiny_block_w4: K11, K6, K12 12
+     launches each per forward, 4-bit weights) driven through classify,
+     gated against the fp32 forward (DEIT_W4A16_FP32_COS: the reference's
+     own weight-only error), its plain-version twin and per layer, and
+     profiled; an INT4_WEIGHT_ONLY_G128 store through ctx="deploy" at batch
+     64 (K13 13 launches per forward), gated the same way
+     (DEIT_G128_FP32_COS).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -84,6 +97,7 @@ NB = 4                    # classify batches per main path
 NO_INT8_CONV = "none: no PyTorch call computes an int8 conv with int32 accumulation on CUDA"
 INT_MM = "torch._int_mm (int32 product only, no epilogue)"
 SDPA = "torch.nn.functional.scaled_dot_product_attention (bf16 [B, heads, N, hd], no mask)"
+HMM = "torch.matmul in bf16 on the dequantized bf16 weights (no epilogue)"
 VIT_TOL = (0.999, 0.0625)  # ViT kernels vs plain: fraction equal, largest difference
 DEIT_FP32_COS = 0.998      # DeiT-Tiny W8A8 logits vs fp32 (see deit_paths)
 DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see deit_paths)
@@ -91,6 +105,20 @@ DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see dei
 # on these random weights is at cosine 0.95484 (16 images) and 0.95645 (256)
 # on the CPU (tools/deit_reference_error.py), top-1 0.56-0.57
 DEIT_W4A8_FP32_COS = 0.95
+# DeiT-Tiny W4A16 logits vs fp32, just under the reference's own weight-only
+# deploy forward on these random weights (tools/deit_reference_error.py, 16
+# images, CPU; PERF.md, Findings): INT4_WEIGHT_ONLY_PER_OC at cosine 0.95648
+# (top-1 0.5) for the block path, INT4_WEIGHT_ONLY_G128 at 0.98209 (top-1
+# 0.9375) for the G128 deploy path
+DEIT_W4A16_FP32_COS = 0.95
+DEIT_G128_FP32_COS = 0.98
+# W4A16 kernels vs plain (fp32 sums in another order, nothing quantized to
+# int8): bf16 outputs as VIT_TOL; fp32 outputs: the fraction within
+# 2^-12 x (1 + |plain|), none more than VIT_TOL[1] apart
+W4A16_TOL = {"bf16": VIT_TOL, "fp32": (VIT_TOL[0], VIT_TOL[1], 2.0 ** -12)}
+# K13 vs plain: each output within 2^-14 of the sum of its products'
+# magnitudes (fp32 sums of exact products in another order)
+K13_REL = 2.0 ** -14
 # one block-path layer (K5 -> K6 -> K7) vs its plain versions on the same
 # input: an int8 code that lands one step apart (another sum order in LN,
 # softmax or the bf16 rounding of attn) moves its whole row of the layer's
@@ -99,7 +127,8 @@ DEIT_W4A8_FP32_COS = 0.95
 LAYER_TOL = (0.97, VIT_TOL[1])
 
 KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
-           "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8")
+           "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
+           "vit_post_w4", "matmul_int4")
 
 
 def _per(**launches):
@@ -110,7 +139,8 @@ def _per(**launches):
 # BasicBlocks; ResNet-50: 3-4-6-3 Bottlenecks, 1x1/s1 convs on K2; DeiT-Tiny:
 # 12 layers of K5 -> K6 -> K7, 6 per chunk; its deploy path: 50 dense sites;
 # DeiT-Tiny W4A8: 12 layers of K8 -> K6 -> K9, its deploy path's 50 dense
-# sites on K10, or on K2 with int4_runtime="int8")
+# sites on K10, or on K2 with int4_runtime="int8"; DeiT-Tiny W4A16: 12 layers
+# of K11 -> K6 -> K12, its G128 deploy path's 13 group-wise sites on K13)
 PER_FORWARD = {
     "r18_fused2": _per(conv_int8=19, matmul_int8=1),
     "r18_block": _per(conv_int8=15, matmul_int8=1, basic_block=2),
@@ -125,12 +155,14 @@ PER_FORWARD = {
     "deit_deploy_w4a8": _per(matmul_int4a8=50, mhsa=12),
     "deit_deploy_w4a8_int8": _per(matmul_int8=50, mhsa=12),
     "deit_block_w4a8_int8": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
+    "deit_block_w4": _per(vit_pre_w4=12, mhsa=12, vit_post_w4=12),
+    "deit_deploy_g128": _per(matmul_int4=13, mhsa=12),
 }
 # paths run at batch 64 and checked by totals only (the shape tables are at
 # batch 256; where a kernel's times are summed per forward on such a path,
 # its case table's launches per forward weight them)
 TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "deit_deploy_w4a8",
-               "deit_deploy_w4a8_int8", "deit_block_w4a8_int8")
+               "deit_deploy_w4a8_int8", "deit_block_w4a8_int8", "deit_deploy_g128")
 TOTALS_BATCH = 64
 
 
@@ -255,8 +287,8 @@ def vit_pre_cases():
 def mhsa_cases():
     """K6: (rows, n_valid) -> launches per forward per path (the deploy
     paths' 197 unpadded rows are checked at batch 64 by totals only)."""
-    return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12},
-            (VIT_N, VIT_N): {"deit_deploy_w4a8": 12}}
+    return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12, "deit_block_w4": 12},
+            (VIT_N, VIT_N): {"deit_deploy_w4a8": 12, "deit_deploy_g128": 12}}
 
 
 def vit_post_cases():
@@ -293,6 +325,29 @@ def matmul_int4a8_cases():
     return {(hw, k, n, False): {"deit_deploy_w4a8": c} for (hw, k, n), c in DEIT_DEPLOY_SITES.items()}
 
 
+def vit_pre_w4_cases():
+    """K11: residual dtype -> launches per forward per path (bf16 at every
+    layer of the W4A16 block path; fp32 is the stacked form's)."""
+    return {"bfloat16": {"deit_block_w4": 12}, "float32": {}}
+
+
+def vit_post_w4_cases():
+    """K12: (residual dtype in, dtype out) -> launches per forward per path
+    (bf16 -> bf16 at every layer of the W4A16 block path; the others are the
+    stacked forms of vit_multiblock_fused_w4)."""
+    return {("bfloat16", "bfloat16"): {"deit_block_w4": 12}, ("bfloat16", "float32"): {},
+            ("float32", "float32"): {}, ("float32", "bfloat16"): {}}
+
+
+def matmul_int4_cases():
+    """K13: (rows per image, K, N, relu) -> launches per forward per path:
+    the G128 deploy path's group-wise sites (patch and l*.fc2, K = 768; the
+    K = 192 sites fall back to int8 weight-only), driven at batch 64 and
+    checked by totals."""
+    return {(196, 768, 192, False): {"deit_deploy_g128": 1},
+            (197, 768, 192, False): {"deit_deploy_g128": 12}}
+
+
 def _conv_key(case):
     h, c, oc, k, s, relu, int8_out = case
     return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
@@ -312,7 +367,10 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "vit_post_w8": (vit_post_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
         "vit_pre_w4a8": (vit_pre_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
         "vit_post_w4a8": (vit_post_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
-        "matmul_int4a8": (matmul_int4a8_cases, lambda c: (BATCH * c[0], *c[1:]))}
+        "matmul_int4a8": (matmul_int4a8_cases, lambda c: (BATCH * c[0], *c[1:])),
+        "vit_pre_w4": (vit_pre_w4_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
+        "vit_post_w4": (vit_post_w4_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
+        "matmul_int4": (matmul_int4_cases, lambda c: (BATCH * c[0], *c[1:]))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -350,20 +408,34 @@ def _epi_params(gen, oc, k, dev):
 
 
 def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=2,
-         library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, **extra):
-    """One kernel shape: held against its plain version (bit-identical, or
-    with ``tol`` = (fraction of outputs equal, largest difference)), timed
-    beside the plain version, the library call and the bound."""
+         library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, rel=None, **extra):
+    """One kernel shape: held against its plain version (bit-identical; or
+    with ``tol`` = (fraction of outputs equal, largest difference), or
+    (fraction within near x (1 + |plain|), largest difference, near); or
+    with ``rel`` = (bound, mag): every difference within bound x mag),
+    timed beside the plain version, the library call and the bound."""
     torch.cuda.synchronize()
     diff = (got.float() - ref.float()).abs()
     err = float(diff.max())
     equal = float((diff == 0).float().mean())
-    if (tol is None and err != 0.0) or (tol is not None and (equal < tol[0] or err > tol[1])):
-        raise AssertionError(f"{kernel} {shape}: max_abs_err {err}, equal fraction {equal} "
-                             f"(need {tol or 'bit-identical'})")
+    checks = {}
+    if rel is not None:
+        checks["max_rel_err"] = float((diff / rel[1].float().clamp_min(1e-30)).max())
+        ok = checks["max_rel_err"] <= rel[0]
+    elif tol is None:
+        ok = err == 0.0
+    else:
+        frac = equal
+        if len(tol) == 3:
+            frac = checks["within_fraction"] = float(
+                (diff <= tol[2] * (1.0 + ref.float().abs())).float().mean())
+        ok = frac >= tol[0] and err <= tol[1]
+    if not ok:
+        raise AssertionError(f"{kernel} {shape}: max_abs_err {err}, equal fraction {equal}, "
+                             f"{checks} (need {rel[0] if rel else tol or 'bit-identical'})")
     b_ms, b_by = bound(ops, nbytes, peak)
     row = {"kernel": kernel, "key": key, "shape": shape, **extra, "max_abs_err": err,
-           "equal_fraction": equal, "ms": time_ms(fn),
+           "equal_fraction": equal, **checks, "ms": time_ms(fn),
            "plain_ms": time_ms(plain, iters=plain_iters, warmup=1, reps=1),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(library) if library is not None else None,
@@ -664,6 +736,112 @@ def check_int4a8_matmul(dev):
     return rows
 
 
+def _w4a16_layer(gen, dev):
+    """One packed DeiT-Tiny W4A16 layer: _w4a8_layer's int4 weights, biases
+    and LN rows, with per-OC scales that put each GEMM's outputs near unit
+    scale for bf16 activations (int4 weights have an rms of ~4.6), and no
+    activation scales."""
+    blk = _w4a8_layer(gen, dev)
+    del blk["inv_act"]
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        n, kh = blk["w" + name].shape
+        blk["s" + name] = ((0.5 + torch.rand(n, generator=gen, device=dev))
+                           / (4.6 * math.sqrt(2 * kh))).float().contiguous()
+    return blk
+
+
+def check_w4a16_kernels(dev):
+    """K11 and K12 at every dtype form of DeiT-Tiny's W4A16 layer at batch
+    256 (the block path's bf16 -> bf16 and the stacked forms), with a bf16
+    torch.matmul on the dequantized weights as the yardstick; the int4
+    weights count K/2 bytes in the bound, the products bf16's peak."""
+    from dlq_tpu_torch.ops.attention import mhsa
+    from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_w4, vit_block_pre_w4_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    blk = _w4a16_layer(gen, dev)
+    dp, hp, m = VIT_DP, VIT_HP, BATCH * VIT_NP
+    y32 = torch.randn((BATCH, VIT_NP, dp), generator=gen, device=dev)
+    ys = {"float32": y32, "bfloat16": y32.to(torch.bfloat16)}
+    h1 = torch.randn((m, dp), generator=gen, device=dev).to(torch.bfloat16)
+    h2 = torch.randn((m, hp), generator=gen, device=dev).to(torch.bfloat16)
+    wq, wp, w1, w2 = ((unpack_halves_kmajor(blk[k]).float() * blk["s" + k[1:]][:, None])
+                      .t().contiguous().to(torch.bfloat16)
+                      for k in ("wqkv", "wproj", "wfc1", "wfc2"))   # bf16 [K, N]
+    rows = []
+    for case, per in vit_pre_w4_cases().items():
+        y = ys[case]
+        rows.append(_row(
+            "vit_pre_w4", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv, w4a16",
+            vit_block_pre_w4(y, blk, dp), vit_block_pre_w4_plain(y, blk, dp),
+            lambda: vit_block_pre_w4(y, blk, dp), lambda: vit_block_pre_w4_plain(y, blk, dp),
+            2.0 * m * dp * 3 * dp,
+            y.numel() * y.element_size() + 3 * dp * dp // 2 + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2,
+            per, library=lambda: torch.matmul(h1, wq), tol=W4A16_TOL["bf16"], peak=PEAK_BF16,
+            library_name=HMM, residual=case, out="bf16"))
+    qkv = vit_block_pre_w4_plain(y32, blk, dp)
+    a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
+    for (din, dout), per in vit_post_w4_cases().items():
+        y, odt = ys[din], getattr(torch, dout)
+
+        def kern():
+            return vit_block_post_w4(y, a, blk, dp, True, odt)
+
+        def plain():
+            return vit_block_post_w4_plain(y, a, blk, dp, True, odt)
+
+        rows.append(_row(
+            "vit_post_w4", (BATCH, VIT_NP, dp, hp, din, dout),
+            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, w4a16", kern(), plain(), kern, plain,
+            2.0 * m * (dp * dp + 2 * dp * hp),
+            y.numel() * y.element_size() + a.numel() * 2 + (dp * dp + 2 * dp * hp) // 2
+            + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
+            library=lambda: (torch.matmul(h1, wp), torch.matmul(h1, w1), torch.matmul(h2, w2)),
+            tol=W4A16_TOL["fp32" if dout == "float32" else "bf16"], peak=PEAK_BF16,
+            library_name=HMM + ", the three products", residual=din, out=dout))
+    del qkv, a, ys, y32, h1, h2
+    return rows
+
+
+def check_int4_matmul(dev):
+    """K13 at DeiT-Tiny's two G128 deploy shapes at batch 256, on group-wise
+    int4 weights quantized from random ones and repacked as the deploy
+    context repacks them; each output within K13_REL of the sum of its
+    products' magnitudes from the plain version."""
+    from dlq_tpu_torch.models.common import fp32_matmul
+    from dlq_tpu_torch.ops.matmul_int4 import (
+        dequantize_bf16, matmul_int4, matmul_int4_plain, pack_int4_weight,
+    )
+    from dlq_tpu_torch.quant.qconfig import INT4_WEIGHT_ONLY_G128
+    from dlq_tpu_torch.quant.quantize import quantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = []
+    for case, per in matmul_int4_cases().items():
+        hw, k, n, relu = case
+        m = BATCH * hw
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        pk = pack_int4_weight(quantize_tensor(0.02 * torch.randn((k, n), generator=gen, device=dev),
+                                              INT4_WEIGHT_ONLY_G128.weights))
+        bias = (0.02 * torch.randn(n, generator=gen, device=dev)).contiguous()
+        w = dequantize_bf16(pk)                                   # bf16 [K, N]
+        with fp32_matmul():
+            mag = torch.matmul(x.float().abs(), w.float().abs())
+        got = matmul_int4(x, pk, bias, relu)
+        rows.append(_row(
+            "matmul_int4", (m, k, n, relu), f"{m}x{k}@{k}x{n} int4 g{pk.group}", got,
+            matmul_int4_plain(x, pk, bias, relu),
+            lambda: matmul_int4(x, pk, bias, relu), lambda: matmul_int4_plain(x, pk, bias, relu),
+            2.0 * m * n * k, m * k * 2 + k * n // 2 + pk.sc.numel() * 2 + 4 * n + got.numel() * 4,
+            per, library=lambda: torch.matmul(x, w), peak=PEAK_BF16, library_name=HMM,
+            rel=(K13_REL, mag), relu=relu, out="fp32"))
+        del x, got, mag
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
 # ---------------------------------------------------------------------------
@@ -672,16 +850,20 @@ def _wrappers():
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
+    from dlq_tpu_torch.ops.matmul_int4 import matmul_int4
     from dlq_tpu_torch.ops.matmul_int4a8 import matmul_int4a8
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4a8, vit_block_pre_w8,
+        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4,
+        vit_block_pre_w4a8, vit_block_pre_w8,
     )
 
     ws = {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
           "bottleneck_block": bottleneck_block_fused, "vit_pre_w8": vit_block_pre_w8,
           "mhsa": mhsa, "vit_post_w8": vit_block_post_w8, "vit_pre_w4a8": vit_block_pre_w4a8,
-          "vit_post_w4a8": vit_block_post_w4a8, "matmul_int4a8": matmul_int4a8}
+          "vit_post_w4a8": vit_block_post_w4a8, "matmul_int4a8": matmul_int4a8,
+          "vit_pre_w4": vit_block_pre_w4, "vit_post_w4": vit_block_post_w4,
+          "matmul_int4": matmul_int4}
     assert tuple(ws) == KERNELS
     return ws
 
@@ -744,7 +926,7 @@ def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
     from dlq_tpu_torch.ops import (
-        attention, block_fused, conv_int8, matmul_int4a8, matmul_int8, qops, vit_block,
+        attention, block_fused, conv_int8, matmul_int4, matmul_int4a8, matmul_int8, qops, vit_block,
     )
     from dlq_tpu_torch.quant import model_quant
 
@@ -752,12 +934,15 @@ def plain_kernels():
             (vit_block, "vit_block_post_w8", vit_block.vit_block_post_plain),
             (vit_block, "vit_block_pre_w4a8", vit_block.vit_block_pre_plain),
             (vit_block, "vit_block_post_w4a8", vit_block.vit_block_post_plain),
+            (vit_block, "vit_block_pre_w4", vit_block.vit_block_pre_w4_plain),
+            (vit_block, "vit_block_post_w4", vit_block.vit_block_post_w4_plain),
             (vit_block, "mhsa", attention.mhsa_plain),
             (attention, "mhsa", attention.mhsa_plain),
             (model_quant, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
             (qops, "matmul_int4a8", matmul_int4a8.matmul_int4a8_plain),
+            (qops, "matmul_int4", matmul_int4.matmul_int4_plain),
             (block_fused, "basic_block_fused", block_fused.basic_block_plain),
             (block_fused, "bottleneck_block_fused", block_fused.bottleneck_block_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in subs]
@@ -1211,25 +1396,126 @@ def deit_w4a8_paths(dev, card, d, act_scales, images):
     return out
 
 
+def deit_w4a16_paths(dev, card, d, images):
+    """DeiT-Tiny W4A16: the same weights quantized INT4_WEIGHT_ONLY_PER_OC (no
+    calibration: weight-only), stored and served by Engine.from_store(
+    ctx="block") (the reference's deit_tiny_block_w4: K11, K6, K12 per layer,
+    bf16 between layers; timed, batch 256); then INT4_WEIGHT_ONLY_G128 served
+    by ctx="deploy" at batch 64 (K13 for the 13 group-wise sites, K6 for
+    attention). Returns {"deit_block_w4": (counts, shapes),
+    "deit_deploy_g128": (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models.vit import flatten_vit, vit_extras
+    from dlq_tpu_torch.ops.matmul_int4 import PackedInt4G
+    from dlq_tpu_torch.quant.qconfig import INT4_WEIGHT_ONLY_G128, INT4_WEIGHT_ONLY_PER_OC
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    cfg, params, x0, xt, ref, meta = (d[k] for k in ("cfg", "params", "x0", "xt", "ref", "meta"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, qcfg in (("per_oc", INT4_WEIGHT_ONLY_PER_OC), ("g128", INT4_WEIGHT_ONLY_G128)):
+            eng_q = Engine.quantized(d["qf"], flatten_vit(params), cfg, qcfg, batch=BATCH,
+                                     device=dev)
+            save_quantized(f"{tmp}/{name}", "deit_tiny", eng_q.qflat, None, qcfg,
+                           extras=vit_extras(params), meta=meta)
+            del eng_q
+        eng = Engine.from_store(f"{tmp}/per_oc", ctx="block", batch=BATCH, device=dev)
+        setup_s = time.perf_counter() - t0
+        w_bytes = {k: sum(b[k].numel() * b[k].element_size() for b in eng.params["blocks"])
+                   for k in ("wqkv", "wproj", "wfc1", "wfc2")}
+        if eng.name != "deit_tiny_block_w4" or \
+                any(b["wqkv"].dtype != torch.uint8 for b in eng.params["blocks"]):
+            raise AssertionError(f"deit_tiny W4A16 block: engine {eng.name}, not 4-bit weights")
+
+        # ---- the W4A16 block main path ----
+        preds, counts, shapes = drive(eng, images, "deit_block_w4", "deit_tiny block_w4")
+        with torch.inference_mode():
+            logits = eng(x0).float().cpu().numpy()
+        if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+            raise AssertionError("deit_tiny block_w4: classify and the forward disagree")
+        # the reference's own weight-only error on these random weights sets
+        # the fp32 gate (tools/deit_reference_error.py; PERF.md, Findings)
+        agree, cos = gate(logits, ref["tanh"], "deit_tiny block_w4 vs fp32", DEIT_W4A16_FP32_COS,
+                          top1=False)
+        lp = plain_twin(eng, x0, "deit_tiny block_w4")
+        cos_p = gate(logits, lp, "deit_tiny block_w4 vs its plain versions", DEIT_TWIN_COS,
+                     top1=False)[1]
+        per_layer = layer_contract(eng.params, xt, cfg)
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        emit({"phase": "main_path_deit_block_w4", "model": "deit_tiny", "size": 224,
+              "batch": BATCH, "batches": NB, "scheme": "INT4_WEIGHT_ONLY_PER_OC",
+              "engine": eng.name, "img_per_s_classify": eng.stats.images_per_sec,
+              "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+              "launches_per_forward": {k: v / NB for k, v in counts.items()},
+              "block_weight_bytes_on_card": w_bytes,
+              "logits_cosine_vs_fp32": cos, "top1_agreement_vs_fp32": agree, "top1_gated": False,
+              "top1_vs_fp32": top1_report(logits, ref["tanh"]),
+              "logits_cosine_vs_plain_versions": cos_p,
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(logits, lp),
+              "per_layer_equal_fraction_max_abs": per_layer, "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, "deit_tiny_block_w4")
+        out["deit_block_w4"] = (counts, shapes)
+        del eng
+
+        # ---- ctx="deploy" on the G128 store, batch 64 ----
+        e = Engine.from_store(f"{tmp}/g128", ctx="deploy", batch=TOTALS_BATCH, device=dev)
+        g_sites = sorted(k for k, p in e.params.packed.items() if isinstance(p, PackedInt4G))
+        if len(g_sites) != 13:
+            raise AssertionError(f"deit_tiny G128 deploy: group-wise int4 sites {g_sites}")
+        reset_counts()
+        with torch.inference_mode():
+            lg = e(x0[:TOTALS_BATCH]).float().cpu().numpy()
+        c, sh = read_counts()
+        expect_counts(c, "deit_deploy_g128", 1, "deit_tiny deploy G128")
+        out["deit_deploy_g128"] = (c, sh)
+        agree_d, cos_d = gate(lg, ref["exact"][:TOTALS_BATCH], "deit_tiny deploy G128 vs fp32",
+                              DEIT_G128_FP32_COS, top1=False)
+        lpd = plain_twin(e, x0[:TOTALS_BATCH], "deit_tiny deploy G128")
+        cos_pd = gate(lg, lpd, "deit_tiny deploy G128 vs its plain versions", DEIT_TWIN_COS,
+                      top1=False)[1]
+        emit({"phase": "deit_deploy_g128", "model": "deit_tiny", "batch": TOTALS_BATCH,
+              "scheme": "INT4_WEIGHT_ONLY_G128", "group_wise_int4_sites": len(g_sites),
+              "launches": c, "logits_cosine_vs_fp32": cos_d, "top1_agreement_vs_fp32": agree_d,
+              "fp32_gelu": "exact", "top1_gated": False,
+              "top1_vs_fp32": top1_report(lg, ref["exact"][:TOTALS_BATCH]),
+              "logits_cosine_vs_plain_versions": cos_pd,
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lpd)})
+        del e
+    torch.cuda.empty_cache()
+    return out
+
+
 def layer_contract(packed, xt, cfg):
     """Each layer of a block forward, its three kernels against the plain
     versions on the same input: the stream the kernel forward itself
     reaches that layer with. W8A8 chunks (``_chunks``: K5 -> K6 -> K7, fp32
-    inside a chunk) or W4A8 layers (``blocks``: K8 -> K6 -> K9, bf16 between
-    layers). Returns [(fraction of valid outputs equal, largest
-    difference)] per layer; raises outside LAYER_TOL."""
+    inside a chunk), W4A8 layers (``blocks``: K8 -> K6 -> K9, bf16 between
+    layers) or W4A16 layers (K11 -> K6 -> K12, bf16 between layers). Returns
+    [(fraction of valid outputs equal, largest difference)] per layer;
+    raises outside LAYER_TOL."""
+    import functools
+
     from dlq_tpu_torch.ops import attention, vit_block as vb
 
     n, d = cfg.seq_len, cfg.dim
     chunks = packed["_chunks"] if "_chunks" in packed else [[b] for b in packed["blocks"]]
+    stacked = functools.partial(vb.vit_block_post_plain, multi=True)   # z1 + fma(acc, s, b)
+    kinds = {  # (pre, post, plain pre, plain post), post with its FC2 association bound
+        "w8": (vb.vit_block_pre_w8, functools.partial(vb.vit_block_post_w8, multi=True),
+               vb.vit_block_pre_plain, stacked),
+        "w4a8": (vb.vit_block_pre_w4a8, vb.vit_block_post_w4a8, vb.vit_block_pre_plain, stacked),
+        "w4": (vb.vit_block_pre_w4, vb.vit_block_post_w4, vb.vit_block_pre_w4_plain,
+               vb.vit_block_post_w4_plain)}
     out = []
     with torch.inference_mode():
         y = vb._token_stream(packed, xt, cfg, True)
         for chunk in chunks:
             for l, w in enumerate(chunk):
-                w4 = w["wqkv"].dtype == torch.uint8
-                pre, post = ((vb.vit_block_pre_w4a8, vb.vit_block_post_w4a8) if w4 else
-                             (vb.vit_block_pre_w8, vb.vit_block_post_w8))
+                kind = ("w4" if "inv_act" not in w else
+                        "w4a8" if w["wqkv"].dtype == torch.uint8 else "w8")
+                pre, post, pre_p, post_p = kinds[kind]
                 # the stream is bf16 between chunks, fp32 inside one
                 odt = torch.bfloat16 if l == len(chunk) - 1 else torch.float32
                 x = y
@@ -1239,11 +1525,10 @@ def layer_contract(packed, xt, cfg):
                     dp = qkv.shape[-1] // 3
                     a = mh(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d],
                            cfg.heads, n, out_lanes=dp)
-                    return post(x, a, w, d, True, odt, True)
+                    return post(x, a, w, d, True, odt)
 
                 y = layer(pre, attention.mhsa, post)
-                ref = layer(vb.vit_block_pre_plain, attention.mhsa_plain,
-                            vb.vit_block_post_plain)
+                ref = layer(pre_p, attention.mhsa_plain, post_p)
                 diff = (y[:, :n, :d].float() - ref[:, :n, :d].float()).abs()
                 out.append((float((diff == 0).float().mean()), float(diff.max())))
     if min(f for f, _ in out) < LAYER_TOL[0] or max(e for _, e in out) > LAYER_TOL[1]:
@@ -1334,6 +1619,16 @@ def summary(rows, paths):
         "matmul_int4a8": ("dlq_tpu_torch/csrc/matmul_int4a8.cu",
                           "dlq_tpu/ops/pallas_matmul.py:208 int4a8_matmul (+ :318 "
                           "int4a8_matmul_cached)", "deit_deploy_w4a8"),
+        "vit_pre_w4": ("dlq_tpu_torch/csrc/vit_pre_w4.cu",
+                       "dlq_tpu/ops/pallas_vit_block.py:2045 vit_block_fused_w4c (the first "
+                       "third of each layer; also of :1213 vit_block_fused_w4 and :1408 "
+                       "vit_multiblock_fused_w4)", "deit_block_w4"),
+        "vit_post_w4": ("dlq_tpu_torch/csrc/vit_post_w4.cu",
+                        "dlq_tpu/ops/pallas_vit_block.py:2045 vit_block_fused_w4c (the last two "
+                        "thirds of each layer; also of :1213 and :1408)", "deit_block_w4"),
+        "matmul_int4": ("dlq_tpu_torch/csrc/matmul_int4.cu",
+                        "dlq_tpu/ops/pallas_matmul.py:636 int4_matmul (+ :564 "
+                        "int4_matmul_cached)", "deit_deploy_g128"),
     }
     out = []
     for name, (src, repl, main) in meta.items():
@@ -1390,7 +1685,7 @@ def main() -> int:
 
     rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
             + check_bottleneck_kernel(dev) + check_vit_kernels(dev) + check_w4a8_kernels(dev)
-            + check_int4a8_matmul(dev))
+            + check_int4a8_matmul(dev) + check_w4a16_kernels(dev) + check_int4_matmul(dev))
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
     paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}
@@ -1398,6 +1693,7 @@ def main() -> int:
     deit_w8, act_scales = deit_paths(dev, card, deit, images)
     paths.update(deit_w8)
     paths.update(deit_w4a8_paths(dev, card, deit, act_scales, images))
+    paths.update(deit_w4a16_paths(dev, card, deit, images))
     del deit
     kernels = summary(rows, paths)
     print(card_line())

@@ -27,8 +27,6 @@ namespace vit_post {
 
 constexpr int BM = 64;
 constexpr int BN = 64;
-constexpr float GELU_C = 0.7978845608028654f;    // sqrt(2/pi)
-constexpr float SQRT_HALF = 0.7071067811865476f;
 
 struct Args {
   const void* y;
@@ -51,32 +49,6 @@ struct Args {
 };
 
 using Kernel = void (*)(const Args);
-
-// gelu as the reference writes it (pallas_vit_block.py:279-283, jax.nn.gelu):
-// tanh: (0.5 f) (1 + tanh(c (f + ((0.044715 f) f) f))); exact: (0.5 f) erfc(-f sqrt(1/2))
-__device__ __forceinline__ float gelu(float f, bool tanh_approx) {
-  if (tanh_approx) {
-    const float f3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, f), f), f);
-    const float th = tanhf(__fmul_rn(GELU_C, __fadd_rn(f, f3)));
-    return __fmul_rn(__fmul_rn(0.5f, f), __fadd_rn(1.0f, th));
-  }
-  return __fmul_rn(__fmul_rn(0.5f, f), erfcf(__fmul_rn(-f, SQRT_HALF)));
-}
-
-// Visit this thread's accumulator pairs: f(row, col, acc_even, acc_odd) for
-// columns col, col + 1.
-template <class Tile, class F>
-__device__ __forceinline__ void for_pairs(const Tile& tile, F&& f) {
-#pragma unroll
-  for (int i = 0; i < Tile::MI; ++i)
-#pragma unroll
-    for (int j = 0; j < Tile::NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(tile.warp_m * Tile::WM + i * 16 + tile.g + h * 8,
-          tile.warp_n * Tile::WN + j * 8 + tile.t * 2, tile.acc[i][j][2 * h],
-          tile.acc[i][j][2 * h + 1]);
-}
 
 template <bool W4>
 int smem_bytes(int Dp, int Hp) {

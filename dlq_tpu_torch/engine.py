@@ -125,9 +125,11 @@ class Engine:
         "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
         interchange; "fused" is BasicBlock-only, as the reference's
         ``qforward_fused`` is), and DeiT (``deit_tiny``) with ctx "block"
-        (the W8A8 block kernels K5/K6/K7, or K8/K6/K9 on per-OC int4 weights
-        with activations) | "deploy" (every dense on K2, or K10 for a per-OC
-        int4 one; attention on K6 on the card).
+        (the W8A8 block kernels K5/K6/K7, K8/K6/K9 on per-OC int4 weights
+        with activations, K11/K6/K12 on weight-only per-OC int4 weights) |
+        "deploy" (every dense on K2, or K10 for a per-OC int4 one with
+        activations, K13 for a group-wise int4 weight-only one; attention on
+        K6 on the card).
 
         int4_runtime: "packed" keeps per-OC int4 weights 4-bit on the card
         (the W4A8 kernels); "int8" unpacks them to int8 once at load
@@ -239,12 +241,15 @@ def _vit_from_store(qflat, act_scales, qcfg: QConfig, extras, mcfg, ctx: str,
     stacked W8A8 forward (6 layers per chunk when the depth allows, else 1)
     on per-channel int8 block sites, the W4A8 block forward (K8 -> K6 -> K9
     per layer, bf16 between layers) on per-OC int4 block sites with
-    activations; ctx="deploy": ``make_qforward`` under DeployCtx, attention
-    on K6 on the card and plain on the CPU."""
+    activations, the W4A16 block forward (K11 -> K6 -> K12 per layer, bf16
+    between layers, ``deit_tiny_block_w4``) on weight-only per-OC int4 block
+    sites; group-wise or int8 weight-only stores raise the reference's
+    ValueError. ctx="deploy": ``make_qforward`` under DeployCtx, attention on
+    K6 on the card and plain on the CPU."""
     from dlq_tpu_torch.models.vit import ViTConfig, make_qforward
     from dlq_tpu_torch.ops.vit_block import (
-        pack_vit_blocks_w4a8, pack_vit_blocks_w8, stack_vit_blocks_w8,
-        vit_forward_blockfused_w4a8c, vit_forward_multiblock_w8,
+        pack_vit_blocks_w4, pack_vit_blocks_w4a8, pack_vit_blocks_w8, stack_vit_blocks_w8,
+        vit_forward_blockfused_w4a8c, vit_forward_blockfused_w4c, vit_forward_multiblock_w8,
     )
     from dlq_tpu_torch.quant.store import unflatten_extras
 
@@ -269,12 +274,12 @@ def _vit_from_store(qflat, act_scales, qcfg: QConfig, extras, mcfg, ctx: str,
             raise ValueError("ctx='block' needs per-channel int8 (or per-OC int4) across ALL "
                              f"transformer-block sites, got {sorted(blk_bits)}: use "
                              "ctx='deploy'")
-        if qcfg.weight_only:
-            raise NotImplementedError(
-                "ctx='block' on weight-only per-OC int4 weights (the W4A16 block kernels) is "
-                "not ported yet (ROADMAP.md B.9); use ctx='deploy'")
         qd, sd = to_device(qflat, dev), to_device(act_scales, dev)
-        if w4_blocks:
+        if qcfg.weight_only:
+            packed = pack_vit_blocks_w4(qd, ex, cfg, tight=True)
+            eng = Engine(lambda p, x: vit_forward_blockfused_w4c(p, x, cfg, tight=True),
+                         packed, device=dev, name="deit_tiny_block_w4", **kw)
+        elif w4_blocks:
             packed = pack_vit_blocks_w4a8(qd, sd, ex, cfg, tight=True)
             eng = Engine(lambda p, x: vit_forward_blockfused_w4a8c(p, x, cfg, tight=True),
                          packed, device=dev, name="deit_tiny_block_w4a8", **kw)

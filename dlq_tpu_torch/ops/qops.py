@@ -18,8 +18,16 @@ conv weight is unpacked to int8 once, when its context is built, and runs on
 K1/K2; the reference unpacks it in the graph on every forward
 (``dlq_tpu/ops/qops.py:380``). Both are exact, and no Pallas kernel is
 involved.
-Weight-only schemes (no activation scale) dequantize and run a float
-conv/matmul, as the reference leaves them to XLA.
+Weight-only schemes (no activation scale): a group-wise int4 dense goes
+through K13 (``ops.matmul_int4``), its weight kept 4-bit, as the reference
+sends it to ``int4_matmul`` on its accelerator (``dlq_tpu/ops/qops.py:469-481``);
+so the port computes ``int4_matmul``'s rounding (the weight dequantized to
+bf16 from the bf16-rounded group scale, bf16 activations) on the card and on
+the CPU alike, where the reference's CPU route dequantizes in fp32 and rounds
+the weight once to ``x.dtype`` (``:482-487``): a difference inside the
+reference (ROADMAP.md C). Every other weight-only site (per-OC int4, int8,
+convs) dequantizes and runs a float conv/matmul, as the reference leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from dlq_tpu_torch.models.common import conv2d, fp32_matmul
 from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, pack_conv_weight
+from dlq_tpu_torch.ops.matmul_int4 import PackedInt4G, matmul_int4, pack_int4_weight
 from dlq_tpu_torch.ops.matmul_int4a8 import PackedInt4, matmul_int4a8, pack_int4a8_weight
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
 from dlq_tpu_torch.quant.quantize import QTensor, dequantize, quantize_act, unpack_to_layout
@@ -52,6 +61,14 @@ def site_weight_packed(qw: QTensor):
     if qw.bits == 4 and qw.group is None and len(qw.layout_shape) == 2:
         return pack_int4a8_weight(qw)
     return int_weight_packed(qw)
+
+
+def weight_only_packed(qw: QTensor) -> Optional[PackedInt4G]:
+    """The packed weight a weight-only context keeps for a site: a
+    group-wise int4 dense repacked for K13, else None (dequantized)."""
+    if qw.bits == 4 and qw.group is not None and len(qw.layout_shape) == 2:
+        return pack_int4_weight(qw)
+    return None
 
 
 def dense_int(xq: torch.Tensor, pk, scale: torch.Tensor, bias: torch.Tensor,
@@ -118,11 +135,13 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
            act_qmax: int = 127, packed=None) -> torch.Tensor:
     """Quantized dense. int8/int2 weights + act_scale -> W8A8 int8 GEMM (K2)
     with int32 accumulation; per-OC int4 weights + act_scale -> W4A8 (K10);
-    no act_scale -> weight-only: weights dequantized to ``x.dtype``, fp32
-    product.
+    no act_scale -> weight-only: group-wise int4 weights on K13 (W4A16,
+    ``int4_matmul``'s rounding), any other weights dequantized to
+    ``x.dtype`` with an fp32 product.
     qw.values: [I, O]. The result is cast to ``x.dtype`` after the bias and
     relu, as the reference's (``dlq_tpu/ops/qops.py:488-492``): a bf16 input
-    gives a bf16 output."""
+    gives a bf16 output. ``packed``: the site's kernel weight, when the
+    caller keeps it."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if act_scale is not None:
@@ -130,6 +149,9 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
         xq = quantize_act(x2, act_scale, act_qmax)
         y = dense_int(xq, pk, combined_scale(act_scale, qw, pk.oc),
                       bias_or_zeros(bias, pk.oc, x.device), relu=fuse_relu)
+    elif (pk := weight_only_packed(qw) if packed is None else packed) is not None:
+        y = matmul_int4(x2, pk, None if bias is None else bias.float().contiguous(),
+                        relu=fuse_relu)
     else:
         w = dequantize(qw).reshape(qw.layout_shape).to(x.dtype)
         with fp32_matmul():

@@ -1,4 +1,4 @@
-"""The W8A8 and W4A8 ViT block paths (the counterpart of
+"""The W8A8, W4A8 and W4A16 ViT block paths (the counterpart of
 ``dlq_tpu/ops/pallas_vit_block.py``).
 
 The reference runs L stacked quantized transformer layers per TPU kernel
@@ -24,6 +24,18 @@ on the padded grid (``pack_vit_blocks_w4a8``) and unpacked in registers; the
 int32 sums and everything around them are the W8A8 layer's. All three W4A8
 functions add FC2's residual as ``z1 + fma(acc, s, b)``.
 
+The W4A16 (weight-only int4) layer (``vit_block_fused_w4``, ``_w4c``,
+``vit_multiblock_fused_w4``) is K11 -> K6 -> K12: K11 ``vit_block_pre_w4``
+(``csrc/vit_pre_w4.cu``) and K12 ``vit_block_post_w4``
+(``csrc/vit_post_w4.cu``) take the same layer structure with bf16
+activations (LN outputs, attention output and GELU output rounded to bf16,
+nothing quantized to int8) against the W4A8 packer's int4 bytes
+(``pack_vit_blocks_w4``), with fp32 sums. Those sums depend on their order:
+the reference's (XLA's), the kernels' (the tensor core's) and the plain
+versions' (exact in float64, rounded once) agree up to that order, so
+they are held to stated tolerances, not bit for bit. All three W4A16
+functions add FC2's residual as ``z1 + fma(acc, s, b)`` too.
+
 Numerics, as the reference kernels compute them (checked bit for bit against
 them on the CPU at the test sizes):
 
@@ -40,7 +52,8 @@ Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor; ``.launches`` counts kernel
 launches and ``.by_shape`` counts them per shape.
 
-Weights are packed once (``pack_vit_blocks_w8``, ``pack_vit_blocks_w4a8``):
+Weights are packed once (``pack_vit_blocks_w8``, ``pack_vit_blocks_w4a8``,
+``pack_vit_blocks_w4``):
 K-major ``[N, K]`` int8 or ``[N, K/2]`` halves-packed int4 bytes (the
 layout the tensor-core fragments read), [q|k|v] column blocks of Dp lanes
 each, heads at hd offsets, zero-padded so pad lanes stay zero.
@@ -125,6 +138,14 @@ def _igemm(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q.double(), wk.double().t()).float()
 
 
+def _hgemm(a: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """Sums of bf16 activations against K-major int4 halves-packed weights
+    [N, K/2] (uint8): every product is exact, and the float64 sum is rounded
+    once to fp32 (the reference's and the kernels' fp32 sums agree with it
+    up to their summation order)."""
+    return torch.matmul(a.double(), unpack_halves_kmajor(wk).double().t()).float()
+
+
 def _epi(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(b, acc, s)  # fma(acc, s, b)
 
@@ -133,21 +154,23 @@ def _epi(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # packing and embedding
 # ---------------------------------------------------------------------------
 
-def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Dict[str, Any], extras: Dict[str, Any],
-                     cfg, tight: bool, smooth: Optional[Dict[str, Any]],
-                     w4: bool) -> Dict[str, Any]:
-    """The W8 (``w4=False``) and W4A8 block packings: weights K-major and
-    zero-padded to (Dp, Hp), int8 or halves-packed int4 on the padded grid;
-    per-OC weight scales folded with the calibrated activation scales into
-    one fp32 row per GEMM (pad lanes 0 for W8, 1.0 for W4A8, as each
-    reference packer pads); fp32 biases, LN affines ``[2, Dp]`` and the
-    four inverse activation scales per layer. Tensors stay on the device of
-    ``qflat``."""
-    what = "pack_vit_blocks_w4a8" if w4 else "pack_vit_blocks_w8"
+def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Optional[Dict[str, Any]],
+                     extras: Dict[str, Any], cfg, tight: bool,
+                     smooth: Optional[Dict[str, Any]], kind: str) -> Dict[str, Any]:
+    """The W8 (``kind`` "w8"), W4A8 ("w4a8") and W4A16 ("w4") block
+    packings: weights K-major and zero-padded to (Dp, Hp), int8 or
+    halves-packed int4 on the padded grid; per-OC weight scales (folded with
+    the calibrated activation scales unless weight-only) as one fp32 row per
+    GEMM (pad lanes 0 for W8, 1.0 for the int4 packs, as each reference
+    packer pads); fp32 biases, LN affines ``[2, Dp]`` and, with activation
+    scales, the four inverse activation scales per layer. Tensors stay on
+    the device of ``qflat``."""
+    what = f"pack_vit_blocks_{kind}"
     if smooth:
         raise NotImplementedError(
             f"{what}: folding SmoothQuant vectors into the LN affines is not "
             "ported yet (ROADMAP.md A.9)")
+    w4 = kind != "w8"
     _, Dp = vit_pads(cfg, tight)
     Hp = mlp_pad(cfg)
     fill = 1.0 if w4 else 0.0
@@ -163,11 +186,12 @@ def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Dict[str, Any], extras: 
             raise ValueError(f"{what}: {name} needs per-channel "
                              f"{'int4' if w4 else 'int8'} weights")
         grid = unpack_int4(qw.values, qw.shape) if w4 else qw.values.reshape(qw.shape)
-        wscale = torch.broadcast_to(qw.scale.float(), (qw.shape[-1],))
-        comb = torch.as_tensor(act_scales[name], dtype=torch.float32,
-                               device=wscale.device) * wscale
+        comb = torch.broadcast_to(qw.scale.float(), (qw.shape[-1],))
+        if act_scales is not None:
+            comb = torch.as_tensor(act_scales[name], dtype=torch.float32,
+                                   device=comb.device) * comb
         b = p.get("b")
-        b = torch.zeros(qw.shape[-1], device=wscale.device) if b is None else b.float()
+        b = torch.zeros(qw.shape[-1], device=comb.device) if b is None else b.float()
         return grid.to(torch.int8), comb, b
 
     def kmajor(w_io, k, n):
@@ -185,9 +209,7 @@ def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Dict[str, Any], extras: 
         wf2, sf2, bf2 = site(f"l{i}.fc2")
         ln = extras["ln"][i]
         qkv = torch.cat([F.pad(w, (0, Dp - w.shape[1])) for w in torch.chunk(wq, 3, -1)], -1)
-        blocks.append({
-            "inv_act": tuple(f32(1.0 / float(act_scales[f"l{i}.{s}"]))
-                             for s in ("qkv", "proj", "fc1", "fc2")),
+        blk = {
             "wqkv": kmajor(qkv, Dp, 3 * Dp),
             "sqkv": torch.cat([padv(s, Dp, fill) for s in torch.chunk(sq, 3)]),
             "bqkv": torch.cat([padv(b, Dp) for b in torch.chunk(bq, 3)]),
@@ -196,7 +218,11 @@ def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Dict[str, Any], extras: 
             "ln2": torch.stack([padv(ln["ln2"]["g"], Dp), padv(ln["ln2"]["b"], Dp)]),
             "wfc1": kmajor(wf1, Dp, Hp), "sfc1": padv(sf1, Hp, fill), "bfc1": padv(bf1, Hp),
             "wfc2": kmajor(wf2, Hp, Dp), "sfc2": padv(sf2, Dp, fill), "bfc2": padv(bf2, Dp),
-        })
+        }
+        if act_scales is not None:
+            blk["inv_act"] = tuple(f32(1.0 / float(act_scales[f"l{i}.{s}"]))
+                                   for s in ("qkv", "proj", "fc1", "fc2"))
+        blocks.append(blk)
     head_b = qflat["head"].get("b")
     return {
         "blocks": blocks,
@@ -215,7 +241,7 @@ def pack_vit_blocks_w8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
                        smooth: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Pack a per-channel int8 ViT (``flatten_vit`` sites + ``vit_extras``)
     for K5/K7: int8 K-major weights ``[N, K]`` (``_pack_vit_blocks``)."""
-    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, False)
+    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, "w8")
 
 
 def pack_vit_blocks_w4a8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
@@ -226,7 +252,17 @@ def pack_vit_blocks_w4a8(qflat: Dict[str, Any], act_scales: Dict[str, Any],
     unpacked, padded to (Dp, Hp), halves-packed at the padded K and stored
     K-major, ``[N, Kp/2]`` bytes with byte k holding rows (k, k + Kp/2): the
     reference's packing, transposed. The weights stay 4-bit."""
-    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, True)
+    return _pack_vit_blocks(qflat, act_scales, extras, cfg, tight, smooth, "w4a8")
+
+
+def pack_vit_blocks_w4(qflat: Dict[str, Any], extras: Dict[str, Any], cfg,
+                       tight: bool = False) -> Dict[str, Any]:
+    """Pack a weight-only per-OC int4 ViT (``INT4_WEIGHT_ONLY_PER_OC``) for
+    K11/K12 (``pallas_vit_block.py:1262``): the W4A8 packer's bytes
+    (halves-packed on the padded grid, K-major), the per-OC weight scales
+    alone (pad lanes 1.0), no activation scales; the patch weight
+    dequantized to bf16 and the head to fp32."""
+    return _pack_vit_blocks(qflat, None, extras, cfg, tight, None, "w4")
 
 
 def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[List[Block]]:
@@ -234,7 +270,8 @@ def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[
     residual stays fp32 between the layers of a chunk and is bf16 between
     chunks, as in the reference's stacked kernels. The port launches three
     kernels per layer, so a chunk is the list of its layers' blocks (of
-    either pack: ``stack_vit_blocks_w4a8`` is this function)."""
+    any pack: ``stack_vit_blocks_w4a8`` and ``stack_vit_blocks_w4`` are this
+    function)."""
     blocks = packed["blocks"]
     L = layers_per_kernel
     if len(blocks) % L:
@@ -242,7 +279,7 @@ def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[
     return [blocks[c: c + L] for c in range(0, len(blocks), L)]
 
 
-stack_vit_blocks_w4a8 = stack_vit_blocks_w8
+stack_vit_blocks_w4a8 = stack_vit_blocks_w4 = stack_vit_blocks_w8
 
 
 def embed_tokens(packed: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
@@ -285,7 +322,7 @@ def _head(packed: Dict[str, Any], y: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K5 / K8: LN1 + QKV
+# K5 / K8 / K11: LN1 + QKV
 # ---------------------------------------------------------------------------
 
 def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -299,10 +336,12 @@ def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor
 
 @functools.cache
 def _pre_entry(name: str):
+    """The launch entry of K5, K8 or K11 (K11, weight-only, takes no inverse
+    activation scale)."""
     fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + ([] if name == "vit_pre_w4" else [ctypes.c_float]) + [ctypes.c_void_p])
     return fn
 
 
@@ -326,8 +365,8 @@ def _weight_shape(w: torch.Tensor, n: int, k: int, w4: bool) -> bool:
 
 
 def _pre(wrapper, name: str, w4: bool, y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
-    """Launch K5 (``name`` "vit_pre_w8") or K8 ("vit_pre_w4a8") and count it
-    on ``wrapper``."""
+    """Launch K5 (``name`` "vit_pre_w8"), K8 ("vit_pre_w4a8") or K11
+    ("vit_pre_w4") and count it on ``wrapper``."""
     B, Np, Dp = y.shape
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
     if not _weight_shape(w["wqkv"], 3 * Dp, Dp, w4) or Dp % 64:
@@ -335,10 +374,10 @@ def _pre(wrapper, name: str, w4: bool, y: torch.Tensor, w: Block, d_valid: int) 
                          "(a multiple of 64)")
     _check_params(name, y.device, w["wqkv"], w["sqkv"], w["bqkv"], w["ln1"])
     out = torch.empty((B, Np, 3 * Dp), dtype=torch.bfloat16, device=y.device)
+    inv = [] if name == "vit_pre_w4" else [w["inv_act"][0]]
     rc = _pre_entry(name)(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
                           w["wqkv"].data_ptr(), w["sqkv"].data_ptr(), w["bqkv"].data_ptr(),
-                          out.data_ptr(), B * Np, Dp, d_valid, w["inv_act"][0],
-                          _build.stream_ptr(y.device))
+                          out.data_ptr(), B * Np, Dp, d_valid, *inv, _build.stream_ptr(y.device))
     _build.check(rc, name)
     wrapper.launches += 1
     wrapper.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
@@ -361,13 +400,29 @@ def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     return _pre(vit_block_pre_w4a8, "vit_pre_w4a8", True, y, w, d_valid)
 
 
-for _f in (vit_block_pre_w8, vit_block_pre_w4a8):
+def vit_block_pre_w4_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of K11 (``_block_kernel_w4`` :1191-1193): h1 =
+    bf16(LN1(y)), qkv = bf16(fma(h1 @ W, s, b)) with the exact sum."""
+    h1 = _ln_f32(y.float(), w["ln1"][0], w["ln1"][1], d_valid).to(torch.bfloat16)
+    return _epi(_hgemm(h1, w["wqkv"]), w["sqkv"], w["bqkv"]).to(torch.bfloat16)
+
+
+def vit_block_pre_w4(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """LN1 + QKV of one W4A16 layer (K11; ``pack_vit_blocks_w4`` weights) on
+    the padded stream y [B, Np, Dp] (bf16 or fp32); returns bf16 qkv
+    [B, Np, 3·Dp]."""
+    if y.device.type == "cpu":
+        return vit_block_pre_w4_plain(y, w, d_valid)
+    return _pre(vit_block_pre_w4, "vit_pre_w4", True, y, w, d_valid)
+
+
+for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4):
     _f.launches = 0
     _f.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
-# K7 / K9: proj + residual + LN2 + MLP + residual
+# K7 / K9 / K12: proj + residual + LN2 + MLP + residual
 # ---------------------------------------------------------------------------
 
 def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
@@ -391,22 +446,27 @@ def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid:
 
 @functools.cache
 def _post_entry(name: str):
+    """The launch entry of K7, K9 or K12 (K12, weight-only, takes no inverse
+    activation scales and has only the stacked FC2 association)."""
+    quant = name != "vit_post_w4"
     fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_float] * (4 if quant else 0) + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * (7 if quant else 6) + [ctypes.c_void_p])
     return fn
 
 
 def _post(wrapper, name: str, w4: bool, y: torch.Tensor, attn: torch.Tensor, w: Block,
           d_valid: int, gelu_tanh: bool, out_dtype: torch.dtype, multi: bool) -> torch.Tensor:
-    """Launch K7 (``name`` "vit_post_w8") or K9 ("vit_post_w4a8") and count
-    it on ``wrapper``."""
+    """Launch K7 (``name`` "vit_post_w8"), K9 ("vit_post_w4a8") or K12
+    ("vit_post_w4", ``multi`` True) and count it on ``wrapper``."""
     B, Np, Dp = y.shape
     Hp = w["wfc1"].shape[0]
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
     _check_stream(name, attn, y.device, (torch.bfloat16,), Dp)
-    if (attn.shape != y.shape or out_dtype not in (torch.bfloat16, torch.float32)
+    if (attn.shape != y.shape or attn.data_ptr() % 16
+            or out_dtype not in (torch.bfloat16, torch.float32)
             or not _weight_shape(w["wproj"], Dp, Dp, w4)
             or not _weight_shape(w["wfc1"], Hp, Dp, w4)
             or not _weight_shape(w["wfc2"], Dp, Hp, w4) or Dp % 64 or Hp % 64):
@@ -415,13 +475,15 @@ def _post(wrapper, name: str, w4: bool, y: torch.Tensor, attn: torch.Tensor, w: 
     _check_params(name, y.device, w["wproj"], w["sproj"], w["bproj"], w["ln2"],
                   w["wfc1"], w["sfc1"], w["bfc1"], w["wfc2"], w["sfc2"], w["bfc2"])
     out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
+    quant = name != "vit_post_w4"
     rc = _post_entry(name)(
-        y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(), *w["inv_act"],
+        y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(),
+        *(w["inv_act"] if quant else ()),
         w["wproj"].data_ptr(), w["sproj"].data_ptr(), w["bproj"].data_ptr(),
         w["ln2"].data_ptr(), w["wfc1"].data_ptr(), w["sfc1"].data_ptr(), w["bfc1"].data_ptr(),
         w["wfc2"].data_ptr(), w["sfc2"].data_ptr(), w["bfc2"].data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh), int(multi),
-        _build.stream_ptr(y.device))
+        int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh),
+        *((int(multi),) if quant else ()), _build.stream_ptr(y.device))
     _build.check(rc, name)
     wrapper.launches += 1
     wrapper.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
@@ -456,7 +518,42 @@ def vit_block_post_w4a8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: 
                  out_dtype, multi)
 
 
-for _f in (vit_block_post_w8, vit_block_post_w4a8):
+def _post_w4_sums(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                  gelu_tanh: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12's plain arithmetic up to FC2's sum: (z1, acc_fc2), fp32."""
+    z1 = y.float() + _epi(_hgemm(attn, w["wproj"]), w["sproj"], w["bproj"])
+    h2 = _ln_f32(z1, w["ln2"][0], w["ln2"][1], d_valid).to(torch.bfloat16)
+    f = _epi(_hgemm(h2, w["wfc1"]), w["sfc1"], w["bfc1"])
+    return z1, _hgemm(_gelu_f32(f, gelu_tanh).to(torch.bfloat16), w["wfc2"])
+
+
+def vit_block_post_w4_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                            gelu_tanh: bool = True,
+                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of K12 (``_block_kernel_w4`` :1199-1207): the
+    exact sums, each rounding of the reference (h2 and gelu's output to
+    bf16), FC2's residual ``z1 + fma(acc, s, b)``."""
+    z1, acc = _post_w4_sums(y, attn, w, d_valid, gelu_tanh)
+    out = z1 + _epi(acc, w["sfc2"], w["bfc2"])
+    return out.to(y.dtype if out_dtype is None else out_dtype)
+
+
+def vit_block_post_w4(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                      gelu_tanh: bool = True,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """proj + residual + LN2 + MLP + residual of one W4A16 layer (K12): y
+    [B, Np, Dp] bf16 or fp32, attn bf16; output in ``out_dtype`` (default
+    ``y.dtype``). Every W4A16 reference function adds FC2's residual as
+    ``z1 + fma(acc, s, b)`` (``pallas_vit_block.py:1206``, ``:1395``,
+    ``:2038``), the only association K12 has."""
+    out_dtype = y.dtype if out_dtype is None else out_dtype
+    if y.device.type == "cpu":
+        return vit_block_post_w4_plain(y, attn, w, d_valid, gelu_tanh, out_dtype)
+    return _post(vit_block_post_w4, "vit_post_w4", True, y, attn, w, d_valid, gelu_tanh,
+                 out_dtype, True)
+
+
+for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4):
     _f.launches = 0
     _f.by_shape = collections.Counter()
 
@@ -475,18 +572,19 @@ def _attention(qkv: torch.Tensor, heads: int, hd: int, n_valid: int) -> torch.Te
 
 
 def _layer(pre, post, y: torch.Tensor, w: Block, n_valid: int, d_valid: int, heads: int,
-           hd: int, gelu_tanh: bool, out_dtype: torch.dtype, multi: bool) -> torch.Tensor:
-    """One layer as pre -> K6 -> post."""
+           hd: int, gelu_tanh: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """One layer as pre -> K6 -> post (``post`` with its FC2 association
+    bound)."""
     a = _attention(pre(y, w, d_valid), heads, hd, n_valid)
-    return post(y, a, w, d_valid, gelu_tanh, out_dtype, multi)
+    return post(y, a, w, d_valid, gelu_tanh, out_dtype)
 
 
 def vit_block_fused_w8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
                        hd: int, gelu_tanh: bool = True) -> torch.Tensor:
     """One W8A8 transformer block (``_block_kernel_w8``) as K5 -> K6 -> K7;
-    output in ``y.dtype``."""
+    output in ``y.dtype``, FC2 residual ``fma(acc, s, z1) + b``."""
     return _layer(vit_block_pre_w8, vit_block_post_w8, y, w, n_valid, d_valid, heads, hd,
-                  gelu_tanh, y.dtype, False)
+                  gelu_tanh, y.dtype)
 
 
 def vit_block_fused_w4a8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
@@ -497,21 +595,37 @@ def vit_block_fused_w4a8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: in
     reference (the ``c`` kernel only caches the nibble unpack across TPU grid
     steps; its ``bt`` is TPU tiling with no numeric effect)."""
     return _layer(vit_block_pre_w4a8, vit_block_post_w4a8, y, w, n_valid, d_valid, heads, hd,
-                  gelu_tanh, y.dtype, True)
+                  gelu_tanh, y.dtype)
 
 
 vit_block_fused_w4a8c = vit_block_fused_w4a8
 
 
+def vit_block_fused_w4(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
+                       hd: int, gelu_tanh: bool = True) -> torch.Tensor:
+    """One W4A16 transformer block as K11 -> K6 -> K12, output in
+    ``y.dtype``, FC2 residual ``z1 + fma(acc, s, b)``. Ports both
+    ``vit_block_fused_w4`` (row 19) and ``vit_block_fused_w4c`` (row 24, the
+    engine's): one function, bit-identical in the reference
+    (``tests/test_vit_blockfused.py:654``); the ``c`` kernel only caches the
+    unpack across TPU grid steps and ``bt`` is TPU tiling."""
+    return _layer(vit_block_pre_w4, vit_block_post_w4, y, w, n_valid, d_valid, heads, hd,
+                  gelu_tanh, y.dtype)
+
+
+vit_block_fused_w4c = vit_block_fused_w4
+
+
 def _multiblock(pre, post, y: torch.Tensor, chunk: List[Block], n_valid: int, d_valid: int,
                 heads: int, hd: int, gelu_tanh: bool) -> torch.Tensor:
     """L stacked layers: the residual is fp32 between the chunk's layers,
-    ``y.dtype`` at its end; FC2 residual ``z1 + fma(acc, s, b)``."""
+    ``y.dtype`` at its end; ``post`` adds FC2's residual as
+    ``z1 + fma(acc, s, b)``."""
     x = y
     for l, w in enumerate(chunk):
         last = l == len(chunk) - 1
         x = _layer(pre, post, x, w, n_valid, d_valid, heads, hd, gelu_tanh,
-                   y.dtype if last else torch.float32, True)
+                   y.dtype if last else torch.float32)
     return x
 
 
@@ -519,8 +633,8 @@ def vit_multiblock_fused_w8(y: torch.Tensor, chunk: List[Block], *, n_valid: int
                             d_valid: int, heads: int, hd: int,
                             gelu_tanh: bool = True) -> torch.Tensor:
     """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``)."""
-    return _multiblock(vit_block_pre_w8, vit_block_post_w8, y, chunk, n_valid, d_valid, heads,
-                       hd, gelu_tanh)
+    return _multiblock(vit_block_pre_w8, functools.partial(vit_block_post_w8, multi=True), y,
+                       chunk, n_valid, d_valid, heads, hd, gelu_tanh)
 
 
 def vit_multiblock_fused_w4a8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
@@ -530,6 +644,15 @@ def vit_multiblock_fused_w4a8(y: torch.Tensor, chunk: List[Block], *, n_valid: i
     K8 -> K6 -> K9 per layer; the reference's ``bt`` has no counterpart."""
     return _multiblock(vit_block_pre_w4a8, vit_block_post_w4a8, y, chunk, n_valid, d_valid,
                        heads, hd, gelu_tanh)
+
+
+def vit_multiblock_fused_w4(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
+                            d_valid: int, heads: int, hd: int,
+                            gelu_tanh: bool = True) -> torch.Tensor:
+    """One chunk of L stacked W4A16 layers (``_multiblock_kernel_w4``, row
+    20), K11 -> K6 -> K12 per layer, the residual fp32 inside the chunk."""
+    return _multiblock(vit_block_pre_w4, vit_block_post_w4, y, chunk, n_valid, d_valid, heads,
+                       hd, gelu_tanh)
 
 
 def _forward(blocks, step, packed: Dict[str, Any], x: torch.Tensor, cfg, tight: bool,
@@ -561,6 +684,15 @@ def vit_forward_multiblock_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,
     return _forward(chunks, vit_multiblock_fused_w4a8, packed, x, cfg, tight, gelu_tanh)
 
 
+def vit_forward_multiblock_w4(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                              layers_per_kernel: int = 6, gelu_tanh: bool = True,
+                              tight: bool = True) -> torch.Tensor:
+    """W4A16 forward on chunks of ``layers_per_kernel`` layers (``packed``
+    from ``pack_vit_blocks_w4``). fp32 logits."""
+    chunks = packed.get("_chunks") or stack_vit_blocks_w4(packed, layers_per_kernel)
+    return _forward(chunks, vit_multiblock_fused_w4, packed, x, cfg, tight, gelu_tanh)
+
+
 def vit_forward_blockfused_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
                               gelu_tanh: bool = True, tight: bool = False) -> torch.Tensor:
     """W8A8 forward one block at a time (``vit_block_fused_w8``: the residual
@@ -578,3 +710,15 @@ def vit_forward_blockfused_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,
 
 
 vit_forward_blockfused_w4a8c = vit_forward_blockfused_w4a8
+
+
+def vit_forward_blockfused_w4(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                              gelu_tanh: bool = True, tight: bool = True) -> torch.Tensor:
+    """W4A16 forward one block at a time (K11 -> K6 -> K12 per layer, bf16
+    between layers): ``vit_forward_blockfused_w4`` and
+    ``vit_forward_blockfused_w4c`` (the engine's, ``deit_tiny_block_w4``),
+    one function. fp32 logits."""
+    return _forward(packed["blocks"], vit_block_fused_w4, packed, x, cfg, tight, gelu_tanh)
+
+
+vit_forward_blockfused_w4c = vit_forward_blockfused_w4

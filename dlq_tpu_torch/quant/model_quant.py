@@ -6,7 +6,8 @@ arithmetic:
 
   ObserveCtx      fp32 compute; records each quantized op's input (calibration)
   DeployCtx       W8A8: int8 convs on K1, 1x1/s1 convs (``mm1x1``) and int8
-                  dense on K2, W4A8 dense on K10, fp32 interchange
+                  dense on K2, W4A8 dense on K10, fp32 interchange; weight-only:
+                  group-wise int4 dense on K13 (W4A16), the rest dequantized
   PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
                   same kernels as DeployCtx
   FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue)
@@ -16,7 +17,8 @@ arithmetic:
 
 A context is built once per engine: it repacks every int8 weight K-major for
 the kernels when it is constructed (a per-OC int4 dense weight stays 4-bit,
-repacked for K10; an int4 conv weight is unpacked to int8), keeps the
+repacked for K10, and so does a group-wise int4 weight-only dense, for K13;
+an int4 conv weight is unpacked to int8), keeps the
 activation scales both as exact fp32 host values (kernel arguments,
 host-side scale arithmetic) and as 0-dim device tensors (divisors of device
 ops), and caches the per-site combined epilogue scales.
@@ -38,7 +40,7 @@ from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
 from dlq_tpu_torch.ops.conv_int8 import conv_int8
 from dlq_tpu_torch.ops.qops import (
     bias_or_zeros, combined_scale, conv1x1_int8, dense_int, dequant_conv2d, is_mm1x1, qconv2d,
-    qdense, site_weight_packed,
+    qdense, site_weight_packed, weight_only_packed,
 )
 from dlq_tpu_torch.quant.qconfig import QConfig
 from dlq_tpu_torch.quant.quantize import (
@@ -106,7 +108,8 @@ class DeployCtx:
     """W8A8 deploy with fp32 interchange: every int8 conv on K1, every int8
     dense on K2, every per-OC int4 dense on K10 (W4A8; an int4 store read
     with ``int4_runtime="int8"`` arrives materialized to int8 and runs on
-    K2); weight-only schemes dequantize."""
+    K2); weight-only schemes run every group-wise int4 dense on K13 (W4A16)
+    and dequantize the other sites."""
 
     def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
                  qcfg: QConfig):
@@ -119,10 +122,13 @@ class DeployCtx:
         self.scale_t = {k: v.float().reshape(()) for k, v in self.act_scales.items()}
         # the kernels' weights, repacked once per site
         self.packed: Dict[str, Any] = {}
-        if not qcfg.weight_only:
-            for site, p in qflat.items():
-                if p["qw"].group is None:
-                    self.packed[site] = site_weight_packed(p["qw"])
+        for site, p in qflat.items():
+            if qcfg.weight_only:
+                pk = weight_only_packed(p["qw"])
+                if pk is not None:
+                    self.packed[site] = pk
+            elif p["qw"].group is None:
+                self.packed[site] = site_weight_packed(p["qw"])
         self._comb: Dict[Any, torch.Tensor] = {}
         self._bias: Dict[str, torch.Tensor] = {}
 
@@ -158,7 +164,8 @@ class DeployCtx:
     def dense(self, name, x, *, fuse_relu=False):
         p = self.qflat[name]
         if self.qcfg.weight_only:
-            return qdense(x, p["qw"], p.get("b"), act_scale=None, fuse_relu=fuse_relu)
+            return qdense(x, p["qw"], p.get("b"), act_scale=None, fuse_relu=fuse_relu,
+                          packed=self.packed.get(name))
         return qdense(x, p["qw"], p.get("b"), act_scale=self.scale_t[name],
                       fuse_relu=fuse_relu, act_qmax=self.qcfg.acts.qmax,
                       packed=self.packed[name])

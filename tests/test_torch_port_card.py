@@ -113,13 +113,14 @@ def _vit_block(rng, dp, hp, dev):
             "wfc2": w(dp, hp), "sfc2": s(dp, hp), "bfc2": b(dp)}
 
 
-def _agree(got, ref, min_equal, atol):
+def _agree(got, ref, min_equal, atol, near=0.0):
     """Kernel vs plain version: the kernel sums in another order than
     PyTorch, so a value on a rounding boundary (an int8 code, a bf16 step)
     may land one step apart; held to ``min_equal`` of the elements equal
-    and ``atol`` at most."""
+    (or, with ``near``, within near * (1 + |ref|): an fp32 output of fp32
+    sums) and ``atol`` at most."""
     g, r = got.float(), ref.float()
-    eq = float((g == r).float().mean())
+    eq = float(((g - r).abs() <= near * (1.0 + r.abs())).float().mean())
     err = float((g - r).abs().max())
     assert eq >= min_equal and err <= atol, (eq, err)
 
@@ -221,3 +222,67 @@ def test_w4a8_kernels_on_card():
         scale, bias = _epi(rng, n, k, dev)
         args = (x, pk, scale * 16.0, bias, relu)
         assert torch.equal(matmul_int4a8(*args), matmul_int4a8_plain(*args))
+
+
+@pytest.mark.gpu
+def test_w4a16_kernels_on_card():
+    """K11, K12 and K13 against their plain versions (fp32 sums in another
+    order: bf16 outputs >= 0.99 equal, fp32 outputs >= 0.99 within 2^-12 of
+    their unit-plus-magnitude scale, all within 0.25). K11/K12: Dp 128 with
+    d_valid 96 (Kp/2 = 64, pad lanes) and Dp 192 (Kp/2 = 96), 72 and 400
+    rows, every dtype form. K13 (each output within 2^-14 of the sum of its
+    products' magnitudes): group 128 at K = 768 (the DeiT sites), group 64
+    at K = 256, group 16 at K = 48 (a zero-padded last stage), M = 300 and
+    37 (no multiples of the 128-row tile), N = 192, 1000 and 21 (odd), relu
+    on and off, bias and none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import mhsa_plain
+    from dlq_tpu_torch.ops.matmul_int4 import (
+        dequantize_bf16, matmul_int4, matmul_int4_plain, pack_int4_weight,
+    )
+    from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_w4, vit_block_pre_w4_plain,
+    )
+    from dlq_tpu_torch.quant.qconfig import QScheme
+    from dlq_tpu_torch.quant.quantize import quantize_tensor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    for (bsz, rows, d, dp, hp, heads) in [(3, 24, 96, 128, 384, 3), (2, 200, 192, 192, 768, 3)]:
+        blk = _vit_block(rng, dp, hp, dev)
+        del blk["inv_act"]
+        for name, (n, k) in (("wqkv", (3 * dp, dp)), ("wproj", (dp, dp)), ("wfc1", (hp, dp)),
+                             ("wfc2", (dp, hp))):
+            w = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8))
+            blk[name] = pack_halves_kmajor(w, k, n).to(dev)
+            blk["s" + name[1:]].mul_(73.0 / 4.6)   # int4 weights: rms ~4.6 against int8's ~73
+        blk["ln1"][:, d:] = 0
+        blk["ln2"][:, d:] = 0
+        yn = rng.normal(0, 1, (bsz, rows, dp)).astype(np.float32)
+        yn[..., d:] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            y = torch.from_numpy(yn).to(dev, dt)
+            _agree(vit_block_pre_w4(y, blk, d), vit_block_pre_w4_plain(y, blk, d), 0.99, 0.25)
+        qkv = vit_block_pre_w4_plain(torch.from_numpy(yn).to(dev), blk, d)
+        a = mhsa_plain(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d], heads,
+                       rows - 3, out_lanes=dp)
+        for dt, out_dt in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                           (torch.float32, torch.float32), (torch.float32, torch.bfloat16)):
+            y = torch.from_numpy(yn).to(dev, dt)
+            got = vit_block_post_w4(y, a, blk, d, True, out_dt)
+            assert got.dtype == out_dt
+            near = 2.0 ** -12 if out_dt == torch.float32 else 0.0
+            _agree(got, vit_block_post_w4_plain(y, a, blk, d, True, out_dt), 0.99, 0.25, near)
+    for (m, k, n, g, relu, bias) in [(300, 768, 192, 128, False, True), (37, 256, 1000, 64, True, False),
+                                     (129, 48, 21, 16, True, True)]:
+        qw = quantize_tensor(torch.from_numpy(rng.normal(0, 0.1, (k, n)).astype(np.float32)),
+                             QScheme(4, True, -1, group=g))
+        pk = pack_int4_weight(qw.to(dev))
+        x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+        b = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev) if bias else None
+        got = matmul_int4(x, pk, b, relu)
+        ref = matmul_int4_plain(x, pk, b, relu)
+        mag = x.double().abs() @ dequantize_bf16(pk).double().abs()
+        assert ((got.double() - ref.double()).abs() <= 2.0 ** -14 * mag + 1e-30).all()

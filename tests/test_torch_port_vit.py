@@ -23,6 +23,7 @@ from dlq_tpu.models import vit as JV
 from dlq_tpu.ops import qops as JO
 from dlq_tpu.quant import model_quant as JM
 from dlq_tpu.quant.calibrate import calibrate as j_calibrate
+from dlq_tpu.quant.qconfig import INT4_WEIGHT_ONLY_G128 as JG128
 from dlq_tpu.quant.qconfig import INT4_WEIGHT_ONLY_PER_OC as JWO4
 from dlq_tpu.quant.qconfig import INT4A8_PER_CHANNEL as JQ4
 from dlq_tpu.quant.qconfig import INT8_PER_CHANNEL as JQ
@@ -249,9 +250,9 @@ def test_store_extras_roundtrip_both_ways(tmp_path):
 
 def test_routing_guards(tmp_path):
     """A depth-2 store runs one layer per chunk; an INT4A8 store builds the
-    W4A8 block engine, and weight-only per-OC int4 block weights raise
-    naming B.9 (the W4A16 block kernels are not ported); conv contexts are
-    refused; the unported options raise naming ROADMAP.md."""
+    W4A8 block engine, a weight-only per-OC int4 store the W4A16 one, and a
+    group-wise weight-only store raises the reference's ValueError; conv
+    contexts are refused; the unported options raise naming ROADMAP.md."""
     m = quantized_vit("d96", depth=2)
     _jax_store(str(tmp_path / "w8"), m)
     eng = Engine.from_store(str(tmp_path / "w8"), ctx="block", batch=4, device="cpu")
@@ -262,8 +263,11 @@ def test_routing_guards(tmp_path):
     assert Engine.from_store(str(tmp_path / "w4"), ctx="block",
                              device="cpu").name == "deit_tiny_block_w4a8"
     _jax_store(str(tmp_path / "wo4"), m, qcfg=JWO4)
-    with pytest.raises(NotImplementedError, match="B.9"):
-        Engine.from_store(str(tmp_path / "wo4"), ctx="block", device="cpu")
+    assert Engine.from_store(str(tmp_path / "wo4"), ctx="block",
+                             device="cpu").name == "deit_tiny_block_w4"
+    _jax_store(str(tmp_path / "g128"), m, qcfg=JG128)
+    with pytest.raises(ValueError, match="weight-only"):
+        Engine.from_store(str(tmp_path / "g128"), ctx="block", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TV.make_qforward(m["tex"], 2, 3, 8, 96, fused_ln=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -292,9 +292,9 @@ def test_from_store_deploy_w4a8(store):
 
 def test_w4a8_routing_guards(store, tmp_path):
     """``int4_runtime="int8"`` routes an INT4A8 store's block ctx to the W8
-    path; weight-only per-OC int4 raises naming B.9 (the W4A16 kernels);
-    mixed widths raise the reference's ValueError; an unknown runtime
-    raises."""
+    path; weight-only per-OC int4 builds the W4A16 block engine and
+    group-wise weight-only int4 raises the reference's ValueError; mixed
+    widths raise the reference's ValueError; an unknown runtime raises."""
     m, root = store
     eng8 = Engine.from_store(root, ctx="block", int4_runtime="int8", batch=4, device="cpu")
     assert eng8.name == "deit_tiny_block"
@@ -302,8 +302,11 @@ def test_w4a8_routing_guards(store, tmp_path):
     with pytest.raises(ValueError, match="int4_runtime"):
         Engine.from_store(root, ctx="block", int4_runtime="int2", device="cpu")
     _store(str(tmp_path / "wo"), m, JWO4, scales=False)
-    with pytest.raises(NotImplementedError, match="B.9"):
-        Engine.from_store(str(tmp_path / "wo"), ctx="block", device="cpu")
+    assert Engine.from_store(str(tmp_path / "wo"), ctx="block",
+                             device="cpu").name == "deit_tiny_block_w4"
+    _store(str(tmp_path / "g128"), m, JG128, scales=False)
+    with pytest.raises(ValueError, match="weight-only"):
+        Engine.from_store(str(tmp_path / "g128"), ctx="block", device="cpu")
     mix = dataclasses.replace(JQ4, weight_overrides=(("l*.fc2", JQScheme(8, True, -1)),))
     _store(str(tmp_path / "mix"), m, mix)
     with pytest.raises(ValueError, match="per-channel int8"):

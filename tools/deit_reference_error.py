@@ -2,7 +2,10 @@
 
 Its ``ctx="deploy"`` engine (the DeployCtx forward, jitted, on the CPU) on a
 store written by ``save_quantized``, against its fp32 forward (exact GELU,
-as the deploy forward), for INT8_PER_CHANNEL and INT4A8_PER_CHANNEL. The
+as the deploy forward), for INT8_PER_CHANNEL, INT4A8_PER_CHANNEL and the
+weight-only INT4_WEIGHT_ONLY_PER_OC and INT4_WEIGHT_ONLY_G128 (no
+calibration, no activation scales; on the CPU the reference dequantizes
+each weight-only site in fp32, its ``int4_matmul`` being a TPU route). The
 weights, the calibration batch and the images are those of
 ``chip_smoke.py`` (the port's numpy-seeded ``init_vit``, seed 0), so the
 numbers say how close to fp32 the card's DeiT paths can be asked to come.
@@ -32,7 +35,9 @@ from dlq_tpu.engine import Engine  # noqa: E402
 from dlq_tpu.models import vit as JV  # noqa: E402
 from dlq_tpu.quant import model_quant as JM  # noqa: E402
 from dlq_tpu.quant.calibrate import calibrate  # noqa: E402
-from dlq_tpu.quant.qconfig import INT4A8_PER_CHANNEL, INT8_PER_CHANNEL  # noqa: E402
+from dlq_tpu.quant.qconfig import (  # noqa: E402
+    INT4_WEIGHT_ONLY_G128, INT4_WEIGHT_ONLY_PER_OC, INT4A8_PER_CHANNEL, INT8_PER_CHANNEL,
+)
 from dlq_tpu.quant.store import save_quantized  # noqa: E402
 from dlq_tpu_torch.models.vit import ViTConfig, init_vit  # noqa: E402
 
@@ -53,8 +58,11 @@ def main() -> None:
     ref = np.asarray(JV.vit_forward(params, jnp.asarray(x), cfg))
     qf = JV.make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim)
     for name, qcfg in (("INT8_PER_CHANNEL", INT8_PER_CHANNEL),
-                       ("INT4A8_PER_CHANNEL", INT4A8_PER_CHANNEL)):
-        scales = calibrate(JM.make_sites_fn(qf, cfg), flat, calib, qcfg)
+                       ("INT4A8_PER_CHANNEL", INT4A8_PER_CHANNEL),
+                       ("INT4_WEIGHT_ONLY_PER_OC", INT4_WEIGHT_ONLY_PER_OC),
+                       ("INT4_WEIGHT_ONLY_G128", INT4_WEIGHT_ONLY_G128)):
+        scales = None if qcfg.weight_only else calibrate(JM.make_sites_fn(qf, cfg), flat, calib,
+                                                         qcfg)
         with tempfile.TemporaryDirectory() as tmp:
             save_quantized(tmp, "deit_tiny", JM.quantize_weights(flat, qcfg), scales, qcfg,
                            extras=ex, meta={"config": {k: getattr(cfg, k) for k in META}})
