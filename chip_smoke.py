@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
-DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, 224 px).
+DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
+fused LayerNorms, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -68,7 +69,25 @@ Phases, one JSON line each:
      own weight-only error), its plain-version twin and per layer, and
      profiled; an INT4_WEIGHT_ONLY_G128 store through ctx="deploy" at batch
      64 (K13 13 launches per forward), gated the same way
-     (DEIT_G128_FP32_COS).
+     (DEIT_G128_FP32_COS); then group-wise int4 sites with and without
+     activation scales on the card (K13, or the dequantized route where K13
+     does not tile the group);
+  9. DeiT-Tiny bf16 and the fused LayerNorms (the same fp32 weights): K14
+     vit_pre_bf16 and K15 vit_post_bf16 at the tight (200/192) and loose
+     (256/256) pads, K6 at 256 rows, K16 layernorm_fused and K17
+     residual_layernorm at [256 x 197, 192] in fp32 and bf16 and K6's fp32
+     form mhsa_f32 at [256, 197, 3 x 64], at batch 256, against their plain
+     versions (BF16_TOL, LN_TOL, MHSA_F32_TOL), with bf16 torch.matmul,
+     F.layer_norm and scaled_dot_product_attention as yardsticks; then
+     vit_forward_blockfused (pack_vit_blocks; K14, K6, K15 12 launches each
+     per forward) through Engine.fp32 and classify at batch 256 with loose
+     and tight pads, gated against the fp32 forward (DEIT_BF16_FP32_COS: the
+     reference's own bf16 error), its plain-version twin and per layer, the
+     two pads against each other, and profiled; the fp32 forward with
+     fused_ln=True, attn_impl="fused" at batch 64 (K16 1, K17 24, mhsa_f32 12
+     per forward) against the unfused fp32 forward (max_abs < 1e-5); and the
+     W8A8 deploy forward with fused_ln=True at batch 64 (K2 50, K6 12, K16 1,
+     K17 24) against the unfused deploy forward (DEIT_FUSED_LN_COS) and fp32.
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -78,6 +97,8 @@ raises before those lines.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -91,6 +112,7 @@ import torch
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (hopper-kernels guide table)
 PEAK_BF16 = 989e12        # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores
 BATCH = 256
 SEED = 0
 NB = 4                    # classify batches per main path
@@ -98,6 +120,9 @@ NO_INT8_CONV = "none: no PyTorch call computes an int8 conv with int32 accumulat
 INT_MM = "torch._int_mm (int32 product only, no epilogue)"
 SDPA = "torch.nn.functional.scaled_dot_product_attention (bf16 [B, heads, N, hd], no mask)"
 HMM = "torch.matmul in bf16 on the dequantized bf16 weights (no epilogue)"
+BMM = "torch.matmul in bf16 on the same bf16 weights (no epilogue)"
+LAYER_NORM = "torch.nn.functional.layer_norm (mean/variance form)"
+SDPA_F32 = "torch.nn.functional.scaled_dot_product_attention (fp32 [B, heads, N, hd], no mask)"
 VIT_TOL = (0.999, 0.0625)  # ViT kernels vs plain: fraction equal, largest difference
 DEIT_FP32_COS = 0.998      # DeiT-Tiny W8A8 logits vs fp32 (see deit_paths)
 DEIT_TWIN_COS = 0.999      # DeiT-Tiny logits vs the plain-version twin (see deit_paths)
@@ -119,6 +144,35 @@ W4A16_TOL = {"bf16": VIT_TOL, "fp32": (VIT_TOL[0], VIT_TOL[1], 2.0 ** -12)}
 # K13 vs plain: each output within 2^-14 of the sum of its products'
 # magnitudes (fp32 sums of exact products in another order)
 K13_REL = 2.0 ** -14
+# the bf16 block kernels K14/K15 vs plain (bf16 outputs): fp32 sums of exact
+# bf16 products in another order, as W4A16. The sums of bf16 x bf16
+# products (16 significant bits each, where bf16 x int4 has 12) round more
+# often than K11/K12's, and K15's bf16 output also carries the one-step
+# flips of its two bf16 intermediates (LN2's output, GELU's) through the
+# 768-term FC2 sums: 0.99818 (tight) and 0.99872 (loose) of its outputs
+# equal on an H100. K15's row carries the witness (check_bf16_kernels;
+# PERF.md, Findings): on the same layer and inputs, K12 with the weights
+# rounded to int4 agrees on 0.99978 / 0.99984, and the plain version in
+# cuBLAS's fp32 order on 0.99912 / 0.99941 (bf16) against 0.99998 (int4).
+# So >= 0.997 of bf16 outputs equal, none more than VIT_TOL[1] apart
+BF16_TOL = (0.997, VIT_TOL[1])
+# K16/K17 vs plain: fp32 outputs within 2^-19 x (1 + |plain|) (rsqrtf and the
+# lane-order moment sums: a few ulp), bf16 outputs as VIT_TOL
+LN_TOL = {"float32": (1.0, 1e-4, 2.0 ** -19), "bfloat16": VIT_TOL}
+# mhsa_f32 vs plain: fp32 products and sums in another order; every output
+# (an average of unit-scale V rows) within 1e-5 x (1 + |plain|)
+MHSA_F32_TOL = (1.0, 1e-5, 1e-5)
+# DeiT-Tiny bf16 block forward vs fp32 (tanh GELU), just under the
+# reference's own vit_forward_blockfused on these random weights
+# (tools/deit_reference_error.py, 16 images, CPU; PERF.md, Findings)
+DEIT_BF16_FP32_COS = 0.9999
+DEIT_BF16_TWIN_COS = 0.9999    # vs its plain-version twin, and tight vs loose pads
+# DeiT-Tiny W8A8 deploy with fused_ln vs the unfused deploy forward: the two
+# LayerNorm forms round differently on a bf16 stream, both the reference's;
+# its own two forms sit at cosine 0.99810 of each other on these random
+# weights (tools/deit_reference_error.py), so the gate leaves room below that
+DEIT_FUSED_LN_COS = 0.997
+FUSED_LN_MAX_ABS = 1e-5        # fp32 fused_ln forward vs unfused (the reference's gate)
 # one block-path layer (K5 -> K6 -> K7) vs its plain versions on the same
 # input: an int8 code that lands one step apart (another sum order in LN,
 # softmax or the bf16 rounding of attn) moves its whole row of the layer's
@@ -128,7 +182,8 @@ LAYER_TOL = (0.97, VIT_TOL[1])
 
 KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
            "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
-           "vit_post_w4", "matmul_int4")
+           "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm_fused",
+           "residual_layernorm", "mhsa_f32")
 
 
 def _per(**launches):
@@ -140,7 +195,10 @@ def _per(**launches):
 # 12 layers of K5 -> K6 -> K7, 6 per chunk; its deploy path: 50 dense sites;
 # DeiT-Tiny W4A8: 12 layers of K8 -> K6 -> K9, its deploy path's 50 dense
 # sites on K10, or on K2 with int4_runtime="int8"; DeiT-Tiny W4A16: 12 layers
-# of K11 -> K6 -> K12, its G128 deploy path's 13 group-wise sites on K13)
+# of K11 -> K6 -> K12, its G128 deploy path's 13 group-wise sites on K13;
+# DeiT-Tiny bf16: 12 layers of K14 -> K6 -> K15 at either pads; the fp32
+# fused_ln forward: K16 for the first LN1, K17 for the 23 later junctions and
+# the final norm, K6's fp32 form for attention; the W8A8 deploy with fused_ln)
 PER_FORWARD = {
     "r18_fused2": _per(conv_int8=19, matmul_int8=1),
     "r18_block": _per(conv_int8=15, matmul_int8=1, basic_block=2),
@@ -157,12 +215,18 @@ PER_FORWARD = {
     "deit_block_w4a8_int8": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
     "deit_block_w4": _per(vit_pre_w4=12, mhsa=12, vit_post_w4=12),
     "deit_deploy_g128": _per(matmul_int4=13, mhsa=12),
+    "deit_bf16_loose": _per(vit_pre_bf16=12, mhsa=12, vit_post_bf16=12),
+    "deit_bf16_tight": _per(vit_pre_bf16=12, mhsa=12, vit_post_bf16=12),
+    "deit_fused_ln": _per(layernorm_fused=1, residual_layernorm=24, mhsa_f32=12),
+    "deit_deploy_fused_ln": _per(matmul_int8=50, mhsa=12, layernorm_fused=1,
+                                 residual_layernorm=24),
 }
 # paths run at batch 64 and checked by totals only (the shape tables are at
 # batch 256; where a kernel's times are summed per forward on such a path,
 # its case table's launches per forward weight them)
 TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "deit_deploy_w4a8",
-               "deit_deploy_w4a8_int8", "deit_block_w4a8_int8", "deit_deploy_g128")
+               "deit_deploy_w4a8_int8", "deit_block_w4a8_int8", "deit_deploy_g128",
+               "deit_fused_ln", "deit_deploy_fused_ln")
 TOTALS_BATCH = 64
 
 
@@ -189,6 +253,13 @@ def card_line() -> str:
 def bound(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS):
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _mhsa_bytes(n: int, n_valid: int, d: int, esize: int) -> int:
+    """K6's bytes for the bound: q read and the output written over all n
+    query rows (the function's output holds every row, the reference's too;
+    n_valid masks keys only), k and v read over the n_valid keys."""
+    return BATCH * (2 * n + 2 * n_valid) * d * esize
 
 
 def time_ms(fn, iters=20, warmup=2, reps=3) -> float:
@@ -253,13 +324,13 @@ def matmul_cases():
         (7 * 7, 2048, 512, True, True): {"r50_fused2": 2, "r50_block": 1},        # layer4.1-2.conv1
         (1, 2048, 1000, False, False): {"r50_fused2": 1, "r50_block": 1},         # ResNet-50 fc
         (56 * 56, 256, 64, True, False): {},      # the deploy/pallas routing (fp32 + relu)
-        # DeiT-Tiny's deploy path (checked at batch 64 by totals only)
-        (196, 768, 192, False, False): {},        # patch embed
-        (197, 192, 576, False, False): {},        # l*.qkv
-        (197, 192, 192, False, False): {},        # l*.proj
-        (197, 192, 768, False, False): {},        # l*.fc1
-        (197, 768, 192, False, False): {},        # l*.fc2
-        (1, 192, 1000, False, False): {},         # head
+        # DeiT-Tiny's deploy paths (checked at batch 64 by totals only)
+        (196, 768, 192, False, False): {"deit_deploy_fused_ln": 1},    # patch embed
+        (197, 192, 576, False, False): {"deit_deploy_fused_ln": 12},   # l*.qkv
+        (197, 192, 192, False, False): {"deit_deploy_fused_ln": 12},   # l*.proj
+        (197, 192, 768, False, False): {"deit_deploy_fused_ln": 12},   # l*.fc1
+        (197, 768, 192, False, False): {"deit_deploy_fused_ln": 12},   # l*.fc2
+        (1, 192, 1000, False, False): {"deit_deploy_fused_ln": 1},     # head
     }
 
 
@@ -276,6 +347,8 @@ def bottleneck_cases():
 
 # DeiT-Tiny at batch 256: Np 200 rows (197 tokens), Dp 192, Hp 768, 3 heads of 64
 VIT_NP, VIT_N, VIT_DP, VIT_HP, VIT_HEADS, VIT_HD = 200, 197, 192, 768, 3, 64
+# its loose pads (vit_forward_blockfused's default): Np 256, Dp 256
+VIT_NP_LOOSE, VIT_DP_LOOSE = 256, 256
 
 
 def vit_pre_cases():
@@ -287,8 +360,11 @@ def vit_pre_cases():
 def mhsa_cases():
     """K6: (rows, n_valid) -> launches per forward per path (the deploy
     paths' 197 unpadded rows are checked at batch 64 by totals only)."""
-    return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12, "deit_block_w4": 12},
-            (VIT_N, VIT_N): {"deit_deploy_w4a8": 12, "deit_deploy_g128": 12}}
+    return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12, "deit_block_w4": 12,
+                              "deit_bf16_tight": 12},
+            (VIT_NP_LOOSE, VIT_N): {"deit_bf16_loose": 12},
+            (VIT_N, VIT_N): {"deit_deploy_w4a8": 12, "deit_deploy_g128": 12,
+                             "deit_deploy_fused_ln": 12}}
 
 
 def vit_post_cases():
@@ -348,6 +424,39 @@ def matmul_int4_cases():
             (197, 768, 192, False): {"deit_deploy_g128": 12}}
 
 
+def vit_pre_bf16_cases():
+    """K14: (Np, Dp, residual dtype) -> launches per forward per path (bf16
+    at every layer of the bf16 forward, at either pads)."""
+    return {(VIT_NP_LOOSE, VIT_DP_LOOSE, "bfloat16"): {"deit_bf16_loose": 12},
+            (VIT_NP, VIT_DP, "bfloat16"): {"deit_bf16_tight": 12}}
+
+
+def vit_post_bf16_cases():
+    """K15: (Np, Dp, residual dtype in, dtype out) -> launches per forward
+    per path (bf16 -> bf16 at every layer of the bf16 forward)."""
+    return {(VIT_NP_LOOSE, VIT_DP_LOOSE, "bfloat16", "bfloat16"): {"deit_bf16_loose": 12},
+            (VIT_NP, VIT_DP, "bfloat16", "bfloat16"): {"deit_bf16_tight": 12}}
+
+
+def layernorm_fused_cases():
+    """K16: stream dtype -> launches per forward per path (the first LN1 of
+    the fp32 fused_ln forward and of the bf16 W8A8 deploy; both driven at
+    batch 64 and checked by totals)."""
+    return {"float32": {"deit_fused_ln": 1}, "bfloat16": {"deit_deploy_fused_ln": 1}}
+
+
+def residual_layernorm_cases():
+    """K17: (y dtype, delta dtype) -> launches per forward per path (every
+    later LN junction, the final norm included)."""
+    return {("float32", "float32"): {"deit_fused_ln": 24},
+            ("bfloat16", "bfloat16"): {"deit_deploy_fused_ln": 24}}
+
+
+def mhsa_f32_cases():
+    """K6's fp32 form: (rows, n_valid) -> launches per forward per path."""
+    return {(VIT_N, VIT_N): {"deit_fused_ln": 12}}
+
+
 def _conv_key(case):
     h, c, oc, k, s, relu, int8_out = case
     return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
@@ -370,7 +479,13 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "matmul_int4a8": (matmul_int4a8_cases, lambda c: (BATCH * c[0], *c[1:])),
         "vit_pre_w4": (vit_pre_w4_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
         "vit_post_w4": (vit_post_w4_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
-        "matmul_int4": (matmul_int4_cases, lambda c: (BATCH * c[0], *c[1:]))}
+        "matmul_int4": (matmul_int4_cases, lambda c: (BATCH * c[0], *c[1:])),
+        "vit_pre_bf16": (vit_pre_bf16_cases, lambda c: (BATCH, *c)),
+        "vit_post_bf16": (vit_post_bf16_cases, lambda c: (BATCH, c[0], c[1], VIT_HP, *c[2:])),
+        "layernorm_fused": (layernorm_fused_cases, lambda c: (BATCH * VIT_N, VIT_DP, c)),
+        "residual_layernorm": (residual_layernorm_cases,
+                               lambda c: (BATCH * VIT_N, VIT_DP, *c)),
+        "mhsa_f32": (mhsa_f32_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1]))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -599,7 +714,8 @@ def check_vit_kernels(dev):
             library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16"))
     qkv = vit_block_pre_plain(y32, blk, dp)
     for (n, n_valid), per in mhsa_cases().items():
-        t = qkv[:, :n].contiguous()
+        # the loose pads' 256 rows: zero rows past the 200 of this stream
+        t = torch.nn.functional.pad(qkv, (0, 0, 0, max(0, n - VIT_NP)))[:, :n].contiguous()
         views = (t[..., :dp], t[..., dp: 2 * dp], t[..., 2 * dp:])
         q4, k4, v4 = (v.reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2).contiguous()
                       for v in views)
@@ -608,7 +724,7 @@ def check_vit_kernels(dev):
             f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys",
             mhsa(*views, VIT_HEADS, n_valid), mhsa_plain(*views, VIT_HEADS, n_valid),
             lambda: mhsa(*views, VIT_HEADS, n_valid), lambda: mhsa_plain(*views, VIT_HEADS, n_valid),
-            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, 4 * BATCH * n * dp * 2, per,
+            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, _mhsa_bytes(n, n_valid, dp, 2), per,
             library=lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
             tol=VIT_TOL, peak=PEAK_BF16, library_name=SDPA, out="bf16"))
         del t, q4, k4, v4
@@ -842,20 +958,275 @@ def check_int4_matmul(dev):
     return rows
 
 
+def _bf16_layer(gen, dev, dp):
+    """One packed DeiT-Tiny bf16 layer as pack_vit_blocks packs it: bf16
+    K-major weights (std 1/sqrt(K), so each GEMM's outputs sit near unit
+    scale), zero in the pad lanes past dim 192; fp32 biases and LN rows."""
+    d, hp = VIT_DP, VIT_HP
+
+    def w(n, k):
+        a = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        if k == dp:
+            a[:, d:] = 0.0
+        if n == dp:
+            a[d:] = 0.0
+        return a.to(torch.bfloat16).contiguous()
+
+    def b(n):
+        v = 0.1 * torch.randn(n, generator=gen, device=dev)
+        if n == dp:
+            v[d:] = 0.0
+        return v.float().contiguous()
+
+    ln = torch.stack([0.5 + torch.rand(dp, generator=gen, device=dev),
+                      0.1 * torch.randn(dp, generator=gen, device=dev)])
+    ln[:, d:] = 0.0
+    ln = ln.float().contiguous()
+    wqkv = torch.cat([w(dp, dp) for _ in range(3)])
+    return {"wqkv": wqkv, "bqkv": torch.cat([b(dp) for _ in range(3)]),
+            "wproj": w(dp, dp), "bproj": b(dp), "ln1": ln, "ln2": ln.clone(),
+            "wfc1": w(hp, dp), "bfc1": b(hp), "wfc2": w(dp, hp), "bfc2": b(dp)}
+
+
+def _equal_fraction(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() == b.float()).float().mean())
+
+
+@contextlib.contextmanager
+def _fp32_order_sums():
+    """The W4A16 and bf16 plain versions with their exact (float64) sums
+    replaced by cuBLAS fp32 sums of the same exact products (TF32 off):
+    another fp32 summation order of the same function."""
+    from dlq_tpu_torch.models.common import fp32_matmul
+    from dlq_tpu_torch.ops import vit_block
+    from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
+
+    exact = vit_block._hgemm
+
+    def hgemm_fp32(a, wk):
+        w = unpack_halves_kmajor(wk) if wk.dtype == torch.uint8 else wk
+        with fp32_matmul():
+            return torch.matmul(a.float(), w.float().t())
+
+    vit_block._hgemm = hgemm_fp32
+    try:
+        yield
+    finally:
+        vit_block._hgemm = exact
+
+
+def _int4_rounded(blk):
+    """A packed bf16 layer with each weight rounded to per-OC int4 (s =
+    max|w| / 7), halves-packed K-major as pack_vit_blocks_w4 packs it: K12's
+    form of the same layer."""
+    from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor
+
+    out = dict(blk)
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        w = blk["w" + name].float()                              # [N, K]
+        n, k = w.shape
+        s = w.abs().amax(1) / 7.0
+        q = torch.round(w / s.clamp_min(1e-30)[:, None]).clamp(-8, 7).to(torch.int8)
+        out["w" + name] = pack_halves_kmajor(q.t().contiguous(), k, n)
+        out["s" + name] = s.contiguous()
+    return out
+
+
+def check_bf16_kernels(dev):
+    """K14 and K15 at the bf16 forward's tight (200/192) and loose (256/256)
+    pads at batch 256, bf16 stream, with bf16 torch.matmul on the same
+    weights as the yardstick. The bound counts the d_valid (192) lanes the
+    kernels are given: the products and the inputs' bytes of the valid
+    lanes (bf16 weights K x N x 2 bytes), the outputs written at their full
+    padded width. It counts all Np rows: K14/K15 are not given n_valid, and
+    the pad rows carry values (LN1's and the GEMMs' biases), as the
+    reference's kernel computes them. K15's row also carries two witnesses
+    for BF16_TOL: the plain version with its exact sums replaced by cuBLAS
+    fp32 sums (another order, TF32 off) against the plain version, and K12
+    on the same layer with its weights rounded to per-OC int4 against K12's
+    plain version."""
+    from dlq_tpu_torch.ops.attention import mhsa
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_bf16, vit_block_post_bf16_plain, vit_block_post_w4,
+        vit_block_post_w4_plain, vit_block_pre_bf16, vit_block_pre_bf16_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    d, hp = VIT_DP, VIT_HP
+    rows = []
+    for (npad, dp, din), per in vit_pre_bf16_cases().items():
+        blk = _bf16_layer(gen, dev, dp)
+        m = BATCH * npad
+        y = torch.randn((BATCH, npad, dp), generator=gen, device=dev)
+        y[..., d:] = 0.0
+        y = y.to(getattr(torch, din))
+        h1 = torch.randn((m, dp), generator=gen, device=dev).to(torch.bfloat16)
+        h2 = torch.randn((m, hp), generator=gen, device=dev).to(torch.bfloat16)
+        wq, wp, w1, w2 = (blk[k].t() for k in ("wqkv", "wproj", "wfc1", "wfc2"))  # [K, N] views
+        rows.append(_row(
+            "vit_pre_bf16", (BATCH, npad, dp, din),
+            f"{BATCH}x{npad}x{dp} {din} -> qkv, bf16 weights",
+            vit_block_pre_bf16(y, blk, d), vit_block_pre_bf16_plain(y, blk, d),
+            lambda: vit_block_pre_bf16(y, blk, d), lambda: vit_block_pre_bf16_plain(y, blk, d),
+            2.0 * m * d * 3 * d,
+            m * d * y.element_size() + 3 * d * d * 2 + 4 * 3 * d + 8 * d + m * 3 * dp * 2,
+            per, library=lambda: torch.matmul(h1, wq), tol=BF16_TOL, peak=PEAK_BF16,
+            library_name=BMM, residual=din, out="bf16", pads=f"{npad}/{dp}"))
+        qkv = vit_block_pre_bf16_plain(y, blk, d)
+        a = mhsa(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d], VIT_HEADS,
+                 VIT_N, out_lanes=dp)
+        dout = "bfloat16"
+        post_per = vit_post_bf16_cases()[(npad, dp, din, dout)]
+        odt = getattr(torch, dout)
+
+        def kern():
+            return vit_block_post_bf16(y, a, blk, d, True, odt)
+
+        def plain():
+            return vit_block_post_bf16_plain(y, a, blk, d, True, odt)
+
+        ref = plain()
+        with _fp32_order_sums():
+            other = plain()
+        w4 = _int4_rounded(blk)
+        ref4 = vit_block_post_w4_plain(y, a, w4, d, True, odt)
+        with _fp32_order_sums():
+            other4 = vit_block_post_w4_plain(y, a, w4, d, True, odt)
+        witness = {"plain_fp32_order": _equal_fraction(other, ref),
+                   "k12_int4_rounded": _equal_fraction(vit_block_post_w4(y, a, w4, d, True, odt),
+                                                       ref4),
+                   "plain_fp32_order_int4_rounded": _equal_fraction(other4, ref4)}
+        del other, w4, ref4, other4
+        rows.append(_row(
+            "vit_post_bf16", (BATCH, npad, dp, hp, din, dout),
+            f"{BATCH}x{npad}x{dp} {din} -> {dout}, mlp {hp}, bf16 weights", kern(), ref, kern,
+            plain, 2.0 * m * (d * d + 2 * d * hp),
+            2 * m * d * y.element_size() + (d * d + 2 * d * hp) * 2
+            + 4 * (2 * d + hp) + 8 * d + m * dp * odt.itemsize, post_per,
+            library=lambda: (torch.matmul(h1, wp), torch.matmul(h1, w1), torch.matmul(h2, w2)),
+            tol=BF16_TOL, peak=PEAK_BF16, library_name=BMM + ", the three products",
+            residual=din, out=dout, pads=f"{npad}/{dp}", bf16_tol_witness_equal_fraction=witness))
+        del blk, y, h1, h2, qkv, a, ref
+    return rows
+
+
+def check_ln_kernels(dev):
+    """K16 and K17 at [256 x 197, 192] in fp32 and bf16 (x, y, delta, g and
+    b in the stream's dtype, as make_qforward casts them), with F.layer_norm
+    (after y + delta for K17) as the yardstick; then K6's fp32 form at [256,
+    197, 3 x 64] with fp32 scaled_dot_product_attention as the yardstick."""
+    import torch.nn.functional as F
+
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
+    from dlq_tpu_torch.ops.layernorm import (
+        layernorm_fused, layernorm_fused_plain, residual_layernorm, residual_layernorm_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    m, d = BATCH * VIT_N, VIT_DP
+    x32 = 0.3 + torch.randn((m, d), generator=gen, device=dev)
+    d32 = 0.5 * torch.randn((m, d), generator=gen, device=dev)
+    g32 = 0.5 + torch.rand(d, generator=gen, device=dev)
+    b32 = 0.1 * torch.randn(d, generator=gen, device=dev)
+    rows = []
+    for dt, per in layernorm_fused_cases().items():
+        x, g, b = (t.to(getattr(torch, dt)) for t in (x32, g32, b32))
+        rows.append(_row(
+            "layernorm_fused", (m, d, dt), f"{m}x{d} {dt}", layernorm_fused(x, g, b),
+            layernorm_fused_plain(x, g, b), lambda: layernorm_fused(x, g, b),
+            lambda: layernorm_fused_plain(x, g, b), 8.0 * m * d,
+            2 * x.numel() * x.element_size() + 2 * d * g.element_size(), per,
+            plain_iters=5, library=lambda: F.layer_norm(x, (d,), g, b, 1e-6),
+            tol=LN_TOL[dt], peak=PEAK_FP32, library_name=LAYER_NORM, dtype=dt))
+    for (ydt, ddt), per in residual_layernorm_cases().items():
+        y, dl = x32.to(getattr(torch, ydt)), d32.to(getattr(torch, ddt))
+        g, b = g32.to(y.dtype), b32.to(y.dtype)
+        z, h = residual_layernorm(y, dl, g, b)
+        zp, hp = residual_layernorm_plain(y, dl, g, b)
+        if not torch.equal(z, zp):
+            raise AssertionError(f"residual_layernorm {ydt}: z = y + delta differs from plain")
+        rows.append(_row(
+            "residual_layernorm", (m, d, ydt, ddt), f"{m}x{d} {ydt} + {ddt}", h, hp,
+            lambda: residual_layernorm(y, dl, g, b), lambda: residual_layernorm_plain(y, dl, g, b),
+            9.0 * m * d,
+            y.numel() * y.element_size() + dl.numel() * dl.element_size()
+            + 2 * y.numel() * y.element_size() + 2 * d * g.element_size(), per,
+            plain_iters=5, library=lambda: F.layer_norm(y + dl, (d,), g, b, 1e-6),
+            tol=LN_TOL[ydt], peak=PEAK_FP32, library_name=LAYER_NORM + " after y + delta",
+            dtype=f"{ydt}+{ddt}", z_equal_plain=True))
+    del x32, d32
+    qkv = torch.randn((BATCH, VIT_N, 3 * d), generator=gen, device=dev)
+    for (n, n_valid), per in mhsa_f32_cases().items():
+        views = (qkv[:, :n, :d], qkv[:, :n, d: 2 * d], qkv[:, :n, 2 * d:])
+        q4, k4, v4 = (v.reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2).contiguous()
+                      for v in views)
+        rows.append(_row(
+            "mhsa_f32", (BATCH, n, VIT_HEADS, VIT_HD, n_valid),
+            f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys, fp32",
+            mhsa(*views, VIT_HEADS, n_valid), mhsa_plain(*views, VIT_HEADS, n_valid),
+            lambda: mhsa(*views, VIT_HEADS, n_valid),
+            lambda: mhsa_plain(*views, VIT_HEADS, n_valid),
+            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, _mhsa_bytes(n, n_valid, d, 4), per,
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
+            tol=MHSA_F32_TOL, peak=PEAK_FP32, library_name=SDPA_F32, out="fp32"))
+        del q4, k4, v4
+    return rows
+
+
+def check_groupwise_routes(dev):
+    """Group-wise int4 dense sites on the card: with activation scales the
+    activations are fake-quantized and K13 runs (launch counted, held
+    against its plain version); a group K13 does not tile (24 at K = 96)
+    takes the dequantized route (no K13 launch), held against the float64
+    product."""
+    from dlq_tpu_torch.ops import qops
+    from dlq_tpu_torch.ops.matmul_int4 import PackedInt4G, matmul_int4
+    from dlq_tpu_torch.quant.qconfig import QScheme
+    from dlq_tpu_torch.quant.quantize import dequantize, quantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for group, k, n, act in ((128, 768, 192, 3.0 / 127.0), (24, 96, 40, None)):
+        qw = quantize_tensor(0.02 * torch.randn((k, n), generator=gen, device=dev),
+                             QScheme(4, True, -1, group=group))
+        x = torch.randn((300, k), generator=gen, device=dev)
+        scale = None if act is None else torch.tensor(act, device=dev)
+        pk = qops.weight_only_packed(qw)
+        if (pk is None) != (k % 16 != 0 or group % 16 != 0):
+            raise AssertionError(f"group {group} at K = {k}: K13 weight {type(pk)}")
+        before = matmul_int4.launches
+        y = qops.qdense(x, qw, None, act_scale=scale, packed=pk)
+        torch.cuda.synchronize()
+        launched = matmul_int4.launches - before
+        if launched != (1 if isinstance(pk, PackedInt4G) else 0):
+            raise AssertionError(f"group {group} at K = {k}: {launched} K13 launches")
+        with plain_kernels():
+            yp = qops.qdense(x, qw, None, act_scale=scale, packed=pk)
+        xr = x if scale is None else (qops.quantize_act(x, scale).float() * scale)
+        mag = xr.double().abs() @ dequantize(qw).double().abs()
+        err = float(((y.double() - yp.double()).abs() / mag.clamp_min(1e-30)).max())
+        if err > K13_REL:
+            raise AssertionError(f"group {group} at K = {k}: relative error {err} vs plain")
+        out[f"g{group}_k{k}"] = {"acts": act is not None, "k13_launches": launched,
+                                 "max_rel_err_vs_plain": err}
+    emit({"phase": "groupwise_int4_routes", **out})
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
 # ---------------------------------------------------------------------------
 
 def _wrappers():
-    from dlq_tpu_torch.ops.attention import mhsa
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_f32
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
+    from dlq_tpu_torch.ops.layernorm import layernorm_fused, residual_layernorm
     from dlq_tpu_torch.ops.matmul_int4 import matmul_int4
     from dlq_tpu_torch.ops.matmul_int4a8 import matmul_int4a8
     from dlq_tpu_torch.ops.matmul_int8 import matmul_int8
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4,
-        vit_block_pre_w4a8, vit_block_pre_w8,
+        vit_block_post_bf16, vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8,
+        vit_block_pre_bf16, vit_block_pre_w4, vit_block_pre_w4a8, vit_block_pre_w8,
     )
 
     ws = {"conv_int8": conv_int8, "matmul_int8": matmul_int8, "basic_block": basic_block_fused,
@@ -863,7 +1234,9 @@ def _wrappers():
           "mhsa": mhsa, "vit_post_w8": vit_block_post_w8, "vit_pre_w4a8": vit_block_pre_w4a8,
           "vit_post_w4a8": vit_block_post_w4a8, "matmul_int4a8": matmul_int4a8,
           "vit_pre_w4": vit_block_pre_w4, "vit_post_w4": vit_block_post_w4,
-          "matmul_int4": matmul_int4}
+          "matmul_int4": matmul_int4, "vit_pre_bf16": vit_block_pre_bf16,
+          "vit_post_bf16": vit_block_post_bf16, "layernorm_fused": layernorm_fused,
+          "residual_layernorm": residual_layernorm, "mhsa_f32": mhsa_f32}
     assert tuple(ws) == KERNELS
     return ws
 
@@ -926,11 +1299,16 @@ def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
     from dlq_tpu_torch.ops import (
-        attention, block_fused, conv_int8, matmul_int4, matmul_int4a8, matmul_int8, qops, vit_block,
+        attention, block_fused, conv_int8, layernorm, matmul_int4, matmul_int4a8, matmul_int8, qops,
+        vit_block,
     )
     from dlq_tpu_torch.quant import model_quant
 
-    subs = [(vit_block, "vit_block_pre_w8", vit_block.vit_block_pre_plain),
+    subs = [(vit_block, "vit_block_pre_bf16", vit_block.vit_block_pre_bf16_plain),
+            (vit_block, "vit_block_post_bf16", vit_block.vit_block_post_bf16_plain),
+            (layernorm, "layernorm_fused", layernorm.layernorm_fused_plain),
+            (layernorm, "residual_layernorm", layernorm.residual_layernorm_plain),
+            (vit_block, "vit_block_pre_w8", vit_block.vit_block_pre_plain),
             (vit_block, "vit_block_post_w8", vit_block.vit_block_post_plain),
             (vit_block, "vit_block_pre_w4a8", vit_block.vit_block_pre_plain),
             (vit_block, "vit_block_post_w4a8", vit_block.vit_block_post_plain),
@@ -1487,16 +1865,130 @@ def deit_w4a16_paths(dev, card, d, images):
     return out
 
 
-def layer_contract(packed, xt, cfg):
+def deit_bf16_paths(dev, card, d, act_scales, images):
+    """DeiT-Tiny bf16 and the fused LayerNorms on the same fp32 weights:
+    vit_forward_blockfused on pack_vit_blocks (K14, K6, K15 per layer, bf16
+    between layers) through Engine.fp32 and classify at batch 256, loose
+    pads (the reference's default) then tight, each timed and profiled; the
+    fp32 forward with fused_ln=True, attn_impl="fused" at batch 64; the W8A8
+    deploy forward with fused_ln=True at batch 64, on the W8A8 store's act
+    scales (the same quantized model as the unfused deploy forward). Returns
+    {path: (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models.vit import flatten_vit, make_qforward, vit_extras, vit_forward
+    from dlq_tpu_torch.ops.vit_block import pack_vit_blocks, vit_forward_blockfused, vit_pads
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+
+    cfg, params, x0, xt, ref = (d[k] for k in ("cfg", "params", "x0", "xt", "ref"))
+    out, logits = {}, {}
+    for tight in (False, True):
+        tag = "tight" if tight else "loose"
+        path = f"deit_bf16_{tag}"
+        t0 = time.perf_counter()
+        packed = pack_vit_blocks(params, cfg, tight=tight)
+        eng = Engine.fp32(functools.partial(vit_forward_blockfused, tight=tight), packed, cfg,
+                          batch=BATCH, device=dev, name=f"deit_tiny_bf16_{tag}")
+        setup_s = time.perf_counter() - t0
+        if any(b["wqkv"].dtype != torch.bfloat16 for b in eng.params["blocks"]):
+            raise AssertionError(f"deit_tiny bf16 {tag}: block weights not bf16")
+        preds, counts, shapes = drive(eng, images, path, f"deit_tiny bf16 {tag}")
+        with torch.inference_mode():
+            lg = logits[tag] = eng(x0).float().cpu().numpy()
+        if not np.array_equal(preds[:BATCH], lg.argmax(-1)):
+            raise AssertionError(f"deit_tiny bf16 {tag}: classify and the forward disagree")
+        # the reference's own bf16 forward on these weights sets the fp32 gate
+        # (tools/deit_reference_error.py; PERF.md, Findings)
+        agree, cos = gate(lg, ref["tanh"], f"deit_tiny bf16 {tag} vs fp32", DEIT_BF16_FP32_COS,
+                          top1=False)
+        lp = plain_twin(eng, x0, f"deit_tiny bf16 {tag}")
+        cos_p = gate(lg, lp, f"deit_tiny bf16 {tag} vs its plain versions", DEIT_BF16_TWIN_COS,
+                     top1=False)[1]
+        per_layer = layer_contract(eng.params, xt, cfg, tight=tight)
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        emit({"phase": f"main_path_deit_bf16_{tag}", "model": "deit_tiny", "size": 224,
+              "batch": BATCH, "batches": NB, "pads": "/".join(map(str, vit_pads(cfg, tight))),
+              "engine": eng.name, "img_per_s_classify": eng.stats.images_per_sec,
+              "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+              "launches_per_forward": {k: v / NB for k, v in counts.items()},
+              "logits_cosine_vs_fp32": cos, "top1_agreement_vs_fp32": agree, "fp32_gelu": "tanh",
+              "top1_gated": False, "top1_vs_fp32": top1_report(lg, ref["tanh"]),
+              "logits_cosine_vs_plain_versions": cos_p,
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lp),
+              "per_layer_equal_fraction_max_abs": per_layer, "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, f"deit_tiny_bf16_{tag}")
+        out[path] = (counts, shapes)
+        del eng, packed
+    agree_t, cos_t = gate(logits["tight"], logits["loose"], "deit_tiny bf16 tight vs loose pads",
+                          DEIT_BF16_TWIN_COS)
+    emit({"phase": "deit_bf16_tight_vs_loose", "logits_cosine": cos_t, "top1_agreement": agree_t,
+          "logits_max_abs_diff": float(np.abs(logits["tight"] - logits["loose"]).max())})
+
+    # ---- the fp32 forward with fused_ln, batch 64 ----
+    xb = xt[:TOTALS_BATCH]
+    cfg_ln = dataclasses.replace(cfg, fused_ln=True, attn_impl="fused")
+    e = Engine.fp32(vit_forward, params, cfg_ln, batch=TOTALS_BATCH, device=dev,
+                    name="deit_tiny_fused_ln")
+    reset_counts()
+    lg = e(x0[:TOTALS_BATCH])
+    c, sh = read_counts()
+    expect_counts(c, "deit_fused_ln", 1, "deit_tiny fp32 fused_ln")
+    out["deit_fused_ln"] = (c, sh)
+    del e
+    # the reference's gate (tests/test_pallas_layernorm.py:39-50): logits and
+    # every tap of the fused forward against the unfused one on the same batch
+    with torch.inference_mode():
+        unfused, ut = vit_forward(params, xb, cfg, taps=True)
+        _, ft = vit_forward(params, xb, cfg_ln, taps=True)
+    taps_err = {k: float((ft[k] - ut[k]).abs().max()) for k in ut}
+    err = float((lg - unfused).abs().max())
+    if err >= FUSED_LN_MAX_ABS or max(taps_err.values()) >= FUSED_LN_MAX_ABS:
+        raise AssertionError(f"deit_tiny fp32 fused_ln vs unfused: logits max_abs {err}, "
+                             f"taps {taps_err} (need < {FUSED_LN_MAX_ABS})")
+    emit({"phase": "deit_fused_ln_fp32", "model": "deit_tiny", "batch": TOTALS_BATCH,
+          "launches": c, "logits_max_abs_vs_unfused": err, "taps_max_abs_vs_unfused": taps_err,
+          "logits_cosine_vs_unfused": numerics.diff(lg.cpu(), unfused.cpu()).cosine})
+
+    # ---- the W8A8 deploy forward with fused_ln, batch 64 ----
+    lgq = {}
+    for fused in (False, True):
+        qf = make_qforward(vit_extras(params), cfg.depth, cfg.heads, cfg.patch, cfg.dim,
+                           attn_impl="fused", fused_ln=fused)
+        e = Engine.quantized(qf, flatten_vit(params), cfg, INT8_PER_CHANNEL, act_scales=act_scales,
+                             batch=TOTALS_BATCH, device=dev)
+        reset_counts()
+        with torch.inference_mode():
+            lgq[fused] = e(x0[:TOTALS_BATCH]).float().cpu().numpy()
+        c, sh = read_counts()
+        if fused:
+            expect_counts(c, "deit_deploy_fused_ln", 1, "deit_tiny deploy fused_ln")
+            out["deit_deploy_fused_ln"] = (c, sh)
+            lpd = plain_twin(e, x0[:TOTALS_BATCH], "deit_tiny deploy fused_ln")
+        del e
+    agree_u, cos_u = gate(lgq[True], lgq[False], "deit_tiny deploy fused_ln vs unfused",
+                          DEIT_FUSED_LN_COS, top1=False)
+    agree_f, cos_f = gate(lgq[True], ref["exact"][:TOTALS_BATCH],
+                          "deit_tiny deploy fused_ln vs fp32", DEIT_FP32_COS, top1=False)
+    cos_pd = gate(lgq[True], lpd, "deit_tiny deploy fused_ln vs its plain versions",
+                  DEIT_TWIN_COS, top1=False)[1]
+    emit({"phase": "deit_deploy_fused_ln", "model": "deit_tiny", "batch": TOTALS_BATCH,
+          "launches": out["deit_deploy_fused_ln"][0],
+          "logits_cosine_vs_unfused_deploy": cos_u, "top1_agreement_vs_unfused_deploy": agree_u,
+          "logits_cosine_vs_fp32": cos_f, "top1_agreement_vs_fp32": agree_f, "fp32_gelu": "exact",
+          "top1_gated": False, "logits_cosine_vs_plain_versions": cos_pd})
+    torch.cuda.empty_cache()
+    return out
+
+
+def layer_contract(packed, xt, cfg, tight=True):
     """Each layer of a block forward, its three kernels against the plain
     versions on the same input: the stream the kernel forward itself
     reaches that layer with. W8A8 chunks (``_chunks``: K5 -> K6 -> K7, fp32
     inside a chunk), W4A8 layers (``blocks``: K8 -> K6 -> K9, bf16 between
-    layers) or W4A16 layers (K11 -> K6 -> K12, bf16 between layers). Returns
+    layers), W4A16 layers (K11 -> K6 -> K12, bf16 between layers) or bf16
+    layers (K14 -> K6 -> K15, bf16 between layers, at either pads). Returns
     [(fraction of valid outputs equal, largest difference)] per layer;
     raises outside LAYER_TOL."""
-    import functools
-
     from dlq_tpu_torch.ops import attention, vit_block as vb
 
     n, d = cfg.seq_len, cfg.dim
@@ -1507,13 +1999,16 @@ def layer_contract(packed, xt, cfg):
                vb.vit_block_pre_plain, stacked),
         "w4a8": (vb.vit_block_pre_w4a8, vb.vit_block_post_w4a8, vb.vit_block_pre_plain, stacked),
         "w4": (vb.vit_block_pre_w4, vb.vit_block_post_w4, vb.vit_block_pre_w4_plain,
-               vb.vit_block_post_w4_plain)}
+               vb.vit_block_post_w4_plain),
+        "bf16": (vb.vit_block_pre_bf16, vb.vit_block_post_bf16, vb.vit_block_pre_bf16_plain,
+                 vb.vit_block_post_bf16_plain)}
     out = []
     with torch.inference_mode():
-        y = vb._token_stream(packed, xt, cfg, True)
+        y = vb._token_stream(packed, xt, cfg, tight)
         for chunk in chunks:
             for l, w in enumerate(chunk):
-                kind = ("w4" if "inv_act" not in w else
+                kind = ("bf16" if w["wqkv"].dtype == torch.bfloat16 else
+                        "w4" if "inv_act" not in w else
                         "w4a8" if w["wqkv"].dtype == torch.uint8 else "w8")
                 pre, post, pre_p, post_p = kinds[kind]
                 # the stream is bf16 between chunks, fp32 inside one
@@ -1629,6 +2124,20 @@ def summary(rows, paths):
         "matmul_int4": ("dlq_tpu_torch/csrc/matmul_int4.cu",
                         "dlq_tpu/ops/pallas_matmul.py:636 int4_matmul (+ :564 "
                         "int4_matmul_cached)", "deit_deploy_g128"),
+        "vit_pre_bf16": ("dlq_tpu_torch/csrc/vit_pre_bf16.cu",
+                         "dlq_tpu/ops/pallas_vit_block.py:371 vit_block_fused (the first third "
+                         "of each layer, _block_kernel :299-303)", "deit_bf16_loose"),
+        "vit_post_bf16": ("dlq_tpu_torch/csrc/vit_post_bf16.cu",
+                          "dlq_tpu/ops/pallas_vit_block.py:371 vit_block_fused (the last two "
+                          "thirds of each layer, _block_kernel :309-320)", "deit_bf16_loose"),
+        "layernorm_fused": ("dlq_tpu_torch/csrc/layernorm.cu",
+                            "dlq_tpu/ops/pallas_layernorm.py:71 layernorm_fused", "deit_fused_ln"),
+        "residual_layernorm": ("dlq_tpu_torch/csrc/layernorm.cu",
+                               "dlq_tpu/ops/pallas_layernorm.py:105 residual_layernorm",
+                               "deit_fused_ln"),
+        "mhsa_f32": ("dlq_tpu_torch/csrc/mhsa.cu",
+                     "dlq_tpu/ops/pallas_attention.py:61 fused_mhsa (on fp32 q/k/v)",
+                     "deit_fused_ln"),
     }
     out = []
     for name, (src, repl, main) in meta.items():
@@ -1685,7 +2194,9 @@ def main() -> int:
 
     rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
             + check_bottleneck_kernel(dev) + check_vit_kernels(dev) + check_w4a8_kernels(dev)
-            + check_int4a8_matmul(dev) + check_w4a16_kernels(dev) + check_int4_matmul(dev))
+            + check_int4a8_matmul(dev) + check_w4a16_kernels(dev) + check_int4_matmul(dev)
+            + check_bf16_kernels(dev) + check_ln_kernels(dev))
+    check_groupwise_routes(dev)
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
     paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}
@@ -1694,6 +2205,7 @@ def main() -> int:
     paths.update(deit_w8)
     paths.update(deit_w4a8_paths(dev, card, deit, act_scales, images))
     paths.update(deit_w4a16_paths(dev, card, deit, images))
+    paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
     kernels = summary(rows, paths)
     print(card_line())

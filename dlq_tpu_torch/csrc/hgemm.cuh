@@ -1,8 +1,9 @@
 // Shared building blocks of the port's bf16 tensor-core kernels: K6 mhsa
-// (bf16 x bf16), and, with int4 weights unpacked to bf16 in registers, K11
-// vit_pre_w4 and K12 vit_post_w4 (the W4A16 ViT layer: per-OC weights,
-// halves-packed) and K13 matmul_int4 (the W4A16 GEMM: adjacent-packed
-// weights with group-wise scales). The product is
+// (bf16 x bf16), K14 vit_pre_bf16 and K15 vit_post_bf16 (the bf16 ViT layer:
+// bf16 K-major weights), and, with int4 weights unpacked to bf16 in
+// registers, K11 vit_pre_w4 and K12 vit_post_w4 (the W4A16 ViT layer:
+// per-OC weights, halves-packed) and K13 matmul_int4 (the W4A16 GEMM:
+// adjacent-packed weights with group-wise scales). The product is
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands, exact
 // products, fp32 sums in the tensor core's order.
 //
@@ -25,6 +26,10 @@
 // load_b4, rows LDS4 = 48 bytes apart: a warp's fragment reads hit distinct
 // banks); bf16 A rows are `lda` elements apart with lda*2 = 32 (mod 128) so
 // that a half-warp's 64-bit fragment loads of four rows hit 32 distinct banks.
+// A bf16 weight stage (K14, K15) is BKW = 64 K values of each K-major [N, K]
+// row, rows LDW = 80 elements (160 bytes, 32 mod 128) apart: a thread's B
+// fragment of one 16-wide step is the 4 weights of its K values 4t..4t+3,
+// one 64-bit shared load, and a half-warp's loads hit 32 distinct banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +38,9 @@
 #include "igemm.cuh"
 
 namespace dlq {
+
+constexpr int BKW = 64;          // bf16 weight stage: K values per column
+constexpr int LDW = BKW + 16;    // its padded row stride (elements)
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -142,6 +150,24 @@ struct HTile {
     }
   }
 
+  // One stage of a bf16 K-major weight (K14, K15): Bs [BN][LDW] holds BKW
+  // K values per column, in the K-slot order above (b0: K values 4t, 4t+1;
+  // b1: 4t+2, 4t+3); A columns at As.
+  __device__ __forceinline__ void step_bf16(const __nv_bfloat16* As, int lda,
+                                            const __nv_bfloat16* Bs) {
+#pragma unroll
+    for (int s = 0; s < BKW / 16; ++s) {
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const uint2 w = *reinterpret_cast<const uint2*>(Bs + col(j) * LDW + 16 * s + 4 * t);
+        b[j][0] = w.x;
+        b[j][1] = w.y;
+      }
+      mma_rows(As + 16 * s, lda, b);
+    }
+  }
+
   // One stage of an adjacent-packed int4 weight with group-wise scales
   // (K13): Bs [BN][LDS4] holds 32 bytes per column, byte k carrying the
   // weights of K values 2k and 2k + 1; A columns at As. Each weight is
@@ -194,6 +220,64 @@ __device__ __forceinline__ void mainloop_resident_h4(Tile& tile, const __nv_bflo
   }
   cp_async_wait<0>();
 }
+
+// B loader of a bf16 weight: stage kt of rows n0..n0+BN-1 of the K-major
+// [N, K] bf16 matrix (K a multiple of BKW; rows >= N zero-filled).
+template <int BN>
+__device__ __forceinline__ void load_bh(__nv_bfloat16* Bs, const __nv_bfloat16* __restrict__ w,
+                                        int N, int K, int n0, int kt) {
+  constexpr int CPR = BKW / 8;   // 16-byte chunks per row
+#pragma unroll
+  for (int j = 0; j < BN * CPR / THREADS; ++j) {
+    const int chunk = threadIdx.x + j * THREADS;
+    const int r = chunk / CPR, q = chunk % CPR;
+    const int n = n0 + r;
+    const bool v = n < N;
+    const __nv_bfloat16* src = v ? w + (size_t)n * K + (size_t)kt * BKW + q * 8 : w;
+    cp_async16(Bs + r * LDW + q * 8, src, v);
+  }
+}
+
+// mainloop_resident_h4 with a bf16 weight (K14, K15): rows n0..n0+BN-1 of
+// the K-major [N, K] bf16 matrix, two cp.async stages of BKW K values.
+template <class Tile, int BN>
+__device__ __forceinline__ void mainloop_resident_bh(Tile& tile, const __nv_bfloat16* As, int lda,
+                                                     __nv_bfloat16* Bs,
+                                                     const __nv_bfloat16* __restrict__ w, int N,
+                                                     int K, int n0) {
+  const int KT = K / BKW;
+  tile.zero();
+  load_bh<BN>(Bs, w, N, K, n0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < KT) load_bh<BN>(Bs + (s ^ 1) * BN * LDW, w, N, K, n0, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile.step_bf16(As + kt * BKW, lda, Bs + s * BN * LDW);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// The resident-A K loop of either bf16-activation weight format: int4
+// halves-packed [N, K/2] bytes (W4) or bf16 [N, K]; Bs: the two stages.
+template <bool W4, class Tile, int BN>
+__device__ __forceinline__ void mainloop_resident_hw(Tile& tile, const __nv_bfloat16* As, int lda,
+                                                     void* Bs, const void* w, int N, int K,
+                                                     int n0) {
+  if constexpr (W4)
+    mainloop_resident_h4<Tile, BN>(tile, As, lda, static_cast<int8_t*>(Bs),
+                                   static_cast<const uint8_t*>(w), N, K, n0);
+  else
+    mainloop_resident_bh<Tile, BN>(tile, As, lda, static_cast<__nv_bfloat16*>(Bs),
+                                   static_cast<const __nv_bfloat16*>(w), N, K, n0);
+}
+
+// Bytes of the two B stages of mainloop_resident_hw.
+template <bool W4>
+constexpr int hw_stage_bytes(int BN) { return 2 * BN * (W4 ? LDS4 : LDW * 2); }
 
 // Visit this thread's accumulator pairs: f(row, col, v_even, v_odd) for
 // columns col, col + 1 of the block tile (int or fp32 accumulators).

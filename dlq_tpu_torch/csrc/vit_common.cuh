@@ -1,8 +1,9 @@
 // Shared pieces of the ViT block kernels (K5/K8 vit_pre.cuh, K7/K9
-// vit_post.cuh, K11 vit_pre_w4.cu, K12 vit_post_w4.cu): the reference's
-// two-moment LayerNorm of one row, its inverse-scale int8 quantization or
-// bf16 rounding, and its GELU (dlq_tpu/ops/pallas_vit_block.py:62-69,
-// :279-287).
+// vit_post.cuh, K11/K14 vit_pre_h.cuh, K12/K15 vit_post_h.cuh) and the fused
+// LayerNorms (K16/K17 layernorm.cu): the reference's two-moment LayerNorm of
+// one row, its inverse-scale int8 quantization or bf16 rounding, and its
+// GELU (dlq_tpu/ops/pallas_vit_block.py:62-69, :279-287;
+// pallas_layernorm.py:29-41, where eps is an argument).
 //
 // Every operation is written with the _rn intrinsics so that nvcc contracts
 // nothing into a fused multiply-add the reference does not have:
@@ -36,32 +37,46 @@ __device__ __forceinline__ int8_t quant_i8(float h, float inv_q) {
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
+// One lane's running moments: s += v, sq += v*v.
+__device__ __forceinline__ void ln_acc(float& s, float& sq, float v) {
+  s = __fadd_rn(s, v);
+  sq = __fadd_rn(sq, __fmul_rn(v, v));
+}
+
+// The row's mean and rsqrt(var + eps) from the lane sums (warp-reduced here).
+__device__ __forceinline__ void ln_stats(float s, float sq, float inv_n, float eps, float& mu,
+                                         float& r) {
+  s = warp_sum(s);
+  sq = warp_sum(sq);
+  mu = __fmul_rn(s, inv_n);
+  const float m2 = __fmul_rn(sq, inv_n);
+  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.0f);
+  r = rsqrtf(__fadd_rn(var, eps));
+}
+
+// ((x - mu) * r) * g + b
+__device__ __forceinline__ float ln_apply(float x, float mu, float r, float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), r), g), b);
+}
+
 // One warp: LayerNorm of the Dp values v[j] (lane + 32 j) of one row;
-// put(c, h) takes the normalized value of column c. g, b: fp32 [Dp] (zero
-// past d_valid).
-template <class Put>
+// put(c, h) takes the normalized value of column c. g, b: fp32 or bf16 [Dp]
+// (zero past d_valid), read widened to fp32.
+template <class TG, class Put>
 __device__ __forceinline__ void ln_row(const float (&v)[ROW_REGS], int Dp,
-                                       const float* __restrict__ g, const float* __restrict__ b,
-                                       float inv_n, Put&& put) {
+                                       const TG* __restrict__ g, const TG* __restrict__ b,
+                                       float inv_n, Put&& put, float eps = 1e-6f) {
   const int lane = threadIdx.x & 31;
   float s = 0.0f, sq = 0.0f;
 #pragma unroll
-  for (int j = 0; j < ROW_REGS; ++j) {
-    if (lane + 32 * j < Dp) {
-      s = __fadd_rn(s, v[j]);
-      sq = __fadd_rn(sq, __fmul_rn(v[j], v[j]));
-    }
-  }
-  s = warp_sum(s);
-  sq = warp_sum(sq);
-  const float mu = __fmul_rn(s, inv_n);
-  const float m2 = __fmul_rn(sq, inv_n);
-  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.0f);
-  const float r = rsqrtf(__fadd_rn(var, 1e-6f));
+  for (int j = 0; j < ROW_REGS; ++j)
+    if (lane + 32 * j < Dp) ln_acc(s, sq, v[j]);
+  float mu, r;
+  ln_stats(s, sq, inv_n, eps, mu, r);
 #pragma unroll
   for (int j = 0; j < ROW_REGS; ++j) {
     const int c = lane + 32 * j;
-    if (c < Dp) put(c, __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j], mu), r), g[c]), b[c]));
+    if (c < Dp) put(c, ln_apply(v[j], mu, r, load_f(g + c), load_f(b + c)));
   }
 }
 

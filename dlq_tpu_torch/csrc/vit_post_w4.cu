@@ -1,6 +1,7 @@
 // K12: the last two thirds of a W4A16 (weight-only int4) ViT layer: proj +
 // bias + residual, LN2, FC1 + bias, GELU, FC2 + bias + residual, each GEMM
-// bf16 activations against int4 per-OC weights with fp32 sums.
+// bf16 activations against int4 per-OC weights with fp32 sums (the body is
+// vit_post_h.cuh's, shared with K15).
 //
 // Replaces the tail of each layer of
 // dlq_tpu/ops/pallas_vit_block.py:vit_block_fused_w4 (:1213, kernel
@@ -13,144 +14,17 @@
 // All three reference functions write FC2's residual as z1 + (acc s + b)
 // through a helper returning acc s + b (_dot_w4a :1168, dotw :2021), which
 // XLA contracts to z1 + fma(acc, s, b): the stacked association, in the
-// single-block kernels too, so the kernel has only that one. x: the
-// residual, bf16 or fp32 [M, Dp]; out: bf16 or fp32. Weights K-major,
-// halves-packed: wproj [Dp, Dp/2], wfc1 [Hp, Dp/2], wfc2 [Dp, Hp/2] bytes.
+// single-block kernels too, so the kernel has only that one. Weights
+// K-major, halves-packed: wproj [Dp, Dp/2], wfc1 [Hp, Dp/2], wfc2 [Dp, Hp/2]
+// bytes.
 //
 // Bound: operations (34 GFLOP of bf16 products at DeiT-Tiny batch 256
 // against ~59 MB of residual, attn and output). Design: K9's layer
-// structure with bf16 A tiles: one block of 256 threads per 64 rows, and
-// nothing between the inputs and the output reaches device memory. The
-// attn tile (copied with cp.async, then LN2(z1) in its place, bf16 64 x
-// (Dp + 16)), z1 in fp32 (64 x Dp) and gelu(FC1) in bf16 (64 x (Hp + 16))
-// stay in shared memory; each GEMM streams its packed weight through two
-// cp.async stages and unpacks it in registers (hgemm.cuh: step_h4), 64
-// output columns at a time. At Dp 192 / Hp 768 that is 178 KB of shared
-// memory: one block per SM, opted in at launch (a refused opt-in returns its
-// error). 64-row blocks keep K9's tile, so each unpacked B fragment feeds
-// two 16-row A tiles; 32-row blocks (two per SM) would unpack twice as often
-// per product.
-#include "vit_common.cuh"
-
-namespace {
-
-using namespace dlq;
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-
-struct Args {
-  const void* y;
-  const __nv_bfloat16* attn;
-  const uint8_t* wproj;
-  const float* sproj;
-  const float* bproj;
-  const float* ln;  // [2, Dp]: LN2 g, b
-  const uint8_t* wfc1;
-  const float* sfc1;
-  const float* bfc1;
-  const uint8_t* wfc2;
-  const float* sfc2;
-  const float* bfc2;
-  void* out;
-  int M, Dp, Hp;
-  float inv_n;
-  int gelu_tanh;
-};
-
-int smem_bytes(int Dp, int Hp) {
-  return BM * Dp * 4 + BM * (Dp + 16) * 2 + BM * (Hp + 16) * 2 + 2 * BN * LDS4;
-}
-
-template <class T, class TO>
-__global__ void __launch_bounds__(THREADS) vit_post_w4_kernel(const Args a) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int Dp = a.Dp, Hp = a.Hp;
-  const int lda = Dp + 16, ldh = Hp + 16;
-  float* Z = reinterpret_cast<float*>(smem);                          // [BM][Dp] z1, fp32
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(Z + BM * Dp);  // [BM][lda] attn, then h2
-  __nv_bfloat16* Hs = As + BM * lda;                                  // [BM][ldh] gelu(FC1)
-  int8_t* Bs = reinterpret_cast<int8_t*>(Hs + BM * ldh);              // 2 weight stages
-  const int m0 = blockIdx.x * BM;
-  const int rows = min(BM, a.M - m0);
-  const T* y = static_cast<const T*>(a.y);
-  TO* out = static_cast<TO*>(a.out);
-
-  // 1. the attn tile, 16 bytes per copy (rows past M zero-filled); the
-  //    proj loop's first wait and barrier order it before any read
-  const int cpr = Dp / 8;
-  for (int e = threadIdx.x; e < BM * cpr; e += THREADS) {
-    const int r = e / cpr, c = (e - r * cpr) * 8;
-    const bool v = r < rows;
-    cp_async16(As + r * lda + c, v ? a.attn + (size_t)(m0 + r) * Dp + c : a.attn, v);
-  }
-  cp_async_commit();
-
-  // 2. proj: z1 = x + fma(acc, s, b) into Z
-  for (int n0 = 0; n0 < Dp; n0 += BN) {
-    HTile<BM, BN, 2, 4> tile;
-    mainloop_resident_h4<decltype(tile), BN>(tile, As, lda, Bs, a.wproj, Dp, Dp, n0);
-    for_pairs(tile, [&](int r, int c, float v0, float v1) {
-      const int n = n0 + c;
-      float x0 = 0.0f, x1 = 0.0f;
-      if (r < rows) {
-        x0 = load_f(y + (size_t)(m0 + r) * Dp + n);
-        x1 = load_f(y + (size_t)(m0 + r) * Dp + n + 1);
-      }
-      *reinterpret_cast<float2*>(Z + r * Dp + n) =
-          make_float2(__fadd_rn(x0, __fmaf_rn(v0, a.sproj[n], a.bproj[n])),
-                      __fadd_rn(x1, __fmaf_rn(v1, a.sproj[n + 1], a.bproj[n + 1])));
-    });
-  }
-  __syncthreads();
-
-  // 3. h2 = bf16(LN2(z1)) into As (one warp per row)
-  {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      float v[ROW_REGS];
-#pragma unroll
-      for (int j = 0; j < ROW_REGS; ++j) {
-        const int c = lane + 32 * j;
-        v[j] = c < Dp ? Z[r * Dp + c] : 0.0f;
-      }
-      ln_bf16_row(v, Dp, a.ln, a.ln + Dp, a.inv_n, As + r * lda);
-    }
-  }
-
-  // 4. FC1 + bias + gelu -> bf16 into Hs
-  const bool tanh_approx = a.gelu_tanh != 0;
-  for (int n0 = 0; n0 < Hp; n0 += BN) {
-    HTile<BM, BN, 2, 4> tile;
-    mainloop_resident_h4<decltype(tile), BN>(tile, As, lda, Bs, a.wfc1, Hp, Dp, n0);
-    for_pairs(tile, [&](int r, int c, float v0, float v1) {
-      const int n = n0 + c;
-      *reinterpret_cast<__nv_bfloat162*>(Hs + r * ldh + n) = __floats2bfloat162_rn(
-          gelu(__fmaf_rn(v0, a.sfc1[n], a.bfc1[n]), tanh_approx),
-          gelu(__fmaf_rn(v1, a.sfc1[n + 1], a.bfc1[n + 1]), tanh_approx));
-    });
-  }
-
-  // 5. FC2 + bias + residual -> out
-  for (int n0 = 0; n0 < Dp; n0 += BN) {
-    HTile<BM, BN, 2, 4> tile;
-    mainloop_resident_h4<decltype(tile), BN>(tile, Hs, ldh, Bs, a.wfc2, Dp, Hp, n0);
-    for_pairs(tile, [&](int r, int c, float v0, float v1) {
-      if (r >= rows) return;
-      const int n = n0 + c;
-      const float o0 = __fadd_rn(Z[r * Dp + n], __fmaf_rn(v0, a.sfc2[n], a.bfc2[n]));
-      const float o1 = __fadd_rn(Z[r * Dp + n + 1], __fmaf_rn(v1, a.sfc2[n + 1], a.bfc2[n + 1]));
-      TO* dst = out + (size_t)(m0 + r) * Dp + n;
-      if constexpr (sizeof(TO) == 4) {
-        *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o0, o1);
-      }
-    });
-  }
-}
-
-}  // namespace
+// structure with bf16 A tiles (vit_post_h.cuh); each GEMM streams its packed
+// weight through two cp.async stages and unpacks it in registers
+// (hgemm.cuh: step_h4). 32-row blocks (two per SM) would unpack twice as
+// often per product.
+#include "vit_post_h.cuh"
 
 // y: [M, Dp] bf16 (y_f32 = 0) or fp32; attn: bf16 [M, Dp] (16-byte aligned);
 // ln: fp32 [2, Dp]; s*, b*: fp32 rows; out: [M, Dp] bf16 (out_f32 = 0) or fp32.
@@ -161,20 +35,7 @@ extern "C" int dlq_vit_post_w4(const void* y, int y_f32, const __nv_bfloat16* at
                                const float* bfc1, const uint8_t* wfc2, const float* sfc2,
                                const float* bfc2, void* out, int out_f32, int M, int Dp, int Hp,
                                int d_valid, int gelu_tanh, void* stream) {
-  const int smem = smem_bytes(Dp, Hp);
-  if (Dp <= 0 || Dp % 64 != 0 || Dp > 32 * ROW_REGS || Hp <= 0 || Hp % 64 != 0 ||
-      d_valid <= 0 || d_valid > Dp || smem > 232448)
-    return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  const Args a{y, attn, wproj, sproj, bproj, ln, wfc1, sfc1, bfc1, wfc2, sfc2, bfc2, out, M, Dp,
-               Hp, (float)(1.0 / (double)d_valid), gelu_tanh};
-  using BF = __nv_bfloat16;
-  void (*const ks[2][2])(const Args) = {
-      {vit_post_w4_kernel<BF, BF>, vit_post_w4_kernel<BF, float>},
-      {vit_post_w4_kernel<float, BF>, vit_post_w4_kernel<float, float>}};
-  void (*k)(const Args) = ks[y_f32 != 0][out_f32 != 0];
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  k<<<(M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return dlq::post_h::launch<true>(y, y_f32, attn, wproj, sproj, bproj, ln, wfc1, sfc1, bfc1,
+                                   wfc2, sfc2, bfc2, out, out_f32, M, Dp, Hp, d_valid, gelu_tanh,
+                                   stream);
 }

@@ -11,10 +11,12 @@ site, quantized W8A8 under a deploy context; LayerNorms, softmax(QKᵀ)V and
 the residual adds stay in the interchange dtype. Layouts are the
 reference's: NHWC images, IO dense weights, [B, N, D] token streams.
 
-``attn_impl="fused"`` sends attention through K6 (``ops.attention``);
-``"xla"`` is the plain einsum form. ``fused_ln=True`` (the reference's
-fused-LayerNorm Pallas kernels) and ``attn_impl="xla_int8"`` are not ported
-(ROADMAP.md).
+``attn_impl="fused"`` sends attention through K6 (``ops.attention``; its
+fp32 form on an fp32 stream); ``"xla"`` is the plain einsum form.
+``fused_ln=True`` runs every LayerNorm through the fused kernels
+(``ops.layernorm``: K16 for the first LN1, K17 for every later
+``y += delta; h = LN(y)`` junction); ``attn_impl="xla_int8"`` is not
+ported (ROADMAP.md B.15).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class ViTConfig:
     num_classes: int = 1000
     in_channels: int = 3
     attn_impl: str = "xla"   # "xla" (plain) | "fused" (K6)
-    fused_ln: bool = False   # not ported: raises
+    fused_ln: bool = False   # the fused LayerNorm kernels (K16, K17)
     gelu: str = "exact"      # "exact" (erf) | "tanh"
 
     @property
@@ -49,11 +51,7 @@ class ViTConfig:
         return (self.image_size // self.patch) ** 2 + 1  # +cls
 
 
-def _check_ported(attn_impl: str, fused_ln: bool) -> None:
-    if fused_ln:
-        raise NotImplementedError(
-            "fused_ln=True (pallas_layernorm.layernorm_fused / residual_layernorm) is not "
-            "ported yet (ROADMAP.md B.12: rows 12-13 ride with B.10)")
+def _check_ported(attn_impl: str) -> None:
     if attn_impl == "xla_int8":
         raise NotImplementedError(
             "attn_impl='xla_int8' (ops/int8_attention.py) is not ported yet (ROADMAP.md B.15)")
@@ -126,7 +124,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               impl: str = "xla") -> torch.Tensor:
     """softmax(QKᵀ/√hd)V over ``heads`` heads of [B, N, D] streams; fp32
     scores and sums, probabilities and output in ``v.dtype``."""
-    _check_ported(impl, False)
+    _check_ported(impl)
     if impl == "fused":
         from dlq_tpu_torch.ops.attention import attention_fused
 
@@ -159,24 +157,42 @@ def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
 
 def _encoder(y: torch.Tensor, get_ln: Callable, op: Callable, final_norm: Params, depth: int,
              heads: int, attn_impl: str, fused_ln: bool, taps: bool, gelu_kind: str = "exact"):
-    """Shared pre-LN encoder loop of the fp32 and quantized paths."""
-    _check_ported(attn_impl, fused_ln)
+    """Shared pre-LN encoder loop of the fp32 and quantized paths. With
+    ``fused_ln`` each ``y += delta; h = LN(y)`` junction is one K17 pass
+    (layer i's MLP residual fuses into layer i+1's LN1, the last one into
+    the final norm) and the first LN1 is K16: the reference's fused branch
+    (``dlq_tpu/models/vit.py:135-182``), taps at the same points."""
+    from dlq_tpu_torch.ops.layernorm import layernorm_fused, residual_layernorm
+
+    _check_ported(attn_impl)
     t: Dict[str, torch.Tensor] = {}
     delta = None
     for i in range(depth):
         ln1, ln2 = get_ln(i)
-        if delta is not None:
-            y = y + delta
+        if delta is None:
+            h = layernorm_fused(y, ln1["g"], ln1["b"]) if fused_ln else layernorm(y, ln1)
+        else:
+            if fused_ln:
+                y, h = residual_layernorm(y, delta, ln1["g"], ln1["b"])
+            else:
+                y = y + delta
+                h = layernorm(y, ln1)
             if taps:
                 t[f"block{i - 1}"] = y
-        h = layernorm(y, ln1)
         q, k, v = torch.chunk(op(i, "qkv", h), 3, dim=-1)
         a = op(i, "proj", attention(q, k, v, heads, impl=attn_impl))
-        y = y + a
-        m = gelu(op(i, "fc1", layernorm(y, ln2)), gelu_kind == "tanh")
+        if fused_ln:
+            y, h2 = residual_layernorm(y, a, ln2["g"], ln2["b"])
+        else:
+            y = y + a
+            h2 = layernorm(y, ln2)
+        m = gelu(op(i, "fc1", h2), gelu_kind == "tanh")
         delta = op(i, "fc2", m)
-    y = y + delta
-    hf = layernorm(y, final_norm)
+    if fused_ln:
+        y, hf = residual_layernorm(y, delta, final_norm["g"], final_norm["b"])
+    else:
+        y = y + delta
+        hf = layernorm(y, final_norm)
     if taps:
         t[f"block{depth - 1}"] = y
     return hf, t
@@ -239,7 +255,7 @@ def make_qforward(extras: Params, depth: int, heads: int, patch: int, dim: int,
     dense promotes a bf16 input with its fp32 bias (``common.dense``), so
     the stream turns fp32 after the patch embed there, as in the
     reference."""
-    _check_ported(attn_impl, fused_ln)
+    _check_ported(attn_impl)
     ex_ln: List[Params] = extras["ln"]
 
     def qforward(ctx, x, cfg, taps: bool = False):

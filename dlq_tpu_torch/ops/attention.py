@@ -1,5 +1,5 @@
-"""K6: fused multi-head self-attention, bf16 in and out (the counterpart of
-``dlq_tpu/ops/pallas_attention.py``).
+"""K6: fused multi-head self-attention, bf16 in and out, and its fp32 form
+``mhsa_f32`` (the counterpart of ``dlq_tpu/ops/pallas_attention.py``).
 
 Replaces ``pallas_attention.fused_mhsa`` (kernel in ``csrc/mhsa.cu``) and
 the attention inside the W8A8 block kernels
@@ -19,9 +19,16 @@ past ``heads·hd`` zero (the block path's pad-head lanes,
 ``pallas_vit_block.py:141-142``). Every query row is computed; rows past
 ``n_valid`` are the padded stream's and carry no meaning.
 
-``mhsa`` launches the kernel for a CUDA tensor and runs ``mhsa_plain`` for a
-CPU tensor. ``mhsa.launches`` counts kernel launches, ``mhsa.by_shape``
-counts them per (B, rows, heads, hd, n_valid).
+The reference's ``fused_mhsa`` takes any float dtype (out in ``v.dtype``);
+the fp32 forward with ``attn_impl="fused"`` gives it fp32 q/k/v. ``mhsa``
+dispatches on the (shared) dtype: bf16 to K6, fp32 to its fp32 form
+(``mhsa_f32``, the same file's second kernel: fp32 products and sums
+without the tensor cores, which would round fp32 operands).
+
+``mhsa`` launches a kernel for a CUDA tensor and runs ``mhsa_plain`` for a
+CPU tensor. ``mhsa.launches`` counts K6's launches and ``mhsa_f32.launches``
+its fp32 form's; ``.by_shape`` counts them per (B, rows, heads, hd,
+n_valid).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch import _build
+from dlq_tpu_torch.models.common import fp32_matmul
 
 HEAD_DIMS = (32, 64)   # the kernel's compiled head widths
 MAX_KEYS = 256         # the kernel keeps a row's scores in registers
@@ -47,20 +55,22 @@ def softmax_scale(hd: int) -> float:
 
 def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
                out_lanes: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of K6 (same arithmetic, torch's sum order);
-    probabilities and output in ``v.dtype`` (bf16 on both main paths)."""
+    """Plain PyTorch version of K6 and of its fp32 form (same arithmetic,
+    torch's sum order, fp32 products with TF32 off); probabilities and
+    output in ``v.dtype``."""
     B, N, hw = q.shape
     hd = hw // heads
 
     def split(t):
         return t.reshape(B, N, heads, hd).permute(0, 2, 1, 3).float()
 
-    s = torch.matmul(split(q), split(k).transpose(-1, -2)) * softmax_scale(hd)
-    if n_valid < N:
-        s[..., n_valid:] = -1e30
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    a = (p / p.sum(-1, keepdim=True)).to(v.dtype)
-    o = torch.matmul(a.float(), split(v)).to(v.dtype)
+    with fp32_matmul():
+        s = torch.matmul(split(q), split(k).transpose(-1, -2)) * softmax_scale(hd)
+        if n_valid < N:
+            s[..., n_valid:] = -1e30
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        a = (p / p.sum(-1, keepdim=True)).to(v.dtype)
+        o = torch.matmul(a.float(), split(v)).to(v.dtype)
     o = o.permute(0, 2, 1, 3).reshape(B, N, hw)
     lanes = hw if out_lanes is None else out_lanes
     if lanes == hw:
@@ -70,29 +80,42 @@ def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_
     return out
 
 
+# the kernel entry of each dtype, and the element count of its 16-byte loads
+KERNELS = {torch.bfloat16: ("mhsa", 8), torch.float32: ("mhsa_f32", 4)}
+
+
+def kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these q/k/v on the card: K6 (``"mhsa"``) for
+    bf16, its fp32 form (``"mhsa_f32"``) for fp32. The three must share one
+    dtype; anything else raises."""
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"mhsa: q, k and v must share a dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if q.dtype not in KERNELS:
+        raise ValueError(f"mhsa: bf16 or fp32 q/k/v, got {q.dtype}")
+    return KERNELS[q.dtype][0]
+
+
 @functools.cache
-def _entry():
-    fn = _build.library("mhsa").dlq_mhsa
+def _entry(name: str):
+    fn = getattr(_build.library("mhsa"), f"dlq_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
-def _check_view(name: str, t: torch.Tensor, dev) -> None:
-    if t.device != dev or t.dtype != torch.bfloat16 or t.ndim != 3:
-        raise ValueError(f"mhsa: {name} must be a bf16 [B, rows, lanes] tensor on {dev}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+def _check_view(name: str, t: torch.Tensor, dev, grain: int) -> None:
+    if t.device != dev or t.ndim != 3:
+        raise ValueError(f"mhsa: {name} must be a [B, rows, lanes] tensor on {dev}, "
+                         f"got {tuple(t.shape)} on {t.device}")
+    if t.stride(2) != 1 or t.stride(1) % grain or t.stride(0) % grain or t.data_ptr() % 16:
         raise ValueError(f"mhsa: {name} needs unit lane stride, row and batch strides that are "
-                         "multiples of 8 and a 16-byte aligned start (16-byte loads)")
+                         f"multiples of {grain} and a 16-byte aligned start (16-byte loads)")
 
 
-def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
-         out_lanes: Optional[int] = None) -> torch.Tensor:
-    """softmax(QKᵀ/√hd)V over ``heads`` heads of [B, rows, heads·hd] bf16
-    views (any batch/row strides); returns bf16 [B, rows, out_lanes]
-    (default heads·hd), lanes past heads·hd zero."""
+def _check(q, k, v, heads: int, n_valid: int, out_lanes: Optional[int]) -> int:
+    """Shape checks shared by both forms; returns the output lanes."""
     B, N, hw = q.shape
     if k.shape != q.shape or v.shape != q.shape or hw % heads:
         raise ValueError(f"mhsa: q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} "
@@ -100,27 +123,58 @@ def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid:
     lanes = hw if out_lanes is None else out_lanes
     if not 0 < n_valid <= N or lanes < hw:
         raise ValueError(f"mhsa: n_valid {n_valid} of {N} rows, out_lanes {lanes} < {hw}")
-    if q.device.type == "cpu":
-        return mhsa_plain(q, k, v, heads, n_valid, out_lanes)
+    return lanes
+
+
+def _launch(wrapper, q, k, v, heads: int, n_valid: int, lanes: int) -> torch.Tensor:
+    """Launch K6 or its fp32 form on CUDA views and count it on ``wrapper``."""
+    name = kernel_for(q, k, v)
+    B, N, hw = q.shape
     hd = hw // heads
     if hd not in HEAD_DIMS or N > MAX_KEYS:
         raise ValueError(f"mhsa: head width {hd} (compiled: {HEAD_DIMS}) and {N} rows "
                          f"(at most {MAX_KEYS})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_view(name, t, q.device)
-    out = torch.empty((B, N, lanes), dtype=torch.bfloat16, device=q.device)
-    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                  out.stride(0), out.stride(1), B, N, heads, hd, n_valid, lanes,
-                  softmax_scale(hd), _build.stream_ptr(q.device))
-    _build.check(rc, "mhsa")
-    mhsa.launches += 1
-    mhsa.by_shape[(B, N, heads, hd, n_valid)] += 1
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        _check_view(what, t, q.device, KERNELS[q.dtype][1])
+    out = torch.empty((B, N, lanes), dtype=q.dtype, device=q.device)
+    rc = _entry(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                      v.stride(1), out.stride(0), out.stride(1), B, N, heads, hd, n_valid,
+                      lanes, softmax_scale(hd), _build.stream_ptr(q.device))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    wrapper.by_shape[(B, N, heads, hd, n_valid)] += 1
     return out
 
 
-mhsa.launches = 0
-mhsa.by_shape = collections.Counter()
+def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
+         out_lanes: Optional[int] = None) -> torch.Tensor:
+    """softmax(QKᵀ/√hd)V over ``heads`` heads of [B, rows, heads·hd] views
+    (any batch/row strides) of one dtype, bf16 (K6) or fp32 (``mhsa_f32``);
+    returns [B, rows, out_lanes] (default heads·hd) in that dtype, lanes past
+    heads·hd zero."""
+    if kernel_for(q, k, v) == "mhsa_f32":
+        return mhsa_f32(q, k, v, heads, n_valid, out_lanes)
+    lanes = _check(q, k, v, heads, n_valid, out_lanes)
+    if q.device.type == "cpu":
+        return mhsa_plain(q, k, v, heads, n_valid, out_lanes)
+    return _launch(mhsa, q, k, v, heads, n_valid, lanes)
+
+
+def mhsa_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
+             out_lanes: Optional[int] = None) -> torch.Tensor:
+    """K6's fp32 form on fp32 q/k/v views, as ``mhsa``."""
+    lanes = _check(q, k, v, heads, n_valid, out_lanes)
+    if kernel_for(q, k, v) != "mhsa_f32":
+        raise ValueError(f"mhsa_f32: fp32 q/k/v, got {q.dtype}")
+    if q.device.type == "cpu":
+        return mhsa_plain(q, k, v, heads, n_valid, out_lanes)
+    return _launch(mhsa_f32, q, k, v, heads, n_valid, lanes)
+
+
+for _f in (mhsa, mhsa_f32):
+    _f.launches = 0
+    _f.by_shape = collections.Counter()
 
 
 def fused_mhsa(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, n_valid: int) -> torch.Tensor:

@@ -18,7 +18,9 @@ conv weight is unpacked to int8 once, when its context is built, and runs on
 K1/K2; the reference unpacks it in the graph on every forward
 (``dlq_tpu/ops/qops.py:380``). Both are exact, and no Pallas kernel is
 involved.
-Weight-only schemes (no activation scale): a group-wise int4 dense goes
+Weight-only schemes (no activation scale), and group-wise int4 weights with
+one (the activations fake-quantized first, as the reference's
+``qops.py:416-422``): a group-wise int4 dense goes
 through K13 (``ops.matmul_int4``), its weight kept 4-bit, as the reference
 sends it to ``int4_matmul`` on its accelerator (``dlq_tpu/ops/qops.py:469-481``);
 so the port computes ``int4_matmul``'s rounding (the weight dequantized to
@@ -64,9 +66,13 @@ def site_weight_packed(qw: QTensor):
 
 
 def weight_only_packed(qw: QTensor) -> Optional[PackedInt4G]:
-    """The packed weight a weight-only context keeps for a site: a
-    group-wise int4 dense repacked for K13, else None (dequantized)."""
-    if qw.bits == 4 and qw.group is not None and len(qw.layout_shape) == 2:
+    """The packed weight a context keeps for a site that takes the
+    weight-only route: a group-wise int4 dense repacked for K13 when K and
+    the group are multiples of 16 (the kernel's 16-wide K steps), else None
+    (dequantized, as the reference routes what its kernel does not tile,
+    ``dlq_tpu/ops/qops.py:469-487``)."""
+    if (qw.bits == 4 and qw.group is not None and len(qw.layout_shape) == 2
+            and qw.shape[0] % 16 == 0 and qw.group % 16 == 0):
         return pack_int4_weight(qw)
     return None
 
@@ -135,15 +141,23 @@ def qdense(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor],
            act_qmax: int = 127, packed=None) -> torch.Tensor:
     """Quantized dense. int8/int2 weights + act_scale -> W8A8 int8 GEMM (K2)
     with int32 accumulation; per-OC int4 weights + act_scale -> W4A8 (K10);
-    no act_scale -> weight-only: group-wise int4 weights on K13 (W4A16,
-    ``int4_matmul``'s rounding), any other weights dequantized to
-    ``x.dtype`` with an fp32 product.
+    group-wise int4 weights + act_scale -> the activations fake-quantized
+    (``quantize_act(x)·s`` in ``x.dtype``), then weight-only, as the
+    reference (``dlq_tpu/ops/qops.py:416-422``): group scales cannot fold
+    into an int epilogue; no act_scale -> weight-only: group-wise int4
+    weights on K13 (W4A16, ``int4_matmul``'s rounding; K and the group
+    multiples of 16), any other weights dequantized to ``x.dtype`` with an
+    fp32 product. Group-wise int8 weights with an act_scale raise the
+    reference's ValueError.
     qw.values: [I, O]. The result is cast to ``x.dtype`` after the bias and
     relu, as the reference's (``dlq_tpu/ops/qops.py:488-492``): a bf16 input
     gives a bf16 output. ``packed``: the site's kernel weight, when the
     caller keeps it."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if act_scale is not None and qw.bits == 4 and qw.group is not None:
+        x2 = (quantize_act(x2, act_scale, act_qmax).float() * act_scale).to(x.dtype)
+        act_scale = None
     if act_scale is not None:
         pk = site_weight_packed(qw) if packed is None else packed
         xq = quantize_act(x2, act_scale, act_qmax)

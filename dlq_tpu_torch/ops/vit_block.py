@@ -1,4 +1,4 @@
-"""The W8A8, W4A8 and W4A16 ViT block paths (the counterpart of
+"""The bf16, W8A8, W4A8 and W4A16 ViT block paths (the counterpart of
 ``dlq_tpu/ops/pallas_vit_block.py``).
 
 The reference runs L stacked quantized transformer layers per TPU kernel
@@ -36,6 +36,16 @@ versions' (exact in float64, rounded once) agree up to that order, so
 they are held to stated tolerances, not bit for bit. All three W4A16
 functions add FC2's residual as ``z1 + fma(acc, s, b)`` too.
 
+The bf16 layer (``vit_block_fused``, the layer of the reference's bf16
+deploy forward ``vit_forward_blockfused``) is K14 -> K6 -> K15: K14
+``vit_block_pre_bf16`` (``csrc/vit_pre_bf16.cu``) and K15
+``vit_block_post_bf16`` (``csrc/vit_post_bf16.cu``) are K11 and K12 with
+bf16 K-major weights (``pack_vit_blocks``) and no scales: every epilogue is
+``acc + b``, and FC2's residual is added before its bias, ``(z1 + acc) +
+b`` (``_block_kernel`` :318-319), a third order beside K7's and K9/K12's.
+Its fp32 sums are not exact either, so it too is held to stated
+tolerances.
+
 Numerics, as the reference kernels compute them (checked bit for bit against
 them on the CPU at the test sizes):
 
@@ -52,11 +62,11 @@ Every kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor; ``.launches`` counts kernel
 launches and ``.by_shape`` counts them per shape.
 
-Weights are packed once (``pack_vit_blocks_w8``, ``pack_vit_blocks_w4a8``,
-``pack_vit_blocks_w4``):
-K-major ``[N, K]`` int8 or ``[N, K/2]`` halves-packed int4 bytes (the
-layout the tensor-core fragments read), [q|k|v] column blocks of Dp lanes
-each, heads at hd offsets, zero-padded so pad lanes stay zero.
+Weights are packed once (``pack_vit_blocks``, ``pack_vit_blocks_w8``,
+``pack_vit_blocks_w4a8``, ``pack_vit_blocks_w4``):
+K-major ``[N, K]`` bf16 or int8, or ``[N, K/2]`` halves-packed int4 bytes
+(the layout the tensor-core fragments read), [q|k|v] column blocks of Dp
+lanes each, heads at hd offsets, zero-padded so pad lanes stay zero.
 """
 
 from __future__ import annotations
@@ -72,11 +82,11 @@ import torch.nn.functional as F
 from dlq_tpu_torch import _build
 from dlq_tpu_torch.models.common import fp32_matmul
 from dlq_tpu_torch.ops.attention import mhsa
+from dlq_tpu_torch.ops.layernorm import ln_f32 as _ln_f32
 from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor, unpack_halves_kmajor
 from dlq_tpu_torch.quant.quantize import dequantize, f32, unpack_int4
 
 Block = Dict[str, Any]
-LN_EPS = 1e-6
 GELU_C = 0.7978845608028654  # sqrt(2/pi)
 SQRT_HALF = 0.7071067811865476
 
@@ -107,17 +117,6 @@ def mlp_pad(cfg) -> int:
     return _cdiv(cfg.mlp_ratio * cfg.dim, 128) * 128
 
 
-def _ln_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, d_valid: int,
-            eps: float = LN_EPS) -> torch.Tensor:
-    """Two-moment LN over the Dp lanes, exact over the d_valid prefix (pad
-    lanes are zero on entry and on exit, g/b being zero-padded)."""
-    inv_n = 1.0 / float(d_valid)
-    mu = x.sum(-1, keepdim=True) * inv_n
-    m2 = (x * x).sum(-1, keepdim=True) * inv_n
-    var = torch.clamp_min(m2 - mu * mu, 0.0)
-    return (x - mu) * torch.rsqrt(var + eps) * g + b
-
-
 def _gelu_f32(f: torch.Tensor, tanh_approx: bool) -> torch.Tensor:
     if tanh_approx:
         return 0.5 * f * (1.0 + torch.tanh(GELU_C * (f + 0.044715 * f * f * f)))
@@ -140,14 +139,16 @@ def _igemm(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
 
 def _hgemm(a: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     """Sums of bf16 activations against K-major int4 halves-packed weights
-    [N, K/2] (uint8): every product is exact, and the float64 sum is rounded
-    once to fp32 (the reference's and the kernels' fp32 sums agree with it
-    up to their summation order)."""
-    return torch.matmul(a.double(), unpack_halves_kmajor(wk).double().t()).float()
+    [N, K/2] (uint8) or bf16 weights [N, K]: every product is exact, and the
+    float64 sum is rounded once to fp32 (the reference's and the kernels'
+    fp32 sums agree with it up to their summation order)."""
+    w = unpack_halves_kmajor(wk) if wk.dtype == torch.uint8 else wk
+    return torch.matmul(a.double(), w.double().t()).float()
 
 
-def _epi(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.addcmul(b, acc, s)  # fma(acc, s, b)
+def _epi(acc: torch.Tensor, s: Optional[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+    """fma(acc, s, b); with no scale (bf16 weights) acc + b."""
+    return acc + b if s is None else torch.addcmul(b, acc, s)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +266,51 @@ def pack_vit_blocks_w4(qflat: Dict[str, Any], extras: Dict[str, Any], cfg,
     return _pack_vit_blocks(qflat, None, extras, cfg, tight, None, "w4")
 
 
+def pack_vit_blocks(params: Dict[str, Any], cfg, tight: bool = False) -> Dict[str, Any]:
+    """Pack fp32 ViT params (``models.vit.init_vit``'s layout, the port's or
+    JAX's carried over with ``interop.from_jax_tree``) for K14/K15
+    (``pallas_vit_block.py:732-786``): every block weight bf16, K-major
+    ``[N, K]`` (the reference's ``[K, N]``, transposed) and zero-padded to
+    (Dp, Hp), qkv as [q|k|v] blocks of Dp lanes with heads at hd offsets;
+    fp32 bias rows and fp32 ``ln1``/``ln2`` ``[2, Dp]``; the patch weight and
+    bias, cls and pos in bf16, the norm in fp32, the head weight in bf16
+    (upcast to fp32 for its product) and its bias in fp32. Tensors stay on
+    the device of ``params``."""
+    _, Dp = vit_pads(cfg, tight)
+    Hp = mlp_pad(cfg)
+
+    def padv(a, n):
+        a = a.float().reshape(-1)
+        return F.pad(a, (0, n - a.shape[0])).contiguous()
+
+    def kmajor(w_io, k, n):
+        w = w_io.float()
+        return F.pad(w, (0, n - w.shape[1], 0, k - w.shape[0])).t().contiguous().to(torch.bfloat16)
+
+    blocks: List[Block] = []
+    for lp in params["layers"]:
+        wq = torch.cat([F.pad(w.float(), (0, Dp - w.shape[1]))
+                        for w in torch.chunk(lp["qkv"]["w"], 3, -1)], -1)
+        blocks.append({
+            "wqkv": kmajor(wq, Dp, 3 * Dp),
+            "bqkv": torch.cat([padv(b, Dp) for b in torch.chunk(lp["qkv"]["b"], 3)]),
+            "wproj": kmajor(lp["proj"]["w"], Dp, Dp), "bproj": padv(lp["proj"]["b"], Dp),
+            "ln1": torch.stack([padv(lp["ln1"]["g"], Dp), padv(lp["ln1"]["b"], Dp)]),
+            "ln2": torch.stack([padv(lp["ln2"]["g"], Dp), padv(lp["ln2"]["b"], Dp)]),
+            "wfc1": kmajor(lp["fc1"]["w"], Dp, Hp), "bfc1": padv(lp["fc1"]["b"], Hp),
+            "wfc2": kmajor(lp["fc2"]["w"], Hp, Dp), "bfc2": padv(lp["fc2"]["b"], Dp),
+        })
+    return {
+        "blocks": blocks,
+        "patch": {"w": params["patch"]["w"].to(torch.bfloat16),
+                  "b": params["patch"]["b"].to(torch.bfloat16)},
+        "cls": params["cls"].to(torch.bfloat16),
+        "pos": params["pos"].to(torch.bfloat16),
+        "norm": {"g": params["norm"]["g"].float(), "b": params["norm"]["b"].float()},
+        "head": {"w": params["head"]["w"].to(torch.bfloat16), "b": params["head"]["b"].float()},
+    }
+
+
 def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[List[Block]]:
     """Group the per-layer blocks into chunks of ``layers_per_kernel``: the
     residual stays fp32 between the layers of a chunk and is bf16 between
@@ -311,18 +357,19 @@ def _token_stream(packed: Dict[str, Any], x: torch.Tensor, cfg, tight: bool) -> 
 
 
 def _head(packed: Dict[str, Any], y: torch.Tensor, cfg) -> torch.Tensor:
-    """Final mean/var LayerNorm on the cls row, fp32 head."""
+    """Final mean/var LayerNorm on the cls row, fp32 head (a bf16 head
+    weight upcast, as ``pallas_vit_block.py:1142``)."""
     from dlq_tpu_torch.models.vit import layernorm
 
     hf = layernorm(y[:, 0, :cfg.dim].float(), packed["norm"])
     with fp32_matmul():
-        logits = torch.matmul(hf, packed["head"]["w"])
+        logits = torch.matmul(hf, packed["head"]["w"].float())
     b = packed["head"]["b"]
     return logits if b is None else logits + b
 
 
 # ---------------------------------------------------------------------------
-# K5 / K8 / K11: LN1 + QKV
+# K5 / K8 / K11 / K14: LN1 + QKV
 # ---------------------------------------------------------------------------
 
 def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -334,14 +381,28 @@ def vit_block_pre_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor
     return _epi(acc, w["sqkv"], w["bqkv"]).to(torch.bfloat16)
 
 
+# the weight format of each block kernel: int8 [N, K], int4 halves-packed
+# [N, K/2] bytes, or bf16 [N, K]; the activation-quantized ones (K5, K7, K8,
+# K9) take inverse activation scales
+WEIGHTS = {"vit_pre_w8": torch.int8, "vit_post_w8": torch.int8,
+           "vit_pre_w4a8": torch.uint8, "vit_post_w4a8": torch.uint8,
+           "vit_pre_w4": torch.uint8, "vit_post_w4": torch.uint8,
+           "vit_pre_bf16": torch.bfloat16, "vit_post_bf16": torch.bfloat16}
+QUANT = ("vit_pre_w8", "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 @functools.cache
 def _pre_entry(name: str):
-    """The launch entry of K5, K8 or K11 (K11, weight-only, takes no inverse
-    activation scale)."""
+    """The launch entry of K5, K8, K11 or K14 (K11 and K14 take no inverse
+    activation scale; K14's scale pointer is null)."""
     fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + ([] if name == "vit_pre_w4" else [ctypes.c_float]) + [ctypes.c_void_p])
+                   + ([ctypes.c_float] if name in QUANT else []) + [ctypes.c_void_p])
     return fn
 
 
@@ -352,31 +413,41 @@ def _check_stream(what: str, t: torch.Tensor, dev, dtypes, lanes: int) -> None:
                          f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_params(what: str, dev, *ts: torch.Tensor) -> None:
+def _check_params(what: str, dev, *ts: Optional[torch.Tensor]) -> None:
     for t in ts:
-        if t.device != dev or not t.is_contiguous():
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{what}: packed parameters must be contiguous on {dev}")
 
 
-def _weight_shape(w: torch.Tensor, n: int, k: int, w4: bool) -> bool:
-    """Is ``w`` the K-major weight [n, k] of the format: int8, or int4
-    halves-packed [n, k/2] bytes?"""
-    return w.dtype == (torch.uint8 if w4 else torch.int8) and w.shape == (n, k // 2 if w4 else k)
+def _check_scales(name: str, *ss: Optional[torch.Tensor]) -> None:
+    """Integer weights come with per-OC scale rows, bf16 weights without."""
+    if any((s is None) != (WEIGHTS[name] == torch.bfloat16) for s in ss):
+        raise ValueError(f"{name}: {WEIGHTS[name]} weights "
+                         f"{'take no' if WEIGHTS[name] == torch.bfloat16 else 'need'} scale rows")
 
 
-def _pre(wrapper, name: str, w4: bool, y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
-    """Launch K5 (``name`` "vit_pre_w8"), K8 ("vit_pre_w4a8") or K11
-    ("vit_pre_w4") and count it on ``wrapper``."""
+def _weight_shape(w: torch.Tensor, n: int, k: int, name: str) -> bool:
+    """Is ``w`` the K-major weight [n, k] of kernel ``name``'s format: int8,
+    int4 halves-packed [n, k/2] bytes, or bf16?"""
+    dt = WEIGHTS[name]
+    return w.dtype == dt and w.shape == (n, k // 2 if dt == torch.uint8 else k)
+
+
+def _pre(wrapper, name: str, y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """Launch K5 (``name`` "vit_pre_w8"), K8 ("vit_pre_w4a8"), K11
+    ("vit_pre_w4") or K14 ("vit_pre_bf16") and count it on ``wrapper``."""
     B, Np, Dp = y.shape
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
-    if not _weight_shape(w["wqkv"], 3 * Dp, Dp, w4) or Dp % 64:
+    if not _weight_shape(w["wqkv"], 3 * Dp, Dp, name) or Dp % 64:
         raise ValueError(f"{name}: wqkv {w['wqkv'].dtype} {tuple(w['wqkv'].shape)} for Dp {Dp} "
                          "(a multiple of 64)")
-    _check_params(name, y.device, w["wqkv"], w["sqkv"], w["bqkv"], w["ln1"])
+    sqkv = w.get("sqkv")
+    _check_scales(name, sqkv)
+    _check_params(name, y.device, w["wqkv"], sqkv, w["bqkv"], w["ln1"])
     out = torch.empty((B, Np, 3 * Dp), dtype=torch.bfloat16, device=y.device)
-    inv = [] if name == "vit_pre_w4" else [w["inv_act"][0]]
+    inv = [w["inv_act"][0]] if name in QUANT else []
     rc = _pre_entry(name)(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
-                          w["wqkv"].data_ptr(), w["sqkv"].data_ptr(), w["bqkv"].data_ptr(),
+                          w["wqkv"].data_ptr(), _ptr(sqkv), w["bqkv"].data_ptr(),
                           out.data_ptr(), B * Np, Dp, d_valid, *inv, _build.stream_ptr(y.device))
     _build.check(rc, name)
     wrapper.launches += 1
@@ -389,7 +460,7 @@ def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     (bf16 or fp32); returns bf16 qkv [B, Np, 3·Dp]."""
     if y.device.type == "cpu":
         return vit_block_pre_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w8, "vit_pre_w8", False, y, w, d_valid)
+    return _pre(vit_block_pre_w8, "vit_pre_w8", y, w, d_valid)
 
 
 def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -397,14 +468,19 @@ def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     as ``vit_block_pre_w8``."""
     if y.device.type == "cpu":
         return vit_block_pre_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w4a8, "vit_pre_w4a8", True, y, w, d_valid)
+    return _pre(vit_block_pre_w4a8, "vit_pre_w4a8", y, w, d_valid)
 
 
 def vit_block_pre_w4_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """Plain PyTorch version of K11 (``_block_kernel_w4`` :1191-1193): h1 =
-    bf16(LN1(y)), qkv = bf16(fma(h1 @ W, s, b)) with the exact sum."""
+    bf16(LN1(y)), qkv = bf16(fma(h1 @ W, s, b)) with the exact sum; and, on
+    a bf16 pack (no scales), of K14 (``_block_kernel`` :299-303): qkv =
+    bf16(h1 @ W + b)."""
     h1 = _ln_f32(y.float(), w["ln1"][0], w["ln1"][1], d_valid).to(torch.bfloat16)
-    return _epi(_hgemm(h1, w["wqkv"]), w["sqkv"], w["bqkv"]).to(torch.bfloat16)
+    return _epi(_hgemm(h1, w["wqkv"]), w.get("sqkv"), w["bqkv"]).to(torch.bfloat16)
+
+
+vit_block_pre_bf16_plain = vit_block_pre_w4_plain
 
 
 def vit_block_pre_w4(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -413,16 +489,25 @@ def vit_block_pre_w4(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     [B, Np, 3·Dp]."""
     if y.device.type == "cpu":
         return vit_block_pre_w4_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w4, "vit_pre_w4", True, y, w, d_valid)
+    return _pre(vit_block_pre_w4, "vit_pre_w4", y, w, d_valid)
 
 
-for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4):
+def vit_block_pre_bf16(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """LN1 + QKV of one bf16 layer (K14; ``pack_vit_blocks`` weights) on the
+    padded stream y [B, Np, Dp] (bf16 or fp32); returns bf16 qkv
+    [B, Np, 3·Dp]."""
+    if y.device.type == "cpu":
+        return vit_block_pre_bf16_plain(y, w, d_valid)
+    return _pre(vit_block_pre_bf16, "vit_pre_bf16", y, w, d_valid)
+
+
+for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4, vit_block_pre_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
-# K7 / K9 / K12: proj + residual + LN2 + MLP + residual
+# K7 / K9 / K12 / K15: proj + residual + LN2 + MLP + residual
 # ---------------------------------------------------------------------------
 
 def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
@@ -446,9 +531,10 @@ def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid:
 
 @functools.cache
 def _post_entry(name: str):
-    """The launch entry of K7, K9 or K12 (K12, weight-only, takes no inverse
-    activation scales and has only the stacked FC2 association)."""
-    quant = name != "vit_post_w4"
+    """The launch entry of K7, K9, K12 or K15 (K12 and K15 take no inverse
+    activation scales, and each has its format's one FC2 association; K15's
+    scale pointers are null)."""
+    quant = name in QUANT
     fn = getattr(_build.library(name), f"dlq_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -457,31 +543,34 @@ def _post_entry(name: str):
     return fn
 
 
-def _post(wrapper, name: str, w4: bool, y: torch.Tensor, attn: torch.Tensor, w: Block,
+def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
           d_valid: int, gelu_tanh: bool, out_dtype: torch.dtype, multi: bool) -> torch.Tensor:
-    """Launch K7 (``name`` "vit_post_w8"), K9 ("vit_post_w4a8") or K12
-    ("vit_post_w4", ``multi`` True) and count it on ``wrapper``."""
+    """Launch K7 (``name`` "vit_post_w8"), K9 ("vit_post_w4a8"), K12
+    ("vit_post_w4") or K15 ("vit_post_bf16"; ``multi`` is bound to the
+    format for the last two) and count it on ``wrapper``."""
     B, Np, Dp = y.shape
     Hp = w["wfc1"].shape[0]
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
     _check_stream(name, attn, y.device, (torch.bfloat16,), Dp)
     if (attn.shape != y.shape or attn.data_ptr() % 16
             or out_dtype not in (torch.bfloat16, torch.float32)
-            or not _weight_shape(w["wproj"], Dp, Dp, w4)
-            or not _weight_shape(w["wfc1"], Hp, Dp, w4)
-            or not _weight_shape(w["wfc2"], Dp, Hp, w4) or Dp % 64 or Hp % 64):
+            or not _weight_shape(w["wproj"], Dp, Dp, name)
+            or not _weight_shape(w["wfc1"], Hp, Dp, name)
+            or not _weight_shape(w["wfc2"], Dp, Hp, name) or Dp % 64 or Hp % 64):
         raise ValueError(f"{name}: y {tuple(y.shape)}, attn {tuple(attn.shape)}, "
                          f"Hp {Hp}, out {out_dtype}: Dp and Hp must be multiples of 64")
-    _check_params(name, y.device, w["wproj"], w["sproj"], w["bproj"], w["ln2"],
-                  w["wfc1"], w["sfc1"], w["bfc1"], w["wfc2"], w["sfc2"], w["bfc2"])
+    sproj, sfc1, sfc2 = w.get("sproj"), w.get("sfc1"), w.get("sfc2")
+    _check_scales(name, sproj, sfc1, sfc2)
+    _check_params(name, y.device, w["wproj"], sproj, w["bproj"], w["ln2"],
+                  w["wfc1"], sfc1, w["bfc1"], w["wfc2"], sfc2, w["bfc2"])
     out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
-    quant = name != "vit_post_w4"
+    quant = name in QUANT
     rc = _post_entry(name)(
         y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(),
         *(w["inv_act"] if quant else ()),
-        w["wproj"].data_ptr(), w["sproj"].data_ptr(), w["bproj"].data_ptr(),
-        w["ln2"].data_ptr(), w["wfc1"].data_ptr(), w["sfc1"].data_ptr(), w["bfc1"].data_ptr(),
-        w["wfc2"].data_ptr(), w["sfc2"].data_ptr(), w["bfc2"].data_ptr(), out.data_ptr(),
+        w["wproj"].data_ptr(), _ptr(sproj), w["bproj"].data_ptr(),
+        w["ln2"].data_ptr(), w["wfc1"].data_ptr(), _ptr(sfc1), w["bfc1"].data_ptr(),
+        w["wfc2"].data_ptr(), _ptr(sfc2), w["bfc2"].data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh),
         *((int(multi),) if quant else ()), _build.stream_ptr(y.device))
     _build.check(rc, name)
@@ -501,7 +590,7 @@ def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
-    return _post(vit_block_post_w8, "vit_post_w8", False, y, attn, w, d_valid, gelu_tanh,
+    return _post(vit_block_post_w8, "vit_post_w8", y, attn, w, d_valid, gelu_tanh,
                  out_dtype, multi)
 
 
@@ -514,16 +603,17 @@ def vit_block_post_w4a8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: 
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
-    return _post(vit_block_post_w4a8, "vit_post_w4a8", True, y, attn, w, d_valid, gelu_tanh,
+    return _post(vit_block_post_w4a8, "vit_post_w4a8", y, attn, w, d_valid, gelu_tanh,
                  out_dtype, multi)
 
 
 def _post_w4_sums(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                   gelu_tanh: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K12's plain arithmetic up to FC2's sum: (z1, acc_fc2), fp32."""
-    z1 = y.float() + _epi(_hgemm(attn, w["wproj"]), w["sproj"], w["bproj"])
+    """K12's (and, on a bf16 pack, K15's) plain arithmetic up to FC2's sum:
+    (z1, acc_fc2), fp32."""
+    z1 = y.float() + _epi(_hgemm(attn, w["wproj"]), w.get("sproj"), w["bproj"])
     h2 = _ln_f32(z1, w["ln2"][0], w["ln2"][1], d_valid).to(torch.bfloat16)
-    f = _epi(_hgemm(h2, w["wfc1"]), w["sfc1"], w["bfc1"])
+    f = _epi(_hgemm(h2, w["wfc1"]), w.get("sfc1"), w["bfc1"])
     return z1, _hgemm(_gelu_f32(f, gelu_tanh).to(torch.bfloat16), w["wfc2"])
 
 
@@ -549,11 +639,36 @@ def vit_block_post_w4(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_w4_plain(y, attn, w, d_valid, gelu_tanh, out_dtype)
-    return _post(vit_block_post_w4, "vit_post_w4", True, y, attn, w, d_valid, gelu_tanh,
+    return _post(vit_block_post_w4, "vit_post_w4", y, attn, w, d_valid, gelu_tanh,
                  out_dtype, True)
 
 
-for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4):
+def vit_block_post_bf16_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                              gelu_tanh: bool = True,
+                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch version of K15 (``_block_kernel`` :309-320): the exact
+    sums, the reference's roundings (h2 and gelu's output to bf16), FC2's
+    residual before its bias, ``(z1 + acc) + b``."""
+    z1, acc = _post_w4_sums(y, attn, w, d_valid, gelu_tanh)
+    out = (z1 + acc) + w["bfc2"]
+    return out.to(y.dtype if out_dtype is None else out_dtype)
+
+
+def vit_block_post_bf16(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                        gelu_tanh: bool = True,
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """proj + residual + LN2 + MLP + residual of one bf16 layer (K15;
+    ``pack_vit_blocks`` weights): y [B, Np, Dp] bf16 or fp32, attn bf16;
+    output in ``out_dtype`` (default ``y.dtype``, the reference's); FC2's
+    residual ``(z1 + acc) + b``, the only association K15 has."""
+    out_dtype = y.dtype if out_dtype is None else out_dtype
+    if y.device.type == "cpu":
+        return vit_block_post_bf16_plain(y, attn, w, d_valid, gelu_tanh, out_dtype)
+    return _post(vit_block_post_bf16, "vit_post_bf16", y, attn, w, d_valid, gelu_tanh,
+                 out_dtype, False)
+
+
+for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4, vit_block_post_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
 
@@ -577,6 +692,16 @@ def _layer(pre, post, y: torch.Tensor, w: Block, n_valid: int, d_valid: int, hea
     bound)."""
     a = _attention(pre(y, w, d_valid), heads, hd, n_valid)
     return post(y, a, w, d_valid, gelu_tanh, out_dtype)
+
+
+def vit_block_fused(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
+                    hd: int, gelu_tanh: bool = True) -> torch.Tensor:
+    """One bf16 transformer block (``_block_kernel``, row 14) as K14 -> K6
+    -> K15 on the padded stream y [B, Np, Dp] (bf16 or fp32), output in
+    ``y.dtype``; the reference's ``bt`` is TPU tiling and has no
+    counterpart."""
+    return _layer(vit_block_pre_bf16, vit_block_post_bf16, y, w, n_valid, d_valid, heads, hd,
+                  gelu_tanh, y.dtype)
 
 
 def vit_block_fused_w8(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int, heads: int,
@@ -691,6 +816,15 @@ def vit_forward_multiblock_w4(packed: Dict[str, Any], x: torch.Tensor, cfg,
     from ``pack_vit_blocks_w4``). fp32 logits."""
     chunks = packed.get("_chunks") or stack_vit_blocks_w4(packed, layers_per_kernel)
     return _forward(chunks, vit_multiblock_fused_w4, packed, x, cfg, tight, gelu_tanh)
+
+
+def vit_forward_blockfused(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                           gelu_tanh: bool = True, tight: bool = False) -> torch.Tensor:
+    """The bf16 deploy forward (``pallas_vit_block.py:1116``): the token
+    stream, one ``vit_block_fused`` (K14 -> K6 -> K15) per layer with the
+    residual bf16 between layers, the final norm and the fp32 head.
+    ``packed`` from ``pack_vit_blocks(..., tight=tight)``. fp32 logits."""
+    return _forward(packed["blocks"], vit_block_fused, packed, x, cfg, tight, gelu_tanh)
 
 
 def vit_forward_blockfused_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,

@@ -17,7 +17,7 @@ arithmetic:
 
 A context is built once per engine: it repacks every int8 weight K-major for
 the kernels when it is constructed (a per-OC int4 dense weight stays 4-bit,
-repacked for K10, and so does a group-wise int4 weight-only dense, for K13;
+repacked for K10, and so does a group-wise int4 dense, for K13;
 an int4 conv weight is unpacked to int8), keeps the
 activation scales both as exact fp32 host values (kernel arguments,
 host-side scale arithmetic) and as 0-dim device tensors (divisors of device
@@ -108,8 +108,9 @@ class DeployCtx:
     """W8A8 deploy with fp32 interchange: every int8 conv on K1, every int8
     dense on K2, every per-OC int4 dense on K10 (W4A8; an int4 store read
     with ``int4_runtime="int8"`` arrives materialized to int8 and runs on
-    K2); weight-only schemes run every group-wise int4 dense on K13 (W4A16)
-    and dequantize the other sites."""
+    K2); every group-wise int4 dense runs on K13 (W4A16; with activation
+    scales, on fake-quantized activations, as the reference), and
+    weight-only schemes dequantize the other sites."""
 
     def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
                  qcfg: QConfig):
@@ -123,12 +124,13 @@ class DeployCtx:
         # the kernels' weights, repacked once per site
         self.packed: Dict[str, Any] = {}
         for site, p in qflat.items():
-            if qcfg.weight_only:
-                pk = weight_only_packed(p["qw"])
-                if pk is not None:
-                    self.packed[site] = pk
-            elif p["qw"].group is None:
-                self.packed[site] = site_weight_packed(p["qw"])
+            qw = p["qw"]
+            # group-wise weights take the weight-only route with or without
+            # activation scales (qops.qdense)
+            pk = (weight_only_packed(qw) if qcfg.weight_only or qw.group is not None
+                  else site_weight_packed(qw))
+            if pk is not None:
+                self.packed[site] = pk
         self._comb: Dict[Any, torch.Tensor] = {}
         self._bias: Dict[str, torch.Tensor] = {}
 
@@ -159,7 +161,7 @@ class DeployCtx:
                                   groups=groups, fuse_relu=fuse_relu)
         return qconv2d(x, p["qw"], p.get("b"), self.scale_t[name], stride=stride,
                        padding=padding, groups=groups, fuse_relu=fuse_relu,
-                       act_qmax=self.qcfg.acts.qmax, packed=self.packed[name])
+                       act_qmax=self.qcfg.acts.qmax, packed=self.packed.get(name))
 
     def dense(self, name, x, *, fuse_relu=False):
         p = self.qflat[name]
@@ -168,7 +170,7 @@ class DeployCtx:
                           packed=self.packed.get(name))
         return qdense(x, p["qw"], p.get("b"), act_scale=self.scale_t[name],
                       fuse_relu=fuse_relu, act_qmax=self.qcfg.acts.qmax,
-                      packed=self.packed[name])
+                      packed=self.packed.get(name))
 
 
 class PallasDeployCtx(DeployCtx):

@@ -286,3 +286,149 @@ def test_w4a16_kernels_on_card():
         ref = matmul_int4_plain(x, pk, b, relu)
         mag = x.double().abs() @ dequantize_bf16(pk).double().abs()
         assert ((got.double() - ref.double()).abs() <= 2.0 ** -14 * mag + 1e-30).all()
+
+
+def _bf16_block(rng, dp, hp, d, dev):
+    """One bf16 ViT layer as ``pack_vit_blocks`` packs it: bf16 K-major
+    weights (std putting the products near unit scale), zero past d_valid in
+    K; fp32 biases and LN rows zero past d_valid."""
+    def w(n, k):
+        a = rng.normal(0, 1.0 / np.sqrt(k), (n, k)).astype(np.float32)
+        a[:, d if k == dp else k:] = 0
+        return torch.from_numpy(a).to(dev, torch.bfloat16)
+
+    def b(n):
+        return torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)).to(dev)
+
+    ln = np.stack([rng.uniform(0.5, 1.5, dp), rng.normal(0, 0.1, dp)]).astype(np.float32)
+    ln[:, d:] = 0
+    ln = torch.from_numpy(ln).to(dev)
+    return {"wqkv": w(3 * dp, dp), "bqkv": b(3 * dp), "wproj": w(dp, dp), "bproj": b(dp),
+            "ln1": ln, "ln2": ln.clone(), "wfc1": w(hp, dp), "bfc1": b(hp),
+            "wfc2": w(dp, hp), "bfc2": b(dp)}
+
+
+@pytest.mark.gpu
+def test_bf16_block_kernels_on_card():
+    """K14 and K15 against their plain versions (fp32 sums in another order:
+    bf16 outputs >= 0.99 equal, fp32 outputs >= 0.99 within 2^-12 of their
+    unit-plus-magnitude scale, all within 0.25): Dp 128 with d_valid 96 (pad
+    lanes, a pad head slot), the tight Dp 192 and the loose Dp 256 (216 KB of
+    K15 shared memory), 72, 400 and 512 rows, every dtype form; then K6 at
+    the loose pads' 256 rows (its 32-tile score rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_bf16, vit_block_post_bf16_plain, vit_block_pre_bf16,
+        vit_block_pre_bf16_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    for (bsz, rows, d, dp, hp, heads) in [(3, 24, 96, 128, 384, 3), (2, 200, 192, 192, 768, 3),
+                                          (2, 256, 192, 256, 768, 3)]:
+        blk = _bf16_block(rng, dp, hp, d, dev)
+        yn = rng.normal(0, 1, (bsz, rows, dp)).astype(np.float32)
+        yn[..., d:] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            y = torch.from_numpy(yn).to(dev, dt)
+            _agree(vit_block_pre_bf16(y, blk, d), vit_block_pre_bf16_plain(y, blk, d), 0.99, 0.25)
+        qkv = vit_block_pre_bf16_plain(torch.from_numpy(yn).to(dev), blk, d)
+        views = (qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d])
+        n_valid = min(rows - 3, 197)
+        a = mhsa(*views, heads, n_valid, out_lanes=dp)
+        _agree(a, mhsa_plain(*views, heads, n_valid, out_lanes=dp), 0.99, 0.05)
+        for dt, out_dt in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                           (torch.float32, torch.float32), (torch.float32, torch.bfloat16)):
+            y = torch.from_numpy(yn).to(dev, dt)
+            got = vit_block_post_bf16(y, a, blk, d, True, out_dt)
+            assert got.dtype == out_dt
+            near = 2.0 ** -12 if out_dt == torch.float32 else 0.0
+            _agree(got, vit_block_post_bf16_plain(y, a, blk, d, True, out_dt), 0.99, 0.25, near)
+
+
+@pytest.mark.gpu
+def test_layernorm_kernels_on_card():
+    """K16 and K17 against their plain versions: D 192 (DeiT), 100 (the
+    reference test's, no multiple of 32) and 600 (past the registers: the
+    two-read form); every dtype of x / y and delta, g and b in the
+    stream's. fp32 outputs
+    within 2^-19 of 1 + |plain| (rsqrtf and the lane-order sums: a few ulp),
+    bf16 outputs >= 0.99 equal and none more than one step (2^-7 at the
+    unit scale) apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.layernorm import (
+        layernorm_fused, layernorm_fused_plain, residual_layernorm, residual_layernorm_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+
+    def held(got, ref):
+        assert got.dtype == ref.dtype
+        if got.dtype == torch.float32:
+            _agree(got, ref, 1.0, 1e-4, 2.0 ** -19)
+        else:
+            _agree(got, ref, 0.99, 2.0 ** -7 * (1.0 + float(ref.float().abs().max())))
+
+    for shape in ((3, 101, 192), (37, 100), (50, 600)):
+        d = shape[-1]
+        xn = rng.normal(0.3, 1.0, shape).astype(np.float32)
+        dn = rng.normal(0, 0.5, shape).astype(np.float32)
+        gn, bn = rng.uniform(0.5, 1.5, d).astype(np.float32), rng.normal(0, 0.1, d).astype(np.float32)
+        for xdt in (torch.float32, torch.bfloat16):
+            g, b = (torch.from_numpy(v).to(dev, xdt) for v in (gn, bn))
+            x = torch.from_numpy(xn).to(dev, xdt)
+            held(layernorm_fused(x, g, b), layernorm_fused_plain(x, g, b))
+            for ddt in (torch.float32, torch.bfloat16):
+                dl = torch.from_numpy(dn).to(dev, ddt)
+                z, h = residual_layernorm(x, dl, g, b)
+                zp, hp = residual_layernorm_plain(x, dl, g, b)
+                assert torch.equal(z, zp)
+                held(h, hp)
+
+
+@pytest.mark.gpu
+def test_mhsa_f32_and_routing_on_card():
+    """K6's fp32 form against the plain version (fp32 products and sums in
+    another order: within 1e-5 of each output, the outputs being averages of
+    unit-scale V rows): hd 32 and 64, 24, 197 and 256 rows, masked keys, pad
+    lanes zero, lane-slice views of one [B, N, 3D] tensor; mixed dtypes
+    raise. Then a group-wise int4 dense whose group (24 at K = 96) K13 does
+    not take: the dequantized route, no K13 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops import qops
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_f32, mhsa_plain
+    from dlq_tpu_torch.ops.matmul_int4 import matmul_int4
+    from dlq_tpu_torch.quant.qconfig import QScheme
+    from dlq_tpu_torch.quant.quantize import dequantize, quantize_tensor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    for (bsz, rows, heads, hd, lanes) in [(3, 24, 3, 32, 128), (2, 197, 3, 64, 192),
+                                          (2, 256, 3, 64, 256)]:
+        qkv = torch.from_numpy(rng.normal(0, 1, (bsz, rows, 3 * heads * hd)).astype(np.float32))
+        qkv = qkv.to(dev)
+        hw = heads * hd
+        views = (qkv[..., :hw], qkv[..., hw: 2 * hw], qkv[..., 2 * hw:])
+        n_valid = rows - 3
+        before = mhsa_f32.launches
+        got = mhsa(*views, heads, n_valid, out_lanes=lanes)
+        assert got.dtype == torch.float32 and mhsa_f32.launches == before + 1
+        ref = mhsa_plain(*views, heads, n_valid, out_lanes=lanes)
+        assert float((got - ref).abs().max()) <= 1e-5
+        assert not got[..., hw:].abs().any()
+    with pytest.raises(ValueError, match="share a dtype"):
+        mhsa(views[0], views[1], views[2].to(torch.bfloat16), heads, n_valid)
+    qw = quantize_tensor(torch.from_numpy(rng.normal(0, 0.1, (96, 40)).astype(np.float32)),
+                         QScheme(4, True, -1, group=24)).to(dev)
+    assert qops.weight_only_packed(qw) is None
+    x = torch.from_numpy(rng.normal(0, 1, (33, 96)).astype(np.float32)).to(dev)
+    before = matmul_int4.launches
+    y = qops.qdense(x, qw, None)
+    assert matmul_int4.launches == before
+    ref = x.double() @ dequantize(qw).double()
+    assert float((y.double() - ref).abs().max()) <= 1e-4

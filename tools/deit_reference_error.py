@@ -5,15 +5,21 @@ store written by ``save_quantized``, against its fp32 forward (exact GELU,
 as the deploy forward), for INT8_PER_CHANNEL, INT4A8_PER_CHANNEL and the
 weight-only INT4_WEIGHT_ONLY_PER_OC and INT4_WEIGHT_ONLY_G128 (no
 calibration, no activation scales; on the CPU the reference dequantizes
-each weight-only site in fp32, its ``int4_matmul`` being a TPU route). The
-weights, the calibration batch and the images are those of
+each weight-only site in fp32, its ``int4_matmul`` being a TPU route). Then
+the bf16 deploy forward ``vit_forward_blockfused`` (``pack_vit_blocks``,
+loose and tight pads, Pallas in interpret mode) against the fp32 forward
+with the tanh GELU, and the INT8_PER_CHANNEL ``make_qforward`` with
+``fused_ln=True, attn_impl="fused"`` under ``DeployCtx`` (jitted, the same
+scales) against the fp32 forward and against the unfused deploy forward.
+The weights, the calibration batch and the images are those of
 ``chip_smoke.py`` (the port's numpy-seeded ``init_vit``, seed 0), so the
 numbers say how close to fp32 the card's DeiT paths can be asked to come.
 
     python tools/deit_reference_error.py [--images 16]
 
-Prints one JSON line per scheme: logits cosine, largest logit difference
-and top-1 agreement against fp32.
+Prints one JSON line per scheme or path: logits cosine, largest logit
+difference and top-1 agreement against fp32 (and, for the fused-LN deploy,
+against the unfused one).
 """
 
 import argparse
@@ -33,6 +39,7 @@ import numpy as np  # noqa: E402
 
 from dlq_tpu.engine import Engine  # noqa: E402
 from dlq_tpu.models import vit as JV  # noqa: E402
+from dlq_tpu.ops import pallas_vit_block as JB  # noqa: E402
 from dlq_tpu.quant import model_quant as JM  # noqa: E402
 from dlq_tpu.quant.calibrate import calibrate  # noqa: E402
 from dlq_tpu.quant.qconfig import (  # noqa: E402
@@ -43,6 +50,14 @@ from dlq_tpu_torch.models.vit import ViTConfig, init_vit  # noqa: E402
 
 SEED = 0
 META = ("num_classes", "image_size", "patch", "dim", "depth", "heads", "mlp_ratio")
+
+
+def diff(got, ref) -> dict:
+    """Logits cosine, largest difference and top-1 agreement."""
+    a, b = got.reshape(-1).astype(np.float64), ref.reshape(-1).astype(np.float64)
+    return {"logits_cosine": float(a @ b / np.linalg.norm(a) / np.linalg.norm(b)),
+            "logit_err_max": float(np.abs(got - ref).max()),
+            "top1_agreement": float((got.argmax(-1) == ref.argmax(-1)).mean())}
 
 
 def main() -> None:
@@ -57,6 +72,7 @@ def main() -> None:
                          jnp.float32)]
     ref = np.asarray(JV.vit_forward(params, jnp.asarray(x), cfg))
     qf = JV.make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim)
+    deploy = {}
     for name, qcfg in (("INT8_PER_CHANNEL", INT8_PER_CHANNEL),
                        ("INT4A8_PER_CHANNEL", INT4A8_PER_CHANNEL),
                        ("INT4_WEIGHT_ONLY_PER_OC", INT4_WEIGHT_ONLY_PER_OC),
@@ -67,13 +83,41 @@ def main() -> None:
             save_quantized(tmp, "deit_tiny", JM.quantize_weights(flat, qcfg), scales, qcfg,
                            extras=ex, meta={"config": {k: getattr(cfg, k) for k in META}})
             got = np.asarray(Engine.from_store(tmp, ctx="deploy", batch=n)(x), np.float32)
-        a, b = got.reshape(-1).astype(np.float64), ref.reshape(-1).astype(np.float64)
-        print(json.dumps({
-            "scheme": name, "images": n, "platform": "cpu",
-            "logits_cosine_vs_fp32": float(a @ b / np.linalg.norm(a) / np.linalg.norm(b)),
-            "logit_err_max": float(np.abs(got - ref).max()),
-            "top1_agreement_vs_fp32": float((got.argmax(-1) == ref.argmax(-1)).mean())}),
-            flush=True)
+        deploy[name] = (got, scales)
+        d = diff(got, ref)
+        print(json.dumps({"scheme": name, "images": n, "platform": "cpu",
+                          "logits_cosine_vs_fp32": d["logits_cosine"],
+                          "logit_err_max": d["logit_err_max"],
+                          "top1_agreement_vs_fp32": d["top1_agreement"]}), flush=True)
+
+    # the bf16 deploy forward on the fused block kernel, against fp32 (tanh GELU)
+    ref_tanh = np.asarray(JV.vit_forward(params, jnp.asarray(x),
+                                         JV.ViTConfig(gelu="tanh")))
+    for tight in (False, True):
+        got = np.asarray(JB.vit_forward_blockfused(JB.pack_vit_blocks(params, cfg, tight=tight),
+                                                   jnp.asarray(x), cfg, tight=tight,
+                                                   interpret=True), np.float32)
+        d = diff(got, ref_tanh)
+        print(json.dumps({"path": "vit_forward_blockfused", "tight": tight, "images": n,
+                          "platform": "cpu", "fp32_gelu": "tanh",
+                          "logits_cosine_vs_fp32": d["logits_cosine"],
+                          "logit_err_max": d["logit_err_max"],
+                          "top1_agreement_vs_fp32": d["top1_agreement"]}), flush=True)
+
+    # W8A8 deploy with the fused LayerNorms (the same store's weights and scales)
+    qflat = JM.quantize_weights(flat, INT8_PER_CHANNEL)
+    unfused, scales = deploy["INT8_PER_CHANNEL"]
+    qf_ln = JV.make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim, fused_ln=True,
+                             attn_impl="fused")
+    ctx = JM.DeployCtx(qflat, scales, INT8_PER_CHANNEL)
+    got = np.asarray(jax.jit(lambda xx: qf_ln(ctx, xx, cfg))(jnp.asarray(x)), np.float32)
+    d, du = diff(got, ref), diff(got, unfused)
+    print(json.dumps({"path": "deploy_fused_ln", "scheme": "INT8_PER_CHANNEL", "images": n,
+                      "platform": "cpu", "logits_cosine_vs_fp32": d["logits_cosine"],
+                      "logit_err_max": d["logit_err_max"],
+                      "top1_agreement_vs_fp32": d["top1_agreement"],
+                      "logits_cosine_vs_unfused_deploy": du["logits_cosine"],
+                      "top1_agreement_vs_unfused_deploy": du["top1_agreement"]}), flush=True)
 
 
 if __name__ == "__main__":
