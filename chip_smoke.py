@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
 DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
-fused LayerNorms, 224 px).
+fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, 224 px).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -87,7 +87,22 @@ Phases, one JSON line each:
      fused_ln=True, attn_impl="fused" at batch 64 (K16 1, K17 24, mhsa_f32 12
      per forward) against the unfused fp32 forward (max_abs < 1e-5); and the
      W8A8 deploy forward with fused_ln=True at batch 64 (K2 50, K6 12, K16 1,
-     K17 24) against the unfused deploy forward (DEIT_FUSED_LN_COS) and fp32.
+     K17 24) against the unfused deploy forward (DEIT_FUSED_LN_COS) and fp32;
+ 10. DeiT-Tiny W8A8 with int8 attention: K18 mhsa_i8 in its in-kernel form
+     on the tight block stream and its zero-pad form on the split path's
+     loose stream and on the deploy path's qkv dense (bf16, and fp32), at
+     batch 256, against its plain version (>= 0.99 of the outputs equal,
+     the rest within 2 av / 127), with bf16 SDPA as the yardstick (no
+     PyTorch call computes int8 attention); then, inside phase 6 on its
+     W8A8 store, vit_forward_multiblock_w8(attn_int8=True) (tight pads, 6
+     layers per chunk; K5, K18, K7 12 launches each per forward, K6 none)
+     through Engine and classify at batch 256, gated against the fp32
+     forward (DEIT_ATTN_INT8_FP32_COS: the reference's own int8-attention
+     error), its plain-version twin and per layer, timed in turns with the
+     bf16-attention block engine and profiled; at batch 64 the
+     split-attention forward (loose pads) with attn="int8" (K18) and
+     "bf16" (K6; bit-identical to vit_forward_blockfused_w8), and
+     make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -180,10 +195,26 @@ FUSED_LN_MAX_ABS = 1e-5        # fp32 fused_ln forward vs unfused (the reference
 # are equal and none is more than VIT_TOL[1] apart
 LAYER_TOL = (0.97, VIT_TOL[1])
 
+# K18 vs plain (both forms): >= 0.99 of the outputs equal, every other one
+# within 2 av / 127 of the plain value (av: that (sample, head)'s V amax; a
+# probability code flipped by expf or the row sum's order moves its row by
+# at most av / 127)
+I8_ATTN_EQUAL = 0.99
+NO_INT8_ATTN = ("none: no PyTorch call computes int8 attention; sdpa_bf16_ms is bf16 SDPA at "
+                "the same shape, the yardstick of K6's row")
+# DeiT-Tiny W8A8 with int8 attention vs fp32, just under the reference's own
+# forwards on these random weights (tools/deit_reference_error.py, CPU, 256 /
+# 16 images; PERF.md, Findings): the attn_int8 multiblock forward (tanh) at
+# cosine 0.98840 / 0.98840, the split forward (tanh) 0.98847 / 0.98849, the
+# xla_int8 DeployCtx forward (exact GELU) 0.98840 / 0.98882; top-1 0.80-0.82.
+# Its bf16-attention multiblock forward is at 0.99889: with near-uniform
+# attention over 197 keys most probabilities are 0 or 1 in steps of 1/127
+DEIT_ATTN_INT8_FP32_COS = 0.987
+
 KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
            "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
            "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm_fused",
-           "residual_layernorm", "mhsa_f32")
+           "residual_layernorm", "mhsa_f32", "mhsa_i8")
 
 
 def _per(**launches):
@@ -198,7 +229,10 @@ def _per(**launches):
 # of K11 -> K6 -> K12, its G128 deploy path's 13 group-wise sites on K13;
 # DeiT-Tiny bf16: 12 layers of K14 -> K6 -> K15 at either pads; the fp32
 # fused_ln forward: K16 for the first LN1, K17 for the 23 later junctions and
-# the final norm, K6's fp32 form for attention; the W8A8 deploy with fused_ln)
+# the final norm, K6's fp32 form for attention; the W8A8 deploy with fused_ln;
+# DeiT-Tiny W8A8 with int8 attention: 12 layers of K5 -> K18 -> K7 (6 per
+# chunk), the split-attention forward's 12 layers of K5 -> K18 (or K6) ->
+# K7, the xla_int8 deploy path's 50 dense sites and 12 K18)
 PER_FORWARD = {
     "r18_fused2": _per(conv_int8=19, matmul_int8=1),
     "r18_block": _per(conv_int8=15, matmul_int8=1, basic_block=2),
@@ -220,13 +254,18 @@ PER_FORWARD = {
     "deit_fused_ln": _per(layernorm_fused=1, residual_layernorm=24, mhsa_f32=12),
     "deit_deploy_fused_ln": _per(matmul_int8=50, mhsa=12, layernorm_fused=1,
                                  residual_layernorm=24),
+    "deit_block_attn_int8": _per(vit_pre_w8=12, mhsa_i8=12, vit_post_w8=12),
+    "deit_split_int8": _per(vit_pre_w8=12, mhsa_i8=12, vit_post_w8=12),
+    "deit_split_bf16": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
+    "deit_deploy_xla_int8": _per(matmul_int8=50, mhsa_i8=12),
 }
 # paths run at batch 64 and checked by totals only (the shape tables are at
 # batch 256; where a kernel's times are summed per forward on such a path,
 # its case table's launches per forward weight them)
 TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "deit_deploy_w4a8",
                "deit_deploy_w4a8_int8", "deit_block_w4a8_int8", "deit_deploy_g128",
-               "deit_fused_ln", "deit_deploy_fused_ln")
+               "deit_fused_ln", "deit_deploy_fused_ln", "deit_split_int8", "deit_split_bf16",
+               "deit_deploy_xla_int8")
 TOTALS_BATCH = 64
 
 
@@ -325,12 +364,18 @@ def matmul_cases():
         (1, 2048, 1000, False, False): {"r50_fused2": 1, "r50_block": 1},         # ResNet-50 fc
         (56 * 56, 256, 64, True, False): {},      # the deploy/pallas routing (fp32 + relu)
         # DeiT-Tiny's deploy paths (checked at batch 64 by totals only)
-        (196, 768, 192, False, False): {"deit_deploy_fused_ln": 1},    # patch embed
-        (197, 192, 576, False, False): {"deit_deploy_fused_ln": 12},   # l*.qkv
-        (197, 192, 192, False, False): {"deit_deploy_fused_ln": 12},   # l*.proj
-        (197, 192, 768, False, False): {"deit_deploy_fused_ln": 12},   # l*.fc1
-        (197, 768, 192, False, False): {"deit_deploy_fused_ln": 12},   # l*.fc2
-        (1, 192, 1000, False, False): {"deit_deploy_fused_ln": 1},     # head
+        (196, 768, 192, False, False): {"deit_deploy_fused_ln": 1,
+                                        "deit_deploy_xla_int8": 1},  # patch embed
+        (197, 192, 576, False, False): {"deit_deploy_fused_ln": 12,
+                                        "deit_deploy_xla_int8": 12},  # l*.qkv
+        (197, 192, 192, False, False): {"deit_deploy_fused_ln": 12,
+                                        "deit_deploy_xla_int8": 12},  # l*.proj
+        (197, 192, 768, False, False): {"deit_deploy_fused_ln": 12,
+                                        "deit_deploy_xla_int8": 12},  # l*.fc1
+        (197, 768, 192, False, False): {"deit_deploy_fused_ln": 12,
+                                        "deit_deploy_xla_int8": 12},  # l*.fc2
+        (1, 192, 1000, False, False): {"deit_deploy_fused_ln": 1,
+                                        "deit_deploy_xla_int8": 1},  # head
     }
 
 
@@ -352,9 +397,14 @@ VIT_NP_LOOSE, VIT_DP_LOOSE = 256, 256
 
 
 def vit_pre_cases():
-    """K5: residual dtype -> launches per forward per path (bf16 at each of the
-    two chunks' first layer, fp32 inside a chunk)."""
-    return {"bfloat16": {"deit_block": 2}, "float32": {"deit_block": 10}}
+    """K5: (Np, Dp, residual dtype) -> launches per forward per path (on the
+    tight pads bf16 at each of the two chunks' first layer, fp32 inside a
+    chunk; bf16 at every layer of the split-attention forward's loose pads,
+    driven at batch 64 and checked by totals)."""
+    return {(VIT_NP, VIT_DP, "bfloat16"): {"deit_block": 2, "deit_block_attn_int8": 2},
+            (VIT_NP, VIT_DP, "float32"): {"deit_block": 10, "deit_block_attn_int8": 10},
+            (VIT_NP_LOOSE, VIT_DP_LOOSE, "bfloat16"): {"deit_split_int8": 12,
+                                                       "deit_split_bf16": 12}}
 
 
 def mhsa_cases():
@@ -362,17 +412,25 @@ def mhsa_cases():
     paths' 197 unpadded rows are checked at batch 64 by totals only)."""
     return {(VIT_NP, VIT_N): {"deit_block": 12, "deit_block_w4a8": 12, "deit_block_w4": 12,
                               "deit_bf16_tight": 12},
-            (VIT_NP_LOOSE, VIT_N): {"deit_bf16_loose": 12},
+            # the split path's bf16 arm (K6 on the loose 256 rows, batch 64)
+            (VIT_NP_LOOSE, VIT_N): {"deit_bf16_loose": 12, "deit_split_bf16": 12},
             (VIT_N, VIT_N): {"deit_deploy_w4a8": 12, "deit_deploy_g128": 12,
                              "deit_deploy_fused_ln": 12}}
 
 
 def vit_post_cases():
-    """K7: (residual dtype in, dtype out) -> launches per forward per path: a
-    chunk's first layer bf16 -> fp32, its middle four fp32 -> fp32, its last
-    fp32 -> bf16; bf16 -> bf16 is vit_forward_blockfused_w8's form."""
-    return {("bfloat16", "float32"): {"deit_block": 2}, ("float32", "float32"): {"deit_block": 8},
-            ("float32", "bfloat16"): {"deit_block": 2}, ("bfloat16", "bfloat16"): {}}
+    """K7: (Np, Dp, residual dtype in, dtype out) -> launches per forward per
+    path: on the tight pads a chunk's first layer bf16 -> fp32, its middle
+    four fp32 -> fp32, its last fp32 -> bf16; bf16 -> bf16 is the
+    single-block form (vit_forward_blockfused_w8's), at every layer of the
+    split-attention forward's loose pads (batch 64, checked by totals)."""
+    paths = ("deit_block", "deit_block_attn_int8")
+    return {(VIT_NP, VIT_DP, "bfloat16", "float32"): dict.fromkeys(paths, 2),
+            (VIT_NP, VIT_DP, "float32", "float32"): dict.fromkeys(paths, 8),
+            (VIT_NP, VIT_DP, "float32", "bfloat16"): dict.fromkeys(paths, 2),
+            (VIT_NP, VIT_DP, "bfloat16", "bfloat16"): {},
+            (VIT_NP_LOOSE, VIT_DP_LOOSE, "bfloat16", "bfloat16"): {"deit_split_int8": 12,
+                                                                   "deit_split_bf16": 12}}
 
 
 def vit_pre_w4a8_cases():
@@ -457,6 +515,18 @@ def mhsa_f32_cases():
     return {(VIT_N, VIT_N): {"deit_fused_ln": 12}}
 
 
+def mhsa_i8_cases():
+    """K18: (rows, n_valid, form, dtype in, dtype out) -> launches per forward
+    per path: the in-kernel form on the tight block stream, the zero-pad form
+    on the split path's loose 256 rows and on the xla_int8 deploy path's
+    unpadded 197 rows (both driven at batch 64, checked by totals); the fp32
+    zero-pad form is the fp32 forward's (attn_impl="xla_int8"), timed only."""
+    return {(VIT_NP, VIT_N, "in_kernel", "bfloat16", "bfloat16"): {"deit_block_attn_int8": 12},
+            (VIT_NP_LOOSE, VIT_N, "zero_pad", "bfloat16", "bfloat16"): {"deit_split_int8": 12},
+            (VIT_N, VIT_N, "zero_pad", "bfloat16", "bfloat16"): {"deit_deploy_xla_int8": 12},
+            (VIT_N, VIT_N, "zero_pad", "float32", "float32"): {}}
+
+
 def _conv_key(case):
     h, c, oc, k, s, relu, int8_out = case
     return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
@@ -471,9 +541,9 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "matmul_int8": (matmul_cases, _mm_key),
         "basic_block": (basic_cases, lambda c: (BATCH, c[0], c[0], c[1])),
         "bottleneck_block": (bottleneck_cases, lambda c: (BATCH, c[0], c[0], c[1], c[2])),
-        "vit_pre_w8": (vit_pre_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
+        "vit_pre_w8": (vit_pre_cases, lambda c: (BATCH, *c)),
         "mhsa": (mhsa_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1])),
-        "vit_post_w8": (vit_post_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
+        "vit_post_w8": (vit_post_cases, lambda c: (BATCH, c[0], c[1], VIT_HP, *c[2:])),
         "vit_pre_w4a8": (vit_pre_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, c)),
         "vit_post_w4a8": (vit_post_w4a8_cases, lambda c: (BATCH, VIT_NP, VIT_DP, VIT_HP, *c)),
         "matmul_int4a8": (matmul_int4a8_cases, lambda c: (BATCH * c[0], *c[1:])),
@@ -485,7 +555,8 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "layernorm_fused": (layernorm_fused_cases, lambda c: (BATCH * VIT_N, VIT_DP, c)),
         "residual_layernorm": (residual_layernorm_cases,
                                lambda c: (BATCH * VIT_N, VIT_DP, *c)),
-        "mhsa_f32": (mhsa_f32_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1]))}
+        "mhsa_f32": (mhsa_f32_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1])),
+        "mhsa_i8": (mhsa_i8_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, *c[1:]))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -523,7 +594,8 @@ def _epi_params(gen, oc, k, dev):
 
 
 def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=2,
-         library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, rel=None, **extra):
+         library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, rel=None,
+         no_library=NO_INT8_CONV, **extra):
     """One kernel shape: held against its plain version (bit-identical; or
     with ``tol`` = (fraction of outputs equal, largest difference), or
     (fraction within near x (1 + |plain|), largest difference, near); or
@@ -554,7 +626,7 @@ def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=
            "plain_ms": time_ms(plain, iters=plain_iters, warmup=1, reps=1),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(library) if library is not None else None,
-           "library": library_name if library is not None else NO_INT8_CONV,
+           "library": library_name if library is not None else no_library,
            "launches_per_forward": per}
     emit_row(row)
     return row
@@ -662,11 +734,13 @@ def check_bottleneck_kernel(dev):
     return rows
 
 
-def _vit_layer(gen, dev):
-    """One packed DeiT-Tiny W8A8 layer with random int8 weights (K-major),
-    folded scales that put the GEMM outputs near unit scale, biases, LN
-    rows and inverse activation scales."""
-    dp, hp = VIT_DP, VIT_HP
+def _vit_layer(gen, dev, dp=VIT_DP):
+    """One packed DeiT-Tiny W8A8 layer at ``dp`` lanes with random int8
+    weights (K-major), folded scales that put the GEMM outputs near unit
+    scale, biases, LN rows and inverse activation scales; past DeiT-Tiny's
+    192 lanes every weight, scale, bias and LN lane is zero, as
+    pack_vit_blocks_w8 pads them."""
+    hp, d = VIT_HP, VIT_DP
 
     def w(n, k):
         return _rand_int8(gen, (n, k), dev)
@@ -680,16 +754,29 @@ def _vit_layer(gen, dev):
 
     ln = torch.stack([0.5 + torch.rand(dp, generator=gen, device=dev),
                       0.1 * torch.randn(dp, generator=gen, device=dev)]).float().contiguous()
-    return {"inv_act": (40.0, 30.0, 40.0, 30.0),
-            "wqkv": w(3 * dp, dp), "sqkv": sc(3 * dp, dp), "bqkv": b(3 * dp),
-            "wproj": w(dp, dp), "sproj": sc(dp, dp), "bproj": b(dp), "ln1": ln, "ln2": ln.clone(),
-            "wfc1": w(hp, dp), "sfc1": sc(hp, dp), "bfc1": b(hp),
-            "wfc2": w(dp, hp), "sfc2": sc(dp, hp), "bfc2": b(dp)}
+    blk = {"inv_act": (40.0, 30.0, 40.0, 30.0),
+           "wqkv": w(3 * dp, dp), "sqkv": sc(3 * dp, dp), "bqkv": b(3 * dp),
+           "wproj": w(dp, dp), "sproj": sc(dp, dp), "bproj": b(dp), "ln1": ln, "ln2": ln.clone(),
+           "wfc1": w(hp, dp), "sfc1": sc(hp, dp), "bfc1": b(hp),
+           "wfc2": w(dp, hp), "sfc2": sc(dp, hp), "bfc2": b(dp)}
+    if dp > d:
+        pad_qkv = torch.arange(3 * dp, device=dev) % dp >= d
+        for k in ("wqkv", "sqkv", "bqkv"):
+            blk[k][pad_qkv] = 0
+        for k in ("wproj", "sproj", "bproj", "wfc2", "sfc2", "bfc2"):
+            blk[k][d:] = 0
+        for k in ("wqkv", "wproj", "wfc1", "ln1", "ln2"):
+            blk[k][:, d:] = 0
+    return blk
 
 
 def check_vit_kernels(dev):
     """K5, K6 and K7 at every shape and dtype form of DeiT-Tiny's block path
-    at batch 256 (and K6 at the deploy path's unpadded 197 rows)."""
+    at batch 256 (and K6 at the deploy path's unpadded 197 rows), K5 and
+    K7's single-block form also at the split-attention forward's loose pads
+    (256/256, the stream's pad lanes zero). The bound counts the 192 valid
+    lanes the kernels are given (products, input bytes), outputs at their
+    full padded width, as K14/K15's rows do."""
     from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_plain, vit_block_post_w8, vit_block_pre_plain, vit_block_pre_w8,
@@ -697,26 +784,37 @@ def check_vit_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     blk = _vit_layer(gen, dev)
-    dp, hp, m = VIT_DP, VIT_HP, BATCH * VIT_NP
-    y32 = torch.randn((BATCH, VIT_NP, dp), generator=gen, device=dev)
+    d, hp, m = VIT_DP, VIT_HP, BATCH * VIT_NP
+    y32 = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev)
     ys = {"float32": y32, "bfloat16": y32.to(torch.bfloat16)}
-    x1, x2 = _rand_int8(gen, (m, dp), dev), _rand_int8(gen, (m, hp), dev)
-    wq, wp, w1, w2 = (blk[k].t() for k in ("wqkv", "wproj", "wfc1", "wfc2"))  # [K, N] views
+    pads = {(VIT_NP, VIT_DP): {"blk": blk, "ys": ys, "x1": _rand_int8(gen, (m, d), dev),
+                               "x2": _rand_int8(gen, (m, hp), dev)}}
+    yl = torch.randn((BATCH, VIT_NP_LOOSE, VIT_DP_LOOSE), generator=gen, device=dev)
+    yl[..., d:] = 0.0
+    ml = BATCH * VIT_NP_LOOSE
+    pads[VIT_NP_LOOSE, VIT_DP_LOOSE] = {
+        "blk": _vit_layer(gen, dev, VIT_DP_LOOSE), "ys": {"bfloat16": yl.to(torch.bfloat16)},
+        "x1": _rand_int8(gen, (ml, VIT_DP_LOOSE), dev), "x2": _rand_int8(gen, (ml, hp), dev)}
+    del yl
+    for p in pads.values():
+        p["w"] = [p["blk"][k].t() for k in ("wqkv", "wproj", "wfc1", "wfc2")]  # [K, N] views
     rows = []
-    for case, per in vit_pre_cases().items():
-        y = ys[case]
+    for (npad, dp, case), per in vit_pre_cases().items():
+        p = pads[npad, dp]
+        y, bk, mr = p["ys"][case], p["blk"], BATCH * npad
         rows.append(_row(
-            "vit_pre_w8", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv",
-            vit_block_pre_w8(y, blk, dp), vit_block_pre_plain(y, blk, dp),
-            lambda: vit_block_pre_w8(y, blk, dp), lambda: vit_block_pre_plain(y, blk, dp),
-            2.0 * m * dp * 3 * dp,
-            y.numel() * y.element_size() + 3 * dp * dp + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2, per,
-            library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16"))
-    qkv = vit_block_pre_plain(y32, blk, dp)
+            "vit_pre_w8", (BATCH, npad, dp, case), f"{BATCH}x{npad}x{dp} {case} -> qkv",
+            vit_block_pre_w8(y, bk, d), vit_block_pre_plain(y, bk, d),
+            lambda: vit_block_pre_w8(y, bk, d), lambda: vit_block_pre_plain(y, bk, d),
+            2.0 * mr * d * 3 * d,
+            mr * d * y.element_size() + 3 * d * d + 8 * 3 * d + 8 * d + mr * 3 * dp * 2, per,
+            library=lambda: torch._int_mm(p["x1"], p["w"][0]), tol=VIT_TOL, residual=case,
+            out="bf16", pads=f"{npad}/{dp}"))
+    qkv = vit_block_pre_plain(y32, blk, d)
     for (n, n_valid), per in mhsa_cases().items():
         # the loose pads' 256 rows: zero rows past the 200 of this stream
         t = torch.nn.functional.pad(qkv, (0, 0, 0, max(0, n - VIT_NP)))[:, :n].contiguous()
-        views = (t[..., :dp], t[..., dp: 2 * dp], t[..., 2 * dp:])
+        views = (t[..., :d], t[..., d: 2 * d], t[..., 2 * d:])
         q4, k4, v4 = (v.reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2).contiguous()
                       for v in views)
         rows.append(_row(
@@ -724,30 +822,41 @@ def check_vit_kernels(dev):
             f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys",
             mhsa(*views, VIT_HEADS, n_valid), mhsa_plain(*views, VIT_HEADS, n_valid),
             lambda: mhsa(*views, VIT_HEADS, n_valid), lambda: mhsa_plain(*views, VIT_HEADS, n_valid),
-            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, _mhsa_bytes(n, n_valid, dp, 2), per,
+            4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, _mhsa_bytes(n, n_valid, d, 2), per,
             library=lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
             tol=VIT_TOL, peak=PEAK_BF16, library_name=SDPA, out="bf16"))
         del t, q4, k4, v4
-    a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
-    for (din, dout), per in vit_post_cases().items():
-        y, odt = ys[din], getattr(torch, dout)
+    pads[VIT_NP, VIT_DP]["a"] = mhsa(qkv[..., :d], qkv[..., d: 2 * d], qkv[..., 2 * d:],
+                                     VIT_HEADS, VIT_N)
+    del qkv
+    p = pads[VIT_NP_LOOSE, VIT_DP_LOOSE]
+    qkv = vit_block_pre_plain(p["ys"]["bfloat16"], p["blk"], d)
+    dl = VIT_DP_LOOSE
+    p["a"] = mhsa(qkv[..., :d], qkv[..., dl: dl + d], qkv[..., 2 * dl: 2 * dl + d], VIT_HEADS,
+                  VIT_N, out_lanes=dl)
+    del qkv
+    for (npad, dp, din, dout), per in vit_post_cases().items():
+        p = pads[npad, dp]
+        y, a, bk, odt, mr = p["ys"][din], p["a"], p["blk"], getattr(torch, dout), BATCH * npad
         multi = (din, dout) != ("bfloat16", "bfloat16")
 
         def kern():
-            return vit_block_post_w8(y, a, blk, dp, True, odt, multi)
+            return vit_block_post_w8(y, a, bk, d, True, odt, multi)
 
         def plain():
-            return vit_block_post_plain(y, a, blk, dp, True, odt, multi)
+            return vit_block_post_plain(y, a, bk, d, True, odt, multi)
 
         rows.append(_row(
-            "vit_post_w8", (BATCH, VIT_NP, dp, hp, din, dout),
-            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}", kern(), plain(), kern, plain,
-            2.0 * m * (dp * dp + 2 * dp * hp),
-            y.numel() * y.element_size() + a.numel() * 2 + dp * dp + 2 * dp * hp
-            + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
-            library=lambda: (torch._int_mm(x1, wp), torch._int_mm(x1, w1), torch._int_mm(x2, w2)),
-            tol=VIT_TOL, library_name=INT_MM + ", the three products", residual=din, out=dout))
-    del qkv, a, ys, y32, x1, x2
+            "vit_post_w8", (BATCH, npad, dp, hp, din, dout),
+            f"{BATCH}x{npad}x{dp} {din} -> {dout}, mlp {hp}", kern(), plain(), kern, plain,
+            2.0 * mr * (d * d + 2 * d * hp),
+            mr * d * (y.element_size() + 2) + d * d + 2 * d * hp + 8 * (3 * d + hp)
+            + mr * dp * odt.itemsize, per,
+            library=lambda: (torch._int_mm(p["x1"], p["w"][1]), torch._int_mm(p["x1"], p["w"][2]),
+                             torch._int_mm(p["x2"], p["w"][3])),
+            tol=VIT_TOL, library_name=INT_MM + ", the three products", residual=din, out=dout,
+            pads=f"{npad}/{dp}"))
+    del pads, ys, y32
     return rows
 
 
@@ -1110,6 +1219,80 @@ def check_bf16_kernels(dev):
     return rows
 
 
+def _i8_attn_held(got, ref, v, n_valid, zero_pad):
+    """K18's gate: >= I8_ATTN_EQUAL of the outputs equal, every other one
+    within 2 av / 127 (av per (sample, head) over the rows the form reads);
+    returns (fraction equal, largest difference in units of av / 127)."""
+    B, _, hw = v.shape
+    vv = v.float()[:, :n_valid] if zero_pad else v.float()
+    av = vv.reshape(B, -1, VIT_HEADS, VIT_HD).abs().amax(dim=(1, 3)) + 1e-9
+    av = av.repeat_interleave(VIT_HD, dim=1)[:, None, :]
+    d = (got[..., :hw].float() - ref[..., :hw].float()).abs()
+    equal = float((d == 0).float().mean())
+    steps = float((d / (av / 127.0)).max())
+    if equal < I8_ATTN_EQUAL or steps > 2.0:
+        raise AssertionError(f"mhsa_i8 {tuple(got.shape)}: {equal} of the outputs equal, largest "
+                             f"difference {steps} av/127 (need {I8_ATTN_EQUAL}, 2)")
+    return equal, steps
+
+
+def check_int8_attention_kernels(dev):
+    """K18 at every shape and form of its paths at batch 256: the in-kernel
+    form on the tight block stream [256, 200, 3 x 192] (K5's plain output
+    on a random stream), the zero-pad form on the split path's loose
+    [256, 256, 3 x 256] stream and on the deploy path's [256, 197, 3 x 192]
+    qkv dense in bf16 and (the fp32 forward's) fp32, each against
+    mhsa_i8_plain (_i8_attn_held). The bound counts the products over the
+    n_valid keys at the int8 peak, and q, k and v read over the rows the
+    form needs (all rows in the in-kernel form, whose amax reads the pad
+    rows; the n_valid rows in the zero-pad form) and the output written once
+    at its full width; no PyTorch call computes int8 attention, so bf16 SDPA
+    at the same shape is timed beside it (sdpa_bf16_ms), as on K6's row."""
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_plain
+    from dlq_tpu_torch.ops.vit_block import vit_block_pre_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    blk = _vit_layer(gen, dev)
+    dp, hw = VIT_DP, VIT_HEADS * VIT_HD
+    y = torch.randn((BATCH, VIT_NP, dp), generator=gen, device=dev)
+    qkv = vit_block_pre_plain(y, blk, dp)              # [256, 200, 576] bf16, pad rows carry values
+    del y
+    rows = []
+    for (n, n_valid, form, din, dout), per in mhsa_i8_cases().items():
+        lanes = VIT_DP_LOOSE if n == VIT_NP_LOOSE else dp
+        t = torch.zeros((BATCH, n, 3, lanes), dtype=torch.bfloat16, device=dev)
+        m = min(n, VIT_NP)
+        t[:, :m, :, :dp] = qkv[:, :m].view(BATCH, m, 3, dp)
+        t = t.view(BATCH, n, 3 * lanes).to(getattr(torch, din))
+        views = (t[..., :hw], t[..., lanes: lanes + hw], t[..., 2 * lanes: 2 * lanes + hw])
+        zero_pad, odt = form == "zero_pad", getattr(torch, dout)
+        q4, k4, v4 = (v.to(torch.bfloat16).reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2)
+                      .contiguous() for v in views)
+
+        def kern():
+            return mhsa_i8(*views, VIT_HEADS, n_valid, out_lanes=lanes, zero_pad=zero_pad,
+                           out_dtype=odt)
+
+        def plain():
+            return mhsa_i8_plain(*views, VIT_HEADS, n_valid, lanes, zero_pad, odt)
+
+        got, ref = kern(), plain()
+        equal, steps = _i8_attn_held(got, ref, views[2], n_valid, zero_pad)
+        read = n_valid if zero_pad else n
+        rows.append(_row(
+            "mhsa_i8", (BATCH, n, VIT_HEADS, VIT_HD, n_valid, form, din, dout),
+            f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys, {form}, {din}",
+            got, ref, kern, plain, 4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD,
+            BATCH * (3 * read * hw * t.element_size() + n * lanes * odt.itemsize), per,
+            tol=(I8_ATTN_EQUAL, math.inf), no_library=NO_INT8_ATTN, form=form, out=dout,
+            within_2av_over_127=True, largest_diff_av_over_127=steps,
+            sdpa_bf16_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))))
+        del t, views, q4, k4, v4, got, ref
+    del qkv
+    return rows
+
+
 def check_ln_kernels(dev):
     """K16 and K17 at [256 x 197, 192] in fp32 and bf16 (x, y, delta, g and
     b in the stream's dtype, as make_qforward casts them), with F.layer_norm
@@ -1219,6 +1402,7 @@ def check_groupwise_routes(dev):
 def _wrappers():
     from dlq_tpu_torch.ops.attention import mhsa, mhsa_f32
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
     from dlq_tpu_torch.ops.layernorm import layernorm_fused, residual_layernorm
     from dlq_tpu_torch.ops.matmul_int4 import matmul_int4
@@ -1236,7 +1420,7 @@ def _wrappers():
           "vit_pre_w4": vit_block_pre_w4, "vit_post_w4": vit_block_post_w4,
           "matmul_int4": matmul_int4, "vit_pre_bf16": vit_block_pre_bf16,
           "vit_post_bf16": vit_block_post_bf16, "layernorm_fused": layernorm_fused,
-          "residual_layernorm": residual_layernorm, "mhsa_f32": mhsa_f32}
+          "residual_layernorm": residual_layernorm, "mhsa_f32": mhsa_f32, "mhsa_i8": mhsa_i8}
     assert tuple(ws) == KERNELS
     return ws
 
@@ -1299,8 +1483,8 @@ def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
     from dlq_tpu_torch.ops import (
-        attention, block_fused, conv_int8, layernorm, matmul_int4, matmul_int4a8, matmul_int8, qops,
-        vit_block,
+        attention, block_fused, conv_int8, int8_attention, layernorm, matmul_int4, matmul_int4a8,
+        matmul_int8, qops, vit_block,
     )
     from dlq_tpu_torch.quant import model_quant
 
@@ -1316,6 +1500,9 @@ def plain_kernels():
             (vit_block, "vit_block_post_w4", vit_block.vit_block_post_w4_plain),
             (vit_block, "mhsa", attention.mhsa_plain),
             (attention, "mhsa", attention.mhsa_plain),
+            (vit_block, "mhsa_i8", int8_attention.mhsa_i8_plain),
+            (int8_attention, "mhsa_i8", int8_attention.mhsa_i8_plain),
+            (int8_attention, "mhsa", attention.mhsa_plain),
             (model_quant, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "conv_int8", conv_int8.conv_int8_plain),
             (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
@@ -1627,6 +1814,7 @@ def deit_paths(dev, card, d, images):
               "setup_s": setup_s, "card": card})
         profile_forward(eng, xt, "deit_tiny_block")
         out["deit_block"] = (counts, shapes)
+        out.update(deit_attn_int8_paths(dev, card, d, tmp, images, eng, act_scales))
         del eng
 
         # ---- one layer per K5/K6/K7 chain, bf16 between layers, batch 64 ----
@@ -1658,6 +1846,132 @@ def deit_paths(dev, card, d, images):
         del bf, packed
     torch.cuda.empty_cache()
     return out, act_scales
+
+
+def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
+    """DeiT-Tiny W8A8 with int8 attention, on the W8A8 store ``store``: the
+    multiblock forward with attn_int8=True (tight pads, 6 layers per chunk,
+    K5 -> K18 -> K7 per layer) through Engine and classify at batch 256,
+    timed in turns with the bf16-attention block engine ``eng_block``
+    (K5 -> K6 -> K7) and profiled; then at batch 64 the split-attention
+    forward (loose pads) with attn="int8" (K18, zero-pad form) and "bf16"
+    (K6: bit-identical to vit_forward_blockfused_w8 on the same packing),
+    and make_qforward(attn_impl="xla_int8") under DeployCtx on the store's
+    act scales (K2 50, K18 12). Returns {path: (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.vit import flatten_vit, make_qforward, vit_extras
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_plain
+    from dlq_tpu_torch.ops.vit_block import (
+        pack_vit_blocks_w8, stack_vit_blocks_w8, vit_forward_blockfused_w8,
+        vit_forward_blockfused_w8_split, vit_forward_multiblock_w8,
+    )
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import load_quantized, unflatten_extras
+
+    cfg, params, x0, xt, ref = (d[k] for k in ("cfg", "params", "x0", "xt", "ref"))
+    out = {}
+    t0 = time.perf_counter()
+    qflat, scales, _, extras = load_quantized(store)
+    qd, sd, ed = (to_device(t, dev) for t in (qflat, scales, unflatten_extras(extras)))
+    packed = pack_vit_blocks_w8(qd, sd, ed, cfg, tight=True)
+    packed["_chunks"] = stack_vit_blocks_w8(packed, 6)
+    packed.pop("blocks")
+    eng = Engine(lambda p, x: vit_forward_multiblock_w8(p, x, cfg, tight=True, attn_int8=True),
+                 packed, batch=BATCH, device=dev, name="deit_tiny_block_attn_int8")
+    setup_s = time.perf_counter() - t0
+    preds, counts, shapes = drive(eng, images, "deit_block_attn_int8", "deit_tiny attn_int8")
+    with torch.inference_mode():
+        logits = eng(x0).float().cpu().numpy()
+    if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+        raise AssertionError("deit_tiny attn_int8: classify and the forward disagree")
+    agree, cos = gate(logits, ref["tanh"], "deit_tiny attn_int8 vs fp32", DEIT_ATTN_INT8_FP32_COS,
+                      top1=False)
+    lp = plain_twin(eng, x0, "deit_tiny attn_int8")
+    cos_p = gate(logits, lp, "deit_tiny attn_int8 vs its plain versions", DEIT_TWIN_COS,
+                 top1=False)[1]
+    per_layer = layer_contract(eng.params, xt, cfg, attn=(mhsa_i8, mhsa_i8_plain))
+    # the two block engines in turns: bf16 attention, int8, int8, bf16
+    ab = {}
+    for tag, e in (("bf16_attention", eng_block), ("int8_attention", eng), ("int8_attention", eng),
+                   ("bf16_attention", eng_block)):
+        ab.setdefault(tag, []).append(time_ms(lambda: e._fn(e.params, xt), iters=10))
+    ms = min(ab["int8_attention"])
+    w_bytes = VIT_DP * 3 * VIT_DP + VIT_DP * VIT_DP + 2 * VIT_DP * VIT_HP
+    t_ops = cfg.depth * (2.0 * BATCH * VIT_NP * w_bytes
+                         + 4.0 * BATCH * VIT_HEADS * VIT_NP * VIT_N * VIT_HD) / PEAK_INT8_OPS
+    t_bytes = (len(packed["_chunks"]) * 2 * BATCH * VIT_NP * VIT_DP * 2
+               + cfg.depth * w_bytes) / PEAK_BYTES
+    emit({"phase": "main_path_deit_block_attn_int8", "model": "deit_tiny", "size": 224,
+          "batch": BATCH, "batches": NB, "layers_per_chunk": [len(c) for c in packed["_chunks"]],
+          "engine": eng.name, "img_per_s_classify": eng.stats.images_per_sec,
+          "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
+          "ms_per_batch_in_turns": ab, "deit_block_ms_per_batch_same_call": min(ab["bf16_attention"]),
+          "launches": counts, "launches_per_forward": {k: v / NB for k, v in counts.items()},
+          "logits_cosine_vs_fp32": cos, "top1_agreement_vs_fp32": agree, "fp32_gelu": "tanh",
+          "top1_gated": False, "top1_vs_fp32": top1_report(logits, ref["tanh"]),
+          "logits_cosine_vs_plain_versions": cos_p,
+          "top1_agreement_vs_plain_versions": numerics.top1_agreement(logits, lp),
+          "per_layer_equal_fraction_max_abs": per_layer,
+          "bound_one_launch_per_chunk_ms": max(t_ops, t_bytes) * 1e3,
+          "bound_one_launch_per_chunk_by": "operations" if t_ops >= t_bytes else "bytes",
+          "setup_s": setup_s, "card": card})
+    profile_forward(eng, xt, "deit_tiny_block_attn_int8")
+    out["deit_block_attn_int8"] = (counts, shapes)
+    del eng, packed
+
+    # ---- the split-attention forward, loose pads, batch 64 ----
+    xb = x0[:TOTALS_BATCH]
+    loose = pack_vit_blocks_w8(qd, sd, ed, cfg)
+    split = {}
+    for attn in ("int8", "bf16"):
+        e = Engine(lambda p, x, a=attn: vit_forward_blockfused_w8_split(p, x, cfg, attn=a), loose,
+                   batch=TOTALS_BATCH, device=dev, name=f"deit_tiny_split_{attn}")
+        reset_counts()
+        with torch.inference_mode():
+            lg = split[attn] = e(xb).float().cpu().numpy()
+        c, sh = read_counts()
+        expect_counts(c, f"deit_split_{attn}", 1, f"deit_tiny split {attn}")
+        out[f"deit_split_{attn}"] = (c, sh)
+        min_cos = DEIT_ATTN_INT8_FP32_COS if attn == "int8" else DEIT_FP32_COS
+        agree_s, cos_s = gate(lg, ref["tanh"][:TOTALS_BATCH], f"deit_tiny split {attn} vs fp32",
+                              min_cos, top1=False)
+        cos_ps = gate(lg, plain_twin(e, xb, f"deit_tiny split {attn}"),
+                      f"deit_tiny split {attn} vs its plain versions", DEIT_TWIN_COS,
+                      top1=False)[1]
+        emit({"phase": f"deit_split_{attn}", "model": "deit_tiny", "batch": TOTALS_BATCH,
+              "pads": f"{VIT_NP_LOOSE}/{VIT_DP_LOOSE}", "launches": c,
+              "logits_cosine_vs_fp32": cos_s, "top1_agreement_vs_fp32": agree_s,
+              "fp32_gelu": "tanh", "top1_gated": False, "logits_cosine_vs_plain_versions": cos_ps})
+        del e
+    with torch.inference_mode():
+        fused = vit_forward_blockfused_w8(loose, torch.from_numpy(xb).to(dev), cfg).float()
+    if not np.array_equal(split["bf16"], fused.cpu().numpy()):
+        raise AssertionError("deit_tiny split bf16 arm: logits differ from vit_forward_blockfused_w8")
+    emit({"phase": "deit_split_bf16_vs_blockfused_w8", "logits_bit_identical": True})
+    del loose
+
+    # ---- make_qforward(attn_impl="xla_int8") under DeployCtx, batch 64 ----
+    qf = make_qforward(vit_extras(params), cfg.depth, cfg.heads, cfg.patch, cfg.dim,
+                       attn_impl="xla_int8")
+    e = Engine.quantized(qf, flatten_vit(params), cfg, INT8_PER_CHANNEL, act_scales=act_scales,
+                         batch=TOTALS_BATCH, device=dev)
+    reset_counts()
+    with torch.inference_mode():
+        lg = e(xb).float().cpu().numpy()
+    c, sh = read_counts()
+    expect_counts(c, "deit_deploy_xla_int8", 1, "deit_tiny deploy xla_int8")
+    out["deit_deploy_xla_int8"] = (c, sh)
+    agree_d, cos_d = gate(lg, ref["exact"][:TOTALS_BATCH], "deit_tiny deploy xla_int8 vs fp32",
+                          DEIT_ATTN_INT8_FP32_COS, top1=False)
+    cos_pd = gate(lg, plain_twin(e, xb, "deit_tiny deploy xla_int8"),
+                  "deit_tiny deploy xla_int8 vs its plain versions", DEIT_TWIN_COS, top1=False)[1]
+    emit({"phase": "deit_deploy_xla_int8", "model": "deit_tiny", "batch": TOTALS_BATCH,
+          "launches": c, "logits_cosine_vs_fp32": cos_d, "top1_agreement_vs_fp32": agree_d,
+          "fp32_gelu": "exact", "top1_gated": False, "logits_cosine_vs_plain_versions": cos_pd})
+    del e, qd, sd, ed
+    torch.cuda.empty_cache()
+    return out
 
 
 def deit_w4a8_paths(dev, card, d, act_scales, images):
@@ -1980,7 +2294,7 @@ def deit_bf16_paths(dev, card, d, act_scales, images):
     return out
 
 
-def layer_contract(packed, xt, cfg, tight=True):
+def layer_contract(packed, xt, cfg, tight=True, attn=None):
     """Each layer of a block forward, its three kernels against the plain
     versions on the same input: the stream the kernel forward itself
     reaches that layer with. W8A8 chunks (``_chunks``: K5 -> K6 -> K7, fp32
@@ -1988,7 +2302,8 @@ def layer_contract(packed, xt, cfg, tight=True):
     layers), W4A16 layers (K11 -> K6 -> K12, bf16 between layers) or bf16
     layers (K14 -> K6 -> K15, bf16 between layers, at either pads). Returns
     [(fraction of valid outputs equal, largest difference)] per layer;
-    raises outside LAYER_TOL."""
+    raises outside LAYER_TOL. ``attn``: the attention wrapper and its plain
+    version (default K6's; K18's in-kernel form for the attn_int8 path)."""
     from dlq_tpu_torch.ops import attention, vit_block as vb
 
     n, d = cfg.seq_len, cfg.dim
@@ -2022,8 +2337,9 @@ def layer_contract(packed, xt, cfg, tight=True):
                            cfg.heads, n, out_lanes=dp)
                     return post(x, a, w, d, True, odt)
 
-                y = layer(pre, attention.mhsa, post)
-                ref = layer(pre_p, attention.mhsa_plain, post_p)
+                mh, mh_p = attn or (attention.mhsa, attention.mhsa_plain)
+                y = layer(pre, mh, post)
+                ref = layer(pre_p, mh_p, post_p)
                 diff = (y[:, :n, :d].float() - ref[:, :n, :d].float()).abs()
                 out.append((float((diff == 0).float().mean()), float(diff.max())))
     if min(f for f, _ in out) < LAYER_TOL[0] or max(e for _, e in out) > LAYER_TOL[1]:
@@ -2138,6 +2454,11 @@ def summary(rows, paths):
         "mhsa_f32": ("dlq_tpu_torch/csrc/mhsa.cu",
                      "dlq_tpu/ops/pallas_attention.py:61 fused_mhsa (on fp32 q/k/v)",
                      "deit_fused_ln"),
+        "mhsa_i8": ("dlq_tpu_torch/csrc/mhsa_i8.cu",
+                    "dlq_tpu/ops/pallas_vit_block.py:560 vit_multiblock_fused_w8, its attn_int8 "
+                    "arm (_mhsa_batched_i8_into_scratch :237); and the XLA function "
+                    "dlq_tpu/ops/int8_attention.py:34 attention_int8_dynamic",
+                    "deit_block_attn_int8"),
     }
     out = []
     for name, (src, repl, main) in meta.items():
@@ -2153,21 +2474,28 @@ def summary(rows, paths):
                 forwards, batch = NB, BATCH
                 w = [shapes[name].get(r["key"], 0) / NB for r in rs]
 
+            if not any(w):
+                raise AssertionError(f"{name} on {path}: no timed shape is this path's")
+
             def tot(f):
-                vals = [r[f] for r in rs]
+                vals = [r.get(f) for r in rs]
                 return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
 
             bounds = [(n * r["bound_ms"], r["bound_by"]) for n, r in zip(w, rs) if n]
             per_path.append({"path": path, "launches": counts[name], "forwards": forwards,
                              "batch": batch, "launches_per_forward": counts[name] / forwards,
                              "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-                             "bound_ms": tot("bound_ms"), "bound_by": max(bounds)[1],
-                             "library_ms": tot("library_ms")})
+                             "bound_ms": tot("bound_ms"),
+                             "bound_by": max(bounds)[1],
+                             "library_ms": tot("library_ms"),
+                             **({"sdpa_bf16_ms": tot("sdpa_bf16_ms")}
+                                if "sdpa_bf16_ms" in rs[0] else {})})
         m = next(p for p in per_path if p["path"] == main)
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": m["launches"], "max_abs_err": max(r["max_abs_err"] for r in rs),
                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                    **({"sdpa_bf16_ms": m["sdpa_bf16_ms"]} if "sdpa_bf16_ms" in m else {}),
                     "library": rs[0]["library"], "main": main,
                     "per": f"launches: the {main} run of {m['forwards']} forward(s) at batch "
                            f"{m['batch']}; times: one forward at batch {BATCH}",
@@ -2195,7 +2523,8 @@ def main() -> int:
     rows = (check_conv_kernels(dev) + check_matmul_kernel(dev) + check_block_kernel(dev)
             + check_bottleneck_kernel(dev) + check_vit_kernels(dev) + check_w4a8_kernels(dev)
             + check_int4a8_matmul(dev) + check_w4a16_kernels(dev) + check_int4_matmul(dev)
-            + check_bf16_kernels(dev) + check_ln_kernels(dev))
+            + check_bf16_kernels(dev) + check_ln_kernels(dev)
+            + check_int8_attention_kernels(dev))
     check_groupwise_routes(dev)
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)

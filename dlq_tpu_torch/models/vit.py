@@ -12,11 +12,12 @@ the residual adds stay in the interchange dtype. Layouts are the
 reference's: NHWC images, IO dense weights, [B, N, D] token streams.
 
 ``attn_impl="fused"`` sends attention through K6 (``ops.attention``; its
-fp32 form on an fp32 stream); ``"xla"`` is the plain einsum form.
-``fused_ln=True`` runs every LayerNorm through the fused kernels
-(``ops.layernorm``: K16 for the first LN1, K17 for every later
-``y += delta; h = LN(y)`` junction); ``attn_impl="xla_int8"`` is not
-ported (ROADMAP.md B.15).
+fp32 form on an fp32 stream); ``"xla_int8"`` through the dynamically
+quantized int8 attention, K18 (``ops.int8_attention.attention_int8_dynamic``,
+no ``n_valid``, output in the stream's dtype); ``"xla"`` is the plain
+einsum form. ``fused_ln=True`` runs every LayerNorm through the fused
+kernels (``ops.layernorm``: K16 for the first LN1, K17 for every later
+``y += delta; h = LN(y)`` junction).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class ViTConfig:
     mlp_ratio: int = 4
     num_classes: int = 1000
     in_channels: int = 3
-    attn_impl: str = "xla"   # "xla" (plain) | "fused" (K6)
+    attn_impl: str = "xla"   # "xla" (plain) | "fused" (K6) | "xla_int8" (K18)
     fused_ln: bool = False   # the fused LayerNorm kernels (K16, K17)
     gelu: str = "exact"      # "exact" (erf) | "tanh"
 
@@ -51,12 +52,9 @@ class ViTConfig:
         return (self.image_size // self.patch) ** 2 + 1  # +cls
 
 
-def _check_ported(attn_impl: str) -> None:
-    if attn_impl == "xla_int8":
-        raise NotImplementedError(
-            "attn_impl='xla_int8' (ops/int8_attention.py) is not ported yet (ROADMAP.md B.15)")
-    if attn_impl not in ("xla", "fused"):
-        raise ValueError(f"attn_impl must be 'xla' or 'fused', got {attn_impl!r}")
+def _check_attn_impl(attn_impl: str) -> None:
+    if attn_impl not in ("xla", "fused", "xla_int8"):
+        raise ValueError(f"attn_impl must be 'xla', 'fused' or 'xla_int8', got {attn_impl!r}")
 
 
 def _trunc_normal(rng: np.random.Generator, shape: Tuple[int, ...], std: float) -> torch.Tensor:
@@ -124,11 +122,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               impl: str = "xla") -> torch.Tensor:
     """softmax(QKᵀ/√hd)V over ``heads`` heads of [B, N, D] streams; fp32
     scores and sums, probabilities and output in ``v.dtype``."""
-    _check_ported(impl)
+    _check_attn_impl(impl)
     if impl == "fused":
         from dlq_tpu_torch.ops.attention import attention_fused
 
         return attention_fused(q, k, v, heads)
+    if impl == "xla_int8":
+        from dlq_tpu_torch.ops.int8_attention import attention_int8_dynamic
+
+        return attention_int8_dynamic(q, k, v, heads)
     B, N, D = q.shape
     hd = D // heads
 
@@ -164,7 +166,7 @@ def _encoder(y: torch.Tensor, get_ln: Callable, op: Callable, final_norm: Params
     (``dlq_tpu/models/vit.py:135-182``), taps at the same points."""
     from dlq_tpu_torch.ops.layernorm import layernorm_fused, residual_layernorm
 
-    _check_ported(attn_impl)
+    _check_attn_impl(attn_impl)
     t: Dict[str, torch.Tensor] = {}
     delta = None
     for i in range(depth):
@@ -255,7 +257,7 @@ def make_qforward(extras: Params, depth: int, heads: int, patch: int, dim: int,
     dense promotes a bf16 input with its fp32 bias (``common.dense``), so
     the stream turns fp32 after the patch embed there, as in the
     reference."""
-    _check_ported(attn_impl)
+    _check_attn_impl(attn_impl)
     ex_ln: List[Params] = extras["ln"]
 
     def qforward(ctx, x, cfg, taps: bool = False):

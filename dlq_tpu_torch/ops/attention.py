@@ -105,24 +105,26 @@ def _entry(name: str):
     return fn
 
 
-def _check_view(name: str, t: torch.Tensor, dev, grain: int) -> None:
+def _check_view(name: str, t: torch.Tensor, dev, grain: int, what: str = "mhsa") -> None:
     if t.device != dev or t.ndim != 3:
-        raise ValueError(f"mhsa: {name} must be a [B, rows, lanes] tensor on {dev}, "
+        raise ValueError(f"{what}: {name} must be a [B, rows, lanes] tensor on {dev}, "
                          f"got {tuple(t.shape)} on {t.device}")
     if t.stride(2) != 1 or t.stride(1) % grain or t.stride(0) % grain or t.data_ptr() % 16:
-        raise ValueError(f"mhsa: {name} needs unit lane stride, row and batch strides that are "
-                         f"multiples of {grain} and a 16-byte aligned start (16-byte loads)")
+        raise ValueError(f"{what}: {name} needs unit lane stride, row and batch strides that "
+                         f"are multiples of {grain} and a 16-byte aligned start (16-byte loads)")
 
 
-def _check(q, k, v, heads: int, n_valid: int, out_lanes: Optional[int]) -> int:
-    """Shape checks shared by both forms; returns the output lanes."""
+def _check(q, k, v, heads: int, n_valid: int, out_lanes: Optional[int],
+           what: str = "mhsa") -> int:
+    """Shape checks shared by both forms (and by K18, ``int8_attention``);
+    returns the output lanes."""
     B, N, hw = q.shape
     if k.shape != q.shape or v.shape != q.shape or hw % heads:
-        raise ValueError(f"mhsa: q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} "
+        raise ValueError(f"{what}: q/k/v shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)} with {heads} heads")
     lanes = hw if out_lanes is None else out_lanes
     if not 0 < n_valid <= N or lanes < hw:
-        raise ValueError(f"mhsa: n_valid {n_valid} of {N} rows, out_lanes {lanes} < {hw}")
+        raise ValueError(f"{what}: n_valid {n_valid} of {N} rows, out_lanes {lanes} < {hw}")
     return lanes
 
 

@@ -36,6 +36,15 @@ versions' (exact in float64, rounded once) agree up to that order, so
 they are held to stated tolerances, not bit for bit. All three W4A16
 functions add FC2's residual as ``z1 + fma(acc, s, b)`` too.
 
+The reference's int8-attention arm (``vit_multiblock_fused_w8(...,
+attn_int8=True)``, ``_mhsa_batched_i8_into_scratch``) is K5 -> K18 -> K7,
+K18 ``ops.int8_attention.mhsa_i8`` (``csrc/mhsa_i8.cu``) in its in-kernel
+form (the dynamic amax over every row of the padded stream). The
+split-attention block (``vit_block_w8_splitattn``, the reference's A/B of
+attention outside the block kernels) is K5 -> K18 in its zero-pad form
+(``attention_int8_dynamic``) or K6 (``attention_bf16_masked``) -> K7's
+single-block form: its bf16 arm is ``vit_block_fused_w8``.
+
 The bf16 layer (``vit_block_fused``, the layer of the reference's bf16
 deploy forward ``vit_forward_blockfused``) is K14 -> K6 -> K15: K14
 ``vit_block_pre_bf16`` (``csrc/vit_pre_bf16.cu``) and K15
@@ -82,6 +91,7 @@ import torch.nn.functional as F
 from dlq_tpu_torch import _build
 from dlq_tpu_torch.models.common import fp32_matmul
 from dlq_tpu_torch.ops.attention import mhsa
+from dlq_tpu_torch.ops.int8_attention import attention_bf16_masked, attention_int8_dynamic, mhsa_i8
 from dlq_tpu_torch.ops.layernorm import ln_f32 as _ln_f32
 from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor, unpack_halves_kmajor
 from dlq_tpu_torch.quant.quantize import dequantize, f32, unpack_int4
@@ -677,20 +687,33 @@ for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4, vit_block_
 # compositions and forwards
 # ---------------------------------------------------------------------------
 
+def _qkv_slices(qkv: torch.Tensor, heads: int, hd: int):
+    """The q, k and v lane slices [B, Np, heads·hd] of the [B, Np, 3·Dp]
+    qkv stream (views, no copy)."""
+    Dp = qkv.shape[-1] // 3
+    hw = heads * hd
+    return qkv[..., :hw], qkv[..., Dp: Dp + hw], qkv[..., 2 * Dp: 2 * Dp + hw]
+
+
 def _attention(qkv: torch.Tensor, heads: int, hd: int, n_valid: int) -> torch.Tensor:
     """K6 on the three lane slices of the qkv stream; [B, Np, Dp] bf16 with
     the pad-head lanes zero."""
-    Dp = qkv.shape[-1] // 3
-    hw = heads * hd
-    return mhsa(qkv[..., :hw], qkv[..., Dp: Dp + hw], qkv[..., 2 * Dp: 2 * Dp + hw], heads,
-                n_valid, out_lanes=Dp)
+    return mhsa(*_qkv_slices(qkv, heads, hd), heads, n_valid, out_lanes=qkv.shape[-1] // 3)
+
+
+def _attention_i8(qkv: torch.Tensor, heads: int, hd: int, n_valid: int) -> torch.Tensor:
+    """K18 in its in-kernel form (the ``attn_int8`` arm,
+    ``_mhsa_batched_i8_into_scratch``: the amax over every row of the
+    padded stream) on the lane slices; [B, Np, Dp] bf16, pad-head lanes
+    zero."""
+    return mhsa_i8(*_qkv_slices(qkv, heads, hd), heads, n_valid, out_lanes=qkv.shape[-1] // 3)
 
 
 def _layer(pre, post, y: torch.Tensor, w: Block, n_valid: int, d_valid: int, heads: int,
-           hd: int, gelu_tanh: bool, out_dtype: torch.dtype) -> torch.Tensor:
-    """One layer as pre -> K6 -> post (``post`` with its FC2 association
-    bound)."""
-    a = _attention(pre(y, w, d_valid), heads, hd, n_valid)
+           hd: int, gelu_tanh: bool, out_dtype: torch.dtype, attend=_attention) -> torch.Tensor:
+    """One layer as pre -> ``attend`` (K6, or K18 in either form) -> post
+    (``post`` with its FC2 association bound)."""
+    a = attend(pre(y, w, d_valid), heads, hd, n_valid)
     return post(y, a, w, d_valid, gelu_tanh, out_dtype)
 
 
@@ -742,7 +765,7 @@ vit_block_fused_w4c = vit_block_fused_w4
 
 
 def _multiblock(pre, post, y: torch.Tensor, chunk: List[Block], n_valid: int, d_valid: int,
-                heads: int, hd: int, gelu_tanh: bool) -> torch.Tensor:
+                heads: int, hd: int, gelu_tanh: bool, attend=_attention) -> torch.Tensor:
     """L stacked layers: the residual is fp32 between the chunk's layers,
     ``y.dtype`` at its end; ``post`` adds FC2's residual as
     ``z1 + fma(acc, s, b)``."""
@@ -750,16 +773,19 @@ def _multiblock(pre, post, y: torch.Tensor, chunk: List[Block], n_valid: int, d_
     for l, w in enumerate(chunk):
         last = l == len(chunk) - 1
         x = _layer(pre, post, x, w, n_valid, d_valid, heads, hd, gelu_tanh,
-                   y.dtype if last else torch.float32)
+                   y.dtype if last else torch.float32, attend)
     return x
 
 
 def vit_multiblock_fused_w8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
-                            d_valid: int, heads: int, hd: int,
-                            gelu_tanh: bool = True) -> torch.Tensor:
-    """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``)."""
+                            d_valid: int, heads: int, hd: int, gelu_tanh: bool = True,
+                            attn_int8: bool = False) -> torch.Tensor:
+    """One chunk of L stacked W8A8 layers (``_multiblock_kernel_w8``), K5 ->
+    K6 -> K7 per layer; with ``attn_int8`` the reference's int8-attention
+    arm, K5 -> K18 (in-kernel form) -> K7."""
     return _multiblock(vit_block_pre_w8, functools.partial(vit_block_post_w8, multi=True), y,
-                       chunk, n_valid, d_valid, heads, hd, gelu_tanh)
+                       chunk, n_valid, d_valid, heads, hd, gelu_tanh,
+                       _attention_i8 if attn_int8 else _attention)
 
 
 def vit_multiblock_fused_w4a8(y: torch.Tensor, chunk: List[Block], *, n_valid: int,
@@ -792,12 +818,14 @@ def _forward(blocks, step, packed: Dict[str, Any], x: torch.Tensor, cfg, tight: 
 
 def vit_forward_multiblock_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
                               layers_per_kernel: int = 12, gelu_tanh: bool = True,
-                              tight: bool = True) -> torch.Tensor:
+                              tight: bool = True, attn_int8: bool = False) -> torch.Tensor:
     """W8A8 forward on chunks of ``layers_per_kernel`` layers (``packed``
     from ``pack_vit_blocks_w8(..., tight=tight)``; precomputed chunks under
-    ``"_chunks"`` are used as they are). fp32 logits."""
+    ``"_chunks"`` are used as they are); ``attn_int8`` runs every layer's
+    attention as K18. fp32 logits."""
     chunks = packed.get("_chunks") or stack_vit_blocks_w8(packed, layers_per_kernel)
-    return _forward(chunks, vit_multiblock_fused_w8, packed, x, cfg, tight, gelu_tanh)
+    return _forward(chunks, functools.partial(vit_multiblock_fused_w8, attn_int8=attn_int8),
+                    packed, x, cfg, tight, gelu_tanh)
 
 
 def vit_forward_multiblock_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,
@@ -832,6 +860,38 @@ def vit_forward_blockfused_w8(packed: Dict[str, Any], x: torch.Tensor, cfg,
     """W8A8 forward one block at a time (``vit_block_fused_w8``: the residual
     is bf16 between layers). ``tight`` must match the packing. fp32 logits."""
     return _forward(packed["blocks"], vit_block_fused_w8, packed, x, cfg, tight, gelu_tanh)
+
+
+def vit_block_w8_splitattn(y: torch.Tensor, w: Block, *, n_valid: int, d_valid: int,
+                           heads: int, hd: int, gelu_tanh: bool = True,
+                           attn: str = "int8") -> torch.Tensor:
+    """The W8A8 block with attention outside the block kernels
+    (``pallas_vit_block.py:1058``): K5, then on the qkv lane slices
+    ``attention_int8_dynamic(..., n_valid, out_dtype=bf16)`` (``attn``
+    "int8": K18, zero-pad form) or ``attention_bf16_masked`` ("bf16": K6),
+    zero-padded to Dp lanes, then K7's single-block form (output in
+    ``y.dtype``, FC2 residual ``fma(acc, s, z1) + b``). The "bf16" arm is
+    ``vit_block_fused_w8``, launch for launch."""
+    if attn not in ("int8", "bf16"):
+        raise ValueError(f"vit_block_w8_splitattn: attn 'int8' or 'bf16', got {attn!r}")
+    fn = attention_int8_dynamic if attn == "int8" else attention_bf16_masked
+
+    def attend(qkv, heads, hd, n_valid):
+        return fn(*_qkv_slices(qkv, heads, hd), heads, n_valid, out_dtype=torch.bfloat16,
+                  out_lanes=qkv.shape[-1] // 3)
+
+    return _layer(vit_block_pre_w8, vit_block_post_w8, y, w, n_valid, d_valid, heads, hd,
+                  gelu_tanh, y.dtype, attend)
+
+
+def vit_forward_blockfused_w8_split(packed: Dict[str, Any], x: torch.Tensor, cfg,
+                                    gelu_tanh: bool = True, tight: bool = False,
+                                    attn: str = "int8") -> torch.Tensor:
+    """W8A8 forward on the split-attention block (``pallas_vit_block.py:
+    1087``; ``pack_vit_blocks_w8`` payload, the reference's defaults: loose
+    pads, int8 attention), bf16 between layers. fp32 logits."""
+    return _forward(packed["blocks"], functools.partial(vit_block_w8_splitattn, attn=attn),
+                    packed, x, cfg, tight, gelu_tanh)
 
 
 def vit_forward_blockfused_w4a8(packed: Dict[str, Any], x: torch.Tensor, cfg,

@@ -432,3 +432,58 @@ def test_mhsa_f32_and_routing_on_card():
     assert matmul_int4.launches == before
     ref = x.double() @ dequantize(qw).double()
     assert float((y.double() - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_int8_attention_on_card():
+    """K18 against its plain version in both forms: the in-kernel form on
+    lane slices of a bf16 [B, Np, 3·Dp] block stream (hd 32 with a pad-head
+    slot, hd 64), and the zero-pad form on fp32 and bf16 lane slices of a
+    [B, N, 3·D] qkv dense, masked and not; >= 0.99 of the outputs equal, the
+    rest within 2·av/127 (av: the (sample, head)'s V amax); the pad lanes
+    zero; one launch counted per call, none for the plain version, and a
+    CUDA tensor never reaches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops import int8_attention as TI
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+
+    def held(got, ref, v, heads, n_valid, zero_pad):
+        hw = v.shape[-1]
+        vv = v.float()[:, :n_valid] if zero_pad else v.float()
+        av = vv.reshape(v.shape[0], -1, heads, hw // heads).abs().amax(dim=(1, 3))
+        av = av.repeat_interleave(hw // heads, dim=1)[:, None, :]
+        d = (got[..., :hw].float() - ref[..., :hw].float()).abs()
+        assert float((d == 0).float().mean()) >= 0.99
+        assert bool((d <= 2.0 * av / 127.0).all())
+
+    plain = TI.mhsa_i8_plain
+    TI.mhsa_i8_plain = None     # a CUDA tensor must launch K18, never the plain version
+    try:
+        cases = [(3, 24, 3, 32, 128, torch.bfloat16, False, 17, torch.bfloat16),
+                 (2, 200, 3, 64, 192, torch.bfloat16, False, 197, torch.bfloat16),
+                 (2, 256, 3, 64, 256, torch.bfloat16, True, 197, torch.bfloat16),
+                 (2, 197, 3, 64, 192, torch.float32, True, 197, torch.float32),
+                 (3, 24, 3, 32, 96, torch.float32, True, 20, torch.bfloat16)]
+        outs = []
+        for (bsz, rows, heads, hd, dp, dt, zero_pad, n_valid, odt) in cases:
+            qkv = torch.from_numpy(rng.normal(0, 1.5, (bsz, rows, 3 * dp)).astype(np.float32))
+            qkv = qkv.to(dev, dt)
+            hw = heads * hd
+            views = (qkv[..., :hw], qkv[..., dp: dp + hw], qkv[..., 2 * dp: 2 * dp + hw])
+            before = TI.mhsa_i8.launches
+            got = TI.mhsa_i8(*views, heads, n_valid, out_lanes=dp, zero_pad=zero_pad,
+                             out_dtype=odt)
+            torch.cuda.synchronize()
+            assert TI.mhsa_i8.launches == before + 1 and got.dtype == odt
+            assert not got[..., hw:].float().abs().any()
+            outs.append((got, views, heads, n_valid, dp, zero_pad, odt))
+    finally:
+        TI.mhsa_i8_plain = plain
+    for got, views, heads, n_valid, dp, zero_pad, odt in outs:
+        before = TI.mhsa_i8.launches
+        ref = plain(*views, heads, n_valid, dp, zero_pad, odt)
+        assert TI.mhsa_i8.launches == before
+        held(got, ref, views[2], heads, n_valid, zero_pad)

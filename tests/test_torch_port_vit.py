@@ -252,8 +252,8 @@ def test_routing_guards(tmp_path):
     """A depth-2 store runs one layer per chunk; an INT4A8 store builds the
     W4A8 block engine, a weight-only per-OC int4 store the W4A16 one, and a
     group-wise weight-only store raises the reference's ValueError; conv
-    contexts are refused; ``fused_ln=True`` runs; the unported options raise
-    naming ROADMAP.md."""
+    contexts are refused; ``fused_ln=True`` and ``attn_impl="xla_int8"``
+    run; the unported SmoothQuant fold raises naming ROADMAP.md."""
     m = quantized_vit("d96", depth=2)
     _jax_store(str(tmp_path / "w8"), m)
     eng = Engine.from_store(str(tmp_path / "w8"), ctx="block", batch=4, device="cpu")
@@ -273,8 +273,10 @@ def test_routing_guards(tmp_path):
     qf = TV.make_qforward(m["tex"], 2, 3, 8, 96, fused_ln=True)
     out = qf(TM.DeployCtx(m["tq"], m["ts"], TQ), torch.from_numpy(m["x"]), m["tcfg"])
     assert out.shape == (4, 10) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.make_qforward(m["tex"], 2, 3, 8, 96, attn_impl="xla_int8")
+    # attn_impl="xla_int8" (K18) is ported: the deploy forward runs on it
+    qf = TV.make_qforward(m["tex"], 2, 3, 8, 96, attn_impl="xla_int8")
+    out = qf(TM.DeployCtx(m["tq"], m["ts"], TQ), torch.from_numpy(m["x"]), m["tcfg"])
+    assert out.shape == (4, 10) and torch.isfinite(out).all()
     from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w8
 
     with pytest.raises(NotImplementedError, match="A.9"):

@@ -11,6 +11,14 @@ loose and tight pads, Pallas in interpret mode) against the fp32 forward
 with the tanh GELU, and the INT8_PER_CHANNEL ``make_qforward`` with
 ``fused_ln=True, attn_impl="fused"`` under ``DeployCtx`` (jitted, the same
 scales) against the fp32 forward and against the unfused deploy forward.
+Then the int8-attention paths on the INT8_PER_CHANNEL weights and scales:
+the multiblock forward ``vit_forward_multiblock_w8`` with ``attn_int8=True``
+(tight pads, 6 layers per chunk, Pallas in interpret mode; and, as its
+control, the same forward with bf16 attention) against the fp32 forward with
+the tanh GELU; ``make_qforward(attn_impl="xla_int8")`` under ``DeployCtx``
+(jitted) against the fp32 forward (exact GELU); and the split-attention
+forward ``vit_forward_blockfused_w8_split`` (its defaults: loose pads, int8
+attention; interpret mode) against the fp32 forward with the tanh GELU.
 The weights, the calibration batch and the images are those of
 ``chip_smoke.py`` (the port's numpy-seeded ``init_vit``, seed 0), so the
 numbers say how close to fp32 the card's DeiT paths can be asked to come.
@@ -118,6 +126,29 @@ def main() -> None:
                       "top1_agreement_vs_fp32": d["top1_agreement"],
                       "logits_cosine_vs_unfused_deploy": du["logits_cosine"],
                       "top1_agreement_vs_unfused_deploy": du["top1_agreement"]}), flush=True)
+
+    # the int8-attention paths on the same weights and scales
+    def emit(path, got, fp32, gelu, **kw):
+        d = diff(np.asarray(got, np.float32), fp32)
+        print(json.dumps({"path": path, "scheme": "INT8_PER_CHANNEL", **kw, "images": n,
+                          "platform": "cpu", "fp32_gelu": gelu,
+                          "logits_cosine_vs_fp32": d["logits_cosine"],
+                          "logit_err_max": d["logit_err_max"],
+                          "top1_agreement_vs_fp32": d["top1_agreement"]}), flush=True)
+
+    tight = JB.pack_vit_blocks_w8(qflat, scales, ex, cfg, tight=True)
+    for attn_int8 in (True, False):
+        emit("vit_forward_multiblock_w8",
+             JB.vit_forward_multiblock_w8(tight, jnp.asarray(x), cfg, layers_per_kernel=6,
+                                          attn_int8=attn_int8, interpret=True),
+             ref_tanh, "tanh", attn_int8=attn_int8, tight=True, layers_per_kernel=6)
+    qf_i8 = JV.make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim, attn_impl="xla_int8")
+    emit("deploy_xla_int8", jax.jit(lambda xx: qf_i8(ctx, xx, cfg))(jnp.asarray(x)), ref,
+         "exact", attn_impl="xla_int8")
+    emit("vit_forward_blockfused_w8_split",
+         JB.vit_forward_blockfused_w8_split(JB.pack_vit_blocks_w8(qflat, scales, ex, cfg),
+                                            jnp.asarray(x), cfg, attn="int8", interpret=True),
+         ref_tanh, "tanh", attn="int8", tight=False)
 
 
 if __name__ == "__main__":
