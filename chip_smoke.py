@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
 DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
-fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, 224 px).
+fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, 224 px; and the four
+lowering probes).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -102,7 +103,20 @@ Phases, one JSON line each:
      bf16-attention block engine and profiled; at batch 64 the
      split-attention forward (loose pads) with attn="int8" (K18) and
      "bf16" (K6; bit-identical to vit_forward_blockfused_w8), and
-     make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12).
+     make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12);
+ 11. the probes (K19 probe_mosaic, K20 probe_batched_dot, K21 probe_block,
+     K22 probe_stem: the ports of tools/probe_*.py): the probe entry point
+     itself, each module's results() (its main() without the exit status)
+     on the card with every count set to 0 just before and read just after:
+     every one of the 23 patterns once at the reference's shapes on its
+     numpy-seeded inputs, held against the reference's numpy expectation
+     with the reference's own check and against its plain version by its
+     own limit (identical for integer and copy patterns; rel 1e-4 for an
+     fp32 output, one bf16 step on at most 1% of a bf16 output); then each
+     pattern timed on a spinning card (device time of back-to-back
+     launches: the kernels are microseconds long, shorter than their
+     wrappers' host cost) beside the plain version, the bound and the one
+     PyTorch call where one computes the same function.
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Then the card's name and power limit, the kernel
 summary line and, last, {"ok": true, "device": {...}}. Any failed gate
@@ -219,6 +233,21 @@ KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_p
 
 def _per(**launches):
     return {k: launches.get(k, 0) for k in KERNELS}
+
+
+# the probe wrappers (K19-K22): name -> (module under dlq_tpu_torch/tools,
+# source, the TPU kernel it replaces)
+PROBES = {
+    "probe_mosaic": ("probe_mosaic_patterns", "dlq_tpu_torch/csrc/probe_mosaic.cu",
+                     "tools/probe_mosaic_patterns.py:37 run (its pallas_call :39), row 25"),
+    "probe_batched_dot": ("probe_batched_dot", "dlq_tpu_torch/csrc/probe_batched_dot.cu",
+                          "tools/probe_batched_dot.py:28 run (its pallas_call :30), row 28"),
+    "probe_block": ("probe_block_patterns", "dlq_tpu_torch/csrc/probe_block.cu",
+                    "tools/probe_block_patterns.py:38 run (its pallas_call :40), row 27"),
+    "probe_stem": ("probe_stem_patterns", "dlq_tpu_torch/csrc/probe_stem.cu",
+                   "tools/probe_stem_patterns.py:36 run (its pallas_call :38), row 26"),
+}
+PROBE_PATTERNS = 23
 
 
 # launches per forward of each kernel on each path (ResNet-18: 2-2-2-2
@@ -1425,8 +1454,16 @@ def _wrappers():
     return ws
 
 
+def _probe_modules():
+    import importlib
+
+    return {name: importlib.import_module(f"dlq_tpu_torch.tools.{mod}")
+            for name, (mod, _, _) in PROBES.items()}
+
+
 def reset_counts():
-    for fn in _wrappers().values():
+    probes = [getattr(mod, name) for name, mod in _probe_modules().items()]
+    for fn in [*_wrappers().values(), *probes]:
         fn.launches = 0
         fn.by_shape.clear()
 
@@ -2391,6 +2428,97 @@ def _taps(eng, x, cfg, qf):
             {k: v.float().cpu().numpy() for k, v in taps.items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the probes (K19-K22)
+# ---------------------------------------------------------------------------
+
+def probe_path():
+    """The probe entry point as a user runs it: each module's results() (its
+    main() without the exit status) on the card, every count set to 0 just
+    before and read just after. Each pattern runs once and is held against
+    the reference's numpy expectation with the reference's check and against
+    its plain version by its own limit (_probe.held: identical where the
+    pattern is integer, a copy or an exact bf16 scaling; rel 1e-4 of
+    max|plain| for an fp32 output; one bf16 step of max|plain| on at most 1%
+    of a bf16 output). Raises on any FAIL, on a pattern launched other than
+    once, or on any other kernel launched. Then, outside the counted run, the
+    kernel, its plain version and the one PyTorch call that computes the same
+    function (where there is one) timed as device time on a spinning card;
+    the bound counts the input (or the window of it the pattern reads) once
+    and the output once, and the tensor-core products the data needs at the
+    bf16 or int8 peak. Returns (rows, {probe: (launches, launches per
+    pattern)})."""
+    from dlq_tpu_torch.tools import _probe
+
+    mods = _probe_modules()
+    reset_counts()
+    results = {name: mod.results() for name, mod in mods.items()}
+    counts = {name: (getattr(mod, name).launches, dict(getattr(mod, name).by_shape))
+              for name, mod in mods.items()}
+    others = read_counts()[0]
+    fails = {name: _probe.fails(rs) for name, rs in results.items()}
+    if any(fails.values()):
+        bad = [f"{name} {r.key} ({r.spec.name}): against the plain version {r.vs_plain}, "
+               f"against the expectation {r.vs_expect}"
+               for name, rs in results.items() for r in rs if not r.ok]
+        raise AssertionError(f"probes: FAILs per probe {fails}: {bad}")
+    for name, mod in mods.items():
+        want = {key: 1 for key in mod.SPEC}
+        if counts[name][1] != want:
+            raise AssertionError(f"{name}: launches per pattern {counts[name][1]}, expected {want}")
+    if any(others.values()):
+        raise AssertionError(f"probes launched model kernels: {others}")
+    emit({"phase": "probes", "fails": fails,
+          "launches": {name: c[0] for name, c in counts.items()}})
+    rows = []
+    for name, mod in mods.items():
+        fn = getattr(mod, name)
+        for r in results[name]:
+            key, spec, xs = r.key, r.spec, r.xs
+            lib = mod.LIBRARY.get(key)
+            peak = PEAK_BF16 if spec.peak == "bf16" else PEAK_INT8_OPS
+            b_ms, b_by = bound(spec.flops, _probe.nbytes(spec, xs), peak)
+            row = {"kernel": name, "pattern": key, "name": spec.name, "exact": spec.exact,
+                   "max_abs_err": r.err, "vs_plain": r.vs_plain, "vs_expect": r.vs_expect,
+                   "ms": _probe.spun_ms(lambda: fn(key, *xs), 20, warmup=2, reps=3),
+                   "plain_ms": _probe.spun_ms(lambda: mod.PLAIN[key](*xs), 3, warmup=2, reps=3),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": (_probe.spun_ms(lambda: lib(*xs), 20, warmup=2, reps=3)
+                                  if lib is not None else None),
+                   "library": spec.library}
+            emit_row(row)
+            rows.append(row)
+    if len(rows) != PROBE_PATTERNS:
+        raise AssertionError(f"probes: {len(rows)} patterns, expected {PROBE_PATTERNS}")
+    del results
+    return rows, counts
+
+
+def probe_summary(rows, counts):
+    """One entry per probe kernel (K19-K22): ``launches`` from the probe
+    path's run; ``ms``, ``plain_ms`` and ``bound_ms`` summed over its
+    patterns (one launch of each); no one PyTorch call computes a whole
+    probe, so ``library_ms`` is null there and given per pattern."""
+    out = []
+    for name, (_, src, repl) in PROBES.items():
+        rs = [r for r in rows if r["kernel"] == name]
+        pats = [{k: r[k] for k in ("pattern", "name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "library")}
+                | {"launches": counts[name][1].get(r["pattern"], 0)} for r in rs]
+        out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                    "launches": counts[name][0], "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                    "bound_ms": sum(r["bound_ms"] for r in rs),
+                    "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
+                    "library_ms": None,
+                    "library": "none for a whole probe; per pattern in patterns",
+                    "main": "probes",
+                    "per": "launches: one run of the module's main() on the card (each pattern "
+                           "once); times: one launch of each pattern, summed",
+                    "patterns": pats})
+    return out
+
+
 def summary(rows, paths):
     """One entry per kernel. The top-level ``launches`` and per-forward
     ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are those of the
@@ -2536,7 +2664,8 @@ def main() -> int:
     paths.update(deit_w4a16_paths(dev, card, deit, images))
     paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
-    kernels = summary(rows, paths)
+    probe_rows, probe_counts = probe_path()
+    kernels = summary(rows, paths) + probe_summary(probe_rows, probe_counts)
     print(card_line())
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG.parent / "build" / "dlq_tpu_torch"
 SOURCES = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
            "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
-           "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm", "mhsa_i8")
+           "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm", "mhsa_i8",
+           "probe_mosaic", "probe_batched_dot", "probe_block", "probe_stem")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

@@ -68,25 +68,47 @@ class StageTimer:
                 "total_ms": self.total_ms()}
 
 
-def time_fn(fn, *args, iters: int = 20, warmup: int = 3, reps: int = 3, **kw) -> Dict[str, float]:
+def time_fn(fn, *args, iters: int = 20, warmup: int = 3, reps: int = 3, spin_cycles: int = 0,
+            **kw) -> Dict[str, float]:
     """Device milliseconds per call of ``fn(*args, **kw)``: after ``warmup``
     calls, ``reps`` windows of ``iters`` calls each, bracketed by CUDA
-    events; returns the median, best and mean window average."""
+    events; returns the median, best and mean window average.
+
+    A call much shorter than its host-side cost (a kernel of a few
+    microseconds behind a Python wrapper) leaves the card waiting on the
+    host, and the window then times the host. With ``spin_cycles`` the card
+    first spins that many clock cycles, so the host enqueues the whole
+    window while the card is busy and the events bracket device time; the
+    result then also gives the longest host enqueue of a window and the
+    shortest spin (``enqueue_ms_max``, ``spin_ms_min``): the window is
+    device time only where the first is below the second."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_fn measures on the card; CUDA is not available")
     for _ in range(warmup):
         fn(*args, **kw)
     torch.cuda.synchronize()
-    samples = []
+    samples, enqueue, spin = [], [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin_cycles:
+            spun = torch.cuda.Event(enable_timing=True)
+            spun.record()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(spin_cycles)
         start.record()
         for _ in range(iters):
             fn(*args, **kw)
         end.record()
+        if spin_cycles:
+            enqueue.append((time.perf_counter() - t0) * 1e3)
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
+        if spin_cycles:
+            spin.append(spun.elapsed_time(start))
     samples.sort()
-    return {"ms_median": samples[len(samples) // 2], "ms_best": samples[0],
-            "ms_mean": sum(samples) / len(samples), "iters": float(iters)}
+    out = {"ms_median": samples[len(samples) // 2], "ms_best": samples[0],
+           "ms_mean": sum(samples) / len(samples), "iters": float(iters)}
+    if spin_cycles:
+        out.update(enqueue_ms_max=max(enqueue), spin_ms_min=min(spin))
+    return out

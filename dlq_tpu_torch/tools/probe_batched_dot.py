@@ -1,0 +1,133 @@
+"""K20: the port of ``tools/probe_batched_dot.py`` (its ``run`` helper's
+``pallas_call``, ``:28/:30``): the batched dots of a per-(sample, head)
+attention, each as one hand-written kernel in ``csrc/probe_batched_dot.cu``.
+
+  A  batched NT dot  bf16 [8, 200, 64] x [8, 200, 64]^T -> fp32 [8, 200, 200]
+  B  batched NN dot  bf16 [8, 200, 200] x [8, 200, 64] -> fp32 [8, 200, 64]
+     (the B operand through ldmatrix.trans)
+  C  split reshape   bf16 [1600, 576] -> [8, 200, 576]
+  D  one attention head per sample of x [1600, 576] viewed [8, 200, 576]:
+     q, k, v = lanes 0, 64, 128 (64 wide); no scale, no mask;
+     a = bf16(softmax(q k^T)); out [8, 200, 192] bf16 = [bf16(a v), 0, 0]
+
+Inputs are ``default_rng(0)`` draws in the reference's order; the check
+against the numpy expectation is the reference's (``max|got - expect| /
+max|expect| <= 2e-2``, finite); on the card the kernel is also held against
+its plain version: identical for C, within 1e-4 of max|plain| for A and B,
+and for D within one bf16 step of max|plain| on at most 1% of the outputs.
+
+    python -m dlq_tpu_torch.tools.probe_batched_dot [--device cpu]
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dlq_tpu_torch.tools import _probe
+from dlq_tpu_torch.tools._probe import Spec
+
+SOURCE = "probe_batched_dot"
+ATOL = 2e-2
+BF = torch.bfloat16
+B, NP, HD = 8, 200, 64
+
+SPEC = {
+    "A": Spec("A batched NT dot [8,200,64]^2 -> [8,200,200]", (((B, NP, HD), BF),) * 2,
+              ((B, NP, NP), torch.float32), False, ATOL, flops=2 * B * NP * NP * HD,
+              peak="bf16", library="torch.matmul(q, k.transpose(1, 2)) (bf16 out)"),
+    "B": Spec("B batched NN dot [8,200,200]x[8,200,64]", (((B, NP, NP), BF), ((B, NP, HD), BF)),
+              ((B, NP, HD), torch.float32), False, ATOL, flops=2 * B * NP * NP * HD,
+              peak="bf16", library="torch.matmul(a, v) (bf16 out)"),
+    "C": Spec("C split reshape [1600,576]->[8,200,576]", (((1600, 576), BF),),
+              ((B, NP, 576), BF), True, ATOL,
+              library="x.reshape(8, 200, 576).clone(memory_format=torch.contiguous_format)"),
+    # reads lanes 0..191 of each row only
+    "D": Spec("D full batched-attention head", (((1600, 576), BF),), ((B, NP, 192), BF),
+              False, ATOL, flops=2 * (2 * B * NP * NP * HD), peak="bf16",
+              read_bytes=1600 * 192 * 2,
+              library="F.scaled_dot_product_attention(q, k, v, scale=1.0) on the [8, 1, 200, "
+                      "64] views (its probabilities unnormalised in bf16; the 128 zero columns "
+                      "not written)"),
+}
+
+
+def attention_plain(x: torch.Tensor) -> torch.Tensor:
+    """Pattern D's arithmetic, as the probe's kernel states it."""
+    y = x.reshape(B, NP, 576).float()
+    q, k, v = y[..., 0:64], y[..., 64:128], y[..., 128:192]
+    s = torch.bmm(q, k.transpose(1, 2))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    a = (p / p.sum(-1, keepdim=True)).to(BF)
+    out = torch.zeros((B, NP, 192), dtype=BF, device=x.device)
+    out[..., 0:64] = torch.bmm(a.float(), v).to(BF)
+    return out
+
+
+PLAIN = {
+    "A": lambda q, k: torch.bmm(q.float(), k.float().transpose(1, 2)),
+    "B": lambda a, v: torch.bmm(a.float(), v.float()),
+    "C": lambda x: _probe.copy_of(x.reshape(B, NP, 576)),
+    "D": attention_plain,
+}
+
+def _head(x: torch.Tensor, lane: int) -> torch.Tensor:
+    """The [8, 1, 200, 64] view of q (lane 0), k (64) or v (128)."""
+    return x.reshape(B, NP, 576)[:, None, :, lane: lane + HD]
+
+
+LIBRARY = {
+    "A": lambda q, k: torch.matmul(q, k.transpose(1, 2)),
+    "B": lambda a, v: torch.matmul(a, v),
+    "C": lambda x: x.reshape(B, NP, 576).clone(memory_format=torch.contiguous_format),
+    "D": lambda x: F.scaled_dot_product_attention(_head(x, 0), _head(x, 64), _head(x, 128),
+                                                  scale=1.0),
+}
+
+probe_batched_dot = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+CHECK = _probe.check_rel   # the reference's check
+
+
+def _expect_d(x2f: np.ndarray) -> np.ndarray:
+    """The reference's numpy expectation of D."""
+    x2f = x2f.reshape(8, 200, 576)
+    s = np.einsum("bnh,bmh->bnm", x2f[:, :, 0:64], x2f[:, :, 64:128])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    attn = (p / p.sum(-1, keepdims=True))
+    av = np.einsum("bnm,bmh->bnh", attn.astype(np.float32), x2f[:, :, 128:192])
+    exp = np.zeros((8, 200, 192), np.float32)
+    exp[:, :, 0:64] = av
+    return exp
+
+
+def cases():
+    """(key, inputs, the reference's numpy expectation) per pattern."""
+    rng = np.random.default_rng(0)
+    q = _probe.bf16(rng.normal(0, 1, (B, NP, HD)))
+    k = _probe.bf16(rng.normal(0, 1, (B, NP, HD)))
+    a = _probe.bf16(rng.uniform(0, 1, (B, NP, NP)))
+    x2 = _probe.bf16(rng.normal(0, 1, (1600, 576)))
+    qf, kf, af, x2f = (t.float().numpy() for t in (q, k, a, x2))
+    return [
+        ("A", (q, k), np.einsum("bnh,bmh->bnm", qf, kf)),
+        ("B", (a, k), np.einsum("bnm,bmh->bnh", af, kf)),
+        ("C", (x2,), x2f.reshape(8, 200, 576)),
+        ("D", (x2,), _expect_d(x2f)),
+    ]
+
+
+def results(device=None):
+    """Run the four batched-dot patterns; one ``_probe.Result`` each."""
+    return _probe.run(probe_batched_dot, SPEC, PLAIN, cases(), CHECK, device)
+
+
+def main(device=None) -> int:
+    """Run the four batched-dot patterns; returns the number of FAILs."""
+    return _probe.fails(results(device))
+
+
+if __name__ == "__main__":
+    sys.exit(_probe.cli(main))

@@ -1,0 +1,161 @@
+"""K21: the port of ``tools/probe_block_patterns.py`` (its ``run`` helper's
+``pallas_call``, ``:38/:40``): the patterns of fused residual-block kernels,
+each as one hand-written kernel in ``csrc/probe_block.cu``.
+
+  A1  pair-row merge  int8 [232, 920] -> [116, 1840]
+  A2  the same on fp32
+  S   stride-2 slices of a 4D slab  int8 [1, 18, 18, 128] -> [1, 8, 8, 128]
+  L   lane split and half  int8 [232, 928] -> [232, 116, 8][..., 4:]
+  O   int8 requant out: clip(rint(f32(x) * f32(0.11)), -127, 127)
+  D   K3's core: conv3x3 (9 int8 taps of [180, 128] x [128, 128]),
+      h = clip(rint(f32(acc) * s1), 0, 127) int8, conv3x3 over h,
+      out = clip(rint(f32(acc2) * s2) + res, 0, 127) int8
+
+O and D are bit-identical to the reference's kernels, which multiply in
+fp32. O's own numpy expectation multiplies in float64 and sits one step
+off (the reference's ``atol=1.0`` allows it); the port follows the kernel.
+Inputs are ``default_rng(0)`` draws in the reference's order; the check is
+the reference's (``max_abs <= 0.5``, 1.0 for O and D).
+
+    python -m dlq_tpu_torch.tools.probe_block_patterns [--device cpu]
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from dlq_tpu_torch.tools import _probe
+from dlq_tpu_torch.tools._probe import Spec
+
+SOURCE = "probe_block"
+I8, F32 = torch.int8, torch.float32
+TOH, OW, C = 8, 16, 128
+S1, S2 = np.float32(0.013), np.float32(0.017)
+O_SCALE = np.float32(0.11)
+_MERGE = "x.reshape(116, 1840).clone(memory_format=torch.contiguous_format)"
+
+SPEC = {
+    "A1": Spec("A1 reshape [232,920]->[116,1840] i8", (((232, 920), I8),), ((116, 1840), I8),
+               True, 0.5, library=_MERGE),
+    "A2": Spec("A2 reshape [232,920]->[116,1840] f32", (((232, 920), F32),),
+               ((116, 1840), F32), True, 0.5, library=_MERGE),
+    "S": Spec("S strided(2) sublane slices 4D i8", (((1, 18, 18, 128), I8),),
+              ((1, 8, 8, 128), I8), True, 0.5, read_bytes=8 * 8 * 128,
+              library="x[:, 1:17:2, 1:17:2, :].contiguous()"),
+    "L": Spec("L lane split [232,928]->[232,116,8] + half i8", (((232, 928), I8),),
+              ((232, 116, 4), I8), True, 0.5, read_bytes=232 * 116 * 4,
+              library="x.reshape(232, 116, 8)[:, :, 4:].contiguous()"),
+    "O": Spec("O int8 out blockspec + requant", (((256, 1024), I8),), ((256, 1024), I8),
+              True, 1.0, scalars=(float(O_SCALE), 0.0),
+              library="none: the fp32 product, rint and clip to +-127 take three calls"),
+    "D": Spec("D fused double-conv + i8 interchange",
+              (((1, TOH + 4, OW + 4, C), I8), ((9, C, C), I8), ((9, C, C), I8)),
+              ((1, TOH, OW, C), I8), True, 1.0,
+              flops=2 * 9 * C * C * ((TOH + 2) * (OW + 2) + TOH * OW), peak="int8",
+              scalars=(float(S1), float(S2)),
+              library="none: two int8 convs with their epilogues take a dozen calls"),
+}
+
+
+def requant_plain(x: torch.Tensor) -> torch.Tensor:
+    """O: the fp32 product, rounded half to even, clipped (a float scalar
+    multiplies a float32 tensor as float32: the product is f32(x) * f32(0.11))."""
+    y = x.float() * float(O_SCALE)
+    return torch.clamp(torch.round(y), -127, 127).to(I8)
+
+
+def _conv3x3(src: torch.Tensor, w: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """Exact int sums (float64) of the 9 taps of a valid 3x3 conv, [oh, ow, OC]."""
+    acc = torch.zeros((oh, ow, w.shape[2]), dtype=torch.float64, device=src.device)
+    for kh in range(3):
+        for kw in range(3):
+            acc += src[kh: kh + oh, kw: kw + ow, :].double() @ w[kh * 3 + kw].double()
+    return acc
+
+
+def double_conv_plain(slab: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """D: the probe kernel's BasicBlock core with its fp32 epilogues."""
+    x = slab[0]
+    acc = _conv3x3(x, w1, TOH + 2, OW + 2).float()
+    h = torch.clamp(torch.round(acc * float(S1)), 0, 127).to(I8)
+    acc2 = _conv3x3(h, w2, TOH, OW).float()
+    res = x[2: 2 + TOH, 2: 2 + OW, :].float()
+    return torch.clamp(torch.round(acc2 * float(S2)) + res, 0, 127).to(I8)[None]
+
+
+PLAIN = {
+    "A1": lambda x: _probe.copy_of(x.reshape(116, 1840)),
+    "A2": lambda x: _probe.copy_of(x.reshape(116, 1840)),
+    "S": lambda x: _probe.copy_of(x[:, 1:17:2, 1:17:2, :]),
+    "L": lambda x: _probe.copy_of(x.reshape(232, 116, 8)[:, :, 4:]),
+    "O": requant_plain,
+    "D": double_conv_plain,
+}
+
+LIBRARY = {
+    "A1": lambda x: x.reshape(116, 1840).clone(memory_format=torch.contiguous_format),
+    "A2": lambda x: x.reshape(116, 1840).clone(memory_format=torch.contiguous_format),
+    "S": lambda x: x[:, 1:17:2, 1:17:2, :].contiguous(),
+    "L": lambda x: x.reshape(232, 116, 8)[:, :, 4:].contiguous(),
+}
+
+probe_block = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+CHECK = _probe.check_max_abs   # the reference's check
+
+
+def _expect_d(slab2: np.ndarray, w1: np.ndarray, w2: np.ndarray) -> np.ndarray:
+    """The reference's ``refD`` (int64 sums, float64 epilogue products)."""
+    xpad = slab2.astype(np.int64)[0]
+    w1f = w1.astype(np.int64).reshape(3, 3, C, C)
+    w2f = w2.astype(np.int64).reshape(3, 3, C, C)
+    acc = np.zeros((TOH + 2, OW + 2, C), np.int64)
+    for kh in range(3):
+        for kw in range(3):
+            acc += np.einsum("hwc,cd->hwd", xpad[kh: kh + TOH + 2, kw: kw + OW + 2, :],
+                             w1f[kh, kw])
+    h = np.clip(np.round(acc * S1), 0, 127)
+    acc2 = np.zeros((TOH, OW, C), np.float64)
+    for kh in range(3):
+        for kw in range(3):
+            acc2 += np.einsum("hwc,cd->hwd", h[kh: kh + TOH, kw: kw + OW, :], w2f[kh, kw])
+    res = xpad[2: 2 + TOH, 2: 2 + OW, :]
+    return np.clip(np.round(acc2 * S2) + res, 0, 127)[None]
+
+
+def cases():
+    """(key, inputs, the reference's numpy expectation) per pattern."""
+    rng = np.random.default_rng(0)
+    x8 = rng.integers(-127, 127, (232, 920))
+    slab = rng.integers(-127, 127, (1, 18, 18, 128))
+    y8 = rng.integers(-127, 127, (232, 928))
+    a8 = rng.integers(-127, 127, (256, 1024))
+    slab2 = rng.integers(-20, 20, (1, TOH + 4, OW + 4, C))
+    w1 = rng.integers(-8, 8, (9, C, C))
+    w2 = rng.integers(-8, 8, (9, C, C))
+    t8 = _probe.i8(x8)
+    exp_o = np.clip(np.round(a8.astype(np.float64) * O_SCALE), -127, 127)
+    return [
+        ("A1", (t8,), x8.reshape(116, 1840)),
+        ("A2", (t8.float(),), x8.reshape(116, 1840).astype(np.float64)),
+        ("S", (_probe.i8(slab),), slab[:, 1:17:2, 1:17:2, :]),
+        ("L", (_probe.i8(y8),), y8.reshape(232, 116, 8)[:, :, 4:]),
+        ("O", (_probe.i8(a8),), exp_o),
+        ("D", (_probe.i8(slab2), _probe.i8(w1), _probe.i8(w2)), _expect_d(slab2, w1, w2)),
+    ]
+
+
+def results(device=None):
+    """Run the six block patterns; one ``_probe.Result`` each."""
+    return _probe.run(probe_block, SPEC, PLAIN, cases(), CHECK, device)
+
+
+def main(device=None) -> int:
+    """Run the six block patterns; returns the number of FAILs."""
+    return _probe.fails(results(device))
+
+
+if __name__ == "__main__":
+    sys.exit(_probe.cli(main))

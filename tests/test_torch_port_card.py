@@ -487,3 +487,53 @@ def test_int8_attention_on_card():
         ref = plain(*views, heads, n_valid, dp, zero_pad, odt)
         assert TI.mhsa_i8.launches == before
         held(got, ref, views[2], heads, n_valid, zero_pad)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_on_card():
+    """K19-K22: each of the 23 probe patterns on the card, on the probe's own
+    inputs, launches its kernel (one count per call) and never the plain
+    version; then the kernel against the plain version (_probe.held:
+    bit-identical where the pattern is exact, else by the pattern's own
+    limit) and against the reference's numpy expectation with the
+    reference's check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import importlib
+
+    from dlq_tpu_torch.tools import _probe
+
+    dev = torch.device("cuda")
+    n = 0
+    for mod_name, name in (("probe_mosaic_patterns", "probe_mosaic"),
+                           ("probe_batched_dot", "probe_batched_dot"),
+                           ("probe_block_patterns", "probe_block"),
+                           ("probe_stem_patterns", "probe_stem")):
+        mod = importlib.import_module(f"dlq_tpu_torch.tools.{mod_name}")
+        fn = getattr(mod, name)
+        plain = dict(mod.PLAIN)
+
+        def refuse(*xs):
+            raise AssertionError("a CUDA tensor reached a plain version")
+
+        outs = []
+        try:
+            for key in mod.PLAIN:
+                mod.PLAIN[key] = refuse
+            for key, inputs, expect in mod.cases():
+                xs = tuple(x.to(dev) for x in inputs)
+                before = fn.launches
+                got = fn(key, *xs)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                outs.append((key, xs, expect, got))
+        finally:
+            mod.PLAIN.update(plain)
+        for key, xs, expect, got in outs:
+            spec = mod.SPEC[key]
+            same, text, _ = _probe.held(got, mod.PLAIN[key](*xs), spec)
+            assert same, f"{name} {key}: {text}"
+            ok, text = mod.CHECK(got, expect, spec.atol)
+            assert ok, f"{name} {key}: {text}"
+            n += 1
+    assert n == 23
