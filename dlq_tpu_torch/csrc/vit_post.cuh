@@ -1,6 +1,8 @@
-// The body of the last two thirds of a quantized ViT layer, shared by K7
-// (vit_post_w8.cu: int8 weights) and K9 (vit_post_w4a8.cu: int4 weights,
-// halves-packed). Each source instantiates it in a kernel of its own name.
+// The body of the last two thirds of a quantized ViT layer: K9's
+// (vit_post_w4a8.cu: int4 weights, halves-packed), and K7's first form
+// (vit_post_w8.cu: int8 weights), which K7 now runs only for a Dp other than
+// 128, 192 and 256 (its Hopper form takes those). Each source instantiates
+// it in a kernel of its own name.
 //   z1  = x + fma(acc_proj, s, b),      acc_proj = quant(attn, inv_proj) @ wproj
 //   f   = gelu(fma(acc_fc1, s, b)),     acc_fc1  = quant(LN(z1), inv_fc1) @ wfc1
 //   out = z1 + fma(acc_fc2, s, b)       (multi: the stacked association)

@@ -36,7 +36,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +45,7 @@ from dlq_tpu_torch import _build
 from dlq_tpu_torch.models.common import fp32_matmul
 
 HEAD_DIMS = (32, 64)   # the kernel's compiled head widths
-MAX_KEYS = 256         # the kernel keeps a row's scores in registers
+MAX_KEYS = 256         # 16 warps of 16 query rows
 
 
 def softmax_scale(hd: int) -> float:
@@ -78,6 +78,15 @@ def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_
     out = torch.zeros((B, N, lanes), dtype=o.dtype, device=q.device)
     out[..., :hw] = o
     return out
+
+
+def mhsa_plan(rows: int, n_valid: int, hd: int) -> Tuple[int, int]:
+    """K6's (threads a block, dynamic shared-memory bytes): one warp per 16
+    query rows, and a 2-stage ring of Q over the rows and K, V over the
+    n_valid keys, each rounded up to 16 rows of hd + 8 bf16 lanes
+    (``csrc/mhsa.cu``'s launch, which the card test holds to this)."""
+    r16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    return r16(rows) // 16 * 32, 2 * (r16(rows) + 2 * r16(n_valid)) * (hd + 8) * 2
 
 
 # the kernel entry of each dtype, and the element count of its 16-byte loads

@@ -589,6 +589,27 @@ def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
     return out
 
 
+# K7's launch plan on Hopper (Dp 128, 192, 256; csrc/vit_post_w8.cu's
+# make_plan, which the card test holds to this): 128-row tiles, weight
+# stages of Dp x 64 bytes, chunks of 64 hidden lanes
+K7_TILE, K7_STAGE_K, K7_CHUNK, K7_MAX_STAGES, SMEM_MAX = 128, 64, 64, 8, 232448
+
+
+def vit_post_w8_plan(dp: int, hp: int, m: int, sms: int) -> Tuple[int, int, int, int]:
+    """K7's (ring stages, dynamic shared-memory bytes, blocks, rows a block)
+    for Dp and Hp lanes and M rows on ``sms`` SMs. Shared memory: z1 in
+    fp32, the int8 codes of attn/LN2 and of one GELU chunk for the 128-row
+    tile, the scales and biases of proj, FC2 and FC1 (8 bytes a lane), then
+    as many Dp x 64-byte weight stages as fit (at most 8) with two 8-byte
+    mbarriers each. Each block takes a contiguous run of ceil(M / sms) rows
+    (at least 64), walked in tiles of 128, the last one short."""
+    fixed = K7_TILE * dp * 4 + K7_TILE * dp + K7_TILE * K7_CHUNK + (2 * dp + hp) * 8
+    stage = dp * K7_STAGE_K
+    stages = min(K7_MAX_STAGES, (SMEM_MAX - fixed - 2 * 8 * K7_MAX_STAGES) // stage)
+    rows = max(_cdiv(m, sms), 64)
+    return stages, fixed + stages * stage + 2 * 8 * stages, _cdiv(m, rows), rows
+
+
 def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                       gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
                       multi: bool = False) -> torch.Tensor:

@@ -537,3 +537,97 @@ def test_probe_kernels_on_card():
             assert ok, f"{name} {key}: {text}"
             n += 1
     assert n == 23
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("rows", [1, 17, 64, 65, 197, 200, 256])
+def test_mhsa_persistent_walk_on_card(rows, hd):
+    """K6 against its plain version at every row count its query tiles and
+    key chunks split differently (one row, a partial 16-row tile, a whole
+    64-key chunk and one key past it, DeiT's 197 and 200, the loose 256):
+    n_valid < rows (masked keys); q/k/v as lane slices of one [B, N, 3 Dp]
+    stream with out_lanes = Dp > heads * hd (pad lanes zero), and as three
+    separate tensors; B * heads below and well above two items per SM
+    (132 SMs), so the persistent walk runs one item and several per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import ctypes
+
+    from dlq_tpu_torch import _build
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain, mhsa_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100 + rows + hd)
+    heads = 3
+    hw = heads * hd
+    dp = (hw + 63) // 64 * 64 + 64   # lanes past the last head
+    n_valid = max(1, rows - 3)
+    for bsz in (2, 200):
+        x = torch.from_numpy(rng.normal(0, 1.5, (bsz, rows, 3 * dp)).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        forms = [((x[..., :hw], x[..., dp: dp + hw], x[..., 2 * dp: 2 * dp + hw]), dp),
+                 (tuple(t.contiguous() for t in (x[..., :hw], x[..., dp: dp + hw],
+                                                 x[..., 2 * dp: 2 * dp + hw])), None)]
+        for views, lanes in forms:
+            before, shape = mhsa.launches, mhsa.by_shape[(bsz, rows, heads, hd, n_valid)]
+            got = mhsa(*views, heads, n_valid, out_lanes=lanes)
+            assert mhsa.launches == before + 1
+            assert mhsa.by_shape[(bsz, rows, heads, hd, n_valid)] == shape + 1
+            ref = mhsa_plain(*views, heads, n_valid, out_lanes=lanes)
+            assert got.shape == ref.shape and got.dtype == torch.bfloat16
+            _agree(got, ref, 0.99, 0.05)
+            assert not got[..., hw:].float().abs().any()
+    out = (ctypes.c_int * 2)()
+    fn = _build.library("mhsa").dlq_mhsa_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    _build.check(fn(rows, n_valid, hd, ctypes.cast(out, ctypes.c_void_p)), "mhsa_plan")
+    assert tuple(out) == mhsa_plan(rows, n_valid, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 72, 400, 51200])
+def test_vit_post_w8_persistent_tiles_on_card(m, dp):
+    """K7 against its plain version at row counts on both sides of its
+    64-row warpgroup halves and 128-row tiles (1, 63, 64, 65, 72, 400) and
+    at DeiT-Tiny batch 256 (51,200 rows: about 388 rows a block on 132
+    SMs, so each block's last tile is short), Dp 128/192/256 with d_valid
+    < Dp (pad lanes), every residual/output dtype pair, both FC2
+    associations and both GELUs; then the launch plan the kernel takes
+    against ``vit_post_w8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import ctypes
+
+    from dlq_tpu_torch import _build
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w8, vit_post_w8_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1000 + m + dp)
+    d, hp = dp - 32, 384
+    blk = _vit_block(rng, dp, hp, dev)
+    for k in ("wproj", "wfc1"):
+        blk[k][:, d:] = 0
+    for k in ("wproj", "sproj", "bproj", "wfc2", "sfc2", "bfc2"):
+        blk[k][d:] = 0
+    blk["ln2"][:, d:] = 0
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    attn = torch.from_numpy(rng.normal(0, 1, (1, m, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+    for din in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, din)
+        for dout in (torch.bfloat16, torch.float32):
+            for multi in (False, True):
+                for tanh in (False, True):
+                    got = vit_block_post_w8(y, attn, blk, d, tanh, dout, multi)
+                    assert got.dtype == dout and got.shape == y.shape
+                    _agree(got, vit_block_post_plain(y, attn, blk, d, tanh, dout, multi), 0.95, 0.25)
+    out = (ctypes.c_int * 4)()
+    fn = _build.library("vit_post_w8").dlq_vit_post_w8_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    _build.check(fn(dp, hp, m, 0, ctypes.cast(out, ctypes.c_void_p)), "vit_post_w8_plan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tuple(out) == vit_post_w8_plan(dp, hp, m, sms)
