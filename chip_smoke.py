@@ -56,7 +56,8 @@ Phases, one JSON line each:
      the fp32 forward (cosine >= DEIT_W4A8_FP32_COS: the reference's own
      W4A8 error on random weights), its plain-version twin and per layer,
      and profiled; ctx="deploy" at batch 64 with int4_runtime="packed" (K10
-     50 per forward) and "int8" (K2 50), whose logits must be bit-identical;
+     50 per forward) and "int8" (K2 50), whose logits must be bit-identical,
+     each then timed at batch 256 (the "packed" forward also profiled);
      and ctx="block" with int4_runtime="int8" (the W8 path: K5, K6, K7);
   8. DeiT-Tiny W4A16 (the same weights quantized weight-only): K11
      vit_pre_w4 and K12 vit_post_w4 at every dtype form of its block layer
@@ -70,9 +71,9 @@ Phases, one JSON line each:
      own weight-only error), its plain-version twin and per layer, and
      profiled; an INT4_WEIGHT_ONLY_G128 store through ctx="deploy" at batch
      64 (K13 13 launches per forward), gated the same way
-     (DEIT_G128_FP32_COS); then group-wise int4 sites with and without
-     activation scales on the card (K13, or the dequantized route where K13
-     does not tile the group);
+     (DEIT_G128_FP32_COS), then timed at batch 256 and profiled; then group-wise int4
+     sites with and without activation scales on the card (K13, or the
+     dequantized route where K13 does not tile the group);
   9. DeiT-Tiny bf16 and the fused LayerNorms (the same fp32 weights): K14
      vit_pre_bf16 and K15 vit_post_bf16 at the tight (200/192) and loose
      (256/256) pads, K6 at 256 rows, K16 layernorm_fused and K17
@@ -624,12 +625,16 @@ def _epi_params(gen, oc, k, dev):
 
 def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=2,
          library=None, tol=None, peak=PEAK_INT8_OPS, library_name=INT_MM, rel=None,
-         no_library=NO_INT8_CONV, **extra):
+         no_library=NO_INT8_CONV, spun=False, **extra):
     """One kernel shape: held against its plain version (bit-identical; or
     with ``tol`` = (fraction of outputs equal, largest difference), or
     (fraction within near x (1 + |plain|), largest difference, near); or
     with ``rel`` = (bound, mag): every difference within bound x mag),
-    timed beside the plain version, the library call and the bound."""
+    timed beside the plain version, the library call and the bound. With
+    ``spun``, the kernel and the library call are also timed as device time
+    (``device_ms``, ``library_device_ms``: the card spins while the host
+    enqueues each window), which a launch shorter than its host-side cost
+    needs."""
     torch.cuda.synchronize()
     diff = (got.float() - ref.float()).abs()
     err = float(diff.max())
@@ -657,6 +662,11 @@ def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=
            "library_ms": time_ms(library) if library is not None else None,
            "library": library_name if library is not None else no_library,
            "launches_per_forward": per}
+    if spun:
+        from dlq_tpu_torch.tools._probe import spun_ms
+
+        row["device_ms"] = spun_ms(fn, 20, warmup=2, reps=3)
+        row["library_device_ms"] = spun_ms(library, 20, warmup=2, reps=3) if library else None
     emit_row(row)
     return row
 
@@ -960,7 +970,8 @@ def check_w4a8_kernels(dev):
 def check_int4a8_matmul(dev):
     """K10 at DeiT-Tiny's six deploy shapes at batch 256, bit-identical to
     its plain version, on int4 weights quantized from random ones and
-    repacked as the deploy context repacks them."""
+    repacked as the deploy context repacks them; K10 and `_int_mm` also
+    timed as device time."""
     from dlq_tpu_torch.ops.matmul_int4a8 import (
         matmul_int4a8, matmul_int4a8_plain, pack_int4a8_weight, unpack_halves_kmajor,
     )
@@ -985,7 +996,7 @@ def check_int4a8_matmul(dev):
             lambda: matmul_int4a8(x, pk, scale, bias, relu),
             lambda: matmul_int4a8_plain(x, pk, scale, bias, relu),
             2.0 * m * n * k, m * k + k * n // 2 + 8 * n + got.numel() * 4, per, plain_iters=5,
-            library=lambda: torch._int_mm(x, w8), relu=relu, out="fp32"))
+            library=lambda: torch._int_mm(x, w8), relu=relu, out="fp32", spun=True))
         del x, got
     return rows
 
@@ -1064,7 +1075,8 @@ def check_int4_matmul(dev):
     """K13 at DeiT-Tiny's two G128 deploy shapes at batch 256, on group-wise
     int4 weights quantized from random ones and repacked as the deploy
     context repacks them; each output within K13_REL of the sum of its
-    products' magnitudes from the plain version."""
+    products' magnitudes from the plain version; K13 and the bf16 matmul
+    also timed as device time."""
     from dlq_tpu_torch.models.common import fp32_matmul
     from dlq_tpu_torch.ops.matmul_int4 import (
         dequantize_bf16, matmul_int4, matmul_int4_plain, pack_int4_weight,
@@ -1091,7 +1103,7 @@ def check_int4_matmul(dev):
             lambda: matmul_int4(x, pk, bias, relu), lambda: matmul_int4_plain(x, pk, bias, relu),
             2.0 * m * n * k, m * k * 2 + k * n // 2 + pk.sc.numel() * 2 + 4 * n + got.numel() * 4,
             per, library=lambda: torch.matmul(x, w), peak=PEAK_BF16, library_name=HMM,
-            rel=(K13_REL, mag), relu=relu, out="fp32"))
+            rel=(K13_REL, mag), relu=relu, out="fp32", spun=True))
         del x, got, mag
     return rows
 
@@ -2090,12 +2102,18 @@ def deit_w4a8_paths(dev, card, d, act_scales, images):
             lpd = plain_twin(e, x0[:TOTALS_BATCH], f"deit_tiny deploy {rt}")
             cos_pd = gate(lg[rt], lpd, f"deit_tiny deploy {rt} vs its plain versions",
                           DEIT_TWIN_COS, top1=False)[1]
+            # the forward K10 (or K2) carries, timed at the main paths' batch
+            ms = time_ms(lambda: e._fn(e.params, xt), iters=10)
             emit({"phase": f"deit_deploy_w4a8_{rt}", "model": "deit_tiny", "batch": TOTALS_BATCH,
                   "int4_runtime": rt, "launches": c, "logits_cosine_vs_fp32": cos_d,
                   "top1_agreement_vs_fp32": agree_d, "fp32_gelu": "exact", "top1_gated": False,
                   "top1_vs_fp32": top1_report(lg[rt], ref["exact"][:TOTALS_BATCH]),
                   "logits_cosine_vs_plain_versions": cos_pd,
-                  "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg[rt], lpd)})
+                  "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg[rt], lpd),
+                  "timed_batch": BATCH, "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
+                  "card": card})
+            if rt == "packed":
+                profile_forward(e, xt, "deit_tiny_deploy_w4a8_packed")
             del e
         # the same int32 sums and epilogue on K10 and K2, and K6 is
         # deterministic: the two runtimes give the same logits bit for bit
@@ -2204,13 +2222,18 @@ def deit_w4a16_paths(dev, card, d, images):
         lpd = plain_twin(e, x0[:TOTALS_BATCH], "deit_tiny deploy G128")
         cos_pd = gate(lg, lpd, "deit_tiny deploy G128 vs its plain versions", DEIT_TWIN_COS,
                       top1=False)[1]
+        # the forward K13 carries, timed at the main paths' batch
+        ms = time_ms(lambda: e._fn(e.params, xt), iters=10)
         emit({"phase": "deit_deploy_g128", "model": "deit_tiny", "batch": TOTALS_BATCH,
               "scheme": "INT4_WEIGHT_ONLY_G128", "group_wise_int4_sites": len(g_sites),
               "launches": c, "logits_cosine_vs_fp32": cos_d, "top1_agreement_vs_fp32": agree_d,
               "fp32_gelu": "exact", "top1_gated": False,
               "top1_vs_fp32": top1_report(lg, ref["exact"][:TOTALS_BATCH]),
               "logits_cosine_vs_plain_versions": cos_pd,
-              "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lpd)})
+              "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lpd),
+              "timed_batch": BATCH, "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
+              "card": card})
+        profile_forward(e, xt, "deit_tiny_deploy_g128")
         del e
     torch.cuda.empty_cache()
     return out
@@ -2417,6 +2440,7 @@ def profile_forward(eng, xt, what, forwards=3):
           "device_ms_per_forward": dev_us / forwards / 1e3 if dev_us else "not measured",
           "device_idle_share": 1.0 - dev_us / wall_us if dev_us else "not measured",
           "top_kernels": [{"name": e.key[:160], "ms_per_forward": e.self_device_time_total / forwards / 1e3,
+                           "share_of_device": e.self_device_time_total / dev_us if dev_us else None,
                            "launches_per_forward": e.count / forwards} for e in kern[:16]]})
 
 

@@ -29,6 +29,7 @@ version: outputs agree to a sum-order tolerance, not bit for bit.
 ``matmul_int4`` launches the kernel for a CUDA tensor and runs
 ``matmul_int4_plain`` for a CPU tensor. ``matmul_int4.launches`` counts kernel
 launches, ``matmul_int4.by_shape`` counts them per (M, K, N, relu).
+``ops.w4plan.matmul_int4_plan`` mirrors the kernel's launch plan.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ W[k + Kp/2, n]: the layout the kernel streams.
 ``matmul_int4a8`` launches the kernel for a CUDA tensor and runs
 ``matmul_int4a8_plain`` for a CPU tensor. ``matmul_int4a8.launches`` counts
 kernel launches, ``matmul_int4a8.by_shape`` counts them per (M, K, N, relu).
+``ops.w4plan.matmul_int4a8_plan`` mirrors the kernel's launch plan.
 """
 
 from __future__ import annotations

@@ -631,3 +631,138 @@ def test_vit_post_w8_persistent_tiles_on_card(m, dp):
     _build.check(fn(dp, hp, m, 0, ctypes.cast(out, ctypes.c_void_p)), "vit_post_w8_plan")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert tuple(out) == vit_post_w8_plan(dp, hp, m, sms)
+
+
+def _plan_on_card(lib: str, name: str, args):
+    """A kernel library's own launch plan (its C entry ``dlq_<name>``)."""
+    import ctypes
+
+    from dlq_tpu_torch import _build
+
+    out = (ctypes.c_int * 5)()
+    fn = getattr(_build.library(lib), f"dlq_{name}")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    _build.check(fn(*args, ctypes.cast(out, ctypes.c_void_p)), name)
+    return tuple(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [18, 192, 768])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 50432])
+def test_matmul_int4a8_persistent_walk_on_card(m, k):
+    """K10 bit-identical to its plain version (exact int32 sums) at row
+    counts on both sides of its 128-row items and at DeiT-Tiny batch 256
+    (50,432 rows: 394 tiles, so every block walks several items), K = 18
+    (A rows not 16-byte aligned: the first form), 192 and 768, N = 1, 63,
+    64, 192, 576 and 1000 (one slice to 16; N % 4 != 0 takes scalar stores), relu on and off;
+    then the launch plan the kernel takes against ``matmul_int4a8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.matmul_int4a8 import (
+        PackedInt4, matmul_int4a8, matmul_int4a8_plain, pack_halves_kmajor,
+    )
+    from dlq_tpu_torch.ops.w4plan import matmul_int4a8_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2000 + m + k)
+    kp = -(-k // 64) * 64
+    x = _i8(rng, (m, k)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (1, 63, 64, 192, 576, 1000):
+        w = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8))
+        pk = PackedInt4(pack_halves_kmajor(w, kp, n).to(dev), k)
+        scale, bias = _epi(rng, n, k, dev)
+        for relu in (False, True):
+            before = matmul_int4a8.launches
+            got = matmul_int4a8(x, pk, scale * 16.0, bias, relu)
+            assert matmul_int4a8.launches == before + 1
+            assert torch.equal(got, matmul_int4a8_plain(x, pk, scale * 16.0, bias, relu))
+        assert _plan_on_card("matmul_int4a8", "matmul_int4a8_plan", (m, n, kp, 0)) == \
+            matmul_int4a8_plan(m, n, kp, sms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,g", [(16, 16), (192, 16), (192, 32), (192, 128), (768, 16),
+                                 (768, 32), (768, 128)])
+@pytest.mark.parametrize("m", [1, 127, 129, 50432])
+def test_matmul_int4_persistent_walk_on_card(m, k, g):
+    """K13 against its plain version, each output within 2^-14 of the sum of
+    its products' magnitudes (fp32 sums in another order), at K = 16, 192
+    and 768 with groups of 16, 32 and 128 (a last group past K at K 192,
+    g 128), ragged M (1, 127, 129) and DeiT-Tiny batch 256 (50,432 rows:
+    394 tiles), N = 1, 21, 192 and 1000, relu on and off, bias and none;
+    then the launch plan the kernel takes against ``matmul_int4_plan``. The
+    packed weight and its bf16 scales are random bytes (zero past K)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.matmul_int4 import (
+        PackedInt4G, dequantize_bf16, matmul_int4, matmul_int4_plain,
+    )
+    from dlq_tpu_torch.ops.w4plan import matmul_int4_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3000 + m + k + g)
+    kp = -(-k // 64) * 64
+    groups = -(-kp // g)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, relu, with_bias in ((1, True, True), (21, False, False), (192, False, True),
+                               (1000, True, True)):
+        wp = rng.integers(0, 256, (n, kp // 2)).astype(np.uint8)
+        wp[:, k // 2:] = 0
+        sc = rng.uniform(0.005, 0.015, (n, groups)).astype(np.float32)
+        pk = PackedInt4G(torch.from_numpy(wp).to(dev),
+                         torch.from_numpy(sc).to(dev, torch.bfloat16), k, g)
+        b = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev) if with_bias else None
+        before = matmul_int4.launches
+        got = matmul_int4(x, pk, b, relu)
+        assert matmul_int4.launches == before + 1
+        ref = matmul_int4_plain(x, pk, b, relu)
+        mag = x.double().abs() @ dequantize_bf16(pk).double().abs()
+        assert ((got.double() - ref.double()).abs() <= 2.0 ** -14 * mag + 1e-30).all()
+        assert _plan_on_card("matmul_int4", "matmul_int4_plan", (m, n, kp, groups, 0)) == \
+            matmul_int4_plan(m, n, kp, groups, sms)
+
+
+@pytest.mark.gpu
+def test_int4_first_forms_on_card():
+    """The first forms of K10 and K13 (the block-tile kernels that serve a
+    Kp whose 64-column packed slice does not fit beside the Hopper form's
+    ring, and K10's K % 16 != 0, held in the persistent-walk test at K =
+    18): K = 8192 (K13 with groups of 16, 512 scales a column), ragged M
+    and N, against the plain versions as the other card tests hold them;
+    both plans say 0 there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.matmul_int4 import (
+        PackedInt4G, dequantize_bf16, matmul_int4, matmul_int4_plain,
+    )
+    from dlq_tpu_torch.ops.matmul_int4a8 import (
+        PackedInt4, matmul_int4a8, matmul_int4a8_plain, pack_halves_kmajor,
+    )
+    from dlq_tpu_torch.ops.w4plan import matmul_int4_plan, matmul_int4a8_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4000)
+    m, k, n, g = 129, 8192, 70, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert matmul_int4a8_plan(m, n, k, sms)[0] == 0
+    assert _plan_on_card("matmul_int4a8", "matmul_int4a8_plan", (m, n, k, 0))[0] == 0
+    x = _i8(rng, (m, k)).to(dev)
+    w = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8))
+    pk = PackedInt4(pack_halves_kmajor(w, k, n).to(dev), k)
+    scale, bias = _epi(rng, n, k, dev)
+    for relu in (False, True):
+        assert torch.equal(matmul_int4a8(x, pk, scale * 16.0, bias, relu),
+                           matmul_int4a8_plain(x, pk, scale * 16.0, bias, relu))
+    groups = k // g
+    assert matmul_int4_plan(m, n, k, groups, sms)[0] == 0
+    assert _plan_on_card("matmul_int4", "matmul_int4_plan", (m, n, k, groups, 0))[0] == 0
+    wp = rng.integers(0, 256, (n, k // 2)).astype(np.uint8)
+    sc = rng.uniform(0.005, 0.015, (n, groups)).astype(np.float32)
+    pk4 = PackedInt4G(torch.from_numpy(wp).to(dev), torch.from_numpy(sc).to(dev, torch.bfloat16), k, g)
+    xb = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev)
+    got, ref = matmul_int4(xb, pk4, b, True), matmul_int4_plain(xb, pk4, b, True)
+    mag = xb.double().abs() @ dequantize_bf16(pk4).double().abs()
+    assert ((got.double() - ref.double()).abs() <= 2.0 ** -14 * mag + 1e-30).all()
