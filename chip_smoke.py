@@ -13,6 +13,10 @@ Phases, one JSON line each:
      on the card (int8 and fp32 outputs bit-identical), with CUDA-event times
      of the kernel, the plain version, the library call where one exists
      (torch._int_mm for K2), and the least time the card could take (the bound);
+     K1 and K2 (and torch._int_mm) also as device time on a spinning card, each
+     row with the form its launch took, and each K1 shape beside a cuDNN bf16
+     channels-last conv at the same shape (a reference point, not a yardstick:
+     another function);
   3. the main path of each model: seeded random weights calibrated and
      quantized with Engine.quantized, saved as a store, loaded with
      Engine.from_store(ctx="fused2") and driven through classify; gates:
@@ -119,8 +123,11 @@ Phases, one JSON line each:
      wrappers' host cost) beside the plain version, the bound and the one
      PyTorch call where one computes the same function.
 Each main path is driven with every launch count set to 0 just before it
-and read just after. Then the card's name and power limit, the kernel
-summary line and, last, {"ok": true, "device": {...}}. Any failed gate
+and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
+DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
+form (the per-form counts are printed per path). Then the card's name and
+power limit, the kernel summary line and, last, {"ok": true, "device":
+{...}}. Any failed gate
 raises before those lines.
 """
 
@@ -148,6 +155,8 @@ SEED = 0
 NB = 4                    # classify batches per main path
 NO_INT8_CONV = "none: no PyTorch call computes an int8 conv with int32 accumulation on CUDA"
 INT_MM = "torch._int_mm (int32 product only, no epilogue)"
+CUDNN_BF16 = ("reference point, not a yardstick: cuDNN conv in bf16, channels-last, bf16 out "
+              "(another function: no int8 operands, no int32 sums, no epilogue)")
 SDPA = "torch.nn.functional.scaled_dot_product_attention (bf16 [B, heads, N, hd], no mask)"
 HMM = "torch.matmul in bf16 on the dequantized bf16 weights (no epilogue)"
 BMM = "torch.matmul in bf16 on the same bf16 weights (no epilogue)"
@@ -672,10 +681,14 @@ def _row(kernel, key, shape, got, ref, fn, plain, ops, nbytes, per, plain_iters=
 
 
 def check_conv_kernels(dev):
+    import torch.nn.functional as F
+
     from dlq_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain, out_hw, pack_conv_weight
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
+    conv_int8.by_form.clear()
     for case, per in conv_cases().items():
         h, c, oc, k, s, relu, int8_out = case
         pad = k // 2
@@ -689,14 +702,26 @@ def check_conv_kernels(dev):
         # input bytes the conv reads: all of x, or for k < stride (the 1x1/s2
         # downsamples) only the pixels under a tap
         x_bytes = min(x.numel(), BATCH * oh * ow * k * k * c)
+        # the reference point of rows 6-8 (not a yardstick: another function)
+        xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wc = pk.hwio().permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+        def cudnn():
+            return F.conv2d(xc, wc, stride=s, padding=pad)
+
         rows.append(_row(
             "conv_int8", _conv_key(case), f"{BATCH}x{h}x{h}x{c}->{oc} {k}x{k}/s{s}", got, ref,
             lambda: conv_int8(x, pk, s, pad, scale, bias, relu, osc),
             lambda: conv_int8_plain(x, pk, s, pad, scale, bias, relu, osc),
             2.0 * BATCH * oh * ow * oc * k * k * c,
             x_bytes + k * k * c * oc + 8 * oc + got.numel() * got.element_size(), per,
-            relu=relu, out="int8" if int8_out else "fp32"))
-        del x, got, ref
+            relu=relu, out="int8" if int8_out else "fp32", spun=True,
+            form=conv_int8.by_form.most_common(1)[0][0] if conv_int8.by_form else None,
+            cudnn_bf16_ms=time_ms(cudnn), cudnn_bf16_device_ms=spun_ms(cudnn, 20, warmup=2, reps=3),
+            cudnn_bf16=CUDNN_BF16))
+        conv_int8.by_form.clear()
+        del x, got, ref, xc
     return rows
 
 
@@ -705,6 +730,7 @@ def check_matmul_kernel(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows = []
+    matmul_int8.by_form.clear()
     for case, per in matmul_cases().items():
         hw, k, n, relu, int8_out = case
         m = BATCH * hw
@@ -721,7 +747,9 @@ def check_matmul_kernel(dev):
             lambda: matmul_int8_plain(x, pk, scale, bias, relu, osc),
             2.0 * m * n * k, m * k + k * n + 8 * n + got.numel() * got.element_size(), per,
             plain_iters=5, library=lambda: torch._int_mm(x, wt),
-            relu=relu, out="int8" if int8_out else "fp32"))
+            relu=relu, out="int8" if int8_out else "fp32", spun=True,
+            form=matmul_int8.by_form.most_common(1)[0][0] if matmul_int8.by_form else None))
+        matmul_int8.by_form.clear()
         del x, got, ref
     return rows
 
@@ -1478,6 +1506,20 @@ def reset_counts():
     for fn in [*_wrappers().values(), *probes]:
         fn.launches = 0
         fn.by_shape.clear()
+        if hasattr(fn, "by_form"):
+            fn.by_form.clear()
+
+
+# paths on which every K1 and K2 launch must take the Hopper form (their
+# first form serves only the C=3 stems of deploy/pallas and K % 16 != 0)
+HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
+                "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
+
+
+def read_forms():
+    """Launches per form of K1 and K2 since the counts were last set to 0."""
+    ws = _wrappers()
+    return {k: dict(ws[k].by_form) for k in ("conv_int8", "matmul_int8")}
 
 
 def read_counts():
@@ -1491,6 +1533,13 @@ def expect_counts(got, path, forwards, what):
     want = {k: v * forwards for k, v in PER_FORWARD[path].items()}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want} ({forwards} forwards)")
+    forms = read_forms()
+    if path in HOPPER_PATHS:
+        for k, by in forms.items():
+            if by.get("first") or by.get("hopper", 0) != got[k]:
+                raise AssertionError(f"{what}: {k} launches by form {by}, expected all "
+                                     f"{got[k]} on the Hopper form")
+    emit({"phase": "forms", "path": path, "what": what, "forms": forms})
 
 
 def expect_by_shape(got, path, forwards, what):
@@ -2543,6 +2592,12 @@ def probe_summary(rows, counts):
     return out
 
 
+# per-shape times a kernel's rows may carry beside ms / plain_ms / library_ms
+# (device time on a spinning card, yardsticks and reference points)
+EXTRA_TIMES = ("sdpa_bf16_ms", "device_ms", "library_device_ms", "cudnn_bf16_ms",
+               "cudnn_bf16_device_ms")
+
+
 def summary(rows, paths):
     """One entry per kernel. The top-level ``launches`` and per-forward
     ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are those of the
@@ -2640,14 +2695,13 @@ def summary(rows, paths):
                              "bound_ms": tot("bound_ms"),
                              "bound_by": max(bounds)[1],
                              "library_ms": tot("library_ms"),
-                             **({"sdpa_bf16_ms": tot("sdpa_bf16_ms")}
-                                if "sdpa_bf16_ms" in rs[0] else {})})
+                             **{f: tot(f) for f in EXTRA_TIMES if f in rs[0]}})
         m = next(p for p in per_path if p["path"] == main)
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": m["launches"], "max_abs_err": max(r["max_abs_err"] for r in rs),
                     "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-                    **({"sdpa_bf16_ms": m["sdpa_bf16_ms"]} if "sdpa_bf16_ms" in m else {}),
+                    **{f: m[f] for f in EXTRA_TIMES if f in m},
                     "library": rs[0]["library"], "main": main,
                     "per": f"launches: the {main} run of {m['forwards']} forward(s) at batch "
                            f"{m['batch']}; times: one forward at batch {BATCH}",

@@ -58,6 +58,7 @@
 // form fits) run the first form.
 #include <type_traits>
 
+#include "launch.cuh"
 #include "sm90.cuh"
 #include "vit_post.cuh"
 
@@ -415,27 +416,22 @@ __global__ void __launch_bounds__(dlq::THREADS) vit_post_first_kernel(const Args
   dlq::vit_post::body<false, T, TO>(a);
 }
 
+// The shared-memory opt-in: once per device and instantiation (launch.cuh).
 template <int DP, class T, class TO>
-cudaError_t launch(const Args& a, const Plan& pl, cudaStream_t st) {
-  auto k = vit_post_kernel<T, TO, DP>;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+cudaError_t launch(const Args& a, const Plan& pl, int dev, cudaStream_t st) {
+  const cudaError_t e = dlq::opt_in<vit_post_kernel<T, TO, DP>>(dev);
   if (e != cudaSuccess) return e;
-  k<<<pl.grid, THREADS, pl.smem, st>>>(a, pl);
+  vit_post_kernel<T, TO, DP><<<pl.grid, THREADS, pl.smem, st>>>(a, pl);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_dp(const Args& a, int y_f32, int out_f32, const Plan& pl, cudaStream_t st) {
+cudaError_t launch_dp(const Args& a, int y_f32, int out_f32, const Plan& pl, int dev,
+                      cudaStream_t st) {
   using BF = __nv_bfloat16;
-  if (y_f32) return out_f32 ? launch<DP, float, float>(a, pl, st) : launch<DP, float, BF>(a, pl, st);
-  return out_f32 ? launch<DP, BF, float>(a, pl, st) : launch<DP, BF, BF>(a, pl, st);
-}
-
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)e;
+  if (y_f32)
+    return out_f32 ? launch<DP, float, float>(a, pl, dev, st) : launch<DP, float, BF>(a, pl, dev, st);
+  return out_f32 ? launch<DP, BF, float>(a, pl, dev, st) : launch<DP, BF, BF>(a, pl, dev, st);
 }
 
 }  // namespace
@@ -444,8 +440,9 @@ int sm_count(int* sms) {
 // bytes, blocks, rows a block} for Dp, Hp, M on `sms` SMs (0: this card's).
 extern "C" int dlq_vit_post_w8_plan(int Dp, int Hp, int M, int sms, int* out) {
   if (sms == 0) {
-    const int e = sm_count(&sms);
-    if (e != 0) return e;
+    int dev = 0;
+    const cudaError_t e = dlq::device(&dev, &sms);
+    if (e != cudaSuccess) return (int)e;
   }
   const Plan p = make_plan(Dp, Hp, M, sms);
   out[0] = p.stages, out[1] = p.smem, out[2] = p.grid, out[3] = p.rows;
@@ -471,16 +468,16 @@ extern "C" int dlq_vit_post_w8(const void* y, int y_f32, const __nv_bfloat16* at
   }
   if (Hp <= 0 || Hp % HC != 0 || d_valid <= 0 || d_valid > Dp) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  int sms = 0;
-  const int e = sm_count(&sms);
-  if (e != 0) return e;
+  int dev = 0, sms = 0;
+  const cudaError_t e = dlq::device(&dev, &sms);   // once per device (launch.cuh)
+  if (e != cudaSuccess) return (int)e;
   const Plan pl = make_plan(Dp, Hp, M, sms);
   if (pl.stages < 3) return (int)cudaErrorInvalidValue;
   const Args a{y, attn, inv_proj, inv_fc1, inv_fc2, wproj, sproj, bproj, ln, wfc1, sfc1, bfc1,
                wfc2, sfc2, bfc2, out, M, Dp, Hp, (float)(1.0 / (double)d_valid), gelu_tanh,
                multi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dp == 128) return (int)launch_dp<128>(a, y_f32, out_f32, pl, st);
-  if (Dp == 192) return (int)launch_dp<192>(a, y_f32, out_f32, pl, st);
-  return (int)launch_dp<256>(a, y_f32, out_f32, pl, st);
+  if (Dp == 128) return (int)launch_dp<128>(a, y_f32, out_f32, pl, dev, st);
+  if (Dp == 192) return (int)launch_dp<192>(a, y_f32, out_f32, pl, dev, st);
+  return (int)launch_dp<256>(a, y_f32, out_f32, pl, dev, st);
 }

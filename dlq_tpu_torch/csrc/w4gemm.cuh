@@ -3,8 +3,9 @@
 // one warp-specialized, persistent body, parameterized by an operation
 // `Op` that says how A's columns map to K, how a packed weight stage becomes
 // a wgmma operand, which wgmma to issue and what the epilogue computes.
-// K2, the same GEMM with an int8 weight, can take this body with an Op
-// whose stage builder copies instead of unpacking.
+// K2, the same GEMM with an int8 weight, does not take this body: its
+// weight slice does not fit beside the ring at ResNet-50's widths, so it
+// streams both operands by TMA (i8gemm.cuh).
 //
 // Work: an item is a 128-row M tile and an N slice of NS columns (64, 128,
 // 192 or 256: a wgmma width). Item i is (M tile i / slices, slice i %
@@ -54,10 +55,10 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
-#include <atomic>
 #include <cstdint>
 
 #include "hgemm.cuh"
+#include "launch.cuh"
 #include "sm90.cuh"
 
 namespace dlq {
@@ -509,34 +510,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   consume<Op, NS>(a, pl, ring, table, staging, full, empty, KT, items);
 }
 
-// The current device and its SM count, looked up once per device (a
-// launch then makes no device query).
-inline cudaError_t device(int* dev, int* sms) {
-  static std::atomic<int> known[64];   // 0: not looked up yet
-  cudaError_t e = cudaGetDevice(dev);
-  if (e != cudaSuccess) return e;
-  if (*dev < 64 && (*sms = known[*dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
-  if (e == cudaSuccess && *dev < 64) known[*dev].store(*sms, std::memory_order_relaxed);
-  return e;
-}
+// The current device and its SM count, looked up once per device
+// (launch.cuh).
+using dlq::device;
 
 // Launch the Hopper form with the plan's slice width. The shared-memory
 // opt-in is made once per device for each instantiation, to the most any
-// plan takes (SMEM_MAX); a refused opt-in returns its error.
+// plan takes (SMEM_MAX, launch.cuh); a refused opt-in returns its error.
 template <class Op, int NS>
 cudaError_t launch_ns(const Args& a, const Plan& pl, const CUtensorMap& tm, int dev,
                       cudaStream_t st) {
-  static std::atomic<unsigned long long> opted{0};   // a bit per device
-  auto k = gemm_kernel<Op, NS>;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit == 0 || !(opted.load(std::memory_order_relaxed) & bit)) {
-    const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    opted.fetch_or(bit, std::memory_order_relaxed);
-  }
-  k<<<pl.grid, THREADS, pl.smem, st>>>(a, pl, tm);
+  const cudaError_t e = opt_in<gemm_kernel<Op, NS>>(dev);
+  if (e != cudaSuccess) return e;
+  gemm_kernel<Op, NS><<<pl.grid, THREADS, pl.smem, st>>>(a, pl, tm);
   return cudaGetLastError();
 }
 

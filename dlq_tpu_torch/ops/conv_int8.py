@@ -19,9 +19,16 @@ Weights are repacked once, at load, into a K-major ``[OC, Kp]`` int8 copy
 the layout the tensor-core fragments read.
 
 ``conv_int8`` launches the kernel for a CUDA tensor (and raises on what the
-kernel does not take) and runs ``conv_int8_plain`` for a CPU tensor.
-``conv_int8.launches`` counts kernel launches, ``conv_int8.by_shape`` counts
-them per (N, H, W, C, OC, KH, KW, stride, pad, relu, int8 out).
+kernel does not take) and runs ``conv_int8_plain`` for a CPU tensor. The
+kernel takes its Hopper form (a halo slab per item by TMA, nine shifted
+int8 ``wgmma`` walks, ``csrc/i8gemm.cuh``) for 1x1 and 3x3 convs with pad
+k // 2 at stride 1 or 2 and C % 64 == 0, and its first form otherwise (the
+C=3 stems), by a static shape rule the kernel library reports
+(``dlq_conv_int8_form``; mirrored with the plan in ``ops.i8plan``): a
+refused launch raises, it never falls back. ``conv_int8.launches`` counts
+kernel launches, ``conv_int8.by_shape`` counts them per (N, H, W, C, OC,
+KH, KW, stride, pad, relu, int8 out), ``conv_int8.by_form`` per form
+(``"hopper"``, ``"first"``).
 """
 
 from __future__ import annotations
@@ -151,6 +158,16 @@ def _entry():
     return fn
 
 
+@functools.cache
+def launch_form(h: int, w: int, c: int, oc: int, kh: int, kw: int, stride: int, pad: int,
+                int8_out: bool) -> str:
+    """The form the kernel library takes for this conv (its own rule)."""
+    fn = _build.library("conv_int8").dlq_conv_int8_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 9
+    return "hopper" if fn(h, w, c, oc, kh, kw, stride, pad, int(int8_out)) else "first"
+
+
 def conv_int8(x: torch.Tensor, pk: PackedConv, stride: int, pad: int,
               scale: torch.Tensor, bias: torch.Tensor, relu: bool = False,
               out_scale: Optional[float] = None) -> torch.Tensor:
@@ -174,8 +191,11 @@ def conv_int8(x: torch.Tensor, pk: PackedConv, stride: int, pad: int,
     conv_int8.launches += 1
     conv_int8.by_shape[(n, h, w, c, oc, pk.kh, pk.kw, stride, pad, bool(relu),
                         out_scale is not None)] += 1
+    conv_int8.by_form[launch_form(h, w, c, oc, pk.kh, pk.kw, stride, pad,
+                                  out_scale is not None)] += 1
     return out
 
 
 conv_int8.launches = 0
 conv_int8.by_shape = collections.Counter()
+conv_int8.by_form = collections.Counter()

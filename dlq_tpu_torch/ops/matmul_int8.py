@@ -14,9 +14,14 @@ int8-interchange ones. The weight is a ``PackedConv`` of a 1x1 kernel:
 K-major ``[N, Kp]``, repacked once at load (``pack_dense_weight``).
 
 ``matmul_int8`` launches the kernel for a CUDA tensor and runs
-``matmul_int8_plain`` for a CPU tensor. ``matmul_int8.launches`` counts
-kernel launches, ``matmul_int8.by_shape`` counts them per (M, K, N, relu,
-int8 out).
+``matmul_int8_plain`` for a CPU tensor. The kernel takes its Hopper form
+(persistent, TMA-fed int8 ``wgmma``, ``csrc/i8gemm.cuh``) for K % 16 == 0
+and its first form otherwise, by a static shape rule the kernel library
+reports (``dlq_matmul_int8_form``; mirrored with the plan in
+``ops.i8plan``): a refused launch raises, it never falls back.
+``matmul_int8.launches`` counts kernel launches, ``matmul_int8.by_shape``
+counts them per (M, K, N, relu, int8 out), ``matmul_int8.by_form`` per
+form (``"hopper"``, ``"first"``).
 """
 
 from __future__ import annotations
@@ -58,6 +63,15 @@ def _entry():
     return fn
 
 
+@functools.cache
+def launch_form(k: int) -> str:
+    """The form the kernel library takes for depth K (its own rule)."""
+    fn = _build.library("matmul_int8").dlq_matmul_int8_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return "hopper" if fn(k) else "first"
+
+
 def matmul_int8(x: torch.Tensor, pk: PackedConv, scale: torch.Tensor,
                 bias: torch.Tensor, relu: bool = False,
                 out_scale: Optional[float] = None) -> torch.Tensor:
@@ -80,8 +94,10 @@ def matmul_int8(x: torch.Tensor, pk: PackedConv, scale: torch.Tensor,
     _build.check(rc, "matmul_int8")
     matmul_int8.launches += 1
     matmul_int8.by_shape[(m, k, n, bool(relu), out_scale is not None)] += 1
+    matmul_int8.by_form[launch_form(k)] += 1
     return out
 
 
 matmul_int8.launches = 0
 matmul_int8.by_shape = collections.Counter()
+matmul_int8.by_form = collections.Counter()

@@ -766,3 +766,140 @@ def test_int4_first_forms_on_card():
     got, ref = matmul_int4(xb, pk4, b, True), matmul_int4_plain(xb, pk4, b, True)
     mag = xb.double().abs() @ dequantize_bf16(pk4).double().abs()
     assert ((got.double() - ref.double()).abs() <= 2.0 ** -14 * mag + 1e-30).all()
+
+
+def _plan_on_card_n(lib: str, name: str, args, n_out: int):
+    """A kernel library's own plan (its C entry ``dlq_<name>``, ``n_out`` ints)."""
+    import ctypes
+
+    from dlq_tpu_torch import _build
+
+    out = (ctypes.c_int * n_out)()
+    fn = getattr(_build.library(lib), f"dlq_{name}")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    _build.check(fn(*args, ctypes.cast(out, ctypes.c_void_p)), name)
+    return tuple(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [18, 48, 64, 256, 2048])
+@pytest.mark.parametrize("m", [1, 127, 129, 3136 * 3 + 5])
+def test_matmul_int8_hopper_on_card(m, k):
+    """K2 bit-identical to its plain version (exact int32 sums, the same
+    fp32 fma and dividing requant) at ragged M on both sides of the 128-row
+    items and over several walks (9,413 rows: 74 tiles), K = 18 (rows of x
+    not 16-byte aligned: the first form), 48, 64, 256 and 2048, N = 1, 64,
+    192, 256, 520 and 1000 (resident and streamed slices, the narrow
+    64-column plan, 2- and 4-byte stores where a row is not a 16-byte
+    multiple), int8 and fp32 out, relu on and off; the form each launch took
+    (its counter) and the plan the kernel takes against ``ops.i8plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.i8plan import matmul_int8_form, matmul_int8_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5000 + m + k)
+    kp = -(-k // 64) * 64
+    x = _i8(rng, (m, k)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (1, 64, 192, 256, 520, 1000):
+        pk = pack_dense_weight(_i8(rng, (k, n)).to(dev))
+        scale, bias = _epi(rng, n, k, dev)
+        for relu, osc in ((False, None), (True, None), (False, 0.025), (True, 0.025)):
+            before = dict(matmul_int8.by_form)
+            got = matmul_int8(x, pk, scale, bias, relu, osc)
+            assert torch.equal(got, matmul_int8_plain(x, pk, scale, bias, relu, osc)), (n, relu, osc)
+            form = matmul_int8_form(k)
+            assert matmul_int8.by_form[form] == before.get(form, 0) + 1
+            assert _plan_on_card_n("matmul_int8", "matmul_int8_plan",
+                                   (m, n, kp, int(osc is not None), 0), 6) == \
+                tuple(matmul_int8_plan(m, n, kp, osc is not None, sms))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,c,oc,k,s", [
+    (56, 64, 64, 3, 1), (28, 128, 128, 3, 1), (14, 256, 256, 3, 1), (7, 512, 512, 3, 1),
+    (56, 64, 128, 3, 2), (28, 256, 256, 3, 2), (14, 512, 512, 3, 2),
+    (56, 64, 128, 1, 2), (28, 512, 1024, 1, 2), (14, 1024, 2048, 1, 2),
+    (13, 64, 192, 3, 1), (9, 128, 64, 3, 2), (30, 64, 1000, 3, 1),
+])
+def test_conv_int8_hopper_on_card(h, c, oc, k, s):
+    """K1's Hopper form bit-identical to its plain version: the 3x3/s1 convs
+    at all four ResNet widths (56^2 x 64 with the resident weight, 28^2 x
+    128, 14^2 x 256 and 7^2 x 512 with two images an item), 3x3/s2 (four
+    phase planes) and 1x1/s2, and off-path shapes (odd sizes, OC 192 and
+    1000), at batch 3 (the last item of a two-image walk is one image) and
+    batch 1 at 56^2; int8 and fp32 out, relu on and off; every launch takes
+    the Hopper form (its counter), and its plan and slab geometry on the card
+    equal ``ops.i8plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.i8plan import conv_geometry, conv_int8_form, conv_int8_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6000 + h + c + oc + k + s)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pad = k // 2
+    pk = pack_conv_weight(_i8(rng, (k, k, c, oc)).to(dev))
+    scale, bias = _epi(rng, oc, k * k * c, dev)
+    for nb in ((1, 3) if h == 56 else (3,)):
+        x = _i8(rng, (nb, h, h, c)).to(dev)
+        for relu, osc in ((False, None), (True, None), (False, 0.025), (True, 0.025)):
+            assert conv_int8_form(h, h, c, oc, k, s, pad, osc is not None) == "hopper"
+            before = conv_int8.by_form["hopper"]
+            got = conv_int8(x, pk, s, pad, scale, bias, relu, osc)
+            assert conv_int8.by_form["hopper"] == before + 1
+            ref = conv_int8_plain(x, pk, s, pad, scale, bias, relu, osc)
+            assert torch.equal(got, ref), (nb, relu, osc, float((got.float() - ref.float()).abs().max()))
+            want = (*conv_int8_plan(nb, h, h, c, oc, k, s, pad, osc is not None, sms),
+                    *conv_geometry(h, h, c, k, s, pad))
+            assert _plan_on_card_n("conv_int8", "conv_int8_plan",
+                                   (nb, h, h, c, oc, k, k, s, pad, int(osc is not None), 0),
+                                   12) == want
+
+
+@pytest.mark.gpu
+def test_conv_int8_first_form_on_card():
+    """K1's first form by the static rule (C % 64 != 0: C = 3, 16 and 96;
+    a 7x7 kernel) bit-identical to its plain version, counted as such."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.i8plan import conv_int8_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7000)
+    for (h, c, oc, k, s) in [(20, 3, 64, 7, 2), (15, 16, 64, 3, 1), (12, 96, 128, 3, 2),
+                             (12, 64, 64, 5, 1)]:
+        x = _i8(rng, (2, h, h, c)).to(dev)
+        pk = pack_conv_weight(_i8(rng, (k, k, c, oc)).to(dev))
+        args = (x, pk, s, k // 2, *_epi(rng, oc, k * k * c, dev), True, 0.025)
+        assert conv_int8_form(h, h, c, oc, k, s, k // 2, True) == "first"
+        before = conv_int8.by_form["first"]
+        assert torch.equal(conv_int8(*args), conv_int8_plain(*args))
+        assert conv_int8.by_form["first"] == before + 1
+
+
+@pytest.mark.gpu
+def test_int8_requant_division_paths_on_card():
+    """The Hopper form's int8 requant divides by the IEEE division's fast
+    path where its operands' exponents lie within +-60 and by the exact
+    division for a warp's half-tile that holds one outside: K1 and K2
+    bit-identical to their plain versions with ordinary scales, with an
+    output scale far from 1 (2^-70, 2^70: every launch takes the exact
+    division), and with sums scaled to exponents near -100 (tiny y)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8000)
+    x = _i8(rng, (300, 256)).to(dev)
+    pk = pack_dense_weight(_i8(rng, (256, 128)).to(dev))
+    xc = _i8(rng, (2, 14, 14, 128)).to(dev)
+    pc = pack_conv_weight(_i8(rng, (3, 3, 128, 128)).to(dev))
+    scale, bias = _epi(rng, 128, 256, dev)
+    for mult, osc in ((1.0, 0.025), (1.0, 2.0 ** -70), (1.0, 2.0 ** 70), (2.0 ** -100, 2.0 ** -100),
+                      (2.0 ** -100, 0.025)):
+        for relu in (False, True):
+            args = (scale * mult, bias * mult, relu, osc)
+            assert torch.equal(matmul_int8(x, pk, *args), matmul_int8_plain(x, pk, *args))
+            cargs = (xc, pc, 1, 1, scale * mult, bias * mult, relu, osc)
+            assert torch.equal(conv_int8(*cargs), conv_int8_plain(*cargs))

@@ -1,11 +1,15 @@
 """The launch plans of the redesigned K6 (``mhsa_plan``), K7
-(``vit_post_w8_plan``), K10 (``matmul_int4a8_plan``) and K13
-(``matmul_int4_plan``): threads, shared memory, ring stages and the
-persistent grid's walk, at DeiT-Tiny's shapes (tight pads: 200 rows, Dp
-192; loose pads: 256 rows, Dp 256; the deploy path's 197 rows and its six
-dense sites) and around them. The kernels compute the same plans on the
-card; the card tests hold them to these functions."""
+(``vit_post_w8_plan``), K10 (``matmul_int4a8_plan``), K13
+(``matmul_int4_plan``), K2 (``matmul_int8_plan``) and K1
+(``conv_int8_plan`` and its slab geometry): threads, shared memory, ring
+stages and the persistent grid's walk, at DeiT-Tiny's shapes (tight pads:
+200 rows, Dp 192; loose pads: 256 rows, Dp 256; the deploy path's 197 rows
+and its six dense sites), ResNet-18/50's ``fused2`` convs and denses, and
+around them; and K1's halo-slab design emulated in numpy against a direct
+conv. The kernels compute the same plans on the card; the card tests hold
+them to these functions."""
 
+import numpy as np
 import pytest
 
 from dlq_tpu_torch.ops.attention import MAX_KEYS, mhsa_plan
@@ -140,3 +144,210 @@ def test_w4_plan_leaves_the_first_form_past_its_budget():
     ring has no plan: the kernels run their first form there."""
     assert matmul_int4a8_plan(50432, 1000, 8192, H100_SMS) == (0,) * 5
     assert matmul_int4a8_plan(50432, 1000, 4096, H100_SMS)[0] == 64
+
+
+# ---- K2 and K1: the int8 Hopper form's plan (ops.i8plan) ----
+
+from dlq_tpu_torch.ops import i8plan  # noqa: E402
+
+# ResNet-50 fused2's 1x1/s1 convs and both fcs, DeiT-Tiny's six deploy
+# sites: (rows per image, K, N, int8 out)
+K2_SITES = [
+    (1, 512, 1000, False), (3136, 64, 64, True), (3136, 64, 256, True), (3136, 256, 64, True),
+    (3136, 256, 128, True), (784, 128, 512, True), (784, 512, 128, True), (784, 512, 256, True),
+    (196, 256, 1024, True), (196, 1024, 256, True), (196, 1024, 512, True), (49, 512, 2048, True),
+    (49, 512, 2048, False), (49, 2048, 512, True), (1, 2048, 1000, False),
+    (196, 768, 192, False), (197, 192, 576, False), (197, 192, 192, False),
+    (197, 192, 768, False), (197, 768, 192, False), (1, 192, 1000, False)]
+
+# ResNet-18 / -50 fused2's convs on K1: (H, C, OC, k, stride, int8 out)
+K1_SITES = [
+    (56, 64, 64, 3, 1, True), (56, 64, 128, 3, 2, True), (56, 64, 128, 1, 2, True),
+    (28, 128, 128, 3, 1, True), (28, 128, 256, 3, 2, True), (28, 128, 256, 1, 2, True),
+    (14, 256, 256, 3, 1, True), (14, 256, 512, 3, 2, True), (14, 256, 512, 1, 2, True),
+    (7, 512, 512, 3, 1, True), (7, 512, 512, 3, 1, False), (56, 128, 128, 3, 2, True),
+    (28, 256, 256, 3, 2, True), (14, 512, 512, 3, 2, True), (56, 256, 512, 1, 2, True),
+    (28, 512, 1024, 1, 2, True), (14, 1024, 2048, 1, 2, True)]
+
+
+def _i8_check_plan(p, n, resident_ok=True):
+    """A fitting plan: a slice width covering N, stage counts in range, a
+    resident slice only with one slice, shared memory within the opt-in
+    limit, at most one block per SM and a grid that is a multiple of the
+    slice count (or all SMs)."""
+    assert p.ns in i8plan.I8_WIDTHS and p.slices == -(-n // p.ns)
+    assert p.smem <= i8plan.SMEM_MAX and 1 <= p.grid <= H100_SMS
+    if p.b_stages == 0:
+        assert resident_ok and p.slices == 1 and 4 <= p.a_stages <= 8
+    else:
+        assert 3 <= p.b_stages <= 8 and 2 <= p.a_stages <= 8
+    assert p.grid % p.slices == 0 or p.grid == H100_SMS
+
+
+@pytest.mark.parametrize("hw,k,n,i8", K2_SITES)
+@pytest.mark.parametrize("batch", [64, 256])
+def test_matmul_int8_plan_at_main_sites(hw, k, n, i8, batch):
+    """K2 at every ResNet-50 ``fused2`` and DeiT-Tiny deploy site: the
+    Hopper form (K % 16 == 0) with a plan that fits."""
+    assert i8plan.matmul_int8_form(k) == "hopper"
+    p = i8plan.matmul_int8_plan(batch * hw, n, -(-k // 64) * 64, i8, H100_SMS)
+    _i8_check_plan(p, n)
+
+
+@pytest.mark.parametrize("m,k,n,i8,want", [
+    (256 * 3136, 64, 64, True, (64, 1, 8, 0, 75408, 132)),        # R50 layer1.0.conv1: resident
+    (256 * 3136, 256, 128, True, (128, 1, 8, 0, 108688, 132)),    # layer2.0.conv1
+    (256 * 196, 1024, 256, True, (256, 1, 8, 8, 216336, 132)),    # layer3 conv1: streamed
+    (256 * 49, 512, 2048, False, (256, 8, 6, 6, 217296, 128)),    # the fp32 final junction
+    (256, 2048, 1000, False, (64, 16, 8, 8, 117520, 32)),         # the fc: narrowed to 64
+    (256 * 197, 192, 768, False, (256, 3, 6, 6, 217296, 132)),    # DeiT l*.fc1
+])
+def test_matmul_int8_plan_values(m, k, n, i8, want):
+    """K2's plan at a few sites, value for value (slice width, slices, A
+    stages, B stages (0: resident slice), shared memory, blocks)."""
+    assert tuple(i8plan.matmul_int8_plan(m, n, -(-k // 64) * 64, i8, H100_SMS)) == want
+
+
+@pytest.mark.parametrize("k", [16, 48, 64, 1024, 2048, 4096])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 256, 50432, 802816])
+def test_matmul_int8_plan_covers_outputs(m, k):
+    """K2's walk: every (128-row tile, slice) item exactly once over the
+    blocks, each block on one slice; N from 1 to 2048, int8 and fp32."""
+    for n in (1, 63, 64, 65, 256, 520, 1000, 2048):
+        for i8 in (False, True):
+            p = i8plan.matmul_int8_plan(m, n, -(-k // 64) * 64, i8, H100_SMS)
+            _i8_check_plan(p, n)
+            units = -(-m // 128)
+            walk = [list(range(b, units * p.slices, p.grid)) for b in range(p.grid)]
+            seen = sorted(it for blk in walk for it in blk)
+            assert seen == list(range(units * p.slices))
+            if p.slices <= H100_SMS:
+                assert all(len({it % p.slices for it in blk}) <= 1 for blk in walk)
+
+
+def test_matmul_int8_first_form_rule():
+    """K % 16 != 0 takes the first form (rows of x not 16-byte aligned)."""
+    assert [i8plan.matmul_int8_form(k) for k in (8, 18, 24, 40, 16, 32, 768)] == \
+        ["first"] * 4 + ["hopper"] * 3
+
+
+@pytest.mark.parametrize("h,c,oc,k,s,i8", K1_SITES)
+@pytest.mark.parametrize("batch", [1, 3, 256])
+def test_conv_int8_plan_at_resnet_sites(h, c, oc, k, s, i8, batch):
+    """K1 at every ResNet-18/-50 ``fused2`` conv: the Hopper form, a plan
+    that fits, the slab within its chunk (the last sum row plus the largest
+    tap shift), a resident weight exactly where its one slice fits (OC 64 and
+    128 at 3x3, the 1x1/s2 at 56^2 and 28^2)."""
+    pad = k // 2
+    assert i8plan.conv_int8_form(h, h, c, oc, k, s, pad, i8) == "hopper"
+    g = i8plan.conv_geometry(h, h, c, k, s, pad)
+    p = i8plan.conv_int8_plan(batch, h, h, c, oc, k, s, pad, i8, H100_SMS)
+    _i8_check_plan(p, oc)
+    rows = 128 if g.imgs == 1 else 64
+    assert max(sh for _, sh in i8plan.conv_taps(k, s, g.gw)) + rows <= g.spx
+    assert (p.b_stages == 0) == (p.ns * k * k * c + 4 * i8plan.conv_a_bytes(g) + 8 * p.ns
+                                 + 64 * i8plan.staging_row(p.ns, i8) + 16 * 5 <= i8plan.SMEM_MAX
+                                 and oc <= p.ns)
+
+
+@pytest.mark.parametrize("h,c,k,s,want,waste", [
+    (56, 64, 3, 1, (58, 2, 28, 1, 248, 1), 16 / 128),   # 2 rows of 58: 116 sum rows, 112 valid
+    (28, 128, 3, 1, (30, 4, 7, 1, 192, 1), 16 / 128),   # 4 rows of 30: 120, 112 valid
+    (14, 256, 3, 1, (16, 7, 2, 1, 168, 1), 30 / 128),   # 7 rows of 16: 112, 98 valid
+    (7, 512, 3, 1, (9, 7, 1, 2, 88, 1), 15 / 64),       # a whole image a consumer: 63, 49 valid
+    (56, 64, 3, 2, (29, 4, 7, 1, 160, 4), 16 / 128),    # four phase planes
+    (28, 128, 3, 2, (15, 7, 2, 1, 144, 4), 30 / 128),
+    (14, 256, 3, 2, (8, 7, 1, 2, 80, 4), 15 / 64),
+    (56, 64, 1, 2, (28, 4, 7, 1, 128, 1), 16 / 128),    # 1x1/s2: one plane, no halo
+    (28, 128, 1, 2, (14, 7, 2, 1, 128, 1), 30 / 128),
+    (14, 256, 1, 2, (7, 7, 1, 2, 64, 1), 15 / 64),
+])
+def test_conv_geometry_per_layer(h, c, k, s, want, waste):
+    """K1's slab per ResNet layer: grid width, output rows an item, row
+    blocks an image, images an item, slab pixels a chunk, planes; and the
+    share of an item's wgmma rows (128, or 64 a consumer) that are computed
+    and dropped (halo columns and rows past TOH x GW)."""
+    g = i8plan.conv_geometry(h, h, c, k, s, k // 2)
+    assert tuple(g) == want
+    oh = (h + 2 * (k // 2) - k) // s + 1
+    rows = 128 if g.imgs == 1 else 64
+    assert (rows - g.toh * oh) / rows == pytest.approx(waste)
+
+
+@pytest.mark.parametrize("h,c,oc,k,s,pad", [
+    (224, 3, 64, 7, 2, 3),     # the deploy / pallas stem
+    (56, 3, 64, 3, 1, 1),      # C % 64 != 0
+    (28, 32, 64, 3, 1, 1),
+    (28, 96, 64, 3, 2, 1),
+    (14, 64, 64, 5, 1, 2),     # a 5x5 kernel
+    (14, 64, 64, 3, 1, 0),     # pad != k // 2
+    (14, 64, 64, 3, 3, 1),     # stride 3
+    (260, 64, 64, 3, 1, 1),    # a grid wider than 128
+])
+def test_conv_int8_first_form_rule(h, c, oc, k, s, pad):
+    """What the Hopper form does not take runs the first form."""
+    assert i8plan.conv_geometry(h, h, c, k, s, pad) == i8plan.NO_GEO
+    assert i8plan.conv_int8_form(h, h, c, oc, k, s, pad, True) == "first"
+    assert i8plan.conv_int8_plan(256, h, h, c, oc, k, s, pad, True, H100_SMS) == i8plan.NO_PLAN
+
+
+def _emulate_hopper_conv(x, w, stride, pad, rng):
+    """K1's Hopper form in numpy: for each item and consumer, the slab as
+    the TMA boxes land it (planes of GW x (TOH + e) pixels, out-of-bounds
+    pixels zero, the rest of the chunk's SPX pixels stale: random), each
+    sum row the sum over taps of its shifted slab row against the tap's
+    weights, and the valid rows written to their output pixels."""
+    n, h, wd, c = x.shape
+    k, oc = w.shape[0], w.shape[3]
+    g = i8plan.conv_geometry(h, wd, c, k, stride, pad)
+    oh, ow = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
+    e = (k - 1) // stride
+    taps = i8plan.conv_taps(k, stride, g.gw)
+    out = np.full((n, oh, ow, oc), np.iinfo(np.int64).min)
+    for unit in range(-(-n // g.imgs) * g.rb):
+        ug, rbk = divmod(unit, g.rb)
+        oh0 = rbk * g.toh
+        for cw in (0, 1):
+            rb0, img = (64 * cw, ug) if g.imgs == 1 else (0, ug * 2 + cw)
+            if img >= n:
+                continue
+            slab = rng.integers(-127, 128, (g.planes, g.spx, c))
+            for p in range(g.planes):
+                pa, pb = divmod(p, 2)
+                for r in range(g.toh + e):
+                    for cc in range(g.gw):
+                        ih = stride * oh0 + pa - pad + stride * r
+                        iw = pb - pad + stride * cc
+                        inb = 0 <= ih < h and 0 <= iw < wd
+                        slab[p, r * g.gw + cc] = x[img, ih, iw] if inb else 0
+            for q in range(rb0, rb0 + 64):
+                ohl, j = divmod(q, g.gw)
+                acc = np.zeros(oc, np.int64)
+                for t, (plane, shift) in enumerate(taps):
+                    assert q + shift < g.spx
+                    acc += slab[plane, q + shift] @ w[t // k, t % k]
+                if j < ow and ohl < g.toh and oh0 + ohl < oh:
+                    assert out[img, oh0 + ohl, j, 0] == np.iinfo(np.int64).min
+                    out[img, oh0 + ohl, j] = acc
+    return out
+
+
+@pytest.mark.parametrize("n,h,k,s", [(3, 7, 3, 1), (1, 15, 3, 1), (2, 12, 3, 2), (3, 9, 3, 2),
+                                     (2, 14, 1, 2), (3, 7, 1, 2), (1, 20, 3, 1)])
+def test_conv_hopper_slab_emulation(n, h, k, s):
+    """The halo-slab design gives the conv's exact sums at every output
+    pixel, written once each: the geometry (grid width, rows an item, two
+    images an item, phase planes), the tap shifts, the stale slab pixels
+    reaching only dropped rows, at small shapes of each kind (C = 64)."""
+    rng = np.random.default_rng(n * 100 + h * 10 + k + s)
+    c, oc, pad = 64, 5, k // 2
+    x = rng.integers(-127, 128, (n, h, h, c))
+    w = rng.integers(-127, 128, (k, k, c, oc))
+    got = _emulate_hopper_conv(x, w, s, pad, rng)
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    oh = (h + 2 * pad - k) // s + 1
+    ref = np.zeros((n, oh, oh, oc), np.int64)
+    for kh in range(k):
+        for kw in range(k):
+            ref += xp[:, kh:kh + s * oh:s, kw:kw + s * oh:s] @ w[kh, kw]
+    assert np.array_equal(got, ref)
