@@ -13,10 +13,11 @@ Phases, one JSON line each:
      on the card (int8 and fp32 outputs bit-identical), with CUDA-event times
      of the kernel, the plain version, the library call where one exists
      (torch._int_mm for K2), and the least time the card could take (the bound);
-     K1 and K2 (and torch._int_mm) also as device time on a spinning card, each
-     row with the form its launch took, and each K1 shape beside a cuDNN bf16
-     channels-last conv at the same shape (a reference point, not a yardstick:
-     another function);
+     K1, K2 and K4 (and torch._int_mm) also as device time on a spinning
+     card, each row with the form its launch took, each K1 shape beside a
+     cuDNN bf16 channels-last conv at the same shape (a reference point, not
+     a yardstick: another function), each K4 shape beside the K2 -> K1 -> K2
+     composition of the same block (its yardstick);
   3. the main path of each model: seeded random weights calibrated and
      quantized with Engine.quantized, saved as a store, loaded with
      Engine.from_store(ctx="fused2") and driven through classify; gates:
@@ -40,7 +41,9 @@ Phases, one JSON line each:
      random weights): K5 vit_pre_w8, K6 mhsa and K7 vit_post_w8 at every
      shape of its block path and K2 at its deploy shapes, at batch 256,
      held against their plain versions (>= 0.999 of the outputs equal, the
-     rest one rounding step apart: the kernels sum in another order), with
+     rest one rounding step apart: the kernels sum in another order), K5
+     also bit-identical to its first form and timed as device time beside
+     it, with the form its launch took, with
      torch._int_mm and scaled_dot_product_attention as yardsticks; then
      Engine.quantized, save_quantized with extras, Engine.from_store(
      ctx="block") driven through classify (K5, K6, K7 12 launches each per
@@ -778,8 +781,15 @@ def check_block_kernel(dev):
 
 
 def check_bottleneck_kernel(dev):
+    """K4 at ResNet-50's four identity-block shapes, bit-identical to its
+    plain version, timed also as device time on a spinning card beside the
+    yardstick: the fused2 route's composition of the same block, K2 (conv1,
+    relu, int8 out) -> K1 (conv2) -> K2 (conv3, int8 out), without the
+    junction glue (its skip add and clip are K4's alone)."""
     from dlq_tpu_torch.ops.block_fused import bottleneck_block_fused, bottleneck_block_plain
-    from dlq_tpu_torch.ops.conv_int8 import pack_conv_weight
+    from dlq_tpu_torch.ops.conv_int8 import conv_int8, pack_conv_weight
+    from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     inv = float(np.float32(40.0 / 0.05))
@@ -791,13 +801,31 @@ def check_bottleneck_kernel(dev):
             pack[f"w{i}"] = pack_conv_weight(_rand_int8(gen, (k, k, c, oc), dev))
             pack[f"s{i}"], pack[f"b{i}"], _ = _epi_params(gen, oc, k * k * c, dev)
         w_bytes = c4 * cm + 9 * cm * cm + cm * c4
+        d1 = pack_dense_weight(pack["w1"].hwio()[0, 0].contiguous())
+        d3 = pack_dense_weight(pack["w3"].hwio()[0, 0].contiguous())
+        xm = x.view(-1, c4)
+
+        def composition():
+            h1 = matmul_int8(xm, d1, pack["s1"], pack["b1"], True, 0.05)
+            h2 = conv_int8(h1.view(BATCH, h, h, cm), pack["w2"], 1, 1, pack["s2"], pack["b2"],
+                           True, 0.05)
+            return matmul_int8(h2.view(-1, cm), d3, pack["s3"], pack["b3"], False, 0.05)
+
+        bottleneck_block_fused.by_form.clear()
+        got = bottleneck_block_fused(x, pack)
+        form = bottleneck_block_fused.by_form.most_common(1)[0][0]
         rows.append(_row(
             "bottleneck_block", (BATCH, h, h, c4, cm), f"{BATCH}x{h}x{h}x{c4} mid {cm}",
-            bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack),
+            got, bottleneck_block_plain(x, pack),
             lambda: bottleneck_block_fused(x, pack), lambda: bottleneck_block_plain(x, pack),
             2.0 * BATCH * h * h * w_bytes, 2 * x.numel() + w_bytes + 8 * (2 * cm + c4), per,
-            relu=True, out="int8"))
-        del x
+            relu=True, out="int8", spun=True, form=form,
+            # 6 compositions a window (18 launches): their host enqueue fits the spin
+            yardstick_device_ms=spun_ms(composition, 6, warmup=2, reps=3),
+            yardstick="K2 conv1 (relu, int8) -> K1 conv2 -> K2 conv3 (int8), the fused2 "
+                      "route's three launches without the junction"))
+        bottleneck_block_fused.by_form.clear()
+        del x, xm, got
     return rows
 
 
@@ -847,7 +875,9 @@ def check_vit_kernels(dev):
     from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_plain, vit_block_post_w8, vit_block_pre_plain, vit_block_pre_w8,
+        vit_block_pre_w8_first,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     blk = _vit_layer(gen, dev)
@@ -869,14 +899,27 @@ def check_vit_kernels(dev):
     for (npad, dp, case), per in vit_pre_cases().items():
         p = pads[npad, dp]
         y, bk, mr = p["ys"][case], p["blk"], BATCH * npad
+        vit_block_pre_w8.by_form.clear()
+        got = vit_block_pre_w8(y, bk, d)
+        form = vit_block_pre_w8.by_form.most_common(1)[0][0]
+        # the Hopper form against the first form, bit for bit (the same LN
+        # order and codes, exact sums, the same epilogue)
+        first = vit_block_pre_w8_first(y, bk, d)
+        if not torch.equal(got, first):
+            raise AssertionError(f"vit_pre_w8 {npad}/{dp} {case}: the {form} form differs from "
+                                 f"the first form at {int((got != first).sum())} outputs")
         rows.append(_row(
             "vit_pre_w8", (BATCH, npad, dp, case), f"{BATCH}x{npad}x{dp} {case} -> qkv",
-            vit_block_pre_w8(y, bk, d), vit_block_pre_plain(y, bk, d),
+            got, vit_block_pre_plain(y, bk, d),
             lambda: vit_block_pre_w8(y, bk, d), lambda: vit_block_pre_plain(y, bk, d),
             2.0 * mr * d * 3 * d,
             mr * d * y.element_size() + 3 * d * d + 8 * 3 * d + 8 * d + mr * 3 * dp * 2, per,
             library=lambda: torch._int_mm(p["x1"], p["w"][0]), tol=VIT_TOL, residual=case,
-            out="bf16", pads=f"{npad}/{dp}"))
+            out="bf16", pads=f"{npad}/{dp}", spun=True, form=form, first_form_equal=True,
+            first_form_device_ms=spun_ms(lambda: vit_block_pre_w8_first(y, bk, d), 20,
+                                         warmup=2, reps=3)))
+        vit_block_pre_w8.by_form.clear()
+        del got, first
     qkv = vit_block_pre_plain(y32, blk, d)
     for (n, n_valid), per in mhsa_cases().items():
         # the loose pads' 256 rows: zero rows past the 200 of this stream
@@ -1511,15 +1554,19 @@ def reset_counts():
 
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
-# first form serves only the C=3 stems of deploy/pallas and K % 16 != 0)
+# first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
+# every K4 and K5 launch of every path must (their first forms serve no
+# main-path shape: W > 126; Dp other than 128, 192, 256)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
+FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8")
 
 
 def read_forms():
-    """Launches per form of K1 and K2 since the counts were last set to 0."""
+    """Launches per form of K1, K2, K4 and K5 since the counts were last
+    set to 0."""
     ws = _wrappers()
-    return {k: dict(ws[k].by_form) for k in ("conv_int8", "matmul_int8")}
+    return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
 
 def read_counts():
@@ -1534,11 +1581,12 @@ def expect_counts(got, path, forwards, what):
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want} ({forwards} forwards)")
     forms = read_forms()
-    if path in HOPPER_PATHS:
-        for k, by in forms.items():
-            if by.get("first") or by.get("hopper", 0) != got[k]:
-                raise AssertionError(f"{what}: {k} launches by form {by}, expected all "
-                                     f"{got[k]} on the Hopper form")
+    for k, by in forms.items():
+        if k in ("conv_int8", "matmul_int8") and path not in HOPPER_PATHS:
+            continue
+        if by.get("first") or by.get("hopper", 0) != got[k]:
+            raise AssertionError(f"{what}: {k} launches by form {by}, expected all "
+                                 f"{got[k]} on the Hopper form")
     emit({"phase": "forms", "path": path, "what": what, "forms": forms})
 
 
@@ -2595,7 +2643,7 @@ def probe_summary(rows, counts):
 # per-shape times a kernel's rows may carry beside ms / plain_ms / library_ms
 # (device time on a spinning card, yardsticks and reference points)
 EXTRA_TIMES = ("sdpa_bf16_ms", "device_ms", "library_device_ms", "cudnn_bf16_ms",
-               "cudnn_bf16_device_ms")
+               "cudnn_bf16_device_ms", "yardstick_device_ms", "first_form_device_ms")
 
 
 def summary(rows, paths):

@@ -32,7 +32,15 @@ padded channels are zeros and change no output, so the port keeps CM.
 ``basic_block_fused`` / ``bottleneck_block_fused`` launch their kernel for a
 CUDA tensor and run ``basic_block_plain`` / ``bottleneck_block_plain`` for a
 CPU tensor. Each counts kernel launches (``.launches``) and launches per
-(N, H, W, C) or (N, H, W, C4, CM) (``.by_shape``).
+(N, H, W, C) or (N, H, W, C4, CM) (``.by_shape``); K4 also per form
+(``.by_form``).
+
+K4 has two forms, picked by a static shape rule (``bottleneck_form``,
+mirroring ``dlq_bottleneck_block_form``): the Hopper form wherever its
+item geometry exists (an output grid W + 2 <= 128 wide) and a plan fits
+(``bottleneck_plan``, mirroring ``csrc/bottleneck_block.cu``'s
+``hop::make_plan``: every ResNet-50/101/152 identity Bottleneck), else the
+first form (one block per image and 8x8 tile).
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -191,6 +199,135 @@ def bottleneck_block_plain(x: torch.Tensor, pack: Pack) -> torch.Tensor:
     return torch.clamp(z + r, 0.0, 127.0).to(torch.int8).contiguous()
 
 
+# K4's Hopper form (csrc/bottleneck_block.cu: hop::geometry, hop::make_plan;
+# a change to one is made in both places, and the card test holds the
+# kernel's own plan to these): 128 sum rows a pass (two consumers of 64),
+# 64-byte K stages, A stages of two 64-row boxes, slice widths widest first,
+# 4 down to 2 A stages, 3 to 8 B stages, the opt-in shared-memory limit
+BN_PASS, BN_STAGE, BN_SMEM_MAX = 128, 64, 232448
+BN_A_STAGE = BN_PASS * BN_STAGE
+BN_WIDTHS = (256, 128, 64)
+BN_MAX_A, BN_MIN_A, BN_MAX_B, BN_MIN_B = 4, 2, 8, 3
+BN_LUT = 256   # the skip's requant of each int8 value
+
+
+class BottleneckGeo(NamedTuple):
+    gw: int       # grid width W + 2 (0: no geometry, the first form)
+    toh: int      # output rows an item (an image's, when imgs == 2)
+    rb: int       # strips an image
+    imgs: int     # images an item (2: one per consumer)
+    m1: int       # conv1 rows a region: (toh + 2) x W
+    passes: int   # conv1 passes of 128 rows
+    spx: int      # slab pixels a 16-channel chunk
+
+
+class BottleneckPlan(NamedTuple):
+    nsmax: int     # the widest slice (0: no plan, the first form)
+    ns12: int      # conv1 / conv2 slice: min(CM, nsmax)
+    ns3: int       # conv3 slice
+    a_stages: int
+    b_stages: int  # 0: the three weights are resident
+    smem: int
+    items: int
+    grid: int
+
+
+NO_BN_GEO = BottleneckGeo(0, 0, 0, 0, 0, 0, 0)
+NO_BN_PLAN = BottleneckPlan(0, 0, 0, 0, 0, 0, 0, 0)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bottleneck_geometry(h: int, w: int) -> BottleneckGeo:
+    """K4's items: where a whole image's conv1 rows ((H + 2) x W, the halo
+    rows included) and conv2 sum rows (H x (W + 2), on the slab's grid)
+    each fit 64, two images an item, one per consumer; else strips of TOH
+    full-width output rows of one image, at most 128 // (W + 2), balanced
+    over the image. A slab chunk holds the item's (TOH + 2) x GW pixels and
+    the sum rows plus the largest tap shift, rounded up to 8."""
+    gw = w + 2
+    if h <= 0 or w <= 0:
+        return NO_BN_GEO
+    if (h + 2) * w <= 64 and h * gw <= 64:
+        imgs, toh, rb = 2, h, 1
+    else:
+        t0 = BN_PASS // gw
+        if t0 == 0:
+            return NO_BN_GEO
+        rb = _cdiv(h, t0)
+        imgs, toh = 1, _cdiv(h, rb)
+    m1 = (toh + 2) * w
+    passes = 1 if imgs == 2 else _cdiv(m1, BN_PASS)
+    rows = 64 if imgs == 2 else BN_PASS
+    spx = _cdiv(max(rows + 2 * gw + 2, (toh + 2) * gw), 8) * 8
+    return BottleneckGeo(gw, toh, rb, imgs, m1, passes, spx)
+
+
+def bottleneck_plan(n: int, h: int, w: int, c4: int, cm: int, sms: int) -> BottleneckPlan:
+    """K4's Hopper plan for a batch of n images on ``sms`` SMs. Of the
+    widths 256, 128, 64 (conv1/conv2 slices min(CM, width), conv3 slices
+    the width, each dividing its N), the widest that fits: the three
+    weights resident with the most A stages (4 down to 2), else a B ring
+    of max(ns12, ns3) x 64-byte stages, the most that fit (3 to 8), beside
+    the most A stages that leave them. Shared memory: weights or B ring, A
+    ring (8,192 a stage), the h1 slabs (imgs x CM x SPX), h2 (128 x CM),
+    the output staging (64 rows of NS3 + 16 bytes), the skip's 256-byte
+    table, 16 bytes of mbarriers a stage and 16 more. One block per SM at
+    most, walking items b, b + grid, ..."""
+    g = bottleneck_geometry(h, w)
+    if g.gw == 0 or cm <= 0 or cm % 64 or cm > 512 or c4 <= 0 or c4 % 64:
+        return NO_BN_PLAN
+    wb = 2 * cm * c4 + 9 * cm * cm
+    best = None
+    for nsmax in BN_WIDTHS:
+        ns12, ns3 = min(cm, nsmax), nsmax
+        if cm % ns12 or c4 % ns3 or ns12 not in BN_WIDTHS:
+            continue
+        fixed = g.imgs * cm * g.spx + BN_PASS * cm + 64 * (ns3 + 16) + BN_LUT
+        for sa in range(BN_MAX_A, BN_MIN_A - 1, -1):
+            nbytes = wb + sa * BN_A_STAGE + fixed + 16 * (sa + 1)
+            if nbytes <= BN_SMEM_MAX:
+                best = (nsmax, ns12, ns3, sa, 0, nbytes)
+                break
+        if best is None:
+            bst = max(ns12, ns3) * BN_STAGE
+
+            def b_stages(sa):
+                return (BN_SMEM_MAX - fixed - sa * BN_A_STAGE - 16 * (sa + 1)) // (bst + 16)
+
+            for sa in range(BN_MAX_A, BN_MIN_A - 1, -1):
+                sb = min(BN_MAX_B, b_stages(sa))
+                # the most B stages first, then the most A stages beside them
+                if sb >= BN_MIN_B and (sa == BN_MIN_A or sb >= BN_MAX_B
+                                       or b_stages(sa - 1) == sb):
+                    best = (nsmax, ns12, ns3, sa, sb,
+                            fixed + sa * BN_A_STAGE + sb * bst + 16 * (sa + sb + 1))
+                    break
+        if best is not None:
+            break
+    if best is None:
+        return NO_BN_PLAN
+    items = _cdiv(n, g.imgs) * g.rb
+    return BottleneckPlan(*best, items, min(items, sms))
+
+
+def bottleneck_form(h: int, w: int, c4: int, cm: int) -> str:
+    """K4's form: ``"hopper"`` where the geometry exists and a plan fits
+    (neither depends on the batch or the card), else ``"first"``."""
+    return "hopper" if bottleneck_plan(1, h, w, c4, cm, 1).nsmax else "first"
+
+
+@functools.cache
+def bottleneck_launch_form(h: int, w: int, c4: int, cm: int) -> str:
+    """The form the kernel library takes for this block (its own rule)."""
+    fn = _build.library("bottleneck_block").dlq_bottleneck_block_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return "hopper" if fn(h, w, c4, cm) else "first"
+
+
 @functools.cache
 def _bottleneck_entry():
     fn = _build.library("bottleneck_block").dlq_bottleneck_block
@@ -220,6 +357,9 @@ def bottleneck_block_fused(x: torch.Tensor, pack: Pack) -> torch.Tensor:
     if cm % 64 or cm > 512 or c4 % 64:
         raise ValueError(f"bottleneck_block_fused: CM={cm} must be a multiple of 64 up to 512 "
                          f"and C4={c4} a multiple of 64")
+    for name in ("s1", "b1", "s2", "b2", "s3", "b3"):
+        if pack[name].data_ptr() % 8:
+            raise ValueError(f"bottleneck_block_fused: {name} must be 8-byte aligned")
     out = torch.empty_like(x)
     inv_h1, inv_h2, inv_nxt, rs = pack["inv"]
     rc = _bottleneck_entry()(
@@ -230,8 +370,10 @@ def bottleneck_block_fused(x: torch.Tensor, pack: Pack) -> torch.Tensor:
     _build.check(rc, "bottleneck_block_fused")
     bottleneck_block_fused.launches += 1
     bottleneck_block_fused.by_shape[(n, h, w, c4, cm)] += 1
+    bottleneck_block_fused.by_form[bottleneck_launch_form(h, w, c4, cm)] += 1
     return out
 
 
 bottleneck_block_fused.launches = 0
 bottleneck_block_fused.by_shape = collections.Counter()
+bottleneck_block_fused.by_form = collections.Counter()

@@ -406,10 +406,11 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 @functools.cache
-def _pre_entry(name: str):
+def _pre_entry(name: str, suffix: str = ""):
     """The launch entry of K5, K8, K11 or K14 (K11 and K14 take no inverse
-    activation scale; K14's scale pointer is null)."""
-    fn = getattr(_build.library(name), f"dlq_{name}")
+    activation scale; K14's scale pointer is null); ``suffix`` "_first":
+    K5's first form."""
+    fn = getattr(_build.library(name), f"dlq_{name}{suffix}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + ([ctypes.c_float] if name in QUANT else []) + [ctypes.c_void_p])
@@ -446,6 +447,15 @@ def _weight_shape(w: torch.Tensor, n: int, k: int, name: str) -> bool:
 def _pre(wrapper, name: str, y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """Launch K5 (``name`` "vit_pre_w8"), K8 ("vit_pre_w4a8"), K11
     ("vit_pre_w4") or K14 ("vit_pre_bf16") and count it on ``wrapper``."""
+    out = _launch_pre(name, y, w, d_valid)
+    B, Np, Dp = y.shape
+    wrapper.launches += 1
+    wrapper.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
+    return out
+
+
+def _launch_pre(name: str, y: torch.Tensor, w: Block, d_valid: int,
+                suffix: str = "") -> torch.Tensor:
     B, Np, Dp = y.shape
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
     if not _weight_shape(w["wqkv"], 3 * Dp, Dp, name) or Dp % 64:
@@ -456,21 +466,84 @@ def _pre(wrapper, name: str, y: torch.Tensor, w: Block, d_valid: int) -> torch.T
     _check_params(name, y.device, w["wqkv"], sqkv, w["bqkv"], w["ln1"])
     out = torch.empty((B, Np, 3 * Dp), dtype=torch.bfloat16, device=y.device)
     inv = [w["inv_act"][0]] if name in QUANT else []
-    rc = _pre_entry(name)(y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(),
-                          w["wqkv"].data_ptr(), _ptr(sqkv), w["bqkv"].data_ptr(),
-                          out.data_ptr(), B * Np, Dp, d_valid, *inv, _build.stream_ptr(y.device))
-    _build.check(rc, name)
-    wrapper.launches += 1
-    wrapper.by_shape[(B, Np, Dp, str(y.dtype)[6:])] += 1
+    rc = _pre_entry(name, suffix)(
+        y.data_ptr(), int(y.dtype == torch.float32), w["ln1"].data_ptr(), w["wqkv"].data_ptr(),
+        _ptr(sqkv), w["bqkv"].data_ptr(), out.data_ptr(), B * Np, Dp, d_valid, *inv,
+        _build.stream_ptr(y.device))
+    _build.check(rc, name + suffix)
     return out
+
+
+# K5's Hopper form (csrc/vit_pre_w8.cu's make_plan, which the card test
+# holds to this): 128-row tiles, 192-column slices of the 3·Dp outputs,
+# weight stages of 192 x 64 bytes when the weight is not resident, y stages
+# of 32·Dp bytes (8 fp32 or 16 bf16 rows), each consumer warp staging two
+# buffers of 8 output rows of 2 x 192 + 16 bytes
+K5_TILE, K5_SLICE, K5_STAGE_K, K5_MAX_STAGES = 128, 192, 64, 8
+K5_Y_BYTES, K5_MAX_Y, K5_MIN_Y = 32, 4, 2
+K5_STAGING = 2 * 8 * 8 * (2 * K5_SLICE + 16)
+K5_HOPPER_DP = (128, 192, 256)
+SMEM_MAX = 232448   # the opt-in shared-memory limit (launch.cuh: SMEM_OPT_IN)
+
+
+def vit_pre_w8_form(dp: int) -> str:
+    """K5's form, a static shape rule: ``"hopper"`` for Dp 128, 192 and 256
+    (3·Dp is a multiple of the 192-column slice and the LN row is Dp / 32
+    values a lane), else ``"first"`` (the first form, vit_pre.cuh's body)."""
+    return "hopper" if dp in K5_HOPPER_DP else "first"
+
+
+def vit_pre_w8_plan(dp: int, m: int, sms: int) -> Tuple[int, int, int, int, int, int]:
+    """K5's Hopper plan: (resident weight 1/0, weight ring stages, y stages a
+    consumer, dynamic shared-memory bytes, blocks, rows a block) for Dp
+    lanes and M rows on ``sms`` SMs. Shared memory: the int8 codes of a
+    128-row tile, the {s, s, b, b} table (8 bytes a column), the output
+    staging, each consumer's ring of y stages (32·Dp bytes and two
+    mbarriers a stage), and the weight: resident (3·Dp x Dp bytes and one
+    mbarrier) where that fits beside two y stages a consumer (Dp 128 and
+    192), with as many y stages as fit (at most 4); else two y stages a
+    consumer and as many 192 x 64-byte weight stages as fit (at most 8), two
+    mbarriers each. Each block takes a contiguous run of ceil(M / sms) rows
+    (at least 64), walked in tiles of 128, the last one short."""
+    fixed = K5_TILE * dp + 3 * dp * 8 + K5_STAGING
+    ystage = K5_Y_BYTES * dp + 16
+    rows = max(_cdiv(m, sms), 64)
+    grid = _cdiv(m, rows)
+    if 3 * dp * dp + fixed + 16 + 2 * K5_MIN_Y * ystage <= SMEM_MAX:
+        ny = min(K5_MAX_Y, (SMEM_MAX - 3 * dp * dp - fixed - 16) // (2 * ystage))
+        return 1, 0, ny, 3 * dp * dp + fixed + 16 + 2 * ny * ystage, grid, rows
+    ny = K5_MIN_Y
+    stages = min(K5_MAX_STAGES, (SMEM_MAX - fixed - 2 * ny * ystage) // (K5_SLICE * K5_STAGE_K + 16))
+    return 0, stages, ny, fixed + 2 * ny * ystage + stages * (K5_SLICE * K5_STAGE_K + 16), grid, rows
+
+
+@functools.cache
+def vit_pre_w8_launch_form(dp: int) -> str:
+    """The form the kernel library takes for Dp (its own rule)."""
+    fn = _build.library("vit_pre_w8").dlq_vit_pre_w8_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return "hopper" if fn(dp) else "first"
 
 
 def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """LN1 + int8 QKV of one layer (K5) on the padded stream y [B, Np, Dp]
-    (bf16 or fp32); returns bf16 qkv [B, Np, 3·Dp]."""
+    (bf16 or fp32); returns bf16 qkv [B, Np, 3·Dp]. ``.by_form`` counts
+    launches per form."""
     if y.device.type == "cpu":
         return vit_block_pre_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w8, "vit_pre_w8", y, w, d_valid)
+    out = _pre(vit_block_pre_w8, "vit_pre_w8", y, w, d_valid)
+    vit_block_pre_w8.by_form[vit_pre_w8_launch_form(y.shape[-1])] += 1
+    return out
+
+
+def vit_block_pre_w8_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """K5's first form at any Dp (a CUDA tensor only; not counted): what
+    the card tests and ``chip_smoke.py`` hold the Hopper form to, bit for
+    bit (the same LN order, codes, exact sums and epilogue)."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_pre_w8_first: a CUDA tensor (the kernel's first form)")
+    return _launch_pre("vit_pre_w8", y, w, d_valid, "_first")
 
 
 def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -514,6 +587,7 @@ def vit_block_pre_bf16(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
 for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4, vit_block_pre_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
+vit_block_pre_w8.by_form = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +666,7 @@ def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
 # K7's launch plan on Hopper (Dp 128, 192, 256; csrc/vit_post_w8.cu's
 # make_plan, which the card test holds to this): 128-row tiles, weight
 # stages of Dp x 64 bytes, chunks of 64 hidden lanes
-K7_TILE, K7_STAGE_K, K7_CHUNK, K7_MAX_STAGES, SMEM_MAX = 128, 64, 64, 8, 232448
+K7_TILE, K7_STAGE_K, K7_CHUNK, K7_MAX_STAGES = 128, 64, 64, 8
 
 
 def vit_post_w8_plan(dp: int, hp: int, m: int, sms: int) -> Tuple[int, int, int, int]:

@@ -91,6 +91,77 @@ def test_bottleneck_kernel_on_card():
         assert torch.equal(bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack))
 
 
+def _bottleneck_pack(rng, c4, cm, dev):
+    """One identity Bottleneck's pack from seeded fp32 weights quantized
+    per channel and fixed site scales."""
+    flat = {}
+    for name, shape in (("b.conv1", (1, 1, c4, cm)), ("b.conv2", (3, 3, cm, cm)),
+                        ("b.conv3", (1, 1, cm, c4))):
+        flat[name] = {"w": torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32)),
+                      "b": torch.from_numpy(rng.normal(0, 0.2, shape[-1]).astype(np.float32))}
+    qflat = {n: {"qw": p["qw"].to(dev), "b": p["b"].to(dev)}
+             for n, p in quantize_weights(flat, INT8_PER_CHANNEL).items()}
+    scales = {n: torch.tensor(v, dtype=torch.float32, device=dev)
+              for n, v in (("b.conv1", 0.05), ("b.conv2", 0.08), ("b.conv3", 0.04),
+                           ("n.conv1", 0.07))}
+    return pack_bottleneck_block(qflat, scales, "b", "n.conv1")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,c4,cm", [
+    (2, 56, 256, 64), (2, 28, 512, 128), (3, 14, 1024, 256), (3, 7, 2048, 512),
+    (2, 13, 512, 128), (3, 12, 256, 64), (5, 7, 512, 64), (1, 20, 256, 512),
+])
+def test_bottleneck_hopper_on_card(n, h, c4, cm):
+    """K4's Hopper form bit-identical to its plain version at every
+    ResNet-50 stage at small batch (56^2: strips of 2 rows, resident
+    weights; 28^2 and 14^2: strips of 4 and 7 rows, streamed weights; 7^2:
+    two images an item, an odd batch leaving the last item one image), a
+    partial last strip (13^2), 12^2, CM 64 and 512 at other widths; inputs
+    over the whole int8 range (the skip of a negative input) and post-relu;
+    every launch takes the Hopper form (its counter), and the plan and
+    geometry the kernel takes equal ``bottleneck_plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.block_fused import (
+        bottleneck_form, bottleneck_geometry, bottleneck_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9800 + n + h + c4 + cm)
+    pack = _bottleneck_pack(rng, c4, cm, dev)
+    assert bottleneck_form(h, h, c4, cm) == "hopper"
+    for lo in (0, -127):
+        x = _i8(rng, (n, h, h, c4), lo=lo).to(dev)
+        before = bottleneck_block_fused.by_form["hopper"]
+        got = bottleneck_block_fused(x, pack)
+        assert bottleneck_block_fused.by_form["hopper"] == before + 1
+        ref = bottleneck_block_plain(x, pack)
+        assert torch.equal(got, ref), (lo, int((got != ref).sum()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = (*bottleneck_plan(n, h, h, c4, cm, sms), *bottleneck_geometry(h, h))
+    assert _plan_on_card_n("bottleneck_block", "bottleneck_block_plan",
+                           (n, h, h, c4, cm, 0), 15) == want
+
+
+@pytest.mark.gpu
+def test_bottleneck_first_form_on_card():
+    """K4's first form by the static rule (an output grid wider than 128:
+    W = 130) bit-identical to its plain version, counted as such."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.block_fused import bottleneck_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9900)
+    pack = _bottleneck_pack(rng, 64, 64, dev)
+    x = _i8(rng, (1, 130, 130, 64), lo=0).to(dev)
+    assert bottleneck_form(130, 130, 64, 64) == "first"
+    before = bottleneck_block_fused.by_form["first"]
+    assert torch.equal(bottleneck_block_fused(x, pack), bottleneck_block_plain(x, pack))
+    assert bottleneck_block_fused.by_form["first"] == before + 1
+
+
 def _vit_block(rng, dp, hp, dev):
     """One packed W8A8 ViT layer at Dp/Hp (K-major int8 weights, folded
     scales near unit outputs, biases, LN rows zero past d_valid)."""
@@ -631,6 +702,68 @@ def test_vit_post_w8_persistent_tiles_on_card(m, dp):
     _build.check(fn(dp, hp, m, 0, ctypes.cast(out, ctypes.c_void_p)), "vit_post_w8_plan")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert tuple(out) == vit_post_w8_plan(dp, hp, m, sms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 65, 200, 400, 51272])
+def test_vit_pre_w8_hopper_on_card(m, dp):
+    """K5's Hopper form bit-identical to its first form (the same LN order
+    and codes, exact int32 sums, the same fma and bf16 rounding) and within
+    the stated agreement of its plain version (which sums the LN in another
+    order): Dp 128 and 192 (resident weight) and 256 (streamed), d_valid <
+    Dp (pad lanes), bf16 and fp32 residuals, row counts on both sides of
+    the 64-row halves and 128-row tiles (1, 63, 65, 200, 400) and DeiT-Tiny
+    batch 256 plus 72 rows (more tiles than SMs, each block's last tile
+    short); every launch takes the Hopper form (its counter), and the plan
+    the kernel takes equals ``vit_pre_w8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_plain, vit_block_pre_w8, vit_block_pre_w8_first, vit_pre_w8_form,
+        vit_pre_w8_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9000 + m + dp)
+    d = dp - 32
+    blk = _vit_block(rng, dp, 384, dev)
+    blk["wqkv"][:, d:] = 0
+    blk["ln1"][:, d:] = 0
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    assert vit_pre_w8_form(dp) == "hopper"
+    for dt in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, dt)
+        before = vit_block_pre_w8.by_form["hopper"]
+        got = vit_block_pre_w8(y, blk, d)
+        assert vit_block_pre_w8.by_form["hopper"] == before + 1
+        assert got.shape == (1, m, 3 * dp) and got.dtype == torch.bfloat16
+        assert torch.equal(got, vit_block_pre_w8_first(y, blk, d)), dt
+        _agree(got, vit_block_pre_plain(y, blk, d), 0.99, 0.25)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n("vit_pre_w8", "vit_pre_w8_plan", (dp, m, 0), 6) == \
+        vit_pre_w8_plan(dp, m, sms)
+
+
+@pytest.mark.gpu
+def test_vit_pre_w8_first_form_on_card():
+    """K5's first form by the static rule (Dp other than 128, 192, 256: 64
+    and 320) within the stated agreement of its plain version, counted as
+    such."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import vit_block_pre_plain, vit_block_pre_w8, vit_pre_w8_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9500)
+    for dp in (64, 320):
+        blk = _vit_block(rng, dp, 256, dev)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev)
+        assert vit_pre_w8_form(dp) == "first"
+        before = vit_block_pre_w8.by_form["first"]
+        _agree(vit_block_pre_w8(y, blk, dp), vit_block_pre_plain(y, blk, dp), 0.99, 0.25)
+        assert vit_block_pre_w8.by_form["first"] == before + 1
 
 
 def _plan_on_card(lib: str, name: str, args):

@@ -351,3 +351,254 @@ def test_conv_hopper_slab_emulation(n, h, k, s):
         for kw in range(k):
             ref += xp[:, kh:kh + s * oh:s, kw:kw + s * oh:s] @ w[kh, kw]
     assert np.array_equal(got, ref)
+
+
+# ---- K5: the Hopper form's plan (ops.vit_block.vit_pre_w8_plan) ----
+
+from dlq_tpu_torch.ops.vit_block import vit_pre_w8_form, vit_pre_w8_plan  # noqa: E402
+
+
+@pytest.mark.parametrize("dp,m,want", [
+    (192, 256 * 200, (1, 0, 3, 227952, 132, 388)),   # DeiT W8A8 block path at batch 256: resident
+    (256, 64 * 256, (0, 8, 2, 221376, 132, 125)),    # the split forward's loose pads at batch 64
+    (256, 256 * 256, (0, 8, 2, 221376, 132, 497)),   # loose pads at batch 256
+    (128, 72, (1, 0, 4, 152720, 2, 64)),             # at least 64 rows a block
+])
+def test_vit_pre_w8_plan_at_deit_shapes(dp, m, want):
+    """K5's plan at DeiT-Tiny's shapes: the weight resident at Dp 128 and 192
+    beside 3-4 y stages a consumer (the source note's budgets), streamed in
+    8 stages beside 2 y stages at Dp 256."""
+    assert vit_pre_w8_plan(dp, m, H100_SMS) == want
+
+
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 72, 400, 51200, 51272, 65536])
+def test_vit_pre_w8_plan_covers_rows(dp, m):
+    """The resident weight (Dp 128, 192) or a ring of 3 to 8 stages (Dp 256)
+    beside 2 to 4 y stages a consumer, within the opt-in shared memory; the
+    blocks' contiguous runs, walked in 128-row tiles split 64 / 64 between
+    the consumers, cover every row once with no block empty and no more
+    blocks than SMs; each consumer's y stages (8 fp32 or 16 bf16 rows) cover
+    its rows once, in the order the producer loads them."""
+    resident, stages, ystages, smem, grid, rows = vit_pre_w8_plan(dp, m, H100_SMS)
+    assert smem <= SMEM_MAX and resident == (dp < 256) and 2 <= ystages <= 4
+    assert resident or 3 <= stages <= 8
+    assert grid <= H100_SMS and rows >= 64
+    seen = []
+    for b in range(grid):
+        m_begin, m_end = b * rows, min(m, (b + 1) * rows)
+        assert m_end > m_begin
+        for m0 in range(m_begin, m_end, 128):
+            for cw in (0, 1):
+                r0 = m0 + 64 * cw
+                n = max(0, min(64, m_end - r0))
+                for yr in (8, 16):   # y stages of the consumer's rows
+                    got = [r0 + k + i for k in range(0, 64, yr) for i in range(max(0, min(yr, n - k)))]
+                    assert got == list(range(r0, r0 + n))
+                seen += range(r0, r0 + n)
+    assert seen == list(range(m))
+
+
+def test_vit_pre_w8_form_rule():
+    """The Hopper form takes Dp 128, 192 and 256; every other Dp (multiples
+    of 64 up to 512) runs the first form."""
+    assert [dp for dp in range(64, 513, 64) if vit_pre_w8_form(dp) == "hopper"] == [128, 192, 256]
+
+
+# ---- K4: the Hopper form's items, plan and walk (ops.block_fused) ----
+
+import torch  # noqa: E402
+
+from dlq_tpu_torch.ops.block_fused import (  # noqa: E402
+    NO_BN_PLAN, _requant_plain, bottleneck_block_plain, bottleneck_form, bottleneck_geometry,
+    bottleneck_plan, pack_bottleneck_block,
+)
+
+
+@pytest.mark.parametrize("h,c4,cm,geo,plan", [
+    # layer1: strips of 2 rows, conv1 in 2 passes, the three weights resident
+    (56, 256, 64, (58, 2, 28, 1, 224, 2, 248), (256, 64, 256, 4, 0, 144208, 7168, 132)),
+    # layer2: strips of 4 rows, streamed weights in 8 B stages of 256 x 64
+    (28, 512, 128, (30, 4, 7, 1, 168, 2, 192), (256, 128, 256, 4, 8, 222672, 1792, 132)),
+    # layer3: strips of 7 rows, one conv1 pass
+    (14, 1024, 256, (16, 7, 2, 1, 126, 1, 168), (256, 256, 256, 4, 6, 224688, 512, 132)),
+    # layer4: two whole images an item, 128-wide slices, 6 B stages beside 2 A stages
+    (7, 2048, 512, (9, 7, 1, 2, 63, 1, 88), (128, 128, 128, 2, 6, 230800, 128, 128)),
+])
+def test_bottleneck_plan_at_r50_stages(h, c4, cm, geo, plan):
+    """K4 at ResNet-50's four identity-block shapes at batch 256: the item
+    geometry and the plan (the source note's shared-memory budgets)."""
+    assert tuple(bottleneck_geometry(h, h)) == geo
+    assert tuple(bottleneck_plan(256, h, h, c4, cm, H100_SMS)) == plan
+    assert bottleneck_form(h, h, c4, cm) == "hopper"
+
+
+@pytest.mark.parametrize("h", [1, 2, 5, 6, 7, 9, 12, 13, 14, 20, 28, 31, 56, 100, 126])
+@pytest.mark.parametrize("c4,cm", [(256, 64), (512, 128), (1024, 256), (2048, 512), (192, 320)])
+def test_bottleneck_plan_or_first_form(h, c4, cm):
+    """Where no plan fits (CM 512 with a slab of W >= 100: h1 and h2 alone
+    outgrow the shared memory), the rule gives the first form."""
+    p = bottleneck_plan(3, h, h, c4, cm, H100_SMS)
+    want = "first" if (cm, h) in ((512, 100), (512, 126)) else "hopper"
+    assert bottleneck_form(h, h, c4, cm) == want and (p == NO_BN_PLAN) == (want == "first")
+
+
+@pytest.mark.parametrize("h", [1, 2, 5, 6, 7, 9, 12, 13, 14, 20, 28, 31, 56])
+@pytest.mark.parametrize("c4,cm", [(256, 64), (512, 128), (1024, 256), (2048, 512), (192, 320)])
+def test_bottleneck_plan_covers_outputs(h, c4, cm):
+    """Every output pixel of every image in exactly one item and consumer
+    region; conv1's passes cover the region's (TOH + 2) x W rows; a
+    consumer's sum rows plus the largest tap shift stay within the slab;
+    the plan within the opt-in shared memory with 2 to 4 A stages and
+    resident weights or 3 to 8 B stages."""
+    n = 3
+    g = bottleneck_geometry(h, h)
+    p = bottleneck_plan(n, h, h, c4, cm, H100_SMS)
+    assert p != NO_BN_PLAN and p.smem <= SMEM_MAX
+    assert 2 <= p.a_stages <= 4 and (p.b_stages == 0 or 3 <= p.b_stages <= 8)
+    assert cm % p.ns12 == 0 and c4 % p.ns3 == 0
+    rows = 64 if g.imgs == 2 else 128
+    assert g.toh * g.gw <= rows and g.passes * 128 >= g.m1 and (g.imgs == 1 or g.m1 <= 64)
+    assert g.spx >= rows + 2 * g.gw + 2 and g.spx >= (g.toh + 2) * g.gw
+    seen = np.zeros((n, h, h), int)
+    for it in range(p.items):
+        for cw in (0, 1):
+            img, oh0 = (it // g.rb, (it % g.rb) * g.toh) if g.imgs == 1 else (2 * it + cw, 0)
+            rb0 = 64 * cw if g.imgs == 1 else 0
+            for q in range(rb0, rb0 + 64):
+                ohl, j = divmod(q, g.gw)
+                if img < n and j < h and ohl < g.toh and oh0 + ohl < h:
+                    seen[img, oh0 + ohl, j] += 1
+    assert (seen == 1).all()
+
+
+def test_bottleneck_first_form_rule():
+    """An output grid wider than 128 sum rows (W > 126) runs the first form."""
+    assert bottleneck_form(126, 126, 256, 64) == "hopper"
+    assert bottleneck_form(127, 127, 256, 64) == "first"
+    assert bottleneck_geometry(130, 130).gw == 0
+
+
+def _bottleneck_pack(rng, c4, cm):
+    from dlq_tpu_torch.quant.model_quant import quantize_weights
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+
+    flat = {}
+    for name, shape in (("b.conv1", (1, 1, c4, cm)), ("b.conv2", (3, 3, cm, cm)),
+                        ("b.conv3", (1, 1, cm, c4))):
+        flat[name] = {"w": torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32)),
+                      "b": torch.from_numpy(rng.normal(0, 0.2, shape[-1]).astype(np.float32))}
+    scales = {n: torch.tensor(v, dtype=torch.float32)
+              for n, v in (("b.conv1", 0.05), ("b.conv2", 0.08), ("b.conv3", 0.04),
+                           ("n.conv1", 0.07))}
+    return pack_bottleneck_block(quantize_weights(flat, INT8_PER_CHANNEL), scales, "b", "n.conv1")
+
+
+def _emulate_hopper_bottleneck(x, pack, rng):
+    """K4's Hopper form in numpy, item by item and consumer by consumer: the
+    conv1 rows each consumer's A boxes hold (x viewed as [N H W, C4] from
+    the strip's row above, rows past the tensor zero, rows of a neighbouring
+    image computed and dropped), their sums mapped to slab pixels (h1's
+    codes, 0 for rows outside the image; the padding columns zero since the
+    start; the rest of the slab stale: random, carried from item to item),
+    conv2's sum rows as the nine shifted slab rows, conv3 on h2's rows (the
+    dropped rows' h2 never reach out), and the valid rows written to their
+    output pixels, each once: both consumers on one item, 64 rows each of
+    each 128-row conv1 pass and of the 128 sum rows (two images an item:
+    one each). The requants are the plain version's own on the assembled
+    [N, H, W, C] sums, which must reach every pixel."""
+    n, h, wd, c4 = x.shape
+    cm = pack["w1"].oc
+    g = bottleneck_geometry(h, wd)
+    p = bottleneck_plan(n, h, wd, c4, cm, H100_SMS)
+    inv_h1, inv_h2, inv_nxt, rs = pack["inv"]
+    xf = x.numpy().astype(np.int64).reshape(n * h * wd, c4)
+    w1 = pack["w1"].hwio()[0, 0].numpy().astype(np.int64)
+    w2 = pack["w2"].hwio().numpy().astype(np.int64)
+    w3 = pack["w3"].hwio()[0, 0].numpy().astype(np.int64)
+    taps = [((t // 3) * g.gw + t % 3, w2[t // 3, t % 3]) for t in range(9)]
+    unset = np.iinfo(np.int64).min
+
+    def jobs(it):
+        """(consumer, image, first output row, conv1 (box row, first q1)
+        pairs, first sum row) of each consumer's share of item ``it``."""
+        for cw in (0, 1):
+            if g.imgs == 1:
+                img, oh0 = it // g.rb, (it % g.rb) * g.toh
+                c1 = [((img * h + oh0 - 1) * wd + 128 * q + 64 * cw, 128 * q + 64 * cw)
+                      for q in range(g.passes)]
+                yield cw, img, oh0, c1, 64 * cw
+            else:
+                img = 2 * it + cw
+                yield cw, img, 0, [((img * h - 1) * wd, 0)], 0
+
+    def requant(acc, s, b, inv, lo):
+        return _requant_plain(torch.from_numpy(acc.astype(np.float64)), s, b, inv, lo).numpy()
+
+    # conv1: each consumer's rows of each pass, from its A boxes
+    acc1 = np.full((n, h, wd, cm), unset)
+    for it in range(p.items):
+        for _, img, oh0, c1, _ in jobs(it):
+            for start, q0 in c1:
+                rows = np.arange(start, start + 64)
+                a = np.where(((rows >= 0) & (rows < n * h * wd))[:, None],
+                             xf[np.clip(rows, 0, n * h * wd - 1)], 0)
+                sums = a @ w1
+                for r in range(64):
+                    q1 = q0 + r
+                    if q1 >= g.m1 or img >= n:
+                        continue
+                    hr, c = divmod(q1, wd)
+                    ih = oh0 - 1 + hr
+                    if 0 <= ih < h:   # a recomputed halo row gives the same sums
+                        assert acc1[img, ih, c, 0] in (unset, sums[r, 0])
+                        acc1[img, ih, c] = sums[r]
+    assert (acc1 != unset).all()
+    h1 = requant(acc1, pack["s1"], pack["b1"], inv_h1, 0.0)
+    # conv2 on the slab, then conv3 on h2's rows
+    acc2 = np.full((n, h, wd, cm), unset)
+    slabs = [rng.integers(0, 128, (g.spx, cm)) for _ in range(g.imgs)]
+    for sl in slabs:
+        for hr in range(g.toh + 2):
+            sl[hr * g.gw] = sl[hr * g.gw + g.gw - 1] = 0
+    written = []
+    for it in range(p.items):
+        for cw, img, oh0, _, rb0 in jobs(it):
+            slab = slabs[cw if g.imgs == 2 else 0]
+            if img < n and (g.imgs == 2 or cw == 0):   # the conv1 epilogue's writes
+                for hr in range(g.toh + 2):
+                    ih = oh0 - 1 + hr
+                    slab[hr * g.gw + 1: hr * g.gw + 1 + wd] = h1[img, ih] if 0 <= ih < h else 0
+            for q in range(rb0, rb0 + 64):
+                ohl, j = divmod(q, g.gw)
+                assert q + taps[-1][0] < g.spx
+                if img < n and j < wd and ohl < g.toh and oh0 + ohl < h:
+                    assert acc2[img, oh0 + ohl, j, 0] == unset
+                    acc2[img, oh0 + ohl, j] = sum(slab[q + sh] @ wt for sh, wt in taps)
+                    written.append((img, oh0 + ohl, j))
+    assert (acc2 != unset).all()
+    h2 = requant(acc2, pack["s2"], pack["b2"], inv_h2, 0.0)
+    acc3 = np.full((n, h, wd, c4), unset)
+    for img, oh, j in written:   # a valid row's h2 codes; the dropped rows' never reach out
+        acc3[img, oh, j] = h2[img, oh, j].astype(np.int64) @ w3
+    z = requant(acc3, pack["s3"], pack["b3"], inv_nxt, -127.0)
+    r = np.clip(np.round(x.numpy().astype(np.float32) * np.float32(rs)), -127, 127)
+    return torch.from_numpy(np.clip(z + r, 0, 127).astype(np.int8))
+
+
+@pytest.mark.parametrize("n,h,c4,cm", [
+    (1, 9, 64, 64),     # one strip an image (rb 1), one conv1 pass
+    (2, 13, 64, 64),    # a partial last strip (toh 7: rows 7..12 of 13)
+    (2, 12, 128, 64),   # 12^2: strips of 6 rows
+    (1, 20, 64, 128),   # two conv1 passes (7 x 20 = 140 rows)
+    (3, 7, 64, 64),     # two whole images an item, the last item one image
+    (2, 5, 64, 64),     # two whole images an item, 5^2
+])
+def test_bottleneck_hopper_item_emulation(n, h, c4, cm):
+    """The Hopper form's item walk gives the plain version's block output
+    bit for bit: strips and whole images, the haloed conv1 rows, h1 zeroed
+    outside the image, the nine slab taps, the valid rows written once."""
+    rng = np.random.default_rng(n * 1000 + h * 10 + cm)
+    pack = _bottleneck_pack(rng, c4, cm)
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, h, c4)).astype(np.int8))
+    assert torch.equal(_emulate_hopper_bottleneck(x, pack, rng), bottleneck_block_plain(x, pack))
