@@ -1090,12 +1090,17 @@ def check_w4a16_kernels(dev):
     """K11 and K12 at every dtype form of DeiT-Tiny's W4A16 layer at batch
     256 (the block path's bf16 -> bf16 and the stacked forms), with a bf16
     torch.matmul on the dequantized weights as the yardstick; the int4
-    weights count K/2 bytes in the bound, the products bf16's peak."""
+    weights count K/2 bytes in the bound, the products bf16's peak. K12's
+    rows also carry its form, device time on a spinning card (its own and
+    the three products'), and its first form's device time and equal
+    fraction against it."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_w4, vit_block_pre_w4_plain,
+        vit_block_post_w4, vit_block_post_w4_first, vit_block_post_w4_plain, vit_block_pre_w4,
+        vit_block_pre_w4_plain,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     blk = _w4a16_layer(gen, dev)
@@ -1129,15 +1134,25 @@ def check_w4a16_kernels(dev):
         def plain():
             return vit_block_post_w4_plain(y, a, blk, dp, True, odt)
 
+        def first():
+            return vit_block_post_w4_first(y, a, blk, dp, True, odt)
+
+        vit_block_post_w4.by_form.clear()
+        got = kern()
+        form = vit_block_post_w4.by_form.most_common(1)[0][0]
         rows.append(_row(
             "vit_post_w4", (BATCH, VIT_NP, dp, hp, din, dout),
-            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, w4a16", kern(), plain(), kern, plain,
+            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, w4a16", got, plain(), kern, plain,
             2.0 * m * (dp * dp + 2 * dp * hp),
             y.numel() * y.element_size() + a.numel() * 2 + (dp * dp + 2 * dp * hp) // 2
             + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
             library=lambda: (torch.matmul(h1, wp), torch.matmul(h1, w1), torch.matmul(h2, w2)),
             tol=W4A16_TOL["fp32" if dout == "float32" else "bf16"], peak=PEAK_BF16,
-            library_name=HMM + ", the three products", residual=din, out=dout))
+            library_name=HMM + ", the three products", residual=din, out=dout, spun=True,
+            form=form, first_form_equal_fraction=_equal_fraction(got, first()),
+            first_form_device_ms=spun_ms(first, 20, warmup=2, reps=3)))
+        vit_block_post_w4.by_form.clear()
+        del got
     del qkv, a, ys, y32, h1, h2
     return rows
 
@@ -1265,12 +1280,15 @@ def check_bf16_kernels(dev):
     for BF16_TOL: the plain version with its exact sums replaced by cuBLAS
     fp32 sums (another order, TF32 off) against the plain version, and K12
     on the same layer with its weights rounded to per-OC int4 against K12's
-    plain version."""
+    plain version; and its form, device time on a spinning card (its own
+    and the three products'), and its first form's device time and equal
+    fraction against it."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_bf16, vit_block_post_bf16_plain, vit_block_post_w4,
-        vit_block_post_w4_plain, vit_block_pre_bf16, vit_block_pre_bf16_plain,
+        vit_block_post_bf16, vit_block_post_bf16_first, vit_block_post_bf16_plain,
+        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_bf16, vit_block_pre_bf16_plain,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     d, hp = VIT_DP, VIT_HP
@@ -1318,15 +1336,25 @@ def check_bf16_kernels(dev):
                                                        ref4),
                    "plain_fp32_order_int4_rounded": _equal_fraction(other4, ref4)}
         del other, w4, ref4, other4
+        def first():
+            return vit_block_post_bf16_first(y, a, blk, d, True, odt)
+
+        vit_block_post_bf16.by_form.clear()
+        got = kern()
+        form = vit_block_post_bf16.by_form.most_common(1)[0][0]
         rows.append(_row(
             "vit_post_bf16", (BATCH, npad, dp, hp, din, dout),
-            f"{BATCH}x{npad}x{dp} {din} -> {dout}, mlp {hp}, bf16 weights", kern(), ref, kern,
+            f"{BATCH}x{npad}x{dp} {din} -> {dout}, mlp {hp}, bf16 weights", got, ref, kern,
             plain, 2.0 * m * (d * d + 2 * d * hp),
             2 * m * d * y.element_size() + (d * d + 2 * d * hp) * 2
             + 4 * (2 * d + hp) + 8 * d + m * dp * odt.itemsize, post_per,
             library=lambda: (torch.matmul(h1, wp), torch.matmul(h1, w1), torch.matmul(h2, w2)),
             tol=BF16_TOL, peak=PEAK_BF16, library_name=BMM + ", the three products",
-            residual=din, out=dout, pads=f"{npad}/{dp}", bf16_tol_witness_equal_fraction=witness))
+            residual=din, out=dout, pads=f"{npad}/{dp}", bf16_tol_witness_equal_fraction=witness,
+            spun=True, form=form, first_form_equal_fraction=_equal_fraction(got, first()),
+            first_form_device_ms=spun_ms(first, 20, warmup=2, reps=3)))
+        vit_block_post_bf16.by_form.clear()
+        del got
         del blk, y, h1, h2, qkv, a, ref
     return rows
 
@@ -1555,16 +1583,18 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K4 and K5 launch of every path must (their first forms serve no
-# main-path shape: W > 126; Dp other than 128, 192, 256)
+# every K4, K5, K12 and K15 launch of every path must (their first forms
+# serve no main-path shape: W > 126; Dp other than 128, 192, 256; K12 and
+# K15 also an Hp whose ring would hold fewer than 3 stages)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
-FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8")
+FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_post_w4",
+                "vit_post_bf16")
 
 
 def read_forms():
-    """Launches per form of K1, K2, K4 and K5 since the counts were last
-    set to 0."""
+    """Launches per form of K1, K2, K4, K5, K12 and K15 since the counts
+    were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 

@@ -53,7 +53,13 @@ bf16 K-major weights (``pack_vit_blocks``) and no scales: every epilogue is
 ``acc + b``, and FC2's residual is added before its bias, ``(z1 + acc) +
 b`` (``_block_kernel`` :318-319), a third order beside K7's and K9/K12's.
 Its fp32 sums are not exact either, so it too is held to stated
-tolerances.
+tolerances. K12 and K15 share one Hopper form (``csrc/vit_post_hw.cuh``:
+K7's persistent 128-row tiles on bf16 ``wgmma``, the weights streamed as
+bf16 stages, K12's unpacked from its int4 bytes on the way in), taken by
+the static rule ``vit_post_h_form`` (plan mirror ``vit_post_h_plan``);
+their first form (``vit_post_h.cuh``) serves other shapes and stays
+callable as ``vit_block_post_w4_first`` / ``vit_block_post_bf16_first``.
+``.by_form`` counts their launches per form.
 
 Numerics, as the reference kernels compute them (checked bit for bit against
 them on the CPU at the test sizes):
@@ -614,12 +620,13 @@ def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid:
 
 
 @functools.cache
-def _post_entry(name: str):
+def _post_entry(name: str, suffix: str = ""):
     """The launch entry of K7, K9, K12 or K15 (K12 and K15 take no inverse
     activation scales, and each has its format's one FC2 association; K15's
-    scale pointers are null)."""
+    scale pointers are null); ``suffix`` "_first": K12's or K15's first
+    form."""
     quant = name in QUANT
-    fn = getattr(_build.library(name), f"dlq_{name}")
+    fn = getattr(_build.library(name), f"dlq_{name}{suffix}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_float] * (4 if quant else 0) + [ctypes.c_void_p] * 11
@@ -632,6 +639,17 @@ def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
     """Launch K7 (``name`` "vit_post_w8"), K9 ("vit_post_w4a8"), K12
     ("vit_post_w4") or K15 ("vit_post_bf16"; ``multi`` is bound to the
     format for the last two) and count it on ``wrapper``."""
+    out = _launch_post(name, y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
+    B, Np, Dp = y.shape
+    Hp = w["wfc1"].shape[0]
+    wrapper.launches += 1
+    wrapper.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
+    return out
+
+
+def _launch_post(name: str, y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                 gelu_tanh: bool, out_dtype: torch.dtype, multi: bool,
+                 suffix: str = "") -> torch.Tensor:
     B, Np, Dp = y.shape
     Hp = w["wfc1"].shape[0]
     _check_stream(name, y, y.device, (torch.bfloat16, torch.float32), Dp)
@@ -649,7 +667,7 @@ def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
                   w["wfc1"], sfc1, w["bfc1"], w["wfc2"], sfc2, w["bfc2"])
     out = torch.empty((B, Np, Dp), dtype=out_dtype, device=y.device)
     quant = name in QUANT
-    rc = _post_entry(name)(
+    rc = _post_entry(name, suffix)(
         y.data_ptr(), int(y.dtype == torch.float32), attn.data_ptr(),
         *(w["inv_act"] if quant else ()),
         w["wproj"].data_ptr(), _ptr(sproj), w["bproj"].data_ptr(),
@@ -657,9 +675,7 @@ def _post(wrapper, name: str, y: torch.Tensor, attn: torch.Tensor, w: Block,
         w["wfc2"].data_ptr(), _ptr(sfc2), w["bfc2"].data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), B * Np, Dp, Hp, d_valid, int(gelu_tanh),
         *((int(multi),) if quant else ()), _build.stream_ptr(y.device))
-    _build.check(rc, name)
-    wrapper.launches += 1
-    wrapper.by_shape[(B, Np, Dp, Hp, str(y.dtype)[6:], str(out_dtype)[6:])] += 1
+    _build.check(rc, name + suffix)
     return out
 
 
@@ -712,6 +728,61 @@ def vit_block_post_w4a8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: 
                  out_dtype, multi)
 
 
+# K12's and K15's Hopper form (csrc/vit_post_hw.cuh's make_plan, which the
+# card test holds to this): 128-row tiles, chunks of 64 hidden lanes, weight
+# stages of Dp rows x KS bytes of bf16 (KS 64 at Dp 128 and 192, 32 at 256)
+K15_TILE, K15_CHUNK, K15_MAX_STAGES, K15_MIN_STAGES = 128, 64, 8, 3
+K15_STAGE_K = {128: 64, 192: 64, 256: 32}
+
+
+def vit_post_h_plan(dp: int, hp: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """K12's and K15's Hopper plan: (K bytes a stage row, ring stages,
+    dynamic shared-memory bytes, blocks, rows a block) for Dp and Hp lanes
+    and M rows on ``sms`` SMs; all 0 where no plan fits (the first form).
+    Shared memory: z1 in fp32 and the bf16 A operand (attn, then LN2's
+    output) for the 128-row tile, the scales and biases of proj, FC2 and
+    FC1 (8 bytes a lane), then as many Dp x KS-byte weight stages as fit (at
+    most 8, at least 3) with two 8-byte mbarriers each; the GELU chunk stays
+    in registers. Each block takes a contiguous run of ceil(M / sms) rows
+    (at least 64), walked in tiles of 128, the last one short."""
+    ks = K15_STAGE_K.get(dp, 0)
+    if ks == 0 or hp <= 0 or hp % K15_CHUNK:
+        return 0, 0, 0, 0, 0
+    fixed = K15_TILE * dp * 6 + (2 * dp + hp) * 8
+    stage = dp * ks + 16
+    stages = min(K15_MAX_STAGES, (SMEM_MAX - fixed) // stage)
+    if stages < K15_MIN_STAGES:
+        return 0, 0, 0, 0, 0
+    rows = max(_cdiv(m, sms), 64)
+    return ks, stages, fixed + stages * stage, _cdiv(m, rows), rows
+
+
+def vit_post_h_form(dp: int, hp: int) -> str:
+    """K12's and K15's form, a static shape rule: ``"hopper"`` where the
+    Hopper plan fits (Dp 128, 192 or 256, Hp a multiple of 64, at least 3
+    ring stages: DeiT-Tiny's 192/768 and 256/768), else ``"first"`` (the
+    first form, vit_post_h.cuh's body)."""
+    return "hopper" if vit_post_h_plan(dp, hp, 1, 1)[0] else "first"
+
+
+@functools.cache
+def vit_post_h_launch_form(name: str, dp: int, hp: int) -> str:
+    """The form kernel library ``name`` ("vit_post_w4" or "vit_post_bf16")
+    takes for (Dp, Hp) (its own rule)."""
+    fn = getattr(_build.library(name), f"dlq_{name}_form")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return "hopper" if fn(dp, hp) else "first"
+
+
+def unpack_w4_bf16(wk: torch.Tensor) -> torch.Tensor:
+    """uint8 [N, Kp/2] halves-packed K-major int4 -> bf16 [N, Kp]: the exact
+    nibble values (-8..7), low halves then high halves along K. The plain
+    version of what K12's Hopper producer writes into its bf16 weight
+    stages (the reference's ``_unpack_halves_bf16``, K-major)."""
+    return unpack_halves_kmajor(wk).to(torch.bfloat16)
+
+
 def _post_w4_sums(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                   gelu_tanh: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """K12's (and, on a bf16 pack, K15's) plain arithmetic up to FC2's sum:
@@ -744,8 +815,11 @@ def vit_block_post_w4(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_w4_plain(y, attn, w, d_valid, gelu_tanh, out_dtype)
-    return _post(vit_block_post_w4, "vit_post_w4", y, attn, w, d_valid, gelu_tanh,
-                 out_dtype, True)
+    out = _post(vit_block_post_w4, "vit_post_w4", y, attn, w, d_valid, gelu_tanh,
+                out_dtype, True)
+    vit_block_post_w4.by_form[
+        vit_post_h_launch_form("vit_post_w4", y.shape[-1], w["wfc1"].shape[0])] += 1
+    return out
 
 
 def vit_block_post_bf16_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
@@ -769,13 +843,41 @@ def vit_block_post_bf16(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: 
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_bf16_plain(y, attn, w, d_valid, gelu_tanh, out_dtype)
-    return _post(vit_block_post_bf16, "vit_post_bf16", y, attn, w, d_valid, gelu_tanh,
-                 out_dtype, False)
+    out = _post(vit_block_post_bf16, "vit_post_bf16", y, attn, w, d_valid, gelu_tanh,
+                out_dtype, False)
+    vit_block_post_bf16.by_form[
+        vit_post_h_launch_form("vit_post_bf16", y.shape[-1], w["wfc1"].shape[0])] += 1
+    return out
+
+
+def vit_block_post_w4_first(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                            gelu_tanh: bool = True,
+                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K12's first form at any Dp (a CUDA tensor only; not counted): what the
+    card tests and ``chip_smoke.py`` hold the Hopper form to (the same
+    arithmetic, fp32 sums in another order)."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_post_w4_first: a CUDA tensor (the kernel's first form)")
+    return _launch_post("vit_post_w4", y, attn, w, d_valid, gelu_tanh,
+                        y.dtype if out_dtype is None else out_dtype, True, "_first")
+
+
+def vit_block_post_bf16_first(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                              gelu_tanh: bool = True,
+                              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K15's first form at any Dp (a CUDA tensor only; not counted), as
+    ``vit_block_post_w4_first``."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_post_bf16_first: a CUDA tensor (the kernel's first form)")
+    return _launch_post("vit_post_bf16", y, attn, w, d_valid, gelu_tanh,
+                        y.dtype if out_dtype is None else out_dtype, False, "_first")
 
 
 for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4, vit_block_post_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
+vit_block_post_w4.by_form = collections.Counter()
+vit_block_post_bf16.by_form = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -1036,3 +1036,119 @@ def test_int8_requant_division_paths_on_card():
             assert torch.equal(matmul_int8(x, pk, *args), matmul_int8_plain(x, pk, *args))
             cargs = (xc, pc, 1, 1, scale * mult, bias * mult, relu, osc)
             assert torch.equal(conv_int8(*cargs), conv_int8_plain(*cargs))
+
+
+def _post_h_block(rng, dp, hp, d, w4, dev):
+    """One K12 (``w4``: halves-packed int4 weights, per-OC scales) or K15
+    (bf16 weights, no scales) layer at Dp/Hp, zero past d_valid in its pad
+    lanes, the products near unit scale."""
+    from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor
+
+    def w(n, k):
+        if w4:
+            a = rng.integers(-8, 8, (k, n)).astype(np.int8)
+            a[d if k == dp else k:] = 0
+            a[:, d if n == dp else n:] = 0
+            return pack_halves_kmajor(torch.from_numpy(a), k, n).to(dev)
+        a = rng.normal(0, 1.0 / np.sqrt(k), (n, k)).astype(np.float32)
+        a[:, d if k == dp else k:] = 0
+        a[d if n == dp else n:] = 0
+        return torch.from_numpy(a).to(dev, torch.bfloat16)
+
+    def s(n, k):
+        return torch.from_numpy((rng.uniform(0.5, 1.5, n) / (4.6 * np.sqrt(k)))
+                                .astype(np.float32)).to(dev)
+
+    def b(n):
+        v = rng.normal(0, 0.1, n).astype(np.float32)
+        v[d if n == dp else n:] = 0
+        return torch.from_numpy(v).to(dev)
+
+    ln = np.stack([rng.uniform(0.5, 1.5, dp), rng.normal(0, 0.1, dp)]).astype(np.float32)
+    ln[:, d:] = 0
+    blk = {"wproj": w(dp, dp), "bproj": b(dp), "ln2": torch.from_numpy(ln).to(dev),
+           "wfc1": w(hp, dp), "bfc1": b(hp), "wfc2": w(dp, hp), "bfc2": b(dp)}
+    if w4:
+        blk.update(sproj=s(dp, dp), sfc1=s(hp, dp), sfc2=s(dp, hp))
+    return blk
+
+
+def _post_h_fns(w4):
+    from dlq_tpu_torch.ops import vit_block as vb
+
+    if w4:
+        return ("vit_post_w4", vb.vit_block_post_w4, vb.vit_block_post_w4_first,
+                vb.vit_block_post_w4_plain)
+    return ("vit_post_bf16", vb.vit_block_post_bf16, vb.vit_block_post_bf16_first,
+            vb.vit_block_post_bf16_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w4", [False, True], ids=["k15_bf16", "k12_w4"])
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 72, 400, 51200, 65536])
+def test_vit_post_h_hopper_on_card(m, dp, w4):
+    """K15 and K12 on their Hopper form against their plain versions and
+    their first forms (fp32 sums in other orders: bf16 outputs >= 0.99
+    equal, fp32 outputs >= 0.99 within 2^-12 of their unit-plus-magnitude
+    scale, all within 0.25): Dp 128, 192 and 256 with d_valid = Dp - 32 (pad
+    lanes), Hp 384 (768 at DeiT-Tiny's 51,200 and 65,536 rows), row counts
+    on both sides of the 64-row halves and 128-row tiles (1, 63, 64, 65, 72,
+    400: a lone consumer, a short last tile) and DeiT-Tiny batch 256 at the
+    tight and loose pads (each block's last tile short), every residual /
+    output dtype pair, both GELUs; every launch takes the Hopper form (the
+    rule, its counter) and the plan the library takes equals
+    ``vit_post_h_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import vit_post_h_form, vit_post_h_plan
+
+    name, kern, first, plain = _post_h_fns(w4)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13000 + m + dp + 7 * w4)
+    d, hp = dp - 32, (768 if m >= 51200 else 384)
+    blk = _post_h_block(rng, dp, hp, d, w4, dev)
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    an = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    an[..., d:] = 0
+    attn = torch.from_numpy(an).to(dev, torch.bfloat16)
+    assert vit_post_h_form(dp, hp) == "hopper"
+    for din in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, din)
+        for dout in (torch.bfloat16, torch.float32):
+            near = 2.0 ** -12 if dout == torch.float32 else 0.0
+            for tanh in (False, True):
+                before = kern.by_form["hopper"]
+                got = kern(y, attn, blk, d, tanh, dout)
+                assert kern.by_form["hopper"] == before + 1
+                assert got.dtype == dout and got.shape == y.shape
+                _agree(got, plain(y, attn, blk, d, tanh, dout), 0.99, 0.25, near)
+                _agree(got, first(y, attn, blk, d, tanh, dout), 0.99, 0.25, near)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n(name, f"{name}_plan", (dp, hp, m, 0), 5) == \
+        vit_post_h_plan(dp, hp, m, sms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w4", [False, True], ids=["k15_bf16", "k12_w4"])
+def test_vit_post_h_first_form_on_card(w4):
+    """K15 and K12 on their first form by the static rule (Dp 64 and 320)
+    within the stated agreement of their plain versions, counted as such;
+    the library's plan is all zeros there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import vit_post_h_form
+
+    name, kern, _, plain = _post_h_fns(w4)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13500 + w4)
+    for dp, hp in ((64, 256), (320, 256)):
+        blk = _post_h_block(rng, dp, hp, dp, w4, dev)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+        attn = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+        assert vit_post_h_form(dp, hp) == "first"
+        assert _plan_on_card_n(name, f"{name}_plan", (dp, hp, 140, 0), 5) == (0,) * 5
+        before = kern.by_form["first"]
+        _agree(kern(y, attn, blk, dp), plain(y, attn, blk, dp), 0.99, 0.25)
+        assert kern.by_form["first"] == before + 1
