@@ -57,7 +57,9 @@ Phases, one JSON line each:
      vit_pre_w4a8 and K9 vit_post_w4a8 at every dtype form of its block
      layer and K10 matmul_int4a8 at its six deploy shapes, at batch 256,
      against their plain versions (K10 bit-identical), with torch._int_mm
-     on the materialized int8 weights as the yardstick; then the store
+     on the materialized int8 weights as the yardstick, K8 and K9 also as
+     device time, K9 also bit-identical to its first form and timed beside
+     it, with the form its launch took; then the store
      through Engine.from_store(ctx="block") (K8, K6, K9 12 launches each per
      forward, bf16 between layers) driven through classify, gated against
      the fp32 forward (cosine >= DEIT_W4A8_FP32_COS: the reference's own
@@ -71,7 +73,12 @@ Phases, one JSON line each:
      and K13 matmul_int4 at its two G128 deploy shapes, at batch 256,
      against their plain versions (fp32 sums in another order: W4A16_TOL,
      K13_REL), with a bf16 torch.matmul on the dequantized weights as the
-     yardstick; then an INT4_WEIGHT_ONLY_PER_OC store through
+     yardstick, K11 and K12 also against their first forms (W4A16_TOL) and
+     timed as device time beside them, with the form their launch took;
+     then 4,000 launches each of K5, K7, K9, K11 and K12 (the kernels whose
+     producer gives registers to its consumers by setmaxnreg) at their
+     block-path shape, the last result equal to the first, each with its
+     register split and ptxas report; then an INT4_WEIGHT_ONLY_PER_OC store through
      Engine.from_store(ctx="block") (deit_tiny_block_w4: K11, K6, K12 12
      launches each per forward, 4-bit weights) driven through classify,
      gated against the fp32 forward (DEIT_W4A16_FP32_COS: the reference's
@@ -128,7 +135,8 @@ Phases, one JSON line each:
 Each main path is driven with every launch count set to 0 just before it
 and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
-form (the per-form counts are printed per path). Then the card's name and
+form, and on every path every K4, K5, K9, K11, K12 and K15 launch (the
+per-form counts are printed per path). Then the card's name and
 power limit, the kernel summary line and, last, {"ok": true, "device":
 {...}}. Any failed gate
 raises before those lines.
@@ -141,6 +149,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -989,12 +998,16 @@ def check_w4a8_kernels(dev):
     """K8 and K9 at every dtype form of DeiT-Tiny's W4A8 layer at batch 256
     (the block path's bf16 -> bf16 and the stacked forms), with
     torch._int_mm on the materialized int8 weights as the yardstick; the
-    int4 weights count K/2 bytes in the bound."""
+    int4 weights count K/2 bytes in the bound. Both also as device time on
+    a spinning card (their own and the yardstick's); K9's rows also carry
+    its form, and its first form's device time and bit-identity to it."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_plain, vit_block_post_w4a8, vit_block_pre_plain, vit_block_pre_w4a8,
+        vit_block_post_plain, vit_block_post_w4a8, vit_block_post_w4a8_first, vit_block_pre_plain,
+        vit_block_pre_w4a8,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     blk = _w4a8_layer(gen, dev)
@@ -1013,7 +1026,8 @@ def check_w4a8_kernels(dev):
             lambda: vit_block_pre_w4a8(y, blk, dp), lambda: vit_block_pre_plain(y, blk, dp),
             2.0 * m * dp * 3 * dp,
             y.numel() * y.element_size() + 3 * dp * dp // 2 + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2,
-            per, library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16"))
+            per, library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16",
+            spun=True))
     qkv = vit_block_pre_plain(y32, blk, dp)
     a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
     for (din, dout), per in vit_post_w4a8_cases().items():
@@ -1025,15 +1039,30 @@ def check_w4a8_kernels(dev):
         def plain():
             return vit_block_post_plain(y, a, blk, dp, True, odt, True)
 
+        def first():
+            return vit_block_post_w4a8_first(y, a, blk, dp, True, odt, True)
+
+        vit_block_post_w4a8.by_form.clear()
+        got = kern()
+        form = vit_block_post_w4a8.by_form.most_common(1)[0][0]
+        # the Hopper form against the first form, bit for bit (exact int32
+        # sums in the paired K order, the same LN2 order, codes and roundings)
+        ref_first = first()
+        if not torch.equal(got, ref_first):
+            raise AssertionError(f"vit_post_w4a8 {din} -> {dout}: the {form} form differs from "
+                                 f"the first form at {int((got != ref_first).sum())} outputs")
         rows.append(_row(
             "vit_post_w4a8", (BATCH, VIT_NP, dp, hp, din, dout),
-            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, int4", kern(), plain(), kern, plain,
+            f"{BATCH}x{VIT_NP}x{dp} {din} -> {dout}, mlp {hp}, int4", got, plain(), kern, plain,
             2.0 * m * (dp * dp + 2 * dp * hp),
             y.numel() * y.element_size() + a.numel() * 2 + (dp * dp + 2 * dp * hp) // 2
             + 8 * (3 * dp + hp) + m * dp * odt.itemsize, per,
             library=lambda: (torch._int_mm(x1, wp), torch._int_mm(x1, w1), torch._int_mm(x2, w2)),
             tol=VIT_TOL, library_name=INT_MM + ", the three products on int8 weights",
-            residual=din, out=dout))
+            residual=din, out=dout, spun=True, form=form, first_form_equal=True,
+            first_form_device_ms=spun_ms(first, 20, warmup=2, reps=3)))
+        vit_block_post_w4a8.by_form.clear()
+        del got, ref_first
     del qkv, a, ys, y32, x1, x2
     return rows
 
@@ -1090,15 +1119,15 @@ def check_w4a16_kernels(dev):
     """K11 and K12 at every dtype form of DeiT-Tiny's W4A16 layer at batch
     256 (the block path's bf16 -> bf16 and the stacked forms), with a bf16
     torch.matmul on the dequantized weights as the yardstick; the int4
-    weights count K/2 bytes in the bound, the products bf16's peak. K12's
-    rows also carry its form, device time on a spinning card (its own and
-    the three products'), and its first form's device time and equal
-    fraction against it."""
+    weights count K/2 bytes in the bound, the products bf16's peak. K11's
+    and K12's rows also carry their form, device time on a spinning card
+    (their own and the yardstick's), and their first form's device time and
+    equal fraction against it."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_w4, vit_block_post_w4_first, vit_block_post_w4_plain, vit_block_pre_w4,
-        vit_block_pre_w4_plain,
+        vit_block_pre_w4_first, vit_block_pre_w4_plain,
     )
     from dlq_tpu_torch.tools._probe import spun_ms
 
@@ -1115,14 +1144,30 @@ def check_w4a16_kernels(dev):
     rows = []
     for case, per in vit_pre_w4_cases().items():
         y = ys[case]
+        vit_block_pre_w4.by_form.clear()
+        got = vit_block_pre_w4(y, blk, dp)
+        form = vit_block_pre_w4.by_form.most_common(1)[0][0]
+        # the Hopper form against the first form (fp32 sums in another
+        # order): within W4A16_TOL, as against the plain version
+        first = vit_block_pre_w4_first(y, blk, dp)
+        diff = (got.float() - first.float()).abs()
+        first_equal, first_err = float((diff == 0).float().mean()), float(diff.max())
+        if first_equal < W4A16_TOL["bf16"][0] or first_err > W4A16_TOL["bf16"][1]:
+            raise AssertionError(f"vit_pre_w4 {case}: the {form} form against the first form: "
+                                 f"{first_equal} equal, largest difference {first_err}")
         rows.append(_row(
             "vit_pre_w4", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv, w4a16",
-            vit_block_pre_w4(y, blk, dp), vit_block_pre_w4_plain(y, blk, dp),
+            got, vit_block_pre_w4_plain(y, blk, dp),
             lambda: vit_block_pre_w4(y, blk, dp), lambda: vit_block_pre_w4_plain(y, blk, dp),
             2.0 * m * dp * 3 * dp,
             y.numel() * y.element_size() + 3 * dp * dp // 2 + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2,
             per, library=lambda: torch.matmul(h1, wq), tol=W4A16_TOL["bf16"], peak=PEAK_BF16,
-            library_name=HMM, residual=case, out="bf16"))
+            library_name=HMM, residual=case, out="bf16", spun=True, form=form,
+            first_form_equal_fraction=first_equal, first_form_max_abs_diff=first_err,
+            first_form_device_ms=spun_ms(lambda: vit_block_pre_w4_first(y, blk, dp), 20,
+                                         warmup=2, reps=3)))
+        vit_block_pre_w4.by_form.clear()
+        del got, first, diff
     qkv = vit_block_pre_w4_plain(y32, blk, dp)
     a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
     for (din, dout), per in vit_post_w4_cases().items():
@@ -1537,6 +1582,91 @@ def check_groupwise_routes(dev):
 
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
+# the kernels whose producer warpgroup gives registers to its two consumer
+# warpgroups by setmaxnreg, as their sources set the split (producer,
+# consumer registers a thread), and the mark of their Hopper kernels' names
+# in the ptxas report: K5 (csrc/vit_pre_w8.cu), K7 and K9
+# (csrc/vit_post_iw.cuh), K11 (csrc/vit_pre_w4.cu), K12 (csrc/vit_post_hw.cuh)
+SPLIT_KERNELS = {"vit_pre_w8": (40, 232, "14vit_pre_kernel"),
+                 "vit_post_w8": (40, 232, "post_iw6kernel"),
+                 "vit_post_w4a8": (88, 208, "post_iw6kernel"),
+                 "vit_pre_w4": (88, 208, "17vit_pre_w4_kernel"),
+                 "vit_post_w4": (88, 208, "post_hw6kernel")}
+STRESS_LAUNCHES = 4000
+
+
+def ptxas_report(lib: str, mark: str):
+    """From kernel library ``lib``'s -Xptxas -v report (kept beside it): its
+    entries whose names hold ``mark``, their register counts and their
+    largest stack frame and spill stores and loads (bytes), and the
+    library's count of C7520 warnings (ptxas serializing every wgmma of a
+    kernel)."""
+    from dlq_tpu_torch import _build
+
+    text = (_build.BUILD / f"lib{lib}.log").read_text()
+    regs, props, entry, fn = {}, {}, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            props[fn] = tuple(int(g) for g in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            regs[entry] = int(m.group(1))
+    mine = [k for k in regs if mark in k]
+    if not mine:
+        raise AssertionError(f"{lib}: no kernel named *{mark}* in its ptxas report")
+    worst = [max(props.get(k, (0, 0, 0))[i] for k in mine) for i in range(3)]
+    return {"entries": len(mine), "registers": sorted({regs[k] for k in mine}),
+            "stack_frame_max": worst[0], "spill_stores_max": worst[1], "spill_loads_max": worst[2],
+            "c7520_warnings": text.count("C7520")}
+
+
+def stress_split_kernels(dev):
+    """STRESS_LAUNCHES launches each of the SPLIT_KERNELS at their DeiT-Tiny
+    block-path shape ([256, 200, 192] bf16 -> bf16), then one synchronize: a
+    producer that keeps fewer registers than its code uses faults only now
+    and then (K12's at 56, PERF.md). The last result must equal the first
+    bit for bit (the kernels are deterministic); each kernel's line carries
+    its register split and its ptxas report."""
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4,
+        vit_block_pre_w8,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    d, bf = VIT_DP, torch.bfloat16
+    y = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
+    a = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
+    w8, w4a8, w4 = _vit_layer(gen, dev), _w4a8_layer(gen, dev), _w4a16_layer(gen, dev)
+    fns = {"vit_pre_w8": lambda: vit_block_pre_w8(y, w8, d),
+           "vit_post_w8": lambda: vit_block_post_w8(y, a, w8, d, True, bf, True),
+           "vit_post_w4a8": lambda: vit_block_post_w4a8(y, a, w4a8, d),
+           "vit_pre_w4": lambda: vit_block_pre_w4(y, w4, d),
+           "vit_post_w4": lambda: vit_block_post_w4(y, a, w4, d)}
+    out = {}
+    for name, fn in fns.items():
+        first = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STRESS_LAUNCHES - 1):
+            last = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not torch.equal(last, first):
+            raise AssertionError(f"{name}: launch {STRESS_LAUNCHES} differs from the first at "
+                                 f"{int((last != first).sum())} outputs")
+        producer, consumer, mark = SPLIT_KERNELS[name]
+        out[name] = {"launches": STRESS_LAUNCHES, "last_equals_first": True, "seconds": secs,
+                     "producer_registers": producer, "consumer_registers": consumer,
+                     "ptxas": ptxas_report(name, mark)}
+        del first, last
+    emit({"phase": "setmaxnreg_stress", "shape": f"{BATCH}x{VIT_NP}x{d} bf16 -> bf16",
+          "kernels": out})
+
+
 # ---------------------------------------------------------------------------
 
 def _wrappers():
@@ -1583,18 +1713,18 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K4, K5, K12 and K15 launch of every path must (their first forms
-# serve no main-path shape: W > 126; Dp other than 128, 192, 256; K12 and
-# K15 also an Hp whose ring would hold fewer than 3 stages)
+# every K4, K5, K9, K11, K12 and K15 launch of every path must (their first
+# forms serve no main-path shape: W > 126; Dp other than 128, 192, 256; K9,
+# K12 and K15 also an Hp whose ring would hold fewer than 3 stages)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
-FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_post_w4",
-                "vit_post_bf16")
+FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_post_w4a8",
+                "vit_pre_w4", "vit_post_w4", "vit_post_bf16")
 
 
 def read_forms():
-    """Launches per form of K1, K2, K4, K5, K12 and K15 since the counts
-    were last set to 0."""
+    """Launches per form of K1, K2, K4, K5, K9, K11, K12 and K15 since the
+    counts were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
@@ -2810,6 +2940,7 @@ def main() -> int:
             + check_bf16_kernels(dev) + check_ln_kernels(dev)
             + check_int8_attention_kernels(dev))
     check_groupwise_routes(dev)
+    stress_split_kernels(dev)
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
     paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}

@@ -70,6 +70,20 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t w) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
+// 16 halves-packed bytes -> the 16 bf16 nibble values of one half (shift
+// 0: the low nibbles, 4: the high ones), in byte order: lo holds bytes
+// 0-7, hi bytes 8-15.
+__device__ __forceinline__ void unpack16(const uint4 p, int sh, uint4& lo, uint4& hi) {
+  auto two = [&](uint32_t w, uint32_t& a, uint32_t& b) {
+    a = nib2_bf16(__byte_perm(w, 0, 0x4140) >> sh);   // bytes 0, 1
+    b = nib2_bf16(__byte_perm(w, 0, 0x4342) >> sh);   // bytes 2, 3
+  };
+  two(p.x, lo.x, lo.y);
+  two(p.y, lo.z, lo.w);
+  two(p.z, hi.x, hi.y);
+  two(p.w, hi.z, hi.w);
+}
+
 // bf16x2 a * b, rounded once to nearest even (the fused multiply-add of the
 // exact product with -0).
 __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {

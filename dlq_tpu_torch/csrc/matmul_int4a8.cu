@@ -115,10 +115,10 @@ struct W4A8 {
     for (int i = 0; i < PER; ++i) {
       const int u = pt + i * w4::PRODUCERS, q = u >= NS, n = u - q * NS;
       *reinterpret_cast<uint4*>(stage + sm90::core_off(n, 16 * q, w4::KS)) =
-          make_uint4(w4::nib_sx(v[i].x), w4::nib_sx(v[i].y), w4::nib_sx(v[i].z), w4::nib_sx(v[i].w));
+          make_uint4(nib_sx(v[i].x), nib_sx(v[i].y), nib_sx(v[i].z), nib_sx(v[i].w));
       *reinterpret_cast<uint4*>(stage + sm90::core_off(n, 32 + 16 * q, w4::KS)) =
-          make_uint4(w4::nib_sx(v[i].x >> 4), w4::nib_sx(v[i].y >> 4), w4::nib_sx(v[i].z >> 4),
-                     w4::nib_sx(v[i].w >> 4));
+          make_uint4(nib_sx(v[i].x >> 4), nib_sx(v[i].y >> 4), nib_sx(v[i].z >> 4),
+                     nib_sx(v[i].w >> 4));
     }
   }
   template <int NS>

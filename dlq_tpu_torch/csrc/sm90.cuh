@@ -1,8 +1,9 @@
-// Hopper building blocks of the warp-specialized kernels (K7 vit_post_w8):
-// int8 wgmma (m64nNk32, s32 += s8 x s8, both operands in shared memory),
-// bf16 wgmma (m64nNk16, fp32 sums; A in shared memory or in registers),
-// their shared-memory descriptors, mbarriers, proxy fences, named barriers
-// and register reallocation. sm_90a only (wgmma, setmaxnreg).
+// Hopper building blocks of the warp-specialized kernels (K5, K7, K9, K11,
+// K12, K15 and the GEMMs): int8 wgmma (m64nNk32, s32 += s8 x s8, both
+// operands in shared memory), bf16 wgmma (m64nNk16, fp32 sums; A in shared
+// memory or in registers), their shared-memory descriptors and accumulator
+// layout, mbarriers, the bulk-copy engine, proxy fences, named barriers and
+// register reallocation. sm_90a only (wgmma, setmaxnreg).
 //
 // Operand layout ("no swizzle", layout type 0): an operand tile of R rows
 // by K bytes, K-major, is stored as 8-row x 16-byte core matrices of 128
@@ -92,6 +93,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
     if (t0 == 0) t0 = t;
     else if (t - t0 > 10000000000ull) __trap();
   }
+}
+
+// The bulk-copy engine: global -> shared `bytes` (16-byte multiples),
+// counted by mbarrier `bar`; shared -> global as its own group of this
+// thread's; wait until none of this thread's groups still reads shared
+// memory (or, bulk_wait_all, writes global memory).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // A barrier of the `threads` threads of one named barrier id (1..15).
@@ -217,6 +244,24 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t 
   else if constexpr (N == 128) wgmma_s8_n128(d, da, db);
   else if constexpr (N == 192) wgmma_s8_n192(d, da, db);
   else wgmma_s8_n256(d, da, db);
+}
+
+// f(row, col, v0, v1) for each pair of an m64nN accumulator of int or fp32
+// sums (columns col, col + 1).
+template <int N, class A, class F>
+__device__ __forceinline__ void for_pairs(const A (&d)[N / 2], int ctid, F&& f) {
+  const int w = ctid >> 5, g = (ctid & 31) >> 2, t = ctid & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    f(16 * w + g, 8 * j + 2 * t, d[4 * j], d[4 * j + 1]);
+    f(16 * w + g + 8, 8 * j + 2 * t, d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+template <int N, class A>
+__device__ __forceinline__ void zero(A (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = A(0);
 }
 
 // bf16 wgmma m64nNk16 (fp32 sums), both operands K-major in shared memory

@@ -96,6 +96,38 @@ __device__ __forceinline__ void ln_bf16_row(const float (&v)[ROW_REGS], int Dp,
   ln_row(v, Dp, g, b, inv_n, [&](int c, float h) { dst[c] = __float2bfloat16_rn(h); });
 }
 
+// One 16-byte row piece: 8 bf16 or fp32 values widened to fp32 (load8), or
+// stored from fp32 (store8, bf16 rounded to nearest even).
+template <class T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __bfloat162float(h[e].x);
+      v[2 * e + 1] = __bfloat162float(h[e].y);
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    int4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<int4*>(p) = q;
+  }
+}
+
 constexpr float GELU_C = 0.7978845608028654f;    // sqrt(2/pi)
 constexpr float SQRT_HALF = 0.7071067811865476f;
 

@@ -113,55 +113,6 @@ inline Plan make_plan(int Dp, int Hp, int M, int sms) {
   return {ks, stages, fixed + stages * stage, (M + rows - 1) / rows, rows};
 }
 
-template <class T>
-__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  } else {
-    const int4 q = *reinterpret_cast<const int4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[2 * e] = __bfloat162float(h[e].x);
-      v[2 * e + 1] = __bfloat162float(h[e].y);
-    }
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
-  if constexpr (sizeof(T) == 4) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    int4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    *reinterpret_cast<int4*>(p) = q;
-  }
-}
-
-// f(row, col, v0, v1) for each pair of an m64nN fp32 accumulator (columns
-// col, col + 1): thread 32 w + 4 g + t holds d[4 j + q], row 16 w + g +
-// 8 (q >> 1), column 8 j + 2 t + (q & 1).
-template <int N, class F>
-__device__ __forceinline__ void for_pairs(const float (&d)[N / 2], int ctid, F&& f) {
-  const int w = ctid >> 5, g = (ctid & 31) >> 2, t = ctid & 3;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    f(16 * w + g, 8 * j + 2 * t, d[4 * j], d[4 * j + 1]);
-    f(16 * w + g + 8, 8 * j + 2 * t, d[4 * j + 2], d[4 * j + 3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.0f;
-}
-
 // f(std::integral_constant<int, I>) for I = B .. E - 1, in order.
 template <int B, int E, class F>
 __device__ __forceinline__ void static_for(F&& f) {
@@ -169,20 +120,6 @@ __device__ __forceinline__ void static_for(F&& f) {
     f(std::integral_constant<int, B>{});
     static_for<B + 1, E>(f);
   }
-}
-
-// 16 halves-packed bytes -> the 16 bf16 nibble values of one half (shift
-// 0: the low nibbles, 4: the high ones), in byte order: lo holds bytes
-// 0-7, hi bytes 8-15.
-__device__ __forceinline__ void unpack16(const uint4 p, int sh, uint4& lo, uint4& hi) {
-  auto two = [&](uint32_t w, uint32_t& a, uint32_t& b) {
-    a = nib2_bf16(__byte_perm(w, 0, 0x4140) >> sh);   // bytes 0, 1
-    b = nib2_bf16(__byte_perm(w, 0, 0x4342) >> sh);   // bytes 2, 3
-  };
-  two(p.x, lo.x, lo.y);
-  two(p.y, lo.z, lo.w);
-  two(p.z, hi.x, hi.y);
-  two(p.w, hi.z, hi.w);
 }
 
 template <bool W4, class T, class TO, int DP>
@@ -407,7 +344,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
     // 2. proj: z1 = x + fma(acc, s, b)
     {
       float acc[DP / 2];
-      zero(acc);
+      sm90::zero(acc);
 #pragma unroll 1
       for (int s = 0; s < PROJ_STAGES; ++s)
         consume([&](const uint8_t* B) {
@@ -417,7 +354,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
         });
       drain();
       sm90::fence_acc(acc);
-      for_pairs<DP>(acc, ctid, [&](int r, int n, float v0, float v1) {
+      sm90::for_pairs<DP>(acc, ctid, [&](int r, int n, float v0, float v1) {
         const float4 sb = SBP[n >> 1];
         float2* zp = reinterpret_cast<float2*>(Zw + zcol(r, n));
         const float2 x = *zp;
@@ -454,7 +391,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
     //    registers over all of Hp)
     const bool live = 16 * warp < rows;   // this warp has rows in the tile
     float acc2[DP / 2];
-    zero(acc2);
+    sm90::zero(acc2);
     // af[kk]: the k16 step kk (hidden lanes c0 + 16 kk ..) of FC2's A:
     // acc1[8 kk + 2 q], acc1[8 kk + 2 q + 1] are row g + 8 (q & 1), columns
     // 16 kk + 8 (q >> 1) + 2 t and + 1: register q of the step. Declared
@@ -465,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
 #pragma unroll
       for (int q = 0; q < 4; ++q) af[kk][q] = 0u;
     float acc1[HC / 2];
-    zero(acc1);
+    sm90::zero(acc1);
     // FC1 stage s of a chunk (K bytes s KB1 ..) into acc1 (its first step
     // overwrites acc1: scale-d 0)
     auto fc1_stage = [&](int s) {
@@ -516,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
 
     // 5. out = z1 + fma(acc, s, b) (W4) | (z1 + acc) + b (bf16) into z1's rows
     //    (every row), then the tile's rows out in 16-byte stores
-    for_pairs<DP>(acc2, ctid, [&](int r, int n, float v0, float v1) {
+    sm90::for_pairs<DP>(acc2, ctid, [&](int r, int n, float v0, float v1) {
       float2* zp = reinterpret_cast<float2*>(Zw + zcol(r, n));
       const float2 z = *zp;
       const float4 sb = SB2[n >> 1];

@@ -102,32 +102,6 @@ Plan make_plan(int Dp, int M, int sms) {
 
 bool hopper_dp(int Dp) { return Dp == 128 || Dp == 192 || Dp == 256; }
 
-// The bulk-copy engine: global -> shared `bytes` (16-byte multiples),
-// counted by mbarrier `bar`; shared -> global as its own group of this
-// thread's; wait until none of this thread's groups still reads shared
-// memory (or, bulk_wait_all, writes global memory).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dlq::smem_u32(dst)), "l"(src), "r"(bytes), "r"(dlq::smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(dlq::smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(dlq::smem_u32(src)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 template <class T>
 __device__ __forceinline__ float ld(const T* p) { return dlq::load_f(p); }
 
@@ -198,8 +172,9 @@ __global__ void __launch_bounds__(THREADS, 1) vit_pre_kernel(const Args a, const
             if (nr <= 0) continue;
             const int i = cw * NY + slot[cw];
             sm90::mbar_wait(yempty + i, ph[cw] ^ 1);
-            expect_tx(yfull + i, nr * DP * (int)sizeof(T));
-            bulk_load(ys + i * YB, y + (size_t)r0 * DP, nr * DP * (int)sizeof(T), yfull + i);
+            sm90::expect_tx(yfull + i, nr * DP * (int)sizeof(T));
+            sm90::bulk_load(ys + i * YB, y + (size_t)r0 * DP, nr * DP * (int)sizeof(T),
+                            yfull + i);
             if (++slot[cw] == NY) slot[cw] = 0, ph[cw] ^= 1;
           }
       return;
@@ -340,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, 1) vit_pre_kernel(const Args a, const
       for (int h = 0; h < 2; ++h) {
         if (16 * warp + 8 * h >= rows) continue;   // none of the half's rows is written
         uint8_t* buf = wst + h * 8 * STAGE_ROW;
-        if (lane < 8) bulk_wait_read<1>();   // the copies of this buffer's last rows
+        if (lane < 8) sm90::bulk_wait_read<1>();   // the copies of this buffer's last rows
         __syncwarp();
         uint8_t* row = buf + gq * STAGE_ROW;
 #pragma unroll
@@ -355,12 +330,12 @@ __global__ void __launch_bounds__(THREADS, 1) vit_pre_kernel(const Args a, const
         __syncwarp();
         const int rl = 16 * warp + 8 * h + lane;   // lane i < 8: row i of the half
         if (lane < 8 && rl < rows)
-          bulk_store(a.out + (size_t)(r0 + rl) * N + n0, buf + lane * STAGE_ROW, 2 * NS);
+          sm90::bulk_store(a.out + (size_t)(r0 + rl) * N + n0, buf + lane * STAGE_ROW, 2 * NS);
       }
     }
     wg_sync();   // every warp's products are done before the codes are rewritten
   }
-  if (lane < 8) bulk_wait_all();   // the staging outlives every copy
+  if (lane < 8) sm90::bulk_wait_all();   // the staging outlives every copy
 }
 
 // The first form (vit_pre.cuh's body) for the Dp the Hopper form does not take.

@@ -140,14 +140,6 @@ inline Plan make_plan(int M, int N, int Kp, int sms, Fixed&& fixed) {
   return best;
 }
 
-// The low nibble of each byte of w sign-extended to the byte: x | (bit 3 of
-// x) x 30 per byte (8 x 30 = 0xF0 stays within its byte); four operations
-// where igemm.cuh's nib_lo takes __vsub4's emulation.
-__device__ __forceinline__ uint32_t nib_sx(uint32_t w) {
-  const uint32_t x = w & 0x0F0F0F0Fu;
-  return x | (x & 0x08080808u) * 30u;
-}
-
 // The descriptor of a K-major operand tile stored by TMA with a swizzle
 // (`mode` 2: 64-byte rows, 3: 32-byte rows), 8-row groups `sbo` bytes
 // apart, at p (the tile's base plus a K offset inside its rows; the tile

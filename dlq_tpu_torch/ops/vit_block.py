@@ -20,9 +20,14 @@ The W4A8 layer (``vit_block_fused_w4a8``, ``_w4a8c``,
 ``vit_multiblock_fused_w4a8``) is K8 -> K6 -> K9: K8 ``vit_block_pre_w4a8``
 (``csrc/vit_pre_w4a8.cu``) and K9 ``vit_block_post_w4a8``
 (``csrc/vit_post_w4a8.cu``) are K5 and K7 with int4 weights, halves-packed
-on the padded grid (``pack_vit_blocks_w4a8``) and unpacked in registers; the
-int32 sums and everything around them are the W8A8 layer's. All three W4A8
-functions add FC2's residual as ``z1 + fma(acc, s, b)``.
+on the padded grid (``pack_vit_blocks_w4a8``); the int32 sums and
+everything around them are the W8A8 layer's. All three W4A8 functions add
+FC2's residual as ``z1 + fma(acc, s, b)``. K9 shares K7's Hopper form
+(``csrc/vit_post_iw.cuh``; its producer unpacks the int4 bytes into K7's
+int8 stages, the K slots paired across the packed halves), taken by the
+static rule ``vit_post_w4a8_form`` (plan mirror ``vit_post_w4a8_plan``),
+bit-identical to its first form (``vit_post.cuh``), which serves other
+shapes and stays callable as ``vit_block_post_w4a8_first``.
 
 The W4A16 (weight-only int4) layer (``vit_block_fused_w4``, ``_w4c``,
 ``vit_multiblock_fused_w4``) is K11 -> K6 -> K12: K11 ``vit_block_pre_w4``
@@ -34,7 +39,12 @@ nothing quantized to int8) against the W4A8 packer's int4 bytes
 the reference's (XLA's), the kernels' (the tensor core's) and the plain
 versions' (exact in float64, rounded once) agree up to that order, so
 they are held to stated tolerances, not bit for bit. All three W4A16
-functions add FC2's residual as ``z1 + fma(acc, s, b)`` too.
+functions add FC2's residual as ``z1 + fma(acc, s, b)`` too. K11's Hopper
+form is K5's in bf16 ``wgmma`` (its producer streams the packed weight from
+L2 and unpacks it into bf16 stages), taken by the static rule
+``vit_pre_w4_form`` (plan mirror ``vit_pre_w4_plan``); its first form
+(``vit_pre_h.cuh``, K14's body) serves other Dp and stays callable as
+``vit_block_pre_w4_first``.
 
 The reference's int8-attention arm (``vit_multiblock_fused_w8(...,
 attn_int8=True)``, ``_mhsa_batched_i8_into_scratch``) is K5 -> K18 -> K7,
@@ -415,7 +425,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _pre_entry(name: str, suffix: str = ""):
     """The launch entry of K5, K8, K11 or K14 (K11 and K14 take no inverse
     activation scale; K14's scale pointer is null); ``suffix`` "_first":
-    K5's first form."""
+    K5's or K11's first form."""
     fn = getattr(_build.library(name), f"dlq_{name}{suffix}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
@@ -524,12 +534,13 @@ def vit_pre_w8_plan(dp: int, m: int, sms: int) -> Tuple[int, int, int, int, int,
 
 
 @functools.cache
-def vit_pre_w8_launch_form(dp: int) -> str:
-    """The form the kernel library takes for Dp (its own rule)."""
-    fn = _build.library("vit_pre_w8").dlq_vit_pre_w8_form
+def library_form(name: str, *shape: int) -> str:
+    """The form kernel library ``name`` takes at ``shape`` (Dp, or Dp and
+    Hp): its own static rule, ``dlq_<name>_form``."""
+    fn = getattr(_build.library(name), f"dlq_{name}_form")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int]
-    return "hopper" if fn(dp) else "first"
+    fn.argtypes = [ctypes.c_int] * len(shape)
+    return "hopper" if fn(*shape) else "first"
 
 
 def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -539,7 +550,7 @@ def vit_block_pre_w8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     if y.device.type == "cpu":
         return vit_block_pre_plain(y, w, d_valid)
     out = _pre(vit_block_pre_w8, "vit_pre_w8", y, w, d_valid)
-    vit_block_pre_w8.by_form[vit_pre_w8_launch_form(y.shape[-1])] += 1
+    vit_block_pre_w8.by_form[library_form("vit_pre_w8", y.shape[-1])] += 1
     return out
 
 
@@ -572,13 +583,61 @@ def vit_block_pre_w4_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Ten
 vit_block_pre_bf16_plain = vit_block_pre_w4_plain
 
 
+# K11's Hopper form (csrc/vit_pre_w4.cu's make_plan, which the card test
+# holds to this): K5's tiles, slices, y stages and staging, with bf16 h1 and
+# weight stages of 192 columns x 32 packed bytes unpacked to bf16 (128 bytes
+# a row), streamed from L2 (none resident)
+K11_STAGE = K5_SLICE * 4 * 32
+K11_MAX_STAGES, K11_MIN_STAGES = 8, 3
+
+
+def vit_pre_w4_form(dp: int) -> str:
+    """K11's form, a static shape rule: ``"hopper"`` for Dp 128, 192 and 256
+    (K5's, where the plan fits), else ``"first"`` (the first form,
+    vit_pre_h.cuh's body, shared with K14)."""
+    return "hopper" if dp in K5_HOPPER_DP else "first"
+
+
+def vit_pre_w4_plan(dp: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """K11's Hopper plan: (weight ring stages, y stages a consumer, dynamic
+    shared-memory bytes, blocks, rows a block) for Dp lanes and M rows on
+    ``sms`` SMs; all 0 where the first form serves. Shared memory: the bf16
+    h1 of a 128-row tile, the {s, s, b, b} table (8 bytes a column), the
+    output staging, as many weight stages (192 x 128 bytes and two
+    mbarriers each) as fit beside two y stages a consumer (at most 8, at
+    least 3), then as many y stages (32·Dp bytes and two mbarriers each) as
+    are left room for (at most 4). Each block takes a contiguous run of
+    ceil(M / sms) rows (at least 64), walked in tiles of 128."""
+    if vit_pre_w4_form(dp) != "hopper":
+        return 0, 0, 0, 0, 0
+    fixed = K5_TILE * dp * 2 + 3 * dp * 8 + K5_STAGING
+    ystage, stage = K5_Y_BYTES * dp + 16, K11_STAGE + 16
+    stages = min(K11_MAX_STAGES, (SMEM_MAX - fixed - 2 * K5_MIN_Y * ystage) // stage)
+    if stages < K11_MIN_STAGES:
+        return 0, 0, 0, 0, 0
+    ny = min(K5_MAX_Y, (SMEM_MAX - fixed - stages * stage) // (2 * ystage))
+    rows = max(_cdiv(m, sms), 64)
+    return stages, ny, fixed + stages * stage + 2 * ny * ystage, _cdiv(m, rows), rows
+
+
 def vit_block_pre_w4(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """LN1 + QKV of one W4A16 layer (K11; ``pack_vit_blocks_w4`` weights) on
     the padded stream y [B, Np, Dp] (bf16 or fp32); returns bf16 qkv
-    [B, Np, 3·Dp]."""
+    [B, Np, 3·Dp]. ``.by_form`` counts launches per form."""
     if y.device.type == "cpu":
         return vit_block_pre_w4_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w4, "vit_pre_w4", y, w, d_valid)
+    out = _pre(vit_block_pre_w4, "vit_pre_w4", y, w, d_valid)
+    vit_block_pre_w4.by_form[library_form("vit_pre_w4", y.shape[-1])] += 1
+    return out
+
+
+def vit_block_pre_w4_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """K11's first form at any Dp (a CUDA tensor only; not counted): what
+    the card tests and ``chip_smoke.py`` hold the Hopper form to (the same
+    LN and epilogue, fp32 sums in another order)."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_pre_w4_first: a CUDA tensor (the kernel's first form)")
+    return _launch_pre("vit_pre_w4", y, w, d_valid, "_first")
 
 
 def vit_block_pre_bf16(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -594,6 +653,7 @@ for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4, vit_block_pre
     _f.launches = 0
     _f.by_shape = collections.Counter()
 vit_block_pre_w8.by_form = collections.Counter()
+vit_block_pre_w4.by_form = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -623,8 +683,8 @@ def vit_block_post_plain(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid:
 def _post_entry(name: str, suffix: str = ""):
     """The launch entry of K7, K9, K12 or K15 (K12 and K15 take no inverse
     activation scales, and each has its format's one FC2 association; K15's
-    scale pointers are null); ``suffix`` "_first": K12's or K15's first
-    form."""
+    scale pointers are null); ``suffix`` "_first": K9's, K12's or K15's
+    first form."""
     quant = name in QUANT
     fn = getattr(_build.library(name), f"dlq_{name}{suffix}")
     fn.restype = ctypes.c_int
@@ -679,25 +739,35 @@ def _launch_post(name: str, y: torch.Tensor, attn: torch.Tensor, w: Block, d_val
     return out
 
 
-# K7's launch plan on Hopper (Dp 128, 192, 256; csrc/vit_post_w8.cu's
-# make_plan, which the card test holds to this): 128-row tiles, weight
+# K7's and K9's launch plan on Hopper (Dp 128, 192, 256; csrc/vit_post_iw.cuh's
+# make_plan, which the card tests hold to this): 128-row tiles, int8 weight
 # stages of Dp x 64 bytes, chunks of 64 hidden lanes
-K7_TILE, K7_STAGE_K, K7_CHUNK, K7_MAX_STAGES = 128, 64, 64, 8
+K7_TILE, K7_STAGE_K, K7_CHUNK, K7_MAX_STAGES, K7_MIN_STAGES = 128, 64, 64, 8, 3
 
 
 def vit_post_w8_plan(dp: int, hp: int, m: int, sms: int) -> Tuple[int, int, int, int]:
-    """K7's (ring stages, dynamic shared-memory bytes, blocks, rows a block)
-    for Dp and Hp lanes and M rows on ``sms`` SMs. Shared memory: z1 in
-    fp32, the int8 codes of attn/LN2 and of one GELU chunk for the 128-row
-    tile, the scales and biases of proj, FC2 and FC1 (8 bytes a lane), then
-    as many Dp x 64-byte weight stages as fit (at most 8) with two 8-byte
-    mbarriers each. Each block takes a contiguous run of ceil(M / sms) rows
-    (at least 64), walked in tiles of 128, the last one short."""
+    """K7's and K9's Hopper plan: (ring stages, dynamic shared-memory bytes,
+    blocks, rows a block) for Dp and Hp lanes and M rows on ``sms`` SMs;
+    all 0 where the first form serves (Dp other than 128, 192, 256, Hp not a
+    multiple of the 64-lane chunk, or fewer than 3 stages). Shared memory:
+    z1 in fp32, the int8 codes of attn/LN2 and of one GELU chunk for the
+    128-row tile, the scales and biases of proj, FC2 and FC1 (8 bytes a
+    lane), then as many Dp x 64-byte int8 weight stages as fit (at most 8)
+    with two 8-byte mbarriers each (K9's producer unpacks its int4 bytes
+    into the same stages). Each block takes a contiguous run of ceil(M /
+    sms) rows (at least 64), walked in tiles of 128, the last one short."""
+    if dp not in K5_HOPPER_DP or hp <= 0 or hp % K7_CHUNK:
+        return 0, 0, 0, 0
     fixed = K7_TILE * dp * 4 + K7_TILE * dp + K7_TILE * K7_CHUNK + (2 * dp + hp) * 8
     stage = dp * K7_STAGE_K
     stages = min(K7_MAX_STAGES, (SMEM_MAX - fixed - 2 * 8 * K7_MAX_STAGES) // stage)
+    if stages < K7_MIN_STAGES:
+        return 0, 0, 0, 0
     rows = max(_cdiv(m, sms), 64)
     return stages, fixed + stages * stage + 2 * 8 * stages, _cdiv(m, rows), rows
+
+
+vit_post_w4a8_plan = vit_post_w8_plan
 
 
 def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
@@ -715,17 +785,40 @@ def vit_block_post_w8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
                  out_dtype, multi)
 
 
+def vit_post_w4a8_form(dp: int, hp: int) -> str:
+    """K9's form (and K7's), a static shape rule: ``"hopper"`` where the
+    plan fits (DeiT-Tiny's 192/768 and 256/768), else ``"first"``
+    (vit_post.cuh's body)."""
+    return "hopper" if vit_post_w4a8_plan(dp, hp, 1, 1)[0] else "first"
+
+
 def vit_block_post_w4a8(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
                         gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
                         multi: bool = True) -> torch.Tensor:
     """The same on a W4A8 pack (K9). Every W4A8 reference function adds
     FC2's residual as ``z1 + fma(acc, s, b)`` (``pallas_vit_block.py:1542``,
-    ``:1739``, ``:1896``), so ``multi`` defaults to True here."""
+    ``:1739``, ``:1896``), so ``multi`` defaults to True here. ``.by_form``
+    counts launches per form."""
     out_dtype = y.dtype if out_dtype is None else out_dtype
     if y.device.type == "cpu":
         return vit_block_post_plain(y, attn, w, d_valid, gelu_tanh, out_dtype, multi)
-    return _post(vit_block_post_w4a8, "vit_post_w4a8", y, attn, w, d_valid, gelu_tanh,
-                 out_dtype, multi)
+    out = _post(vit_block_post_w4a8, "vit_post_w4a8", y, attn, w, d_valid, gelu_tanh,
+                out_dtype, multi)
+    vit_block_post_w4a8.by_form[
+        library_form("vit_post_w4a8", y.shape[-1], w["wfc1"].shape[0])] += 1
+    return out
+
+
+def vit_block_post_w4a8_first(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: int,
+                              gelu_tanh: bool = True, out_dtype: Optional[torch.dtype] = None,
+                              multi: bool = True) -> torch.Tensor:
+    """K9's first form at any Dp (a CUDA tensor only; not counted): what the
+    card tests and ``chip_smoke.py`` hold the Hopper form to, bit for bit
+    (exact int32 sums, the same roundings)."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_post_w4a8_first: a CUDA tensor (the kernel's first form)")
+    return _launch_post("vit_post_w4a8", y, attn, w, d_valid, gelu_tanh,
+                        y.dtype if out_dtype is None else out_dtype, multi, "_first")
 
 
 # K12's and K15's Hopper form (csrc/vit_post_hw.cuh's make_plan, which the
@@ -763,16 +856,6 @@ def vit_post_h_form(dp: int, hp: int) -> str:
     ring stages: DeiT-Tiny's 192/768 and 256/768), else ``"first"`` (the
     first form, vit_post_h.cuh's body)."""
     return "hopper" if vit_post_h_plan(dp, hp, 1, 1)[0] else "first"
-
-
-@functools.cache
-def vit_post_h_launch_form(name: str, dp: int, hp: int) -> str:
-    """The form kernel library ``name`` ("vit_post_w4" or "vit_post_bf16")
-    takes for (Dp, Hp) (its own rule)."""
-    fn = getattr(_build.library(name), f"dlq_{name}_form")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    return "hopper" if fn(dp, hp) else "first"
 
 
 def unpack_w4_bf16(wk: torch.Tensor) -> torch.Tensor:
@@ -818,7 +901,7 @@ def vit_block_post_w4(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: in
     out = _post(vit_block_post_w4, "vit_post_w4", y, attn, w, d_valid, gelu_tanh,
                 out_dtype, True)
     vit_block_post_w4.by_form[
-        vit_post_h_launch_form("vit_post_w4", y.shape[-1], w["wfc1"].shape[0])] += 1
+        library_form("vit_post_w4", y.shape[-1], w["wfc1"].shape[0])] += 1
     return out
 
 
@@ -846,7 +929,7 @@ def vit_block_post_bf16(y: torch.Tensor, attn: torch.Tensor, w: Block, d_valid: 
     out = _post(vit_block_post_bf16, "vit_post_bf16", y, attn, w, d_valid, gelu_tanh,
                 out_dtype, False)
     vit_block_post_bf16.by_form[
-        vit_post_h_launch_form("vit_post_bf16", y.shape[-1], w["wfc1"].shape[0])] += 1
+        library_form("vit_post_bf16", y.shape[-1], w["wfc1"].shape[0])] += 1
     return out
 
 
@@ -876,6 +959,7 @@ def vit_block_post_bf16_first(y: torch.Tensor, attn: torch.Tensor, w: Block, d_v
 for _f in (vit_block_post_w8, vit_block_post_w4a8, vit_block_post_w4, vit_block_post_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
+vit_block_post_w4a8.by_form = collections.Counter()
 vit_block_post_w4.by_form = collections.Counter()
 vit_block_post_bf16.by_form = collections.Counter()
 

@@ -1152,3 +1152,167 @@ def test_vit_post_h_first_form_on_card(w4):
         before = kern.by_form["first"]
         _agree(kern(y, attn, blk, dp), plain(y, attn, blk, dp), 0.99, 0.25)
         assert kern.by_form["first"] == before + 1
+
+
+def _w4_block(rng, dp, hp, d, dev, a8):
+    """One W4A8 (``a8``: K8/K9, with _vit_block's inverse activation scales)
+    or W4A16 (K11/K12) layer at Dp/Hp: random int4 weights halves-packed
+    K-major, per-OC scales that put the products near unit scale, biases
+    and LN rows, every weight, scale, bias and LN lane zero past d_valid."""
+    from dlq_tpu_torch.ops.matmul_int4a8 import pack_halves_kmajor
+
+    blk = _vit_block(rng, dp, hp, dev)
+    if not a8:
+        del blk["inv_act"]
+    for name, (n, k) in (("wqkv", (3 * dp, dp)), ("wproj", (dp, dp)), ("wfc1", (hp, dp)),
+                         ("wfc2", (dp, hp))):
+        w = rng.integers(-8, 8, (k, n)).astype(np.int8)
+        if k == dp:
+            w[d:] = 0
+        if n == dp:
+            w[:, d:] = 0
+        if name == "wqkv":
+            w[:, np.arange(n) % dp >= d] = 0
+        blk[name] = pack_halves_kmajor(torch.from_numpy(w), k, n).to(dev)
+        s = blk["s" + name[1:]]
+        s.mul_(73.0 / 4.6)   # int4 weights: rms ~4.6 against int8's ~73
+        if not a8:
+            s.mul_(60.0)   # bf16 activations at unit scale, not int8 codes
+    for k in ("sproj", "bproj", "sfc2", "bfc2"):
+        blk[k][d:] = 0
+    blk["ln1"][:, d:] = 0
+    blk["ln2"][:, d:] = 0
+    return blk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 72, 400, 51200])
+def test_vit_post_w4a8_hopper_on_card(m, dp):
+    """K9's Hopper form (vit_post_iw.cuh, K7's body) bit-identical to its
+    first form (exact int32 sums in the paired K order, the same LN2 order,
+    codes and roundings) and within K9's stated agreement of its plain
+    version: Dp 128, 192 and 256 with d_valid = Dp - 32 (pad lanes), Hp 384
+    (768 at DeiT-Tiny batch 256), row counts on both sides of the 64-row
+    halves and 128-row tiles (1, 63, 64, 65, 72, 400) and 51,200 (each
+    block's last tile short), every residual / output dtype pair, both FC2
+    associations and both GELUs; every launch takes the Hopper form (the
+    rule, its counter) and the plan the library takes equals
+    ``vit_post_w4a8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w4a8, vit_block_post_w4a8_first,
+        vit_post_w4a8_form, vit_post_w4a8_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14000 + m + dp)
+    d, hp = dp - 32, (768 if m >= 51200 else 384)
+    blk = _w4_block(rng, dp, hp, d, dev, True)
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    attn = torch.from_numpy(rng.normal(0, 1, (1, m, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+    assert vit_post_w4a8_form(dp, hp) == "hopper"
+    for din in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, din)
+        for dout in (torch.bfloat16, torch.float32):
+            for multi in (False, True):
+                for tanh in (False, True):
+                    before = vit_block_post_w4a8.by_form["hopper"]
+                    got = vit_block_post_w4a8(y, attn, blk, d, tanh, dout, multi)
+                    assert vit_block_post_w4a8.by_form["hopper"] == before + 1
+                    assert got.dtype == dout and got.shape == y.shape
+                    first = vit_block_post_w4a8_first(y, attn, blk, d, tanh, dout, multi)
+                    assert torch.equal(got, first), (din, dout, multi, tanh,
+                                                     int((got != first).sum()))
+                    _agree(got, vit_block_post_plain(y, attn, blk, d, tanh, dout, multi), 0.95,
+                           0.25)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n("vit_post_w4a8", "vit_post_w4a8_plan", (dp, hp, m, 0), 4) == \
+        vit_post_w4a8_plan(dp, hp, m, sms)
+
+
+@pytest.mark.gpu
+def test_vit_post_w4a8_first_form_on_card():
+    """K9's first form by the static rule (Dp 64 and 320; Dp 256 at Hp 1024,
+    whose ring would hold 2 stages) within the stated agreement of its plain
+    version, counted as such; the library's plan is all zeros there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_post_plain, vit_block_post_w4a8, vit_post_w4a8_form,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14500)
+    for dp, hp in ((64, 256), (320, 256), (256, 1024)):
+        blk = _w4_block(rng, dp, hp, dp, dev, True)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+        attn = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev, torch.bfloat16)
+        assert vit_post_w4a8_form(dp, hp) == "first"
+        assert _plan_on_card_n("vit_post_w4a8", "vit_post_w4a8_plan", (dp, hp, 140, 0), 4) == (0,) * 4
+        before = vit_block_post_w4a8.by_form["first"]
+        _agree(vit_block_post_w4a8(y, attn, blk, dp), vit_block_post_plain(y, attn, blk, dp,
+                                                                           multi=True), 0.95, 0.25)
+        assert vit_block_post_w4a8.by_form["first"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 72, 400, 51200])
+def test_vit_pre_w4_hopper_on_card(m, dp):
+    """K11's Hopper form against its plain version and its first form (fp32
+    sums in other orders: >= 0.99 of the bf16 outputs equal, none more than
+    0.0625 apart, W4A16's tolerance): Dp 128, 192 and 256 with d_valid =
+    Dp - 32 (pad lanes), bf16 and fp32 residuals, row counts on both sides
+    of the 64-row halves, the 16- and 8-row y stages and the 128-row tiles
+    (1, 63, 64, 65, 72, 400) and DeiT-Tiny batch 256 (51,200: each block's
+    last tile short); every launch takes the Hopper form (its counter), and
+    the plan the library takes equals ``vit_pre_w4_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_w4, vit_block_pre_w4_first, vit_block_pre_w4_plain, vit_pre_w4_form,
+        vit_pre_w4_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14100 + m + dp)
+    d = dp - 32
+    blk = _w4_block(rng, dp, 256, d, dev, False)
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    assert vit_pre_w4_form(dp) == "hopper"
+    for dt in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, dt)
+        before = vit_block_pre_w4.by_form["hopper"]
+        got = vit_block_pre_w4(y, blk, d)
+        assert vit_block_pre_w4.by_form["hopper"] == before + 1
+        assert got.shape == (1, m, 3 * dp) and got.dtype == torch.bfloat16
+        _agree(got, vit_block_pre_w4_first(y, blk, d), 0.99, 0.0625)
+        _agree(got, vit_block_pre_w4_plain(y, blk, d), 0.99, 0.0625)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n("vit_pre_w4", "vit_pre_w4_plan", (dp, m, 0), 5) == \
+        vit_pre_w4_plan(dp, m, sms)
+
+
+@pytest.mark.gpu
+def test_vit_pre_w4_first_form_on_card():
+    """K11's first form by the static rule (Dp 64 and 320) within the
+    stated agreement of its plain version, counted as such; the library's
+    plan is all zeros there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import vit_block_pre_w4, vit_block_pre_w4_plain, vit_pre_w4_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14600)
+    for dp in (64, 320):
+        blk = _w4_block(rng, dp, 256, dp, dev, False)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev)
+        assert vit_pre_w4_form(dp) == "first"
+        assert _plan_on_card_n("vit_pre_w4", "vit_pre_w4_plan", (dp, 140, 0), 5) == (0,) * 5
+        before = vit_block_pre_w4.by_form["first"]
+        _agree(vit_block_pre_w4(y, blk, dp), vit_block_pre_w4_plain(y, blk, dp), 0.99, 0.0625)
+        assert vit_block_pre_w4.by_form["first"] == before + 1
