@@ -58,8 +58,8 @@ Phases, one JSON line each:
      layer and K10 matmul_int4a8 at its six deploy shapes, at batch 256,
      against their plain versions (K10 bit-identical), with torch._int_mm
      on the materialized int8 weights as the yardstick, K8 and K9 also as
-     device time, K9 also bit-identical to its first form and timed beside
-     it, with the form its launch took; then the store
+     device time, both also bit-identical to their first forms and timed
+     beside them, with the form their launch took; then the store
      through Engine.from_store(ctx="block") (K8, K6, K9 12 launches each per
      forward, bf16 between layers) driven through classify, gated against
      the fp32 forward (cosine >= DEIT_W4A8_FP32_COS: the reference's own
@@ -75,10 +75,13 @@ Phases, one JSON line each:
      K13_REL), with a bf16 torch.matmul on the dequantized weights as the
      yardstick, K11 and K12 also against their first forms (W4A16_TOL) and
      timed as device time beside them, with the form their launch took;
-     then 4,000 launches each of K5, K7, K9, K11 and K12 (the kernels whose
-     producer gives registers to its consumers by setmaxnreg) at their
-     block-path shape, the last result equal to the first, each with its
-     register split and ptxas report; then an INT4_WEIGHT_ONLY_PER_OC store through
+     then 4,000 launches each of K5, K7, K8, K9, K11, K12 and K14 (the
+     kernels whose producer gives registers to its consumers by setmaxnreg)
+     at their block-path shape, the last result equal to the first, each
+     with its register split and ptxas report; then digests of K5's and
+     K11's outputs over their forms on seeded inputs, equal to the digests
+     of the sources before K8 and K14 shared their Hopper bodies
+     (tools/pre_digest.py); then an INT4_WEIGHT_ONLY_PER_OC store through
      Engine.from_store(ctx="block") (deit_tiny_block_w4: K11, K6, K12 12
      launches each per forward, 4-bit weights) driven through classify,
      gated against the fp32 forward (DEIT_W4A16_FP32_COS: the reference's
@@ -94,7 +97,9 @@ Phases, one JSON line each:
      residual_layernorm at [256 x 197, 192] in fp32 and bf16 and K6's fp32
      form mhsa_f32 at [256, 197, 3 x 64], at batch 256, against their plain
      versions (BF16_TOL, LN_TOL, MHSA_F32_TOL), with bf16 torch.matmul,
-     F.layer_norm and scaled_dot_product_attention as yardsticks; then
+     F.layer_norm and scaled_dot_product_attention as yardsticks, K14 and
+     K15 also against their first forms (BF16_TOL) and timed as device time
+     beside them, with the form their launch took; then
      vit_forward_blockfused (pack_vit_blocks; K14, K6, K15 12 launches each
      per forward) through Engine.fp32 and classify at batch 256 with loose
      and tight pads, gated against the fp32 forward (DEIT_BF16_FP32_COS: the
@@ -135,7 +140,7 @@ Phases, one JSON line each:
 Each main path is driven with every launch count set to 0 just before it
 and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
-form, and on every path every K4, K5, K9, K11, K12 and K15 launch (the
+form, and on every path every K4, K5, K8, K9, K11, K12, K14 and K15 launch (the
 per-form counts are printed per path). Then the card's name and
 power limit, the kernel summary line and, last, {"ok": true, "device":
 {...}}. Any failed gate
@@ -999,13 +1004,13 @@ def check_w4a8_kernels(dev):
     (the block path's bf16 -> bf16 and the stacked forms), with
     torch._int_mm on the materialized int8 weights as the yardstick; the
     int4 weights count K/2 bytes in the bound. Both also as device time on
-    a spinning card (their own and the yardstick's); K9's rows also carry
+    a spinning card (their own and the yardstick's); each row also carries
     its form, and its first form's device time and bit-identity to it."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.matmul_int4a8 import unpack_halves_kmajor
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_plain, vit_block_post_w4a8, vit_block_post_w4a8_first, vit_block_pre_plain,
-        vit_block_pre_w4a8,
+        vit_block_pre_w4a8, vit_block_pre_w4a8_first,
     )
     from dlq_tpu_torch.tools._probe import spun_ms
 
@@ -1020,14 +1025,27 @@ def check_w4a8_kernels(dev):
     rows = []
     for case, per in vit_pre_w4a8_cases().items():
         y = ys[case]
+        vit_block_pre_w4a8.by_form.clear()
+        got = vit_block_pre_w4a8(y, blk, dp)
+        form = vit_block_pre_w4a8.by_form.most_common(1)[0][0]
+        # the Hopper form against the first form, bit for bit (the same LN
+        # order and codes, exact int32 sums, the same epilogue)
+        first = vit_block_pre_w4a8_first(y, blk, dp)
+        if not torch.equal(got, first):
+            raise AssertionError(f"vit_pre_w4a8 {case}: the {form} form differs from the first "
+                                 f"form at {int((got != first).sum())} outputs")
         rows.append(_row(
             "vit_pre_w4a8", (BATCH, VIT_NP, dp, case), f"{BATCH}x{VIT_NP}x{dp} {case} -> qkv, int4",
-            vit_block_pre_w4a8(y, blk, dp), vit_block_pre_plain(y, blk, dp),
+            got, vit_block_pre_plain(y, blk, dp),
             lambda: vit_block_pre_w4a8(y, blk, dp), lambda: vit_block_pre_plain(y, blk, dp),
             2.0 * m * dp * 3 * dp,
             y.numel() * y.element_size() + 3 * dp * dp // 2 + 8 * 3 * dp + 8 * dp + m * 3 * dp * 2,
             per, library=lambda: torch._int_mm(x1, wq), tol=VIT_TOL, residual=case, out="bf16",
-            spun=True))
+            spun=True, form=form, first_form_equal=True,
+            first_form_device_ms=spun_ms(lambda: vit_block_pre_w4a8_first(y, blk, dp), 20,
+                                         warmup=2, reps=3)))
+        vit_block_pre_w4a8.by_form.clear()
+        del got, first
     qkv = vit_block_pre_plain(y32, blk, dp)
     a = mhsa(qkv[..., :dp], qkv[..., dp: 2 * dp], qkv[..., 2 * dp:], VIT_HEADS, VIT_N)
     for (din, dout), per in vit_post_w4a8_cases().items():
@@ -1325,13 +1343,14 @@ def check_bf16_kernels(dev):
     for BF16_TOL: the plain version with its exact sums replaced by cuBLAS
     fp32 sums (another order, TF32 off) against the plain version, and K12
     on the same layer with its weights rounded to per-OC int4 against K12's
-    plain version; and its form, device time on a spinning card (its own
-    and the three products'), and its first form's device time and equal
-    fraction against it."""
+    plain version. Each row carries its form, device time on a spinning
+    card (its own and the products'), and its first form's device time and
+    equal fraction against it (K14's held to BF16_TOL)."""
     from dlq_tpu_torch.ops.attention import mhsa
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_bf16, vit_block_post_bf16_first, vit_block_post_bf16_plain,
-        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_bf16, vit_block_pre_bf16_plain,
+        vit_block_post_w4, vit_block_post_w4_plain, vit_block_pre_bf16, vit_block_pre_bf16_first,
+        vit_block_pre_bf16_plain,
     )
     from dlq_tpu_torch.tools._probe import spun_ms
 
@@ -1347,15 +1366,32 @@ def check_bf16_kernels(dev):
         h1 = torch.randn((m, dp), generator=gen, device=dev).to(torch.bfloat16)
         h2 = torch.randn((m, hp), generator=gen, device=dev).to(torch.bfloat16)
         wq, wp, w1, w2 = (blk[k].t() for k in ("wqkv", "wproj", "wfc1", "wfc2"))  # [K, N] views
+        vit_block_pre_bf16.by_form.clear()
+        got = vit_block_pre_bf16(y, blk, d)
+        form = vit_block_pre_bf16.by_form.most_common(1)[0][0]
+        # the Hopper form against the first form (fp32 sums in the tensor
+        # core's order, the first form's in mma.sync's): within BF16_TOL, as
+        # against the plain version
+        first = vit_block_pre_bf16_first(y, blk, d)
+        diff = (got.float() - first.float()).abs()
+        first_equal, first_err = float((diff == 0).float().mean()), float(diff.max())
+        if first_equal < BF16_TOL[0] or first_err > BF16_TOL[1]:
+            raise AssertionError(f"vit_pre_bf16 {npad}/{dp}: the {form} form against the first "
+                                 f"form: {first_equal} equal, largest difference {first_err}")
         rows.append(_row(
             "vit_pre_bf16", (BATCH, npad, dp, din),
             f"{BATCH}x{npad}x{dp} {din} -> qkv, bf16 weights",
-            vit_block_pre_bf16(y, blk, d), vit_block_pre_bf16_plain(y, blk, d),
+            got, vit_block_pre_bf16_plain(y, blk, d),
             lambda: vit_block_pre_bf16(y, blk, d), lambda: vit_block_pre_bf16_plain(y, blk, d),
             2.0 * m * d * 3 * d,
             m * d * y.element_size() + 3 * d * d * 2 + 4 * 3 * d + 8 * d + m * 3 * dp * 2,
             per, library=lambda: torch.matmul(h1, wq), tol=BF16_TOL, peak=PEAK_BF16,
-            library_name=BMM, residual=din, out="bf16", pads=f"{npad}/{dp}"))
+            library_name=BMM, residual=din, out="bf16", pads=f"{npad}/{dp}", spun=True,
+            form=form, first_form_equal_fraction=first_equal, first_form_max_abs_diff=first_err,
+            first_form_device_ms=spun_ms(lambda: vit_block_pre_bf16_first(y, blk, d), 20,
+                                         warmup=2, reps=3)))
+        vit_block_pre_bf16.by_form.clear()
+        del got, first, diff
         qkv = vit_block_pre_bf16_plain(y, blk, d)
         a = mhsa(qkv[..., :d], qkv[..., dp: dp + d], qkv[..., 2 * dp: 2 * dp + d], VIT_HEADS,
                  VIT_N, out_lanes=dp)
@@ -1585,12 +1621,15 @@ def check_groupwise_routes(dev):
 # the kernels whose producer warpgroup gives registers to its two consumer
 # warpgroups by setmaxnreg, as their sources set the split (producer,
 # consumer registers a thread), and the mark of their Hopper kernels' names
-# in the ptxas report: K5 (csrc/vit_pre_w8.cu), K7 and K9
-# (csrc/vit_post_iw.cuh), K11 (csrc/vit_pre_w4.cu), K12 (csrc/vit_post_hw.cuh)
-SPLIT_KERNELS = {"vit_pre_w8": (40, 232, "14vit_pre_kernel"),
+# in the ptxas report: K5 and K8 (csrc/vit_pre_iw.cuh), K7 and K9
+# (csrc/vit_post_iw.cuh), K11 and K14 (csrc/vit_pre_hw.cuh), K12
+# (csrc/vit_post_hw.cuh)
+SPLIT_KERNELS = {"vit_pre_w8": (40, 232, "pre_iw6kernel"),
+                 "vit_pre_w4a8": (40, 232, "pre_iw6kernel"),
                  "vit_post_w8": (40, 232, "post_iw6kernel"),
                  "vit_post_w4a8": (88, 208, "post_iw6kernel"),
-                 "vit_pre_w4": (88, 208, "17vit_pre_w4_kernel"),
+                 "vit_pre_w4": (88, 208, "pre_hw6kernel"),
+                 "vit_pre_bf16": (40, 232, "pre_hw6kernel"),
                  "vit_post_w4": (88, 208, "post_hw6kernel")}
 STRESS_LAUNCHES = 4000
 
@@ -1632,8 +1671,8 @@ def stress_split_kernels(dev):
     bit for bit (the kernels are deterministic); each kernel's line carries
     its register split and its ptxas report."""
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_w4,
-        vit_block_pre_w8,
+        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_bf16,
+        vit_block_pre_w4, vit_block_pre_w4a8, vit_block_pre_w8,
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -1641,10 +1680,13 @@ def stress_split_kernels(dev):
     y = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
     a = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
     w8, w4a8, w4 = _vit_layer(gen, dev), _w4a8_layer(gen, dev), _w4a16_layer(gen, dev)
+    wbf = _bf16_layer(gen, dev, d)
     fns = {"vit_pre_w8": lambda: vit_block_pre_w8(y, w8, d),
+           "vit_pre_w4a8": lambda: vit_block_pre_w4a8(y, w4a8, d),
            "vit_post_w8": lambda: vit_block_post_w8(y, a, w8, d, True, bf, True),
            "vit_post_w4a8": lambda: vit_block_post_w4a8(y, a, w4a8, d),
            "vit_pre_w4": lambda: vit_block_pre_w4(y, w4, d),
+           "vit_pre_bf16": lambda: vit_block_pre_bf16(y, wbf, d),
            "vit_post_w4": lambda: vit_block_post_w4(y, a, w4, d)}
     out = {}
     for name, fn in fns.items():
@@ -1665,6 +1707,18 @@ def stress_split_kernels(dev):
         del first, last
     emit({"phase": "setmaxnreg_stress", "shape": f"{BATCH}x{VIT_NP}x{d} bf16 -> bf16",
           "kernels": out})
+
+
+def check_pre_digests(dev):
+    """K5's and K11's outputs over their forms on seeded inputs
+    (tools/pre_digest.py), equal bit for bit to those of the sources before
+    K8 and K14 took their Hopper bodies."""
+    from dlq_tpu_torch.tools import pre_digest
+
+    got = pre_digest.digests(dev)
+    if got != pre_digest.EXPECTED:
+        raise AssertionError(f"pre_digest: {got}, expected {pre_digest.EXPECTED}")
+    emit({"phase": "pre_digest", "digests": got, "equal_to_expected": True})
 
 
 # ---------------------------------------------------------------------------
@@ -1713,18 +1767,19 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K4, K5, K9, K11, K12 and K15 launch of every path must (their first
-# forms serve no main-path shape: W > 126; Dp other than 128, 192, 256; K9,
-# K12 and K15 also an Hp whose ring would hold fewer than 3 stages)
+# every K4, K5, K8, K9, K11, K12, K14 and K15 launch of every path must
+# (their first forms serve no main-path shape: W > 126; Dp other than 128,
+# 192, 256, for K8 also 256; K9, K12 and K15 also an Hp whose ring would
+# hold fewer than 3 stages)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
-FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_post_w4a8",
-                "vit_pre_w4", "vit_post_w4", "vit_post_bf16")
+FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_pre_w4a8",
+                "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16", "vit_post_bf16")
 
 
 def read_forms():
-    """Launches per form of K1, K2, K4, K5, K9, K11, K12 and K15 since the
-    counts were last set to 0."""
+    """Launches per form of K1, K2, K4, K5, K8, K9, K11, K12, K14 and K15
+    since the counts were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
@@ -2941,6 +2996,7 @@ def main() -> int:
             + check_int8_attention_kernels(dev))
     check_groupwise_routes(dev)
     stress_split_kernels(dev)
+    check_pre_digests(dev)
     torch.cuda.empty_cache()
     images = np.random.default_rng(SEED).normal(0, 1, (NB * BATCH, 224, 224, 3)).astype(np.float32)
     paths = {**main_paths(dev, card, 18, images), **main_paths(dev, card, 50, images)}

@@ -1,6 +1,7 @@
 // The body of the first third of a quantized ViT layer, shared by K5
 // (vit_pre_w8.cu: int8 weights) and K8 (vit_pre_w4a8.cu: int4 weights,
-// halves-packed). Each source instantiates it in a kernel of its own name.
+// halves-packed) as their first form (their Hopper form: vit_pre_iw.cuh).
+// Each source instantiates it in a kernel of its own name.
 //   h1  = LN(x) (two-moment, over Dp lanes, 1/d_valid)       x: bf16 or fp32 [M, Dp]
 //   acc = quant(h1, inv_qkv) @ wqkv                          (int32 sums)
 //   qkv = bf16(fma(float(acc), s[n], b[n]))                  -> [M, 3 Dp]

@@ -1,6 +1,7 @@
 // The first third of a ViT layer with bf16 activations, shared by K11
 // vit_pre_w4 (int4 per-OC weights, vit_pre_w4.cu) and K14 vit_pre_bf16 (bf16
-// weights, vit_pre_bf16.cu), as vit_pre.cuh is by K5 and K8:
+// weights, vit_pre_bf16.cu) as their first form (their Hopper form:
+// vit_pre_hw.cuh), as vit_pre.cuh is by K5 and K8:
 //   h1  = bf16(LN(x))                                         x: bf16 or fp32 [M, Dp]
 //   acc = h1 @ W       (bf16 x bf16 products, exact; fp32 sums)
 //   qkv = bf16(fma(acc, s[n], b[n]))                          -> bf16 [M, 3 Dp]

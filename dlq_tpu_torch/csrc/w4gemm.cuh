@@ -173,18 +173,23 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline cudaError_t a_tensor_map(CUtensorMap* tm, const void* x, int esize, int K, int M,
-                                int box_x) {
+// cuTensorMapEncodeTiled (looked up once); null where the driver lacks it.
+inline EncodeTiled encode_tiled() {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                                  cudaEnableDefault, &q);
-    if (e != cudaSuccess) return e;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  return encode;
+}
+
+inline cudaError_t a_tensor_map(CUtensorMap* tm, const void* x, int esize, int K, int M,
+                                int box_x) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
   const cuuint32_t box[2] = {(cuuint32_t)box_x, (cuuint32_t)BM};

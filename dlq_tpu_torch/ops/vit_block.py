@@ -27,7 +27,11 @@ FC2's residual as ``z1 + fma(acc, s, b)``. K9 shares K7's Hopper form
 int8 stages, the K slots paired across the packed halves), taken by the
 static rule ``vit_post_w4a8_form`` (plan mirror ``vit_post_w4a8_plan``),
 bit-identical to its first form (``vit_post.cuh``), which serves other
-shapes and stays callable as ``vit_block_post_w4a8_first``.
+shapes and stays callable as ``vit_block_post_w4a8_first``. K8 shares K5's
+Hopper form (``csrc/vit_pre_iw.cuh``; its producer unpacks the int4 bytes
+once a block into K5's resident int8 weight), bit-identical to its first
+form (``vit_pre.cuh``): rule ``vit_pre_w4a8_form`` (Dp 128 and 192), plan
+``vit_pre_w4a8_plan``, first form ``vit_block_pre_w4a8_first``.
 
 The W4A16 (weight-only int4) layer (``vit_block_fused_w4``, ``_w4c``,
 ``vit_multiblock_fused_w4``) is K11 -> K6 -> K12: K11 ``vit_block_pre_w4``
@@ -43,8 +47,11 @@ functions add FC2's residual as ``z1 + fma(acc, s, b)`` too. K11's Hopper
 form is K5's in bf16 ``wgmma`` (its producer streams the packed weight from
 L2 and unpacks it into bf16 stages), taken by the static rule
 ``vit_pre_w4_form`` (plan mirror ``vit_pre_w4_plan``); its first form
-(``vit_pre_h.cuh``, K14's body) serves other Dp and stays callable as
-``vit_block_pre_w4_first``.
+(``vit_pre_h.cuh``) serves other Dp and stays callable as
+``vit_block_pre_w4_first``. K14 shares that Hopper form
+(``csrc/vit_pre_hw.cuh``; its producer warp copies the bf16 weight into the
+same stages): rule ``vit_pre_bf16_form``, plan ``vit_pre_bf16_plan`` (both
+K11's), first form ``vit_block_pre_bf16_first``.
 
 The reference's int8-attention arm (``vit_multiblock_fused_w8(...,
 attn_int8=True)``, ``_mhsa_batched_i8_into_scratch``) is K5 -> K18 -> K7,
@@ -425,7 +432,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _pre_entry(name: str, suffix: str = ""):
     """The launch entry of K5, K8, K11 or K14 (K11 and K14 take no inverse
     activation scale; K14's scale pointer is null); ``suffix`` "_first":
-    K5's or K11's first form."""
+    its first form (``dlq_vit_pre_w8_first``, ``_w4a8_first``, ``_w4_first``,
+    ``_bf16_first``)."""
     fn = getattr(_build.library(name), f"dlq_{name}{suffix}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
@@ -490,8 +498,8 @@ def _launch_pre(name: str, y: torch.Tensor, w: Block, d_valid: int,
     return out
 
 
-# K5's Hopper form (csrc/vit_pre_w8.cu's make_plan, which the card test
-# holds to this): 128-row tiles, 192-column slices of the 3·Dp outputs,
+# K5's and K8's Hopper form (csrc/vit_pre_iw.cuh's make_plan, which the
+# card test holds to this): 128-row tiles, 192-column slices of the 3·Dp outputs,
 # weight stages of 192 x 64 bytes when the weight is not resident, y stages
 # of 32·Dp bytes (8 fp32 or 16 bf16 rows), each consumer warp staging two
 # buffers of 8 output rows of 2 x 192 + 16 bytes
@@ -499,6 +507,7 @@ K5_TILE, K5_SLICE, K5_STAGE_K, K5_MAX_STAGES = 128, 192, 64, 8
 K5_Y_BYTES, K5_MAX_Y, K5_MIN_Y = 32, 4, 2
 K5_STAGING = 2 * 8 * 8 * (2 * K5_SLICE + 16)
 K5_HOPPER_DP = (128, 192, 256)
+K8_HOPPER_DP = (128, 192)   # K8: the resident weight only
 SMEM_MAX = 232448   # the opt-in shared-memory limit (launch.cuh: SMEM_OPT_IN)
 
 
@@ -563,12 +572,40 @@ def vit_block_pre_w8_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Ten
     return _launch_pre("vit_pre_w8", y, w, d_valid, "_first")
 
 
+def vit_pre_w4a8_form(dp: int) -> str:
+    """K8's form, a static shape rule: ``"hopper"`` for Dp 128 and 192 (K5's
+    Hopper body with the weight resident, unpacked once a block), else
+    ``"first"`` (vit_pre.cuh's body; Dp 256 among them, where K5 streams its
+    weight)."""
+    return "hopper" if dp in K8_HOPPER_DP else "first"
+
+
+def vit_pre_w4a8_plan(dp: int, m: int, sms: int) -> Tuple[int, int, int, int, int, int]:
+    """K8's Hopper plan: K5's (``vit_pre_w8_plan``: its int8 weight unpacks
+    into K5's resident copy) where the rule takes the Hopper form, all 0
+    elsewhere."""
+    if vit_pre_w4a8_form(dp) != "hopper":
+        return 0, 0, 0, 0, 0, 0
+    return vit_pre_w8_plan(dp, m, sms)
+
+
 def vit_block_pre_w4a8(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """LN1 + QKV of one W4A8 layer (K8; ``pack_vit_blocks_w4a8`` weights),
-    as ``vit_block_pre_w8``."""
+    as ``vit_block_pre_w8``. ``.by_form`` counts launches per form."""
     if y.device.type == "cpu":
         return vit_block_pre_plain(y, w, d_valid)
-    return _pre(vit_block_pre_w4a8, "vit_pre_w4a8", y, w, d_valid)
+    out = _pre(vit_block_pre_w4a8, "vit_pre_w4a8", y, w, d_valid)
+    vit_block_pre_w4a8.by_form[library_form("vit_pre_w4a8", y.shape[-1])] += 1
+    return out
+
+
+def vit_block_pre_w4a8_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """K8's first form at any Dp (a CUDA tensor only; not counted): what
+    the card tests and ``chip_smoke.py`` hold the Hopper form to, bit for
+    bit."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_pre_w4a8_first: a CUDA tensor (the kernel's first form)")
+    return _launch_pre("vit_pre_w4a8", y, w, d_valid, "_first")
 
 
 def vit_block_pre_w4_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
@@ -583,23 +620,24 @@ def vit_block_pre_w4_plain(y: torch.Tensor, w: Block, d_valid: int) -> torch.Ten
 vit_block_pre_bf16_plain = vit_block_pre_w4_plain
 
 
-# K11's Hopper form (csrc/vit_pre_w4.cu's make_plan, which the card test
-# holds to this): K5's tiles, slices, y stages and staging, with bf16 h1 and
-# weight stages of 192 columns x 32 packed bytes unpacked to bf16 (128 bytes
-# a row), streamed from L2 (none resident)
+# K11's and K14's Hopper form (csrc/vit_pre_hw.cuh's make_plan, which the
+# card test holds to this): K5's tiles, slices, y stages and staging, with
+# bf16 h1 and bf16 weight stages of 192 columns x 128 bytes (K11: 32 packed
+# bytes of each row unpacked; K14: 64 K values copied), streamed from L2
+# (none resident)
 K11_STAGE = K5_SLICE * 4 * 32
 K11_MAX_STAGES, K11_MIN_STAGES = 8, 3
 
 
 def vit_pre_w4_form(dp: int) -> str:
-    """K11's form, a static shape rule: ``"hopper"`` for Dp 128, 192 and 256
-    (K5's, where the plan fits), else ``"first"`` (the first form,
-    vit_pre_h.cuh's body, shared with K14)."""
+    """K11's form (and K14's), a static shape rule: ``"hopper"`` for Dp 128,
+    192 and 256 (K5's, where the plan fits), else ``"first"`` (the first
+    form, vit_pre_h.cuh's body)."""
     return "hopper" if dp in K5_HOPPER_DP else "first"
 
 
 def vit_pre_w4_plan(dp: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
-    """K11's Hopper plan: (weight ring stages, y stages a consumer, dynamic
+    """K11's and K14's Hopper plan: (weight ring stages, y stages a consumer, dynamic
     shared-memory bytes, blocks, rows a block) for Dp lanes and M rows on
     ``sms`` SMs; all 0 where the first form serves. Shared memory: the bf16
     h1 of a 128-row tile, the {s, s, b, b} table (8 bytes a column), the
@@ -640,20 +678,37 @@ def vit_block_pre_w4_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Ten
     return _launch_pre("vit_pre_w4", y, w, d_valid, "_first")
 
 
+# K14's Hopper form is K11's body (csrc/vit_pre_hw.cuh): the same stages of
+# 192 columns x 128 bytes (64 bf16 K values a row, copied, not unpacked), so
+# the same rule and plan
+vit_pre_bf16_form = vit_pre_w4_form
+vit_pre_bf16_plan = vit_pre_w4_plan
+
+
 def vit_block_pre_bf16(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
     """LN1 + QKV of one bf16 layer (K14; ``pack_vit_blocks`` weights) on the
     padded stream y [B, Np, Dp] (bf16 or fp32); returns bf16 qkv
-    [B, Np, 3·Dp]."""
+    [B, Np, 3·Dp]. ``.by_form`` counts launches per form."""
     if y.device.type == "cpu":
         return vit_block_pre_bf16_plain(y, w, d_valid)
-    return _pre(vit_block_pre_bf16, "vit_pre_bf16", y, w, d_valid)
+    out = _pre(vit_block_pre_bf16, "vit_pre_bf16", y, w, d_valid)
+    vit_block_pre_bf16.by_form[library_form("vit_pre_bf16", y.shape[-1])] += 1
+    return out
+
+
+def vit_block_pre_bf16_first(y: torch.Tensor, w: Block, d_valid: int) -> torch.Tensor:
+    """K14's first form at any Dp (a CUDA tensor only; not counted): what
+    the card tests and ``chip_smoke.py`` hold the Hopper form to (the same
+    LN and epilogue, fp32 sums in another order)."""
+    if y.device.type != "cuda":
+        raise ValueError("vit_block_pre_bf16_first: a CUDA tensor (the kernel's first form)")
+    return _launch_pre("vit_pre_bf16", y, w, d_valid, "_first")
 
 
 for _f in (vit_block_pre_w8, vit_block_pre_w4a8, vit_block_pre_w4, vit_block_pre_bf16):
     _f.launches = 0
     _f.by_shape = collections.Counter()
-vit_block_pre_w8.by_form = collections.Counter()
-vit_block_pre_w4.by_form = collections.Counter()
+    _f.by_form = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

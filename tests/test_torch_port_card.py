@@ -1316,3 +1316,159 @@ def test_vit_pre_w4_first_form_on_card():
         before = vit_block_pre_w4.by_form["first"]
         _agree(vit_block_pre_w4(y, blk, dp), vit_block_pre_w4_plain(y, blk, dp), 0.99, 0.0625)
         assert vit_block_pre_w4.by_form["first"] == before + 1
+
+
+# the ViT kernels' agreement with their plain versions at batch 256
+# (chip_smoke.py): (fraction of outputs equal, largest difference)
+VIT_TOL = (0.999, 0.0625)
+BF16_TOL = (0.997, 0.0625)
+PRE_M = (1, 63, 64, 65, 127, 128, 129, 51200)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", PRE_M)
+def test_vit_pre_w4a8_hopper_on_card(m, dp):
+    """K8 at the form its rule gives (the Hopper form at Dp 128 and 192:
+    K5's body, the packed weight unpacked once a block into its resident
+    int8 copy; the first form at 256) bit-identical to its first form (the
+    same LN order and codes, exact int32 sums, the same epilogue), with
+    d_valid = Dp - 32 (pad lanes), bf16 and fp32 residuals, row counts on
+    both sides of the 64-row halves and 128-row tiles and DeiT-Tiny batch
+    256 (each block's last tile short). Against its plain version (which
+    sums LN1 in another order): no output more than VIT_TOL[1] apart, and
+    at 51,200 rows VIT_TOL's equal fraction (at a few rows one code that
+    lands a step apart moves much of its row, so the fraction says nothing
+    there). Every launch is counted on its form, and the plan the library
+    takes equals ``vit_pre_w4a8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_plain, vit_block_pre_w4a8, vit_block_pre_w4a8_first, vit_pre_w4a8_form,
+        vit_pre_w4a8_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15000 + m + dp)
+    d = dp - 32
+    blk = _w4_block(rng, dp, 256, d, dev, True)
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    form = vit_pre_w4a8_form(dp)
+    assert form == ("hopper" if dp in (128, 192) else "first")
+    for dt in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, dt)
+        before = vit_block_pre_w4a8.by_form[form]
+        got = vit_block_pre_w4a8(y, blk, d)
+        assert vit_block_pre_w4a8.by_form[form] == before + 1
+        assert got.shape == (1, m, 3 * dp) and got.dtype == torch.bfloat16
+        first = vit_block_pre_w4a8_first(y, blk, d)
+        assert torch.equal(got, first), (dt, int((got != first).sum()))
+        _agree(got, vit_block_pre_plain(y, blk, d), VIT_TOL[0] if m >= 51200 else 0.0, VIT_TOL[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n("vit_pre_w4a8", "vit_pre_w4a8_plan", (dp, m, 0), 6) == \
+        vit_pre_w4a8_plan(dp, m, sms)
+
+
+@pytest.mark.gpu
+def test_vit_pre_w4a8_first_form_on_card():
+    """K8's first form by the static rule (Dp 64 and 320) bit-identical to
+    its own entry and within VIT_TOL[1] of its plain version, counted as
+    such; the library's plan is all zeros there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_plain, vit_block_pre_w4a8, vit_block_pre_w4a8_first, vit_pre_w4a8_form,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15500)
+    for dp in (64, 320):
+        blk = _w4_block(rng, dp, 256, dp, dev, True)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev)
+        assert vit_pre_w4a8_form(dp) == "first"
+        assert _plan_on_card_n("vit_pre_w4a8", "vit_pre_w4a8_plan", (dp, 140, 0), 6) == (0,) * 6
+        before = vit_block_pre_w4a8.by_form["first"]
+        got = vit_block_pre_w4a8(y, blk, dp)
+        assert vit_block_pre_w4a8.by_form["first"] == before + 1
+        assert torch.equal(got, vit_block_pre_w4a8_first(y, blk, dp))
+        _agree(got, vit_block_pre_plain(y, blk, dp), 0.0, VIT_TOL[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp", [128, 192, 256])
+@pytest.mark.parametrize("m", PRE_M + (65536,))
+def test_vit_pre_bf16_hopper_on_card(m, dp):
+    """K14's Hopper form (K11's body, vit_pre_hw.cuh: the bf16 weight by
+    one TMA box a stage with 128-byte swizzle) against its first form (the
+    same LN, fp32 sums in another order) within BF16_TOL, and against its
+    plain version (exact sums; LN1 in another order) with no output more
+    than BF16_TOL[1] apart and, at 51,200 and 65,536 rows, BF16_TOL's equal
+    fraction: Dp 128, 192 and 256 with d_valid = Dp - 32, bf16 and fp32
+    residuals, row counts on both sides of the 64-row halves and 128-row
+    tiles, DeiT-Tiny batch 256 at the tight (51,200) and loose (65,536)
+    row counts; every launch takes the Hopper form (its counter), and the
+    plan the library takes equals ``vit_pre_bf16_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_bf16, vit_block_pre_bf16_first, vit_block_pre_bf16_plain,
+        vit_pre_bf16_form, vit_pre_bf16_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15100 + m + dp)
+    d = dp - 32
+    blk = _bf16_block(rng, dp, 64, d, dev)
+    yn = rng.normal(0, 1, (1, m, dp)).astype(np.float32)
+    yn[..., d:] = 0
+    assert vit_pre_bf16_form(dp) == "hopper"
+    for dt in (torch.bfloat16, torch.float32):
+        y = torch.from_numpy(yn).to(dev, dt)
+        before = vit_block_pre_bf16.by_form["hopper"]
+        got = vit_block_pre_bf16(y, blk, d)
+        assert vit_block_pre_bf16.by_form["hopper"] == before + 1
+        assert got.shape == (1, m, 3 * dp) and got.dtype == torch.bfloat16
+        _agree(got, vit_block_pre_bf16_first(y, blk, d), *BF16_TOL)
+        _agree(got, vit_block_pre_bf16_plain(y, blk, d), BF16_TOL[0] if m >= 51200 else 0.0,
+               BF16_TOL[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan_on_card_n("vit_pre_bf16", "vit_pre_bf16_plan", (dp, m, 0), 5) == \
+        vit_pre_bf16_plan(dp, m, sms)
+
+
+@pytest.mark.gpu
+def test_vit_pre_bf16_first_form_on_card():
+    """K14's first form by the static rule (Dp 64 and 320) equal to its own
+    entry and within BF16_TOL[1] of its plain version, counted as such; the
+    library's plan is all zeros there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.vit_block import (
+        vit_block_pre_bf16, vit_block_pre_bf16_first, vit_block_pre_bf16_plain, vit_pre_bf16_form,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15600)
+    for dp in (64, 320):
+        blk = _bf16_block(rng, dp, 64, dp, dev)
+        y = torch.from_numpy(rng.normal(0, 1, (2, 70, dp)).astype(np.float32)).to(dev)
+        assert vit_pre_bf16_form(dp) == "first"
+        assert _plan_on_card_n("vit_pre_bf16", "vit_pre_bf16_plan", (dp, 140, 0), 5) == (0,) * 5
+        before = vit_block_pre_bf16.by_form["first"]
+        got = vit_block_pre_bf16(y, blk, dp)
+        assert vit_block_pre_bf16.by_form["first"] == before + 1
+        assert torch.equal(got, vit_block_pre_bf16_first(y, blk, dp))
+        _agree(got, vit_block_pre_bf16_plain(y, blk, dp), 0.0, BF16_TOL[1])
+
+
+@pytest.mark.gpu
+def test_vit_pre_w8_w4_unchanged_on_card():
+    """K5's and K11's outputs over every form they take, on seeded inputs
+    (``tools/pre_digest.py``), equal bit for bit to those of the sources
+    before K8 and K14 took their Hopper bodies (fixed digests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import pre_digest
+
+    assert pre_digest.digests(torch.device("cuda")) == pre_digest.EXPECTED
