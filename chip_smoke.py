@@ -98,29 +98,36 @@ Phases, one JSON line each:
      form mhsa_f32 at [256, 197, 3 x 64], at batch 256, against their plain
      versions (BF16_TOL, LN_TOL, MHSA_F32_TOL), with bf16 torch.matmul,
      F.layer_norm and scaled_dot_product_attention as yardsticks, K14 and
-     K15 also against their first forms (BF16_TOL) and timed as device time
-     beside them, with the form their launch took; then
+     K15 also against their first forms (BF16_TOL), mhsa_f32 equal to its
+     first form on every output, each timed as device time beside its first
+     form, with the form its launch took; the ptxas reports of mhsa_f32's
+     and K18's libraries; then
      vit_forward_blockfused (pack_vit_blocks; K14, K6, K15 12 launches each
      per forward) through Engine.fp32 and classify at batch 256 with loose
      and tight pads, gated against the fp32 forward (DEIT_BF16_FP32_COS: the
      reference's own bf16 error), its plain-version twin and per layer, the
      two pads against each other, and profiled; the fp32 forward with
      fused_ln=True, attn_impl="fused" at batch 64 (K16 1, K17 24, mhsa_f32 12
-     per forward) against the unfused fp32 forward (max_abs < 1e-5); and the
+     per forward) against the unfused fp32 forward (max_abs < 1e-5), then
+     timed at batch 256 in turns with the same forward on mhsa_f32's first
+     form, each profiled; and the
      W8A8 deploy forward with fused_ln=True at batch 64 (K2 50, K6 12, K16 1,
      K17 24) against the unfused deploy forward (DEIT_FUSED_LN_COS) and fp32;
  10. DeiT-Tiny W8A8 with int8 attention: K18 mhsa_i8 in its in-kernel form
      on the tight block stream and its zero-pad form on the split path's
      loose stream and on the deploy path's qkv dense (bf16, and fp32), at
      batch 256, against its plain version (>= 0.99 of the outputs equal,
-     the rest within 2 av / 127), with bf16 SDPA as the yardstick (no
-     PyTorch call computes int8 attention); then, inside phase 6 on its
+     the rest within 2 av / 127) and equal to its first form on every
+     output, timed as device time beside its first form, with the form its
+     launch took, and bf16 SDPA as the yardstick (no PyTorch call computes
+     int8 attention); then, inside phase 6 on its
      W8A8 store, vit_forward_multiblock_w8(attn_int8=True) (tight pads, 6
      layers per chunk; K5, K18, K7 12 launches each per forward, K6 none)
      through Engine and classify at batch 256, gated against the fp32
      forward (DEIT_ATTN_INT8_FP32_COS: the reference's own int8-attention
      error), its plain-version twin and per layer, timed in turns with the
-     bf16-attention block engine and profiled; at batch 64 the
+     bf16-attention block engine and with itself on K18's first form, and
+     profiled (on the first form too); at batch 64 the
      split-attention forward (loose pads) with attn="int8" (K18) and
      "bf16" (K6; bit-identical to vit_forward_blockfused_w8), and
      make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12);
@@ -1469,8 +1476,9 @@ def check_int8_attention_kernels(dev):
     rows; the n_valid rows in the zero-pad form) and the output written once
     at its full width; no PyTorch call computes int8 attention, so bf16 SDPA
     at the same shape is timed beside it (sdpa_bf16_ms), as on K6's row."""
-    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_plain
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_first, mhsa_i8_plain
     from dlq_tpu_torch.ops.vit_block import vit_block_pre_plain
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     blk = _vit_layer(gen, dev)
@@ -1497,7 +1505,20 @@ def check_int8_attention_kernels(dev):
         def plain():
             return mhsa_i8_plain(*views, VIT_HEADS, n_valid, lanes, zero_pad, odt)
 
+        def first():
+            return mhsa_i8_first(*views, VIT_HEADS, n_valid, out_lanes=lanes, zero_pad=zero_pad,
+                                 out_dtype=odt)
+
+        mhsa_i8.by_form.clear()
         got, ref = kern(), plain()
+        kform = mhsa_i8.by_form.most_common(1)[0][0]
+        mhsa_i8.by_form.clear()
+        # the Hopper form against the first form: the same codes, exact int32
+        # sums and each thread's row sum in the same order
+        fst = first()
+        if not torch.equal(got, fst):
+            raise AssertionError(f"mhsa_i8 {n}/{n_valid} {form} {din}: the {kform} form differs "
+                                 f"from the first form at {int((got != fst).sum())} outputs")
         equal, steps = _i8_attn_held(got, ref, views[2], n_valid, zero_pad)
         read = n_valid if zero_pad else n
         rows.append(_row(
@@ -1508,8 +1529,13 @@ def check_int8_attention_kernels(dev):
             tol=(I8_ATTN_EQUAL, math.inf), no_library=NO_INT8_ATTN, form=form, out=dout,
             within_2av_over_127=True, largest_diff_av_over_127=steps,
             sdpa_bf16_ms=time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))))
-        del t, views, q4, k4, v4, got, ref
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)),
+            spun=True, kernel_form=kform, first_form_equal=True,
+            first_form_device_ms=spun_ms(first, 20, warmup=2, reps=3),
+            sdpa_bf16_device_ms=spun_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), 20,
+                warmup=2, reps=3)))
+        del t, views, q4, k4, v4, got, ref, fst
     del qkv
     return rows
 
@@ -1521,10 +1547,11 @@ def check_ln_kernels(dev):
     197, 3 x 64] with fp32 scaled_dot_product_attention as the yardstick."""
     import torch.nn.functional as F
 
-    from dlq_tpu_torch.ops.attention import mhsa, mhsa_plain
+    from dlq_tpu_torch.ops.attention import mhsa, mhsa_f32, mhsa_f32_first, mhsa_plain
     from dlq_tpu_torch.ops.layernorm import (
         layernorm_fused, layernorm_fused_plain, residual_layernorm, residual_layernorm_plain,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     m, d = BATCH * VIT_N, VIT_DP
@@ -1564,16 +1591,29 @@ def check_ln_kernels(dev):
         views = (qkv[:, :n, :d], qkv[:, :n, d: 2 * d], qkv[:, :n, 2 * d:])
         q4, k4, v4 = (v.reshape(BATCH, n, VIT_HEADS, VIT_HD).transpose(1, 2).contiguous()
                       for v in views)
+        mhsa_f32.by_form.clear()
+        got = mhsa(*views, VIT_HEADS, n_valid)
+        form = mhsa_f32.by_form.most_common(1)[0][0]
+        mhsa_f32.by_form.clear()
+        # the Hopper form against the first form: each score and each output
+        # one FMA chain in the same order, the same softmax
+        first = mhsa_f32_first(*views, VIT_HEADS, n_valid)
+        if not torch.equal(got, first):
+            raise AssertionError(f"mhsa_f32 {n}/{n_valid}: the {form} form differs from the first "
+                                 f"form at {int((got != first).sum())} outputs")
         rows.append(_row(
             "mhsa_f32", (BATCH, n, VIT_HEADS, VIT_HD, n_valid),
             f"{BATCH}x{VIT_HEADS} heads x {n} rows x {VIT_HD}, {n_valid} keys, fp32",
-            mhsa(*views, VIT_HEADS, n_valid), mhsa_plain(*views, VIT_HEADS, n_valid),
+            got, mhsa_plain(*views, VIT_HEADS, n_valid),
             lambda: mhsa(*views, VIT_HEADS, n_valid),
             lambda: mhsa_plain(*views, VIT_HEADS, n_valid),
             4.0 * BATCH * VIT_HEADS * n * n_valid * VIT_HD, _mhsa_bytes(n, n_valid, d, 4), per,
             library=lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
-            tol=MHSA_F32_TOL, peak=PEAK_FP32, library_name=SDPA_F32, out="fp32"))
-        del q4, k4, v4
+            tol=MHSA_F32_TOL, peak=PEAK_FP32, library_name=SDPA_F32, out="fp32", spun=True,
+            form=form, first_form_equal=True,
+            first_form_device_ms=spun_ms(lambda: mhsa_f32_first(*views, VIT_HEADS, n_valid), 20,
+                                         warmup=2, reps=3)))
+        del q4, k4, v4, got, first
     return rows
 
 
@@ -1661,6 +1701,31 @@ def ptxas_report(lib: str, mark: str):
     return {"entries": len(mine), "registers": sorted({regs[k] for k in mine}),
             "stack_frame_max": worst[0], "spill_stores_max": worst[1], "spill_loads_max": worst[2],
             "c7520_warnings": text.count("C7520")}
+
+
+def attention_ptxas():
+    """The ptxas reports of mhsa_f32's and K18's libraries: registers, stack
+    frame, spills and the library's C7520 count, for each Hopper form and
+    first form."""
+    emit({"phase": "attention_ptxas",
+          "mhsa_f32_hopper": ptxas_report("mhsa", "mhsa_f32_hopper"),
+          "mhsa_f32_first": ptxas_report("mhsa", "mhsa_f32_kernel"),
+          "mhsa_i8_hopper": ptxas_report("mhsa_i8", "mhsa_i8_hopper"),
+          "mhsa_i8_first": ptxas_report("mhsa_i8", "mhsa_i8_kernel")})
+
+
+@contextlib.contextmanager
+def first_form(module, name: str, first, on: bool = True):
+    """With ``on``, ``module.name`` (a kernel wrapper a forward calls by that
+    name) routed to the kernel's first form ``first`` for a measurement; its
+    launches are not counted."""
+    keep = getattr(module, name)
+    if on:
+        setattr(module, name, first)
+    try:
+        yield
+    finally:
+        setattr(module, name, keep)
 
 
 def stress_split_kernels(dev):
@@ -1767,19 +1832,21 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K4, K5, K8, K9, K11, K12, K14 and K15 launch of every path must
-# (their first forms serve no main-path shape: W > 126; Dp other than 128,
-# 192, 256, for K8 also 256; K9, K12 and K15 also an Hp whose ring would
-# hold fewer than 3 stages)
+# every K4, K5, K8, K9, K11, K12, K14, K15, mhsa_f32 and K18 launch of every
+# path must (their first forms serve no main-path shape: W > 126; Dp other
+# than 128, 192, 256, for K8 also 256; K9, K12 and K15 also an Hp whose ring
+# would hold fewer than 3 stages; mhsa_f32 256 keys at hd 64; K18 fp32 in
+# at 256 rows)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
 FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_pre_w4a8",
-                "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16", "vit_post_bf16")
+                "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16", "vit_post_bf16",
+                "mhsa_f32", "mhsa_i8")
 
 
 def read_forms():
-    """Launches per form of K1, K2, K4, K5, K8, K9, K11, K12, K14 and K15
-    since the counts were last set to 0."""
+    """Launches per form of K1, K2, K4, K5, K8, K9, K11, K12, K14, K15,
+    mhsa_f32 and K18 since the counts were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
@@ -2222,7 +2289,8 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
     from dlq_tpu_torch import numerics
     from dlq_tpu_torch.engine import Engine, to_device
     from dlq_tpu_torch.models.vit import flatten_vit, make_qforward, vit_extras
-    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_plain
+    from dlq_tpu_torch.ops import vit_block
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_first, mhsa_i8_plain
     from dlq_tpu_torch.ops.vit_block import (
         pack_vit_blocks_w8, stack_vit_blocks_w8, vit_forward_blockfused_w8,
         vit_forward_blockfused_w8_split, vit_forward_multiblock_w8,
@@ -2252,11 +2320,14 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
     cos_p = gate(logits, lp, "deit_tiny attn_int8 vs its plain versions", DEIT_TWIN_COS,
                  top1=False)[1]
     per_layer = layer_contract(eng.params, xt, cfg, attn=(mhsa_i8, mhsa_i8_plain))
-    # the two block engines in turns: bf16 attention, int8, int8, bf16
+    # the two block engines in turns, the int8 one also on K18's first form:
+    # bf16 attention, int8, int8 first form, int8 first form, int8, bf16
     ab = {}
-    for tag, e in (("bf16_attention", eng_block), ("int8_attention", eng), ("int8_attention", eng),
-                   ("bf16_attention", eng_block)):
-        ab.setdefault(tag, []).append(time_ms(lambda: e._fn(e.params, xt), iters=10))
+    for tag, e in (("bf16_attention", eng_block), ("int8_attention", eng),
+                   ("int8_attention_first_form", eng), ("int8_attention_first_form", eng),
+                   ("int8_attention", eng), ("bf16_attention", eng_block)):
+        with first_form(vit_block, "mhsa_i8", mhsa_i8_first, tag.endswith("first_form")):
+            ab.setdefault(tag, []).append(time_ms(lambda: e._fn(e.params, xt), iters=10))
     ms = min(ab["int8_attention"])
     w_bytes = VIT_DP * 3 * VIT_DP + VIT_DP * VIT_DP + 2 * VIT_DP * VIT_HP
     t_ops = cfg.depth * (2.0 * BATCH * VIT_NP * w_bytes
@@ -2278,6 +2349,8 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
           "bound_one_launch_per_chunk_by": "operations" if t_ops >= t_bytes else "bytes",
           "setup_s": setup_s, "card": card})
     profile_forward(eng, xt, "deit_tiny_block_attn_int8")
+    with first_form(vit_block, "mhsa_i8", mhsa_i8_first):
+        profile_forward(eng, xt, "deit_tiny_block_attn_int8_first_form")
     out["deit_block_attn_int8"] = (counts, shapes)
     del eng, packed
 
@@ -2556,13 +2629,15 @@ def deit_bf16_paths(dev, card, d, act_scales, images):
     vit_forward_blockfused on pack_vit_blocks (K14, K6, K15 per layer, bf16
     between layers) through Engine.fp32 and classify at batch 256, loose
     pads (the reference's default) then tight, each timed and profiled; the
-    fp32 forward with fused_ln=True, attn_impl="fused" at batch 64; the W8A8
+    fp32 forward with fused_ln=True, attn_impl="fused" at batch 64, then
+    timed and profiled at batch 256 in turns with mhsa_f32's first form; the W8A8
     deploy forward with fused_ln=True at batch 64, on the W8A8 store's act
     scales (the same quantized model as the unfused deploy forward). Returns
     {path: (counts, shapes)}."""
     from dlq_tpu_torch import numerics
     from dlq_tpu_torch.engine import Engine
     from dlq_tpu_torch.models.vit import flatten_vit, make_qforward, vit_extras, vit_forward
+    from dlq_tpu_torch.ops import attention
     from dlq_tpu_torch.ops.vit_block import pack_vit_blocks, vit_forward_blockfused, vit_pads
     from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
 
@@ -2634,6 +2709,21 @@ def deit_bf16_paths(dev, card, d, act_scales, images):
     emit({"phase": "deit_fused_ln_fp32", "model": "deit_tiny", "batch": TOTALS_BATCH,
           "launches": c, "logits_max_abs_vs_unfused": err, "taps_max_abs_vs_unfused": taps_err,
           "logits_cosine_vs_unfused": numerics.diff(lg.cpu(), unfused.cpu()).cosine})
+    # the same forward at batch 256, in turns with itself on mhsa_f32's first
+    # form (Hopper, first, first, Hopper), each profiled
+    e = Engine.fp32(vit_forward, params, cfg_ln, batch=BATCH, device=dev,
+                    name="deit_tiny_fused_ln")
+    turns = {}
+    for tag in ("hopper", "first_form", "first_form", "hopper"):
+        with first_form(attention, "mhsa_f32", attention.mhsa_f32_first, tag == "first_form"):
+            turns.setdefault(tag, []).append(time_ms(lambda: e._fn(e.params, xt), iters=5))
+    emit({"phase": "deit_fused_ln_fp32_timed", "model": "deit_tiny", "batch": BATCH,
+          "ms_per_batch_in_turns": turns, "ms_per_batch": min(turns["hopper"]),
+          "first_form_ms_per_batch": min(turns["first_form"]), "card": card})
+    profile_forward(e, xt, "deit_tiny_fused_ln_fp32")
+    with first_form(attention, "mhsa_f32", attention.mhsa_f32_first):
+        profile_forward(e, xt, "deit_tiny_fused_ln_fp32_first_form")
+    del e
 
     # ---- the W8A8 deploy forward with fused_ln, batch 64 ----
     lgq = {}
@@ -2857,8 +2947,9 @@ def probe_summary(rows, counts):
 
 # per-shape times a kernel's rows may carry beside ms / plain_ms / library_ms
 # (device time on a spinning card, yardsticks and reference points)
-EXTRA_TIMES = ("sdpa_bf16_ms", "device_ms", "library_device_ms", "cudnn_bf16_ms",
-               "cudnn_bf16_device_ms", "yardstick_device_ms", "first_form_device_ms")
+EXTRA_TIMES = ("sdpa_bf16_ms", "sdpa_bf16_device_ms", "device_ms", "library_device_ms",
+               "cudnn_bf16_ms", "cudnn_bf16_device_ms", "yardstick_device_ms",
+               "first_form_device_ms")
 
 
 def summary(rows, paths):
@@ -2995,6 +3086,7 @@ def main() -> int:
             + check_bf16_kernels(dev) + check_ln_kernels(dev)
             + check_int8_attention_kernels(dev))
     check_groupwise_routes(dev)
+    attention_ptxas()
     stress_split_kernels(dev)
     check_pre_digests(dev)
     torch.cuda.empty_cache()

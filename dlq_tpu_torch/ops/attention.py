@@ -25,10 +25,19 @@ dispatches on the (shared) dtype: bf16 to K6, fp32 to its fp32 form
 (``mhsa_f32``, the same file's second kernel: fp32 products and sums
 without the tensor cores, which would round fp32 operands).
 
+``mhsa_f32`` has two forms in that file: its Hopper form (a persistent
+grid, K and V resident across 100-row query tiles, register-tiled FFMA
+products fed by 16-byte shared loads) wherever ``mhsa_f32_form`` takes a
+shape (its layout, ``mhsa_f32_plan``, fits a block's shared memory), and
+its first form elsewhere, which stays callable as ``mhsa_f32_first``. Both
+take every score as one FMA chain over d in ascending order and every
+output as one over the keys in ascending order, with the same softmax, so
+they agree on every output.
+
 ``mhsa`` launches a kernel for a CUDA tensor and runs ``mhsa_plain`` for a
 CPU tensor. ``mhsa.launches`` counts K6's launches and ``mhsa_f32.launches``
 its fp32 form's; ``.by_shape`` counts them per (B, rows, heads, hd,
-n_valid).
+n_valid), and ``mhsa_f32.by_form`` per form.
 """
 
 from __future__ import annotations
@@ -89,6 +98,47 @@ def mhsa_plan(rows: int, n_valid: int, hd: int) -> Tuple[int, int]:
     return r16(rows) // 16 * 32, 2 * (r16(rows) + 2 * r16(n_valid)) * (hd + 8) * 2
 
 
+# mhsa_f32's Hopper form (csrc/mhsa.cu's plan_f32, which the card test holds
+# to this): 256 threads; Q K^T thread tiles of F32_TM query rows x 8 keys;
+# query tiles of at most 100 rows, a multiple of F32_TM; the softmax holds a
+# lane's keys lane + 32 j in registers, so at most F32_KEYS keys
+F32_THREADS, F32_TM, F32_TN, F32_QT_MAX, F32_KEYS = 256, 5, 8, 100, 224
+SMEM_MAX = 232448   # the opt-in shared-memory limit (launch.cuh: SMEM_OPT_IN)
+
+
+def _f32_layout(rows: int, n_valid: int, hd: int) -> Tuple[int, int, int, int]:
+    """(keys resident kp, query rows a tile qt, query tiles nt, shared
+    bytes): kp = n_valid rounded up to 8; nt = ceil(rows / 100) tiles of qt
+    rows (ceil(rows / nt) rounded up to F32_TM); fp32 K [kp][hd + 4], V
+    [kp][hd], the Q tile [qt][hd + 4] and its scores [qt][kp + 4] with a
+    scratch row for each of the 8 warps' softmax."""
+    kp = -(-n_valid // 8) * 8
+    nt = -(-rows // F32_QT_MAX)
+    per = -(-rows // nt)
+    qt = -(-per // F32_TM) * F32_TM
+    return kp, qt, nt, 4 * (kp * (hd + 4) + kp * hd + qt * (hd + 4) + (qt + 8) * (kp + 4))
+
+
+def mhsa_f32_form(rows: int, n_valid: int, hd: int) -> str:
+    """``mhsa_f32``'s form, a static shape rule: ``"hopper"`` for hd 32 or
+    64, 0 < n_valid <= rows <= 256, where the Hopper form's resident keys
+    (at most 224) and layout fit (DeiT's 197 keys; 256 keys do not), else
+    ``"first"``."""
+    kp, _, _, smem = _f32_layout(rows, n_valid, hd)
+    ok = hd in HEAD_DIMS and 0 < n_valid <= rows <= MAX_KEYS and kp <= F32_KEYS and smem <= SMEM_MAX
+    return "hopper" if ok else "first"
+
+
+def mhsa_f32_plan(rows: int, n_valid: int, hd: int) -> Tuple[int, int, int, int, int]:
+    """The Hopper form's launch plan: (threads a block, dynamic shared-memory
+    bytes, query rows a tile, query tiles, keys resident); all 0 where the
+    first form serves."""
+    if mhsa_f32_form(rows, n_valid, hd) != "hopper":
+        return 0, 0, 0, 0, 0
+    kp, qt, nt, smem = _f32_layout(rows, n_valid, hd)
+    return F32_THREADS, smem, qt, nt, kp
+
+
 # the kernel entry of each dtype, and the element count of its 16-byte loads
 KERNELS = {torch.bfloat16: ("mhsa", 8), torch.float32: ("mhsa_f32", 4)}
 
@@ -137,8 +187,24 @@ def _check(q, k, v, heads: int, n_valid: int, out_lanes: Optional[int],
     return lanes
 
 
-def _launch(wrapper, q, k, v, heads: int, n_valid: int, lanes: int) -> torch.Tensor:
-    """Launch K6 or its fp32 form on CUDA views and count it on ``wrapper``."""
+@functools.cache
+def _f32_form_entry():
+    fn = _build.library("mhsa").dlq_mhsa_f32_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn
+
+
+def library_f32_form(rows: int, n_valid: int, hd: int) -> str:
+    """The form the kernel library takes for ``mhsa_f32`` at this shape (its
+    own rule, ``dlq_mhsa_f32_form``)."""
+    return "hopper" if _f32_form_entry()(rows, n_valid, hd) else "first"
+
+
+def _launch(wrapper, q, k, v, heads: int, n_valid: int, lanes: int,
+            suffix: str = "") -> torch.Tensor:
+    """Launch K6 or its fp32 form on CUDA views and count it on ``wrapper``
+    (none with ``suffix`` "_first": ``mhsa_f32``'s first form)."""
     name = kernel_for(q, k, v)
     B, N, hw = q.shape
     hd = hw // heads
@@ -148,11 +214,13 @@ def _launch(wrapper, q, k, v, heads: int, n_valid: int, lanes: int) -> torch.Ten
     for what, t in (("q", q), ("k", k), ("v", v)):
         _check_view(what, t, q.device, KERNELS[q.dtype][1])
     out = torch.empty((B, N, lanes), dtype=q.dtype, device=q.device)
-    rc = _entry(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-                      v.stride(1), out.stride(0), out.stride(1), B, N, heads, hd, n_valid,
-                      lanes, softmax_scale(hd), _build.stream_ptr(q.device))
-    _build.check(rc, name)
+    rc = _entry(name + suffix)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                               v.stride(1), out.stride(0), out.stride(1), B, N, heads, hd,
+                               n_valid, lanes, softmax_scale(hd), _build.stream_ptr(q.device))
+    _build.check(rc, name + suffix)
+    if wrapper is None:
+        return out
     wrapper.launches += 1
     wrapper.by_shape[(B, N, heads, hd, n_valid)] += 1
     return out
@@ -174,18 +242,33 @@ def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid:
 
 def mhsa_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
              out_lanes: Optional[int] = None) -> torch.Tensor:
-    """K6's fp32 form on fp32 q/k/v views, as ``mhsa``."""
+    """K6's fp32 form on fp32 q/k/v views, as ``mhsa``: the Hopper form where
+    ``mhsa_f32_form`` takes the shape, else the first form."""
     lanes = _check(q, k, v, heads, n_valid, out_lanes)
     if kernel_for(q, k, v) != "mhsa_f32":
         raise ValueError(f"mhsa_f32: fp32 q/k/v, got {q.dtype}")
     if q.device.type == "cpu":
         return mhsa_plain(q, k, v, heads, n_valid, out_lanes)
-    return _launch(mhsa_f32, q, k, v, heads, n_valid, lanes)
+    out = _launch(mhsa_f32, q, k, v, heads, n_valid, lanes)
+    mhsa_f32.by_form[library_f32_form(q.shape[1], n_valid, q.shape[2] // heads)] += 1
+    return out
+
+
+def mhsa_f32_first(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, n_valid: int,
+                   out_lanes: Optional[int] = None) -> torch.Tensor:
+    """``mhsa_f32``'s first form at any shape (a CUDA tensor only; not
+    counted): what the card tests and ``chip_smoke.py`` hold the Hopper
+    form to, output for output."""
+    lanes = _check(q, k, v, heads, n_valid, out_lanes)
+    if kernel_for(q, k, v) != "mhsa_f32" or q.device.type != "cuda":
+        raise ValueError("mhsa_f32_first: fp32 q/k/v on a CUDA device (the kernel's first form)")
+    return _launch(None, q, k, v, heads, n_valid, lanes, "_first")
 
 
 for _f in (mhsa, mhsa_f32):
     _f.launches = 0
     _f.by_shape = collections.Counter()
+mhsa_f32.by_form = collections.Counter()
 
 
 def fused_mhsa(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, n_valid: int) -> torch.Tensor:

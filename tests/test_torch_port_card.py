@@ -1472,3 +1472,119 @@ def test_vit_pre_w8_w4_unchanged_on_card():
     from dlq_tpu_torch.tools import pre_digest
 
     assert pre_digest.digests(torch.device("cuda")) == pre_digest.EXPECTED
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,rows,n_valid,hd", [(256, 197, 197, 64), (7, 200, 197, 64),
+                                                 (5, 24, 21, 32), (3, 1, 1, 64),
+                                                 (4, 256, 253, 64)])
+def test_mhsa_f32_hopper_on_card(bsz, rows, n_valid, hd):
+    """``mhsa_f32``'s Hopper form equal to its first form on every output
+    (each score one FMA chain over d in ascending order, each output one
+    over the keys, the same softmax) and within MHSA_F32_TOL of its plain
+    version (1e-5 x (1 + |plain|), at most 1e-5), at DeiT-Tiny's [256, 197,
+    3 x 64] and at shapes its tiles split differently, pad lanes zero; the
+    launch took the rule's form (253 keys at hd 64: the first form), and the
+    plan the library takes equals ``mhsa_f32_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import (
+        mhsa, mhsa_f32, mhsa_f32_first, mhsa_f32_form, mhsa_f32_plan, mhsa_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(200 + rows + hd)
+    heads = 3
+    hw = heads * hd
+    qkv = torch.from_numpy(rng.normal(0, 1, (bsz, rows, 3 * hw)).astype(np.float32)).to(dev)
+    views = (qkv[..., :hw], qkv[..., hw: 2 * hw], qkv[..., 2 * hw:])
+    lanes = hw + 64
+    mhsa_f32.by_form.clear()
+    got = mhsa(*views, heads, n_valid, out_lanes=lanes)
+    assert dict(mhsa_f32.by_form) == {mhsa_f32_form(rows, n_valid, hd): 1}
+    mhsa_f32.by_form.clear()
+    assert torch.equal(got, mhsa_f32_first(*views, heads, n_valid, out_lanes=lanes))
+    ref = mhsa_plain(*views, heads, n_valid, out_lanes=lanes)
+    d = (got - ref).abs()
+    assert float(d.max()) <= 1e-5 and bool((d <= 1e-5 * (1.0 + ref.abs())).all())
+    assert not got[..., hw:].abs().any()
+    assert _plan_on_card_n("mhsa", "mhsa_f32_plan", (rows, n_valid, hd), 5) == \
+        mhsa_f32_plan(rows, n_valid, hd)
+
+
+def _i8_held(got, ref, v, heads, n_valid, zero_pad):
+    """K18's gate: >= 0.99 of the outputs equal, every other one within
+    2 av / 127 (av: the (sample, head)'s V amax over the rows its form reads)."""
+    hw = v.shape[-1]
+    vv = v.float()[:, :n_valid] if zero_pad else v.float()
+    av = vv.reshape(v.shape[0], -1, heads, hw // heads).abs().amax(dim=(1, 3)) + 1e-9
+    av = av.repeat_interleave(hw // heads, dim=1)[:, None, :]
+    d = (got[..., :hw].float() - ref[..., :hw].float()).abs()
+    assert float((d == 0).float().mean()) >= 0.99
+    assert bool((d <= 2.0 * av / 127.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,rows,hd,dp,din,zero_pad,n_valid,dout", [
+    (256, 200, 64, 192, "bfloat16", False, 197, "bfloat16"),   # attn_int8 block stream
+    (256, 256, 64, 256, "bfloat16", True, 197, "bfloat16"),    # the split forward's loose pads
+    (256, 197, 64, 192, "bfloat16", True, 197, "bfloat16"),    # xla_int8 deploy
+    (256, 197, 64, 192, "float32", True, 197, "float32"),      # the fp32 forward's xla_int8
+    (3, 24, 32, 128, "bfloat16", False, 17, "float32"),        # hd 32, a pad-head slot
+    (2, 256, 64, 256, "float32", True, 197, "float32"),        # fp32 at 256 rows: the first form
+])
+def test_mhsa_i8_hopper_on_card(bsz, rows, hd, dp, din, zero_pad, n_valid, dout):
+    """K18's Hopper form equal to its first form on every output (the same
+    codes, exact int32 sums, each thread's row sum in the first form's key
+    order) in all four of DeiT-Tiny's cases at batch 256 and at hd 32, and
+    held to its plain version (I8_ATTN_EQUAL, 2 av/127), pad lanes zero; the
+    launch took the rule's form (fp32 in at 256 rows: the first form), and
+    the plan the library takes equals ``mhsa_i8_plan``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops import int8_attention as TI
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(300 + rows + hd)
+    heads = 3
+    hw = heads * hd
+    dt, odt = getattr(torch, din), getattr(torch, dout)
+    qkv = torch.from_numpy(rng.normal(0, 1.5, (bsz, rows, 3 * dp)).astype(np.float32)).to(dev, dt)
+    views = (qkv[..., :hw], qkv[..., dp: dp + hw], qkv[..., 2 * dp: 2 * dp + hw])
+    in_f32 = din == "float32"
+    TI.mhsa_i8.by_form.clear()
+    got = TI.mhsa_i8(*views, heads, n_valid, out_lanes=dp, zero_pad=zero_pad, out_dtype=odt)
+    assert dict(TI.mhsa_i8.by_form) == {TI.mhsa_i8_form(rows, n_valid, hd, in_f32): 1}
+    TI.mhsa_i8.by_form.clear()
+    first = TI.mhsa_i8_first(*views, heads, n_valid, out_lanes=dp, zero_pad=zero_pad,
+                             out_dtype=odt)
+    assert torch.equal(got, first)
+    _i8_held(got, TI.mhsa_i8_plain(*views, heads, n_valid, dp, zero_pad, odt), views[2], heads,
+             n_valid, zero_pad)
+    assert not got[..., hw:].float().abs().any()
+    assert _plan_on_card_n("mhsa_i8", "mhsa_i8_plan", (rows, n_valid, hd, int(in_f32)), 4) == \
+        TI.mhsa_i8_plan(rows, n_valid, hd, in_f32)
+
+
+@pytest.mark.gpu
+def test_attention_first_form_guards_on_card():
+    """The first forms' wrappers check as the wrappers do on CUDA tensors:
+    q/k/v of one dtype, a bf16 or fp32 output, n_valid within the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.attention import mhsa_f32_first
+    from dlq_tpu_torch.ops.int8_attention import mhsa_i8, mhsa_i8_first
+
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(2, 17, 96, device=dev) for _ in range(3))
+    for fn in (mhsa_i8, mhsa_i8_first):
+        with pytest.raises(ValueError, match="share a dtype"):
+            fn(q, k, v.to(torch.bfloat16), 3, 17)
+        with pytest.raises(ValueError, match="output"):
+            fn(q, k, v, 3, 17, out_dtype=torch.float16)
+        with pytest.raises(ValueError, match="n_valid"):
+            fn(q, k, v, 3, 18)
+    with pytest.raises(ValueError, match="n_valid"):
+        mhsa_f32_first(q, k, v, 3, 18)
+    with pytest.raises(ValueError, match="fp32"):
+        mhsa_f32_first(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), 3, 17)
