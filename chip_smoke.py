@@ -13,11 +13,14 @@ Phases, one JSON line each:
      on the card (int8 and fp32 outputs bit-identical), with CUDA-event times
      of the kernel, the plain version, the library call where one exists
      (torch._int_mm for K2), and the least time the card could take (the bound);
-     K1, K2 and K4 (and torch._int_mm) also as device time on a spinning
-     card, each row with the form its launch took, each K1 shape beside a
-     cuDNN bf16 channels-last conv at the same shape (a reference point, not
-     a yardstick: another function), each K4 shape beside the K2 -> K1 -> K2
-     composition of the same block (its yardstick);
+     K1, K2, K3 and K4 (and torch._int_mm) also as device time on a
+     spinning card, each row with the form its launch took, each K1 shape
+     beside a cuDNN bf16 channels-last conv at the same shape (a reference
+     point, not a yardstick: another function), each K4 shape beside the
+     K2 -> K1 -> K2 composition of the same block (its yardstick), each K3
+     shape equal to its first form on every output, timed in turns with it
+     (first, Hopper, Hopper, first) and beside K1 -> K1 on the same two
+     convs (its yardstick);
   3. the main path of each model: seeded random weights calibrated and
      quantized with Engine.quantized, saved as a store, loaded with
      Engine.from_store(ctx="fused2") and driven through classify; gates:
@@ -35,7 +38,9 @@ Phases, one JSON line each:
      identity Bottlenecks as K4), gated against fused2 (logits; int8 stage
      outputs on ResNet-18, each K4 block against its FullFusedCtx
      composition on ResNet-50) and its plain-version twin, with its own
-     profile;
+     profile; on ResNet-18 the same forward with K3 on its first form, its
+     logits equal, timed in turns (Hopper, first, first, Hopper) and
+     profiled;
   5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2;
   6. DeiT-Tiny (224 px, dim 192, depth 12, 3 heads, 1000 classes, seeded
      random weights): K5 vit_pre_w8, K6 mhsa and K7 vit_post_w8 at every
@@ -75,9 +80,9 @@ Phases, one JSON line each:
      K13_REL), with a bf16 torch.matmul on the dequantized weights as the
      yardstick, K11 and K12 also against their first forms (W4A16_TOL) and
      timed as device time beside them, with the form their launch took;
-     then 4,000 launches each of K5, K7, K8, K9, K11, K12 and K14 (the
+     then 4,000 launches each of K3, K5, K7, K8, K9, K11, K12 and K14 (the
      kernels whose producer gives registers to its consumers by setmaxnreg)
-     at their block-path shape, the last result equal to the first, each
+     at their block-path shape (K3 at [256, 28, 28, 128]), the last result equal to the first, each
      with its register split and ptxas report; then digests of K5's and
      K11's outputs over their forms on seeded inputs, equal to the digests
      of the sources before K8 and K14 shared their Hopper bodies
@@ -98,9 +103,10 @@ Phases, one JSON line each:
      form mhsa_f32 at [256, 197, 3 x 64], at batch 256, against their plain
      versions (BF16_TOL, LN_TOL, MHSA_F32_TOL), with bf16 torch.matmul,
      F.layer_norm and scaled_dot_product_attention as yardsticks, K14 and
-     K15 also against their first forms (BF16_TOL), mhsa_f32 equal to its
-     first form on every output, each timed as device time beside its first
-     form, with the form its launch took; the ptxas reports of mhsa_f32's
+     K15 also against their first forms (BF16_TOL), K16 and mhsa_f32 equal
+     to their first forms on every output, each timed as device time beside
+     its first form (K16 in turns), with the form its launch took; the
+     ptxas reports of mhsa_f32's
      and K18's libraries; then
      vit_forward_blockfused (pack_vit_blocks; K14, K6, K15 12 launches each
      per forward) through Engine.fp32 and classify at batch 256 with loose
@@ -147,11 +153,10 @@ Phases, one JSON line each:
 Each main path is driven with every launch count set to 0 just before it
 and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
-form, and on every path every K4, K5, K8, K9, K11, K12, K14 and K15 launch (the
-per-form counts are printed per path). Then the card's name and
-power limit, the kernel summary line and, last, {"ok": true, "device":
-{...}}. Any failed gate
-raises before those lines.
+form, and on every path every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16,
+mhsa_f32 and K18 launch (the per-form counts are printed per path). Then
+the card's name and power limit, the kernel summary line and, last,
+{"ok": true, "device": {...}}. Any failed gate raises before those lines.
 """
 
 from __future__ import annotations
@@ -779,8 +784,15 @@ def check_matmul_kernel(dev):
 
 
 def check_block_kernel(dev):
-    from dlq_tpu_torch.ops.block_fused import basic_block_fused, basic_block_plain
-    from dlq_tpu_torch.ops.conv_int8 import pack_conv_weight
+    """K3 at ResNet-18's two packed shapes, bit-identical to its plain
+    version and to its first form (the parent's kernel, unchanged), timed
+    also as device time on a spinning card in turns with the first form
+    (first, Hopper, Hopper, first), beside the yardstick: the same two convs
+    on K1, conv1 (relu, int8 out) -> conv2 (int8 out), without the junction
+    glue (the skip's requant, add and clip are K3's alone)."""
+    from dlq_tpu_torch.ops.block_fused import basic_block_first, basic_block_fused, basic_block_plain
+    from dlq_tpu_torch.ops.conv_int8 import conv_int8, pack_conv_weight
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = []
@@ -792,12 +804,33 @@ def check_block_kernel(dev):
                 "w2": pack_conv_weight(_rand_int8(gen, (3, 3, c, c), dev)), "s2": s2, "b2": b2,
                 "inv": (float(np.float32(40.0 / 0.05)), float(np.float32(40.0 / 0.05)),
                         float(np.float32(0.7)))}
+
+        def yardstick():
+            hq = conv_int8(x, pack["w1"], 1, 1, s1, b1, True, 0.05)
+            return conv_int8(hq, pack["w2"], 1, 1, s2, b2, False, 0.05)
+
+        basic_block_fused.by_form.clear()
+        got = basic_block_fused(x, pack)
+        form = basic_block_fused.by_form.most_common(1)[0][0]
+        first = basic_block_first(x, pack)
+        if not torch.equal(got, first):
+            raise AssertionError(f"basic_block {h}x{c}: the {form} form differs from the first "
+                                 f"form at {int((got != first).sum())} outputs")
+        turns = {"first_form": [], "hopper": []}
+        for tag in ("first_form", "hopper", "hopper", "first_form"):
+            fn = basic_block_first if tag == "first_form" else basic_block_fused
+            turns[tag].append(spun_ms(lambda: fn(x, pack), 10, warmup=2, reps=3))
         rows.append(_row(
-            "basic_block", (BATCH, h, h, c), f"{BATCH}x{h}x{h}x{c}",
-            basic_block_fused(x, pack), basic_block_plain(x, pack),
+            "basic_block", (BATCH, h, h, c), f"{BATCH}x{h}x{h}x{c}", got, basic_block_plain(x, pack),
             lambda: basic_block_fused(x, pack), lambda: basic_block_plain(x, pack),
             2.0 * 2 * BATCH * h * h * c * 9 * c, 2 * x.numel() + 2 * 9 * c * c + 16 * c, per,
-            relu=True, out="int8"))
+            relu=True, out="int8", spun=True, form=form, first_form_equal=True,
+            first_form_device_ms=min(turns["first_form"]), device_ms_in_turns=turns,
+            yardstick_device_ms=spun_ms(yardstick, 10, warmup=2, reps=3),
+            yardstick="K1 conv1 (relu, int8) -> K1 conv2 (int8), the same two convs without "
+                      "the junction"))
+        basic_block_fused.by_form.clear()
+        del x, got, first
     return rows
 
 
@@ -1543,13 +1576,16 @@ def check_int8_attention_kernels(dev):
 def check_ln_kernels(dev):
     """K16 and K17 at [256 x 197, 192] in fp32 and bf16 (x, y, delta, g and
     b in the stream's dtype, as make_qforward casts them), with F.layer_norm
-    (after y + delta for K17) as the yardstick; then K6's fp32 form at [256,
-    197, 3 x 64] with fp32 scaled_dot_product_attention as the yardstick."""
+    (after y + delta for K17) as the yardstick, as device time too; K16
+    equal to its first form on every output and timed in turns with it;
+    then K6's fp32 form at [256, 197, 3 x 64] with fp32
+    scaled_dot_product_attention as the yardstick."""
     import torch.nn.functional as F
 
     from dlq_tpu_torch.ops.attention import mhsa, mhsa_f32, mhsa_f32_first, mhsa_plain
     from dlq_tpu_torch.ops.layernorm import (
-        layernorm_fused, layernorm_fused_plain, residual_layernorm, residual_layernorm_plain,
+        layernorm_fused, layernorm_fused_first, layernorm_fused_plain, residual_layernorm,
+        residual_layernorm_plain,
     )
     from dlq_tpu_torch.tools._probe import spun_ms
 
@@ -1562,13 +1598,31 @@ def check_ln_kernels(dev):
     rows = []
     for dt, per in layernorm_fused_cases().items():
         x, g, b = (t.to(getattr(torch, dt)) for t in (x32, g32, b32))
+        layernorm_fused.by_form.clear()
+        got = layernorm_fused(x, g, b)
+        form = layernorm_fused.by_form.most_common(1)[0][0]
+        layernorm_fused.by_form.clear()
+        first = layernorm_fused_first(x, g, b)
+        if not torch.equal(got, first):
+            raise AssertionError(f"layernorm_fused {dt}: the {form} form differs from the first "
+                                 f"form at {int((got != first).sum())} outputs")
+        # the first form is the parent's kernel, unchanged: first, Hopper,
+        # Hopper, first as device time on a spinning card
+        turns = {"first_form": [], "hopper": []}
+        for tag in ("first_form", "hopper", "hopper", "first_form"):
+            fn = layernorm_fused_first if tag == "first_form" else layernorm_fused
+            turns[tag].append(spun_ms(lambda: fn(x, g, b), 20, warmup=2, reps=3))
         rows.append(_row(
-            "layernorm_fused", (m, d, dt), f"{m}x{d} {dt}", layernorm_fused(x, g, b),
+            "layernorm_fused", (m, d, dt), f"{m}x{d} {dt}", got,
             layernorm_fused_plain(x, g, b), lambda: layernorm_fused(x, g, b),
             lambda: layernorm_fused_plain(x, g, b), 8.0 * m * d,
             2 * x.numel() * x.element_size() + 2 * d * g.element_size(), per,
             plain_iters=5, library=lambda: F.layer_norm(x, (d,), g, b, 1e-6),
-            tol=LN_TOL[dt], peak=PEAK_FP32, library_name=LAYER_NORM, dtype=dt))
+            tol=LN_TOL[dt], peak=PEAK_FP32, library_name=LAYER_NORM, dtype=dt, spun=True,
+            form=form, first_form_equal=True, first_form_device_ms=min(turns["first_form"]),
+            device_ms_in_turns=turns))
+        layernorm_fused.by_form.clear()
+        del got, first
     for (ydt, ddt), per in residual_layernorm_cases().items():
         y, dl = x32.to(getattr(torch, ydt)), d32.to(getattr(torch, ddt))
         g, b = g32.to(y.dtype), b32.to(y.dtype)
@@ -1584,7 +1638,7 @@ def check_ln_kernels(dev):
             + 2 * y.numel() * y.element_size() + 2 * d * g.element_size(), per,
             plain_iters=5, library=lambda: F.layer_norm(y + dl, (d,), g, b, 1e-6),
             tol=LN_TOL[ydt], peak=PEAK_FP32, library_name=LAYER_NORM + " after y + delta",
-            dtype=f"{ydt}+{ddt}", z_equal_plain=True))
+            dtype=f"{ydt}+{ddt}", z_equal_plain=True, spun=True))
     del x32, d32
     qkv = torch.randn((BATCH, VIT_N, 3 * d), generator=gen, device=dev)
     for (n, n_valid), per in mhsa_f32_cases().items():
@@ -1661,10 +1715,11 @@ def check_groupwise_routes(dev):
 # the kernels whose producer warpgroup gives registers to its two consumer
 # warpgroups by setmaxnreg, as their sources set the split (producer,
 # consumer registers a thread), and the mark of their Hopper kernels' names
-# in the ptxas report: K5 and K8 (csrc/vit_pre_iw.cuh), K7 and K9
-# (csrc/vit_post_iw.cuh), K11 and K14 (csrc/vit_pre_hw.cuh), K12
-# (csrc/vit_post_hw.cuh)
-SPLIT_KERNELS = {"vit_pre_w8": (40, 232, "pre_iw6kernel"),
+# in the ptxas report: K3 (csrc/basic_block.cu), K5 and K8
+# (csrc/vit_pre_iw.cuh), K7 and K9 (csrc/vit_post_iw.cuh), K11 and K14
+# (csrc/vit_pre_hw.cuh), K12 (csrc/vit_post_hw.cuh)
+SPLIT_KERNELS = {"basic_block": (40, 232, "basic_hopper_kernel"),
+                 "vit_pre_w8": (40, 232, "pre_iw6kernel"),
                  "vit_pre_w4a8": (40, 232, "pre_iw6kernel"),
                  "vit_post_w8": (40, 232, "post_iw6kernel"),
                  "vit_post_w4a8": (88, 208, "post_iw6kernel"),
@@ -1730,11 +1785,14 @@ def first_form(module, name: str, first, on: bool = True):
 
 def stress_split_kernels(dev):
     """STRESS_LAUNCHES launches each of the SPLIT_KERNELS at their DeiT-Tiny
-    block-path shape ([256, 200, 192] bf16 -> bf16), then one synchronize: a
-    producer that keeps fewer registers than its code uses faults only now
-    and then (K12's at 56, PERF.md). The last result must equal the first
-    bit for bit (the kernels are deterministic); each kernel's line carries
-    its register split and its ptxas report."""
+    block-path shape ([256, 200, 192] bf16 -> bf16; K3 at ResNet-18's
+    [256, 28, 28, 128]), then one synchronize: a producer that keeps fewer
+    registers than its code uses faults only now and then (K12's at 56,
+    PERF.md). The last result must equal the first bit for bit (the kernels
+    are deterministic); each kernel's line carries its register split and
+    its ptxas report."""
+    from dlq_tpu_torch.ops.block_fused import basic_block_fused
+    from dlq_tpu_torch.ops.conv_int8 import pack_conv_weight
     from dlq_tpu_torch.ops.vit_block import (
         vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_bf16,
         vit_block_pre_w4, vit_block_pre_w4a8, vit_block_pre_w8,
@@ -1746,7 +1804,14 @@ def stress_split_kernels(dev):
     a = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
     w8, w4a8, w4 = _vit_layer(gen, dev), _w4a8_layer(gen, dev), _w4a16_layer(gen, dev)
     wbf = _bf16_layer(gen, dev, d)
-    fns = {"vit_pre_w8": lambda: vit_block_pre_w8(y, w8, d),
+    xb = _rand_int8(gen, (BATCH, 28, 28, 128), dev, lo=0)
+    bpack = {"w1": pack_conv_weight(_rand_int8(gen, (3, 3, 128, 128), dev)),
+             "w2": pack_conv_weight(_rand_int8(gen, (3, 3, 128, 128), dev)),
+             "inv": (float(np.float32(800.0)), float(np.float32(800.0)), float(np.float32(0.7)))}
+    for i in (1, 2):
+        bpack[f"s{i}"], bpack[f"b{i}"], _ = _epi_params(gen, 128, 9 * 128, dev)
+    fns = {"basic_block": lambda: basic_block_fused(xb, bpack),
+           "vit_pre_w8": lambda: vit_block_pre_w8(y, w8, d),
            "vit_pre_w4a8": lambda: vit_block_pre_w4a8(y, w4a8, d),
            "vit_post_w8": lambda: vit_block_post_w8(y, a, w8, d, True, bf, True),
            "vit_post_w4a8": lambda: vit_block_post_w4a8(y, a, w4a8, d),
@@ -1770,7 +1835,8 @@ def stress_split_kernels(dev):
                      "producer_registers": producer, "consumer_registers": consumer,
                      "ptxas": ptxas_report(name, mark)}
         del first, last
-    emit({"phase": "setmaxnreg_stress", "shape": f"{BATCH}x{VIT_NP}x{d} bf16 -> bf16",
+    emit({"phase": "setmaxnreg_stress", "shape": f"{BATCH}x{VIT_NP}x{d} bf16 -> bf16; "
+                                                  f"basic_block {BATCH}x28x28x128 int8",
           "kernels": out})
 
 
@@ -1832,21 +1898,22 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K4, K5, K8, K9, K11, K12, K14, K15, mhsa_f32 and K18 launch of every
-# path must (their first forms serve no main-path shape: W > 126; Dp other
-# than 128, 192, 256, for K8 also 256; K9, K12 and K15 also an Hp whose ring
-# would hold fewer than 3 stages; mhsa_f32 256 keys at hd 64; K18 fp32 in
-# at 256 rows)
+# every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16, mhsa_f32 and K18 launch
+# of every path must (their first forms serve no main-path shape: K3 C not
+# a multiple of 128 or W > 83; K4 W > 126; Dp other than 128, 192, 256, for
+# K8 also 256; K9, K12 and K15 also an Hp whose ring would hold fewer than
+# 3 stages; K16 rows not a multiple of 16 bytes, D > 512 or a misaligned
+# x; mhsa_f32 256 keys at hd 64; K18 fp32 in at 256 rows)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
-FORM_KERNELS = ("conv_int8", "matmul_int8", "bottleneck_block", "vit_pre_w8", "vit_pre_w4a8",
-                "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16", "vit_post_bf16",
-                "mhsa_f32", "mhsa_i8")
+FORM_KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8",
+                "vit_pre_w4a8", "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16",
+                "vit_post_bf16", "layernorm_fused", "mhsa_f32", "mhsa_i8")
 
 
 def read_forms():
-    """Launches per form of K1, K2, K4, K5, K8, K9, K11, K12, K14, K15,
-    mhsa_f32 and K18 since the counts were last set to 0."""
+    """Launches per form of K1, K2, K3, K4, K5, K8, K9, K11, K12, K14, K15,
+    K16, mhsa_f32 and K18 since the counts were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
@@ -2017,6 +2084,7 @@ def main_paths(dev, card, depth, images):
         ResNetConfig, flatten_folded, fold_resnet, folded_forward, init_resnet, qforward,
         qforward_fused2,
     )
+    from dlq_tpu_torch.ops import block_fused
     from dlq_tpu_torch.ops.block_fused import pack_fused_blocks
     from dlq_tpu_torch.quant.model_quant import FullFusedCtx, PallasBlockCtx
     from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
@@ -2114,6 +2182,23 @@ def main_paths(dev, card, depth, images):
                                     int8_stages, f"{model} PallasBlockCtx")
         del taps_b, taps_f2
         ms_b = time_ms(lambda: blk._fn(blk.params, xt), iters=10)
+        turns = None
+        if depth == 18:
+            # the same forward with K3 on its first form (the parent's kernel,
+            # unchanged): equal logits, then Hopper, first, first, Hopper
+            with torch.inference_mode():
+                hopper_logits = blk._fn(blk.params, xt)
+                with first_form(block_fused, "basic_block_fused", block_fused.basic_block_first):
+                    first_logits = blk._fn(blk.params, xt)
+            if not torch.equal(hopper_logits, first_logits):
+                raise AssertionError(f"{model} PallasBlockCtx: K3's first form changes the logits")
+            del hopper_logits, first_logits
+            turns = {}
+            for form in ("hopper", "first_form", "first_form", "hopper"):
+                with first_form(block_fused, "basic_block_fused", block_fused.basic_block_first,
+                                form == "first_form"):
+                    turns.setdefault(form, []).append(
+                        time_ms(lambda: blk._fn(blk.params, xt), iters=10))
         emit({"phase": "main_path_block", "model": model, "batch": BATCH, "batches": NB,
               "img_per_s_classify": blk.stats.images_per_sec, "ms_per_batch": ms_b,
               "img_per_s_device": BATCH / (ms_b / 1e3), "launches": counts_b,
@@ -2122,8 +2207,13 @@ def main_paths(dev, card, depth, images):
               "top1_gated": top1, "top1_vs_fused2": top1_report(logits_b, logits_f2),
               "block_output_equal_fraction": eq, "per_block_equal_fraction_max_step": per_block,
               "max_abs_vs_plain_versions": plain_b,
-              "preds_equal_fused2": float((preds_b == preds).mean()), "card": card})
+              "preds_equal_fused2": float((preds_b == preds).mean()),
+              "ms_per_batch_in_turns_k3_first_form": turns,
+              "logits_equal_k3_first_form": None if turns is None else True, "card": card})
         profile_forward(blk, xt, f"{model}_block")
+        if depth == 18:
+            with first_form(block_fused, "basic_block_fused", block_fused.basic_block_first):
+                profile_forward(blk, xt, f"{model}_block_k3_first_form")
         out[path] = (counts_b, shapes_b)
         del blk
 

@@ -80,6 +80,7 @@
 // that fits, the most B stages, then the most A stages beside them.) The
 // first form (below) serves what the Hopper form's rule leaves out: W > 126
 // (a grid wider than 128 sum rows), and CM 512 at W >= 100 (no plan fits).
+#include "block_epi.cuh"
 #include "i8gemm.cuh"
 #include "igemm.cuh"
 
@@ -239,6 +240,7 @@ namespace hop {
 namespace sm90 = dlq::sm90;
 namespace w4 = dlq::w4;
 namespace i8 = dlq::i8;
+using namespace dlq::blk;
 
 constexpr int BM = 128;              // sum rows a pass: two consumer warpgroups of 64
 constexpr int KS = 64;               // K bytes of a stage
@@ -285,9 +287,6 @@ inline Geo geometry(int H, int W) {
   return g;
 }
 
-__host__ __device__ inline int staging_bytes(int ns3) { return 64 * (ns3 + 16); }   // 8 warps x 8 rows
-constexpr int LUT_BYTES = 256;   // the skip's requant of each int8 value
-
 // Of the slice widths 256, 128, 64 (conv1/conv2 take min(CM, width), conv3
 // the width; each must divide its N), the widest whose plan fits: resident
 // weights with the most A stages (4 down to 2) that fit, else a B ring of
@@ -328,81 +327,6 @@ struct Hop {
   Geo g;
   Plan p;
 };
-
-// float(acc), the same value as __int2float_rn: with SMALL (|acc| < 2^22:
-// every sum of K <= 260 int8 products, 260 x 127^2 < 2^22) the bits of 1.5 x
-// 2^23 plus acc are that float plus acc exactly, and subtracting 1.5 x 2^23
-// leaves acc, on the full-rate pipes; else the conversion pipe (a quarter
-// of the rate). A product takes the first where K <= SMALL_K (exact up to
-// 260; 128 measured faster than 260 at layer3's conv3, K 256).
-constexpr int SMALL_K = 128;
-template <bool SMALL>
-__device__ __forceinline__ float i2f(int acc) {
-  if constexpr (SMALL) return __fsub_rn(__int_as_float(acc + 0x4B400000), 12582912.0f);
-  else return __int2float_rn(acc);
-}
-
-// clip(rint(fma(acc, s, b) * inv), lo, 127) as an int8 code in the low byte
-// (clip first, then round by adding 1.5 x 2^23: the sum's ulp is 1).
-template <bool SMALL>
-__device__ __forceinline__ uint32_t code(int acc, float s, float b, float inv, float lo) {
-  const float q = __fmul_rn(__fmaf_rn(i2f<SMALL>(acc), s, b), inv);
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, lo), 127.0f), 12582912.0f));
-}
-
-// The codes of one half of a consumer's 64 x NS sums (rows 16 w + gq + 8 h),
-// column pairs n0 + 8 j + 2 t, each pair's two codes (bits 0-15) handed to
-// put(j, v), eight pairs at a time: their scale and bias loads first, then
-// their stores (put stores by st.shared), then a compiler barrier so that
-// the next eight pairs' loads are not hoisted (their registers would spill).
-template <int NS, bool SMALL, class Put>
-__device__ __forceinline__ void codes_t(const int (&acc)[NS / 2], int h, int n0, int t,
-                                        const float* s, const float* b, float inv, float lo,
-                                        Put&& put) {
-  constexpr int CH = NS / 8 < 8 ? NS / 8 : 8;
-#pragma unroll
-  for (int j0 = 0; j0 < NS / 8; j0 += CH) {
-    uint32_t v[CH];
-#pragma unroll
-    for (int jj = 0; jj < CH; ++jj) {
-      const int j = j0 + jj, n = n0 + 8 * j + 2 * t;
-      const float2 sc = __ldg(reinterpret_cast<const float2*>(s + n));
-      const float2 bi = __ldg(reinterpret_cast<const float2*>(b + n));
-      v[jj] = __byte_perm(code<SMALL>(acc[4 * j + 2 * h], sc.x, bi.x, inv, lo),
-                          code<SMALL>(acc[4 * j + 2 * h + 1], sc.y, bi.y, inv, lo), 0x0040);
-    }
-#pragma unroll
-    for (int jj = 0; jj < CH; ++jj) put(j0 + jj, v[jj]);
-    asm volatile("" ::: "memory");
-  }
-}
-
-template <int NS, class Put>
-__device__ __forceinline__ void codes(const int (&acc)[NS / 2], int h, int n0, int t,
-                                      const float* s, const float* b, float inv, float lo,
-                                      bool small, Put&& put) {
-  if (small) codes_t<NS, true>(acc, h, n0, t, s, b, inv, lo, put);
-  else codes_t<NS, false>(acc, h, n0, t, s, b, inv, lo, put);
-}
-
-// A 2-byte store to shared memory (an st.shared the compiler need not order
-// against the global loads around it).
-__device__ __forceinline__ void sts16(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"((unsigned short)v));
-}
-
-// Sixteen output bytes: clip(z + r, 0, 127) with r = lut[x] = clip(rint(x *
-// rs), -127, 127): a saturating byte add (z + r within [-254, 254] saturates
-// to [-128, 127]) and a byte max with 0.
-__device__ __forceinline__ uint4 skip_add16(uint4 z, uint4 x, const int8_t* lut) {
-  auto r4 = [&](uint32_t xw) {
-    return __byte_perm(__byte_perm((uint8_t)lut[xw & 255], (uint8_t)lut[(xw >> 8) & 255], 0x0040),
-                       __byte_perm((uint8_t)lut[(xw >> 16) & 255], (uint8_t)lut[xw >> 24], 0x0040),
-                       0x5410);
-  };
-  auto add4 = [&](uint32_t zw, uint32_t xw) { return __vmaxs4(__vaddss4(zw, r4(xw)), 0u); };
-  return make_uint4(add4(z.x, x.x), add4(z.y, x.y), add4(z.z, x.z), add4(z.w, x.w));
-}
 
 // The item's first image (imgs 1: its image) and first output row.
 __device__ __forceinline__ void origin(const Geo& g, int it, int& img, int& oh0) {
@@ -504,11 +428,7 @@ __device__ __forceinline__ void consume(const Args& a, const Hop& hp, const uint
   auto both = []() { sm90::named_bar(1, 256); };
 
   // the skip's requant of every int8 value: lut[(uint8_t)x] = clip(rint(x rs), -127, 127)
-  {
-    const int i = threadIdx.x - 128;
-    const float r = fminf(fmaxf(__fmul_rn((float)(int8_t)i, a.rs), -127.0f), 127.0f);
-    lut[i] = (int8_t)((int)__float_as_uint(__fadd_rn(r, 12582912.0f)) - 0x4B400000);
-  }
+  skip_lut(lut, threadIdx.x - 128, a.rs);
   // columns -1 and W of every slab row stay zero (the padding of the 3x3)
   for (int i = threadIdx.x - 128; i < g.imgs * (a.CM / 16) * (g.toh + 2) * 2; i += 256) {
     const int e = i & 1, rest = i >> 1, hr = rest % (g.toh + 2), ch = rest / (g.toh + 2);

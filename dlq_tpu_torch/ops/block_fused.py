@@ -31,9 +31,19 @@ padded channels are zeros and change no output, so the port keeps CM.
 
 ``basic_block_fused`` / ``bottleneck_block_fused`` launch their kernel for a
 CUDA tensor and run ``basic_block_plain`` / ``bottleneck_block_plain`` for a
-CPU tensor. Each counts kernel launches (``.launches``) and launches per
-(N, H, W, C) or (N, H, W, C4, CM) (``.by_shape``); K4 also per form
+CPU tensor. Each counts kernel launches (``.launches``), launches per
+(N, H, W, C) or (N, H, W, C4, CM) (``.by_shape``) and per form
 (``.by_form``).
+
+K3 has two forms, picked by a static shape rule (``basic_block_form``,
+mirroring ``dlq_basic_block_form``): the Hopper form wherever its item
+geometry exists (strips whose conv1 rows on the W + 2 grid fit four 64-row
+tiles: W + 2 <= 85), C is a multiple of 128 up to 512 and a plan fits
+(``basic_block_plan``, mirroring ``csrc/basic_block.cu``'s
+``hop::make_plan``: every ResNet-18/34 identity BasicBlock the reference
+fuses), else the first form (one block per image and 8x8 tile), which stays
+callable as ``basic_block_first``. Both give the same output on every
+element.
 
 K4 has two forms, picked by a static shape rule (``bottleneck_form``,
 mirroring ``dlq_bottleneck_block_form``): the Hopper form wherever its
@@ -60,6 +70,10 @@ from dlq_tpu_torch.ops.qops import bias_or_zeros, combined_scale, int_weight_pac
 from dlq_tpu_torch.quant.quantize import f32
 
 Pack = Dict[str, object]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _site(qflat, act_scales, name):
@@ -146,20 +160,105 @@ def basic_block_plain(x: torch.Tensor, pack: Pack) -> torch.Tensor:
     return torch.clamp(z + r, 0.0, 127.0).to(torch.int8).contiguous()
 
 
+# K3's Hopper form (csrc/basic_block.cu: hop::geometry, hop::make_plan; a
+# change to one is made in both places, and the card test holds the
+# kernel's own plan to these): conv1 sum rows an item at most (four 64-row
+# tiles, two a consumer), slices of 128 channels, 64-byte K stages, 3 to 8
+# B stages, the opt-in shared-memory limit
+BB_ROWS1, BB_NS, BB_STAGE, BB_SMEM_MAX = 256, 128, 64, 232448
+BB_MAX_B, BB_MIN_B = 8, 3
+SKIP_LUT = 256   # K3's and K4's table: the skip's requant of each int8 value
+
+
+class BasicGeo(NamedTuple):
+    gw: int      # grid width W + 2 (0: no geometry, the first form)
+    toh: int     # output rows an item
+    rb: int      # strips an image
+    r1: int      # conv1 sum rows: (toh + 2) x gw
+    r2: int      # conv2 sum rows: toh x gw
+    mt1: int     # conv1 64-row tiles a consumer
+    mt2: int     # conv2 64-row tiles a consumer
+    spx1: int    # x slab pixels a 16-channel chunk
+    spx2: int    # h slab pixels a 16-channel chunk
+
+
+class BasicPlan(NamedTuple):
+    ns: int        # slice width (0: no plan, the first form)
+    b_stages: int
+    smem: int
+    items: int
+    grid: int
+
+
+NO_BB_GEO = BasicGeo(0, 0, 0, 0, 0, 0, 0, 0, 0)
+NO_BB_PLAN = BasicPlan(0, 0, 0, 0, 0)
+
+
+def basic_block_geometry(h: int, w: int) -> BasicGeo:
+    """K3's items: strips of TOH full-width output rows of one image, the
+    most with (TOH + 2) x (W + 2) <= 256 conv1 sum rows, balanced over the
+    image. Each consumer takes MT contiguous 64-row tiles of a conv's sum
+    rows. A slab chunk holds the TMA box's rows x GW pixels (x: TOH + 4
+    rows, h: TOH + 2) and the pixels the tiles read (2 MT x 64 rows plus the
+    largest tap shift 2 GW + 2), rounded up to 8."""
+    gw = w + 2
+    if h <= 0 or w <= 0:
+        return NO_BB_GEO
+    t0 = BB_ROWS1 // gw - 2
+    if t0 < 1:
+        return NO_BB_GEO
+    rb = _cdiv(h, t0)
+    toh = _cdiv(h, rb)
+    r1, r2 = (toh + 2) * gw, toh * gw
+    mt1, mt2 = _cdiv(_cdiv(r1, 64), 2), _cdiv(_cdiv(r2, 64), 2)
+    spx1 = _cdiv(max((toh + 4) * gw, 128 * mt1 + 2 * gw + 2), 8) * 8
+    spx2 = _cdiv(max((toh + 2) * gw, 128 * mt2 + 2 * gw + 2), 8) * 8
+    return BasicGeo(gw, toh, rb, r1, r2, mt1, mt2, spx1, spx2)
+
+
+def basic_block_plan(n: int, h: int, w: int, c: int, sms: int) -> BasicPlan:
+    """K3's Hopper plan for a batch of n images on ``sms`` SMs: C a multiple
+    of 128 up to 512, slices of 128 channels; the most B stages that fit (3
+    to 8) beside the x and h slabs (C x SPX each), the output staging (64
+    rows of NS + 16 bytes), the skip's 256-byte table and 16 bytes of
+    mbarriers a stage and 16 more. One block per SM at most, walking items
+    b, b + grid, ..."""
+    g = basic_block_geometry(h, w)
+    if g.gw == 0 or c <= 0 or c % BB_NS or c > 512:
+        return NO_BB_PLAN
+    fixed = c * (g.spx1 + g.spx2) + 64 * (BB_NS + 16) + SKIP_LUT + 16
+    sb = min(BB_MAX_B, (BB_SMEM_MAX - fixed) // (BB_NS * BB_STAGE + 16))
+    if sb < BB_MIN_B:
+        return NO_BB_PLAN
+    items = n * g.rb
+    return BasicPlan(BB_NS, sb, fixed + sb * (BB_NS * BB_STAGE + 16), items, min(items, sms))
+
+
+def basic_block_form(h: int, w: int, c: int) -> str:
+    """K3's form: ``"hopper"`` where the geometry exists and a plan fits
+    (neither depends on the batch or the card), else ``"first"``."""
+    return "hopper" if basic_block_plan(1, h, w, c, 1).ns else "first"
+
+
 @functools.cache
-def _entry():
-    fn = _build.library("basic_block").dlq_basic_block
+def basic_block_launch_form(h: int, w: int, c: int) -> str:
+    """The form the kernel library takes for this block (its own rule)."""
+    fn = _build.library("basic_block").dlq_basic_block_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return "hopper" if fn(h, w, c) else "first"
+
+
+@functools.cache
+def _entry(name: str = "dlq_basic_block"):
+    fn = getattr(_build.library("basic_block"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     return fn
 
 
-def basic_block_fused(x: torch.Tensor, pack: Pack) -> torch.Tensor:
-    """Identity BasicBlock on int8 NHWC activations at the conv1 site scale;
-    returns int8 NHWC at the next site's scale."""
-    if x.device.type == "cpu":
-        return basic_block_plain(x, pack)
+def _launch_basic(x: torch.Tensor, pack: Pack, name: str) -> torch.Tensor:
     w1: PackedConv = pack["w1"]
     w2: PackedConv = pack["w2"]
     check_launch_args("basic_block_fused", x, w1, pack["s1"], pack["b1"])
@@ -169,20 +268,47 @@ def basic_block_fused(x: torch.Tensor, pack: Pack) -> torch.Tensor:
         raise ValueError("basic_block_fused: identity block needs 3x3 C->C convs")
     if c % 64 or c > 512:
         raise ValueError(f"basic_block_fused: C={c} must be a multiple of 64 up to 512")
+    if name == "dlq_basic_block" and basic_block_launch_form(h, w, c) == "hopper":
+        for key in ("s1", "b1", "s2", "b2"):   # the Hopper epilogue's float2 loads
+            if pack[key].data_ptr() % 8:
+                raise ValueError(f"basic_block_fused: {key} must be 8-byte aligned")
     out = torch.empty_like(x)
     inv_mid, inv_nxt, rs = pack["inv"]
-    rc = _entry()(x.data_ptr(), w1.wk.data_ptr(), pack["s1"].data_ptr(), pack["b1"].data_ptr(),
-                  w2.wk.data_ptr(), pack["s2"].data_ptr(), pack["b2"].data_ptr(),
-                  out.data_ptr(), n, h, w, c, w1.wk.shape[1], inv_mid, inv_nxt, rs,
-                  _build.stream_ptr(x.device))
-    _build.check(rc, "basic_block_fused")
+    rc = _entry(name)(x.data_ptr(), w1.wk.data_ptr(), pack["s1"].data_ptr(), pack["b1"].data_ptr(),
+                      w2.wk.data_ptr(), pack["s2"].data_ptr(), pack["b2"].data_ptr(),
+                      out.data_ptr(), n, h, w, c, w1.wk.shape[1], inv_mid, inv_nxt, rs,
+                      _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    return out
+
+
+def basic_block_fused(x: torch.Tensor, pack: Pack) -> torch.Tensor:
+    """Identity BasicBlock on int8 NHWC activations at the conv1 site scale;
+    returns int8 NHWC at the next site's scale. x is 16-byte aligned (as
+    every int8 kernel takes it); where the Hopper form is taken, s1, b1,
+    s2 and b2 are 8-byte aligned too."""
+    if x.device.type == "cpu":
+        return basic_block_plain(x, pack)
+    out = _launch_basic(x, pack, "dlq_basic_block")
+    n, h, w, c = x.shape
     basic_block_fused.launches += 1
     basic_block_fused.by_shape[(n, h, w, c)] += 1
+    basic_block_fused.by_form[basic_block_launch_form(h, w, c)] += 1
     return out
+
+
+def basic_block_first(x: torch.Tensor, pack: Pack) -> torch.Tensor:
+    """K3's first form at any shape it takes (a CUDA tensor only; not
+    counted): what the card tests and ``chip_smoke.py`` hold the Hopper
+    form to, output for output."""
+    if x.device.type != "cuda":
+        raise ValueError("basic_block_first: a CUDA tensor (the kernel's first form)")
+    return _launch_basic(x, pack, "dlq_basic_block_first")
 
 
 basic_block_fused.launches = 0
 basic_block_fused.by_shape = collections.Counter()
+basic_block_fused.by_form = collections.Counter()
 
 
 def bottleneck_block_plain(x: torch.Tensor, pack: Pack) -> torch.Tensor:
@@ -208,7 +334,6 @@ BN_PASS, BN_STAGE, BN_SMEM_MAX = 128, 64, 232448
 BN_A_STAGE = BN_PASS * BN_STAGE
 BN_WIDTHS = (256, 128, 64)
 BN_MAX_A, BN_MIN_A, BN_MAX_B, BN_MIN_B = 4, 2, 8, 3
-BN_LUT = 256   # the skip's requant of each int8 value
 
 
 class BottleneckGeo(NamedTuple):
@@ -234,10 +359,6 @@ class BottleneckPlan(NamedTuple):
 
 NO_BN_GEO = BottleneckGeo(0, 0, 0, 0, 0, 0, 0)
 NO_BN_PLAN = BottleneckPlan(0, 0, 0, 0, 0, 0, 0, 0)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def bottleneck_geometry(h: int, w: int) -> BottleneckGeo:
@@ -285,7 +406,7 @@ def bottleneck_plan(n: int, h: int, w: int, c4: int, cm: int, sms: int) -> Bottl
         ns12, ns3 = min(cm, nsmax), nsmax
         if cm % ns12 or c4 % ns3 or ns12 not in BN_WIDTHS:
             continue
-        fixed = g.imgs * cm * g.spx + BN_PASS * cm + 64 * (ns3 + 16) + BN_LUT
+        fixed = g.imgs * cm * g.spx + BN_PASS * cm + 64 * (ns3 + 16) + SKIP_LUT
         for sa in range(BN_MAX_A, BN_MIN_A - 1, -1):
             nbytes = wb + sa * BN_A_STAGE + fixed + 16 * (sa + 1)
             if nbytes <= BN_SMEM_MAX:

@@ -19,6 +19,17 @@ dtype (another raises) and are read widened to fp32. The reference's row padding
 Each wrapper launches its kernel (``csrc/layernorm.cu``) for a CUDA tensor
 and runs its plain version for a CPU tensor; ``.launches`` counts kernel
 launches and ``.by_shape`` counts them per (rows, D, dtypes).
+
+K16 has two forms, picked by a static rule (``layernorm_form``, mirroring
+``dlq_layernorm_form``): the Hopper form (a persistent grid whose blocks
+keep tiles of rows in flight into shared memory by bulk copies, each warp's
+row read from there in the first form's lane order, the columns a lane
+compiled and g and b held in registers) where D <= 512, rows are a
+multiple of 16 bytes and x and out are 16-byte aligned, in bf16 and fp32;
+else the first form (one warp a row, straight from device memory), which
+stays callable as ``layernorm_fused_first``. Both forms run the same
+arithmetic in the same order, so they agree on every output;
+``layernorm_fused.by_form`` counts launches per form. K17 has one form.
 """
 
 from __future__ import annotations
@@ -34,6 +45,12 @@ from dlq_tpu_torch import _build
 
 LN_EPS = 1e-6
 DTYPES = (torch.bfloat16, torch.float32)
+# K16's Hopper form (csrc/layernorm.cu: hopper_takes, launch_hopper_t; a
+# change to one is made in both places): the largest row it takes (the
+# first form's ROW_REGS x 32 lanes), the bytes of a tile of rows, tiles in
+# flight a block, blocks an SM
+HOPPER_MAX_D = 512
+HOPPER_STAGE_BYTES, HOPPER_STAGES, HOPPER_BLOCKS = 12288, 4, 4
 
 
 def ln_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, d_valid: int,
@@ -68,13 +85,46 @@ def residual_layernorm_plain(y: torch.Tensor, delta: torch.Tensor, g: torch.Tens
 def _entry(name: str):
     fn = getattr(_build.library("layernorm"), f"dlq_{name}")
     fn.restype = ctypes.c_int
-    if name == "layernorm":        # x, x_f32, g, b, out, M, D, eps, stream
+    if name != "residual_layernorm":   # x, x_f32, g, b, out, M, D, eps, stream
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
     else:                          # y, y_f32, delta, d_f32, g, b, z, h, M, D, eps, stream
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
     return fn
+
+
+def layernorm_form(m: int, d: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """K16's form for m rows of D in ``dtype`` (bf16 or fp32): ``"hopper"``
+    where D <= 512 and rows are a multiple of 16 bytes, x and out 16-byte
+    aligned, else ``"first"`` (not the batch or the card)."""
+    esize = torch.finfo(dtype).bits // 8
+    takes = d <= HOPPER_MAX_D and d * esize % 16 == 0
+    return "hopper" if m > 0 and aligned and takes else "first"
+
+
+def layernorm_hopper_tiles(m: int, d: int, dtype: torch.dtype, sms: int) -> Tuple[int, int, int, int]:
+    """The Hopper form's walk for m rows of D: (rows a tile, tiles, blocks,
+    shared-memory bytes). Block b takes tiles b, b + blocks, ...; the grid
+    is at most HOPPER_BLOCKS an SM and never more than the tiles."""
+    rb = d * (torch.finfo(dtype).bits // 8)
+    rows = HOPPER_STAGE_BYTES // rb
+    tiles = -(-m // rows)
+    return rows, tiles, min(tiles, HOPPER_BLOCKS * sms), HOPPER_STAGES * rows * rb + 8 * HOPPER_STAGES
+
+
+@functools.cache
+def _form_entry():
+    fn = _build.library("layernorm").dlq_layernorm_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn
+
+
+@functools.cache
+def library_form(m: int, d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The form the kernel library takes for K16 here (its own rule)."""
+    return "hopper" if _form_entry()(m, d, _f32_dtype(dtype), int(aligned)) else "first"
 
 
 def _check(what: str, t: torch.Tensor, dev, d: int) -> None:
@@ -90,8 +140,12 @@ def _check_affine(what: str, g: torch.Tensor, b: torch.Tensor, dtype: torch.dtyp
                          f"{tuple(g.shape)}, {b.dtype} {tuple(b.shape)}")
 
 
+def _f32_dtype(dtype: torch.dtype) -> int:
+    return int(dtype == torch.float32)
+
+
 def _f32(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.float32)
+    return _f32_dtype(t.dtype)
 
 
 def _short(dt: torch.dtype) -> str:
@@ -106,16 +160,36 @@ def layernorm_fused(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     _check_affine("layernorm_fused", g, b, x.dtype, d)
     if x.device.type == "cpu":
         return layernorm_fused_plain(x, g, b, eps)
-    for t in (x, g, b):
-        _check("layernorm_fused", t, x.device, d)
-    out = torch.empty_like(x)
+    out = _launch_ln(x, g, b, eps, "layernorm")
     m = x.numel() // d
-    rc = _entry("layernorm")(x.data_ptr(), _f32(x), g.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             m, d, eps, _build.stream_ptr(x.device))
-    _build.check(rc, "layernorm_fused")
     layernorm_fused.launches += 1
     layernorm_fused.by_shape[(m, d, _short(x.dtype))] += 1
+    aligned = (x.data_ptr() | out.data_ptr()) % 16 == 0
+    layernorm_fused.by_form[library_form(m, d, x.dtype, aligned)] += 1
     return out
+
+
+def _launch_ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
+               name: str) -> torch.Tensor:
+    d = x.shape[-1]
+    for t in (x, g, b):
+        _check(name, t, x.device, d)
+    out = torch.empty_like(x)
+    rc = _entry(name)(x.data_ptr(), _f32(x), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      x.numel() // d, d, eps, _build.stream_ptr(x.device))
+    _build.check(rc, name)
+    return out
+
+
+def layernorm_fused_first(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                          eps: float = LN_EPS) -> torch.Tensor:
+    """K16's first form at any shape (a CUDA tensor only; not counted): what
+    the card tests and ``chip_smoke.py`` hold the Hopper form to, output for
+    output."""
+    _check_affine("layernorm_first", g, b, x.dtype, x.shape[-1])
+    if x.device.type != "cuda":
+        raise ValueError("layernorm_fused_first: a CUDA tensor (the kernel's first form)")
+    return _launch_ln(x, g, b, eps, "layernorm_first")
 
 
 def residual_layernorm(y: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -146,3 +220,4 @@ def residual_layernorm(y: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, b:
 for _f in (layernorm_fused, residual_layernorm):
     _f.launches = 0
     _f.by_shape = collections.Counter()
+layernorm_fused.by_form = collections.Counter()

@@ -1588,3 +1588,158 @@ def test_attention_first_form_guards_on_card():
         mhsa_f32_first(q, k, v, 3, 18)
     with pytest.raises(ValueError, match="fp32"):
         mhsa_f32_first(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), 3, 17)
+
+
+def _basic_pack(rng, c, dev):
+    """One identity BasicBlock's pack from seeded fp32 weights quantized per
+    channel and fixed site scales (outputs spread over the int8 range)."""
+    flat = {n: {"w": torch.from_numpy(rng.normal(0, 0.05, (3, 3, c, c)).astype(np.float32)),
+                "b": torch.from_numpy(rng.normal(0, 0.2, c).astype(np.float32))}
+            for n in ("b.conv1", "b.conv2")}
+    qflat = {n: {"qw": p["qw"].to(dev), "b": p["b"].to(dev)}
+             for n, p in quantize_weights(flat, INT8_PER_CHANNEL).items()}
+    scales = {n: torch.tensor(v, dtype=torch.float32, device=dev)
+              for n, v in (("b.conv1", 0.05), ("b.conv2", 0.35), ("n.conv1", 0.08))}
+    return pack_basic_block(qflat, scales, "b", "n.conv1")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 256])
+@pytest.mark.parametrize("h,c", [(28, 128), (14, 256), (7, 512)])
+def test_basic_block_hopper_on_card(h, c, n):
+    """K3's Hopper form at every ResNet-18/34 packed shape (28^2 x 128:
+    strips of 6 rows, the last one partial; 14^2 x 256 and 7^2 x 512: a
+    whole image an item) at batch 1, 3 and 256, inputs over the whole int8
+    range (the skip of a negative input) and post-relu: equal on every
+    output to its first form and to its plain version; every launch counted
+    on the Hopper form; the plan and geometry the kernel takes equal
+    ``basic_block_plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.block_fused import (
+        basic_block_first, basic_block_form, basic_block_geometry, basic_block_plan,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9700 + n + h + c)
+    pack = _basic_pack(rng, c, dev)
+    assert basic_block_form(h, h, c) == "hopper"
+    for lo in (0, -127):
+        x = _i8(rng, (n, h, h, c), lo=lo).to(dev)
+        before = basic_block_fused.by_form["hopper"]
+        got = basic_block_fused(x, pack)
+        assert basic_block_fused.by_form["hopper"] == before + 1
+        first = basic_block_first(x, pack)
+        assert torch.equal(got, first), (lo, int((got != first).sum()))
+        ref = basic_block_plain(x, pack)
+        assert torch.equal(got, ref), (lo, int((got != ref).sum()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = (*basic_block_plan(n, h, h, c, sms), *basic_block_geometry(h, h))
+    got_plan = _plan_on_card_n("basic_block", "basic_block_plan", (n, h, h, c, 0), 14)
+    assert got_plan == want
+
+
+@pytest.mark.gpu
+def test_basic_block_first_form_on_card():
+    """K3's first form by the static rule (C = 64; C = 192, no multiple of
+    128; an output grid W + 2 > 85 wide) equal to its plain version,
+    counted as such; ``basic_block_first`` refuses a CPU tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.block_fused import basic_block_first, basic_block_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9750)
+    for (n, h, c) in ((2, 56, 64), (1, 14, 192), (1, 90, 128)):
+        pack = _basic_pack(rng, c, dev)
+        x = _i8(rng, (n, h, h, c), lo=0).to(dev)
+        assert basic_block_form(h, h, c) == "first"
+        before = basic_block_fused.by_form["first"]
+        assert torch.equal(basic_block_fused(x, pack), basic_block_plain(x, pack))
+        assert basic_block_fused.by_form["first"] == before + 1
+    with pytest.raises(ValueError, match="CUDA"):
+        basic_block_first(x.cpu(), pack)
+
+
+@pytest.mark.gpu
+def test_basic_block_scale_alignment_on_card():
+    """K3's scales and biases at 4-byte alignment (views one float in): the
+    first form takes them (C = 192) and equals its plain version; the
+    Hopper form (14^2 x 256) refuses them, its epilogue reading pairs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9760)
+    for c, form in ((192, "first"), (256, "hopper")):
+        pack = dict(_basic_pack(rng, c, dev))
+        for key in ("s1", "b1", "s2", "b2"):
+            pack[key] = torch.cat([pack[key][:1], pack[key]])[1:]
+            assert pack[key].data_ptr() % 8 == 4
+        x = _i8(rng, (1, 14, 14, c), lo=0).to(dev)
+        if form == "first":
+            assert torch.equal(basic_block_fused(x, pack), basic_block_plain(x, pack))
+        else:
+            with pytest.raises(ValueError, match="8-byte aligned"):
+                basic_block_fused(x, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 33, 4111, 50431, 50432])
+def test_layernorm_hopper_on_card(m, dt):
+    """K16's Hopper form at DeiT-Tiny's D = 192, at [50432, 192] (batch 256)
+    and ragged M (one row, partial tiles of 32 bf16 / 16 fp32 rows, a tail
+    past the persistent grid's last full round): equal on every output to
+    its first form, counted on the Hopper form; a misaligned x (a view one
+    element in) takes the first form, counted so, with the same outputs;
+    from 4111 rows, each form's output within the LayerNorm test's
+    tolerance of the plain version of its own x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.layernorm import (
+        layernorm_form, layernorm_fused, layernorm_fused_first, layernorm_fused_plain,
+    )
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    rng = np.random.default_rng(9600 + m)
+    d = 192
+    base = torch.from_numpy(rng.normal(0.3, 1.0, (m * d + 1,)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev, dtype)
+    b = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32)).to(dev, dtype)
+    assert layernorm_form(m, d, dtype) == "hopper"
+    for off, form in ((0, "hopper"), (1, "first")):
+        x = base[off: off + m * d].view(m, d)
+        before = layernorm_fused.by_form[form]
+        got = layernorm_fused(x, g, b)
+        assert layernorm_fused.by_form[form] == before + 1
+        first = layernorm_fused_first(x, g, b)
+        assert torch.equal(got, first), int((got != first).sum())
+        if m < 4111:   # the plain version's agreement is a fraction: held where it means one
+            continue
+        plain = layernorm_fused_plain(x, g, b)
+        _agree(got, plain, 0.99 if dtype == torch.bfloat16 else 1.0,
+               1e-4 if dtype == torch.float32 else 2.0 ** -7 * (1.0 + float(plain.float().abs().max())),
+               2.0 ** -19 if dtype == torch.float32 else 0.0)
+
+
+@pytest.mark.gpu
+def test_layernorm_first_form_rule_on_card():
+    """K16's first form by the static rule: rows not a multiple of 16 bytes
+    (bf16 D = 100) and rows past the registers (D = 600), counted as such,
+    equal to ``layernorm_fused_first``; the first form refuses a CPU tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.layernorm import layernorm_form, layernorm_fused, layernorm_fused_first
+
+    dev = torch.device("cuda")
+    for d in (100, 600):
+        x = torch.randn(37, d, device=dev).to(torch.bfloat16)
+        g, b = torch.ones(d, device=dev, dtype=torch.bfloat16), torch.zeros(d, device=dev,
+                                                                            dtype=torch.bfloat16)
+        assert layernorm_form(37, d, torch.bfloat16) == "first"
+        before = layernorm_fused.by_form["first"]
+        assert torch.equal(layernorm_fused(x, g, b), layernorm_fused_first(x, g, b))
+        assert layernorm_fused.by_form["first"] == before + 1
+    with pytest.raises(ValueError, match="CUDA"):
+        layernorm_fused_first(x.cpu(), g.cpu(), b.cpu())

@@ -196,10 +196,15 @@ def _ln_lanes(z, g, b, d_valid):
 
 
 def _gelu(f, tanh_approx):
+    """GELU in fp32 steps; tanh and erfc from the plain version's library
+    (``torch.tanh``, ``torch.erfc`` on fp32), so that both sides take the
+    same value for an argument they share: numpy's fp32 tanh sits 1 to 2
+    ulp from PyTorch's on about a third of this test's arguments, and the
+    test holds the body's order of sums and roundings, not a tanh."""
     if tanh_approx:
         f3 = _f32(_f32(_f32(np.float32(0.044715) * f) * f) * f)
-        th = np.tanh(_f32(np.float32(0.7978845608028654) * _f32(f + f3)))
-        return _f32(_f32(np.float32(0.5) * f) * _f32(np.float32(1.0) + th))
+        th = torch.tanh(torch.from_numpy(_f32(np.float32(0.7978845608028654) * _f32(f + f3))))
+        return _f32(_f32(np.float32(0.5) * f) * _f32(np.float32(1.0) + th.numpy()))
     erfc = torch.erfc(torch.from_numpy(_f32(-f * np.float32(0.7071067811865476)))).numpy()
     return _f32(_f32(np.float32(0.5) * f) * erfc)
 
@@ -299,14 +304,16 @@ def test_hopper_body_order_against_plain(w4, out, gelu_tanh):
         y, attn, blk, d, gelu_tanh, odt)
     diff = (got.float() - plain.float()).abs()
     assert float(diff.max()) <= 0.0625
+    z1 = y.float() + vb._epi(vb._hgemm(attn, blk["wproj"]), blk.get("sproj"), blk["bproj"])
+    h2_plain = ln_f32(z1, blk["ln2"][0], blk["ln2"][1], d).to(torch.bfloat16)
+    same = (torch.from_numpy(h2) == h2_plain.float().reshape(-1, dp)).all(1)
     if out == "float32":
         frac_ok, _, near = W4A16_TOL["fp32"]
-        z1 = y.float() + vb._epi(vb._hgemm(attn, blk["wproj"]), blk.get("sproj"), blk["bproj"])
-        h2_plain = ln_f32(z1, blk["ln2"][0], blk["ln2"][1], d).to(torch.bfloat16)
-        same = (torch.from_numpy(h2) == h2_plain.float().reshape(-1, dp)).all(1)
         assert float(same.float().mean()) >= 0.99
         ok = (diff <= near * (1.0 + plain.float().abs())).reshape(-1, dp)[same]
         assert float(ok.float().mean()) >= frac_ok
     else:
         frac_ok, _ = W4A16_TOL["bf16"] if w4 else BF16_TOL
-        assert float((diff == 0).float().mean()) >= frac_ok
+        equal = float((diff == 0).float().mean())
+        assert equal >= frac_ok, (f"equal {equal:.5f}, LN2 apart in {int((~same).sum())} of "
+                                  f"{rows} rows, ATen {torch.backends.cpu.get_cpu_capability()}")
