@@ -149,7 +149,12 @@ Phases, one JSON line each:
      pattern timed on a spinning card (device time of back-to-back
      launches: the kernels are microseconds long, shorter than their
      wrappers' host cost) beside the plain version, the bound and the one
-     PyTorch call where one computes the same function.
+     PyTorch call where one computes the same function; the 14 patterns on
+     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, the 12
+     copy patterns on stage_kernel) must launch that form, and equal their
+     first forms on every output; each is timed in turns with its first
+     form (first, Hopper, Hopper, first), beside launch_floor_ms, one empty
+     kernel's device time under the same timing.
 Each main path is driven with every launch count set to 0 just before it
 and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
@@ -2984,7 +2989,13 @@ def probe_path():
             raise AssertionError(f"{name}: launches per pattern {counts[name][1]}, expected {want}")
     if any(others.values()):
         raise AssertionError(f"probes launched model kernels: {others}")
-    emit({"phase": "probes", "fails": fails,
+    forms = {name: dict(getattr(mod, name).by_form) for name, mod in mods.items()}
+    for name, mod in mods.items():
+        want = {"hopper": len(mod.FIRST_FORMS)}
+        if forms[name] != want:
+            raise AssertionError(f"{name}: launches by form {forms[name]}, expected {want}")
+    floor = _probe.launch_floor_ms()
+    emit({"phase": "probes", "fails": fails, "forms": forms, "launch_floor_ms": floor,
           "launches": {name: c[0] for name, c in counts.items()}})
     rows = []
     for name, mod in mods.items():
@@ -3001,7 +3012,9 @@ def probe_path():
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": (_probe.spun_ms(lambda: lib(*xs), 20, warmup=2, reps=3)
                                   if lib is not None else None),
-                   "library": spec.library}
+                   "library": spec.library, "launch_floor_ms": floor}
+            if key in mod.FIRST_FORMS:
+                row.update(probe_first_form(fn, key, xs))
             emit_row(row)
             rows.append(row)
     if len(rows) != PROBE_PATTERNS:
@@ -3010,16 +3023,37 @@ def probe_path():
     return rows, counts
 
 
+def probe_first_form(fn, key, xs):
+    """A redesigned pattern against its first form: equal on every output
+    (raises otherwise), then device time on a spinning card in turns
+    (first, Hopper, Hopper, first)."""
+    from dlq_tpu_torch.tools._probe import spun_ms
+
+    hop, first = fn(key, *xs), fn.first(key, *xs)
+    if not torch.equal(hop, first):
+        raise AssertionError(f"{fn.__name__} {key}: the Hopper form differs from its first form "
+                             f"at {int((hop != first).sum())} outputs")
+    times = {"first": [], "hopper": []}
+    for tag in ("first", "hopper", "hopper", "first"):
+        call = fn.first if tag == "first" else fn
+        times[tag].append(spun_ms(lambda: call(key, *xs), 20, warmup=2, reps=3))
+    return {"equal_to_first_form": True, "first_form_ms": times["first"],
+            "hopper_in_turns_ms": times["hopper"]}
+
+
 def probe_summary(rows, counts):
     """One entry per probe kernel (K19-K22): ``launches`` from the probe
     path's run; ``ms``, ``plain_ms`` and ``bound_ms`` summed over its
     patterns (one launch of each); no one PyTorch call computes a whole
-    probe, so ``library_ms`` is null there and given per pattern."""
+    probe, so ``library_ms`` is null there and given per pattern, each
+    pattern beside ``launch_floor_ms`` and, where redesigned, its first
+    form's and its Hopper form's times in turns."""
     out = []
     for name, (_, src, repl) in PROBES.items():
         rs = [r for r in rows if r["kernel"] == name]
         pats = [{k: r[k] for k in ("pattern", "name", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "library")}
+                                   "bound_by", "library_ms", "library", "launch_floor_ms",
+                                   "first_form_ms", "hopper_in_turns_ms") if k in r}
                 | {"launches": counts[name][1].get(r["pattern"], 0)} for r in rs]
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": counts[name][0], "max_abs_err": max(r["max_abs_err"] for r in rs),

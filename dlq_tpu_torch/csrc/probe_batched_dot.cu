@@ -12,11 +12,14 @@
 //   2 "C"  split reshape [1600, 576] -> [8, 200, 576] (stage_kernel)
 //   3 "D"  per sample of x [1600, 576]: q, k, v = lanes 0, 64, 128 of its
 //          200 rows, no scale and no mask; out [8, 200, 192] bf16 with lanes
-//          64..191 zero (attention_kernel: one block per sample; only lanes
-//          0..191, 77 KB of the 230 KB sample, are read, the 208 keys' K
-//          and V in shared memory, the 8 pad keys at -1e30)
+//          64..191 zero (attention_kernel: a block per (sample, 64-row query
+//          tile); only lanes 0..191, 77 KB of the 230 KB sample, are read,
+//          the 208 keys' K and V in shared memory, the 8 pad keys zero and
+//          at -1e30)
 // Bound: A, B and D are 1.6-3.3 MFLOP of bf16 products against 0.2-1.3 MB:
-// bytes, and at these sizes launch latency; nothing is tuned.
+// bytes, and at these sizes launch latency. stage_kernel and
+// attention_kernel are Hopper forms (probe_common.cuh);
+// dlq_probe_batched_dot_first runs their first forms for C and D.
 #include "probe_common.cuh"
 
 namespace {
@@ -84,6 +87,17 @@ __global__ void __launch_bounds__(128) nn_dot_kernel(const bf16* __restrict__ a,
 }
 
 constexpr int kKeyTiles = 26;   // 208 keys: 200 and 8 pads
+constexpr int kValid = 200;     // unmasked keys
+
+constexpr Staged kStaged[] = {{2, Op::kCopy, {0, 1152, 0, 1600, 1, 1152}}};
+
+// unit = sample: rows of 576 lanes, q/k/v at lanes 0/64/128; out [200, 192]
+// per sample, lanes 64..191 zero
+AttnArgs samples(const void* a, void* out) {
+  constexpr int N = 200;
+  return AttnArgs{static_cast<const bf16*>(a), static_cast<bf16*>(out), N * 576, 576, 0, N * 192,
+                  192, 0, 0, 64, 128, N, kValid, 64, 192, 1.0f};
+}
 
 }  // namespace
 
@@ -91,8 +105,10 @@ extern "C" int dlq_probe_batched_dot_prepare() {
   cudaError_t e;
   if ((e = prepare(nt_dot_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(nn_dot_kernel, kNnSmem)) != cudaSuccess) return (int)e;
-  if ((e = prepare(stage_kernel<16, Op::kCopy>)) != cudaSuccess) return (int)e;
-  return (int)prepare(attention_kernel<kKeyTiles>, attention_smem<kKeyTiles>());
+  if ((e = prepare_stage()) != cudaSuccess) return (int)e;
+  constexpr int smem = AttnPlan<kKeyTiles>::SMEM;
+  if ((e = prepare(attention_kernel<kKeyTiles, kValid>, smem)) != cudaSuccess) return (int)e;
+  return (int)prepare(attention_first_kernel<kKeyTiles>, attention_first_smem<kKeyTiles>());
 }
 
 // a, b: the pattern's inputs (contiguous, the shapes above); out: its output.
@@ -100,6 +116,7 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
                                      void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int B = 8, N = 200;
+  if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
     case 0: {
       const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
@@ -111,16 +128,23 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
           static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(out), N,
           N);
       return (int)cudaGetLastError();
-    case 2:
-      return (int)stage<16, Op::kCopy>(a, out, Window{0, 1152, 0, 1600, 1, 1152}, st);
-    case 3: {
-      // unit = sample: rows of 576 lanes, q/k/v at lanes 0/64/128; out
-      // [200, 192] per sample, lanes 64..191 zero
-      AttnArgs t{static_cast<const bf16*>(a), static_cast<bf16*>(out), N * 576, 576, 0, N * 192,
-                 192, 0, 0, 64, 128, N, N, 64, 192, 1.0f};
-      return (int)attention<kKeyTiles>(t, B, st);
-    }
+    case 3:
+      return (int)attention<kKeyTiles, kValid>(samples(a, out), B, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The first forms of C (stage_first_kernel) and D (attention_first_kernel),
+// arguments as dlq_probe_batched_dot's; other patterns have one form and
+// return cudaErrorInvalidValue.
+extern "C" int dlq_probe_batched_dot_first(int pattern, const void* a, const void*, const void*,
+                                           void* out, float, float, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const Staged* s = find_staged(kStaged, pattern))
+    return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 3) return (int)attention_first<kKeyTiles>(samples(a, out), 8, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+DLQ_PROBE_STAGE_ENTRIES(probe_batched_dot, kStaged)

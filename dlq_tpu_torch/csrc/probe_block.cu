@@ -7,7 +7,7 @@
 //   2 "S"  stride-2 slices x[:, 1:17:2, 1:17:2, :] of [1, 18, 18, 128] int8
 //          (stage_kernel: 128-byte pixels at strides of 2 rows, 2 pixels)
 //   3 "L"  lane split and half: [232, 928] viewed [232, 116, 8], lanes 4..7
-//          of each group (stage_kernel with 4-byte cp.async granules)
+//          of each group (stage_kernel)
 //   4 "O"  int8 requant: clip(rint(f32(x) * s), -127, 127), s = f32(0.11)
 //          (requant_kernel; the reference's kernel multiplies in fp32, its
 //          numpy expectation in float64, one step apart)
@@ -19,6 +19,9 @@
 //            out  = clip(rint(f32(acc2) * s2) + x[2:10, 2:18], 0, 127)
 // Bound: bytes for every pattern (D: 91 MOP of int8, 0.05 us at the int8
 // peak, against 342 KB, 0.10 us); at these sizes launch latency.
+// stage_kernel is a Hopper form (probe_common.cuh: L reads each 928-byte
+// row as aligned 16-byte granules and keeps words 1 and 3 of each);
+// dlq_probe_block_first runs its first form for A1, A2, S and L.
 //
 // D design: one block of 8 warps holds the slab (240 pixels, 144-byte rows)
 // and h (180 pixels) in shared memory and runs both convs on
@@ -159,12 +162,20 @@ __global__ void __launch_bounds__(256) double_conv_kernel(const int8_t* __restri
   }
 }
 
+constexpr Staged kStaged[] = {
+    {0, Op::kCopy, {0, 1840, 0, 116, 1, 1840}},
+    {1, Op::kCopy, {0, 7360, 0, 116, 1, 7360}},
+    // pixel (1 + 2i, 1 + 2j) of the 18 x 18 slab, 128 bytes each
+    {2, Op::kCopy, {19 * 128, 2 * 18 * 128, 2 * 128, 8, 8, 128}},
+    // bytes 4..7 of each 8-byte group of a 928-byte row
+    {3, Op::kCopy, {4, 928, 8, 232, 116, 4}},
+};
+
 }  // namespace
 
 extern "C" int dlq_probe_block_prepare() {
   cudaError_t e;
-  if ((e = prepare(stage_kernel<16, Op::kCopy>)) != cudaSuccess) return (int)e;
-  if ((e = prepare(stage_kernel<4, Op::kCopy>)) != cudaSuccess) return (int)e;
+  if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(requant_kernel)) != cudaSuccess) return (int)e;
   return (int)prepare(double_conv_kernel, kDoubleConvSmem);
 }
@@ -174,16 +185,8 @@ extern "C" int dlq_probe_block_prepare() {
 extern "C" int dlq_probe_block(int pattern, const void* a, const void* b, const void* c,
                                void* out, float s1, float s2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 0:
-      return (int)stage<16, Op::kCopy>(a, out, Window{0, 1840, 0, 116, 1, 1840}, st);
-    case 1:
-      return (int)stage<16, Op::kCopy>(a, out, Window{0, 7360, 0, 116, 1, 7360}, st);
-    case 2:   // pixel (1 + 2i, 1 + 2j) of the 18 x 18 slab, 128 bytes each
-      return (int)stage<16, Op::kCopy>(a, out, Window{19 * 128, 2 * 18 * 128, 2 * 128, 8, 8, 128},
-                                       st);
-    case 3:   // bytes 4..7 of each 8-byte group of a 928-byte row
-      return (int)stage<4, Op::kCopy>(a, out, Window{4, 928, 8, 232, 116, 4}, st);
     case 4: {
       const int n16 = 256 * 1024 / 16;
       requant_kernel<<<(n16 + 255) / 256, 256, 0, st>>>(static_cast<const int8_t*>(a),
@@ -199,3 +202,15 @@ extern "C" int dlq_probe_block(int pattern, const void* a, const void* b, const 
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The first form of A1, A2, S and L (stage_first_kernel), arguments as
+// dlq_probe_block's; other patterns have one form and return
+// cudaErrorInvalidValue.
+extern "C" int dlq_probe_block_first(int pattern, const void* a, const void*, const void*,
+                                     void* out, float, float, void* stream) {
+  if (const Staged* s = find_staged(kStaged, pattern))
+    return (int)stage_first(s->op, a, out, s->w, static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
+}
+
+DLQ_PROBE_STAGE_ENTRIES(probe_block, kStaged)

@@ -11,9 +11,12 @@
 //   3 "4"  leading-dim merge [4, 256, 256] -> [1024, 256], x 2 (stage_kernel)
 //   4 "5"  tanh epilogue: bf16(tanhf(fp32(x))), [256, 768]
 //   5 "6"  the probe's 4-head attention on qkv [256, 768] (attention_kernel:
-//          one block per head, scale 0.125, keys >= 197 at -1e30, 256 keys)
-// Bound: bytes for every pattern but 3 and 6, and at these sizes (at most
-// 0.4 MB) launch latency more than either; nothing is tuned.
+//          a block per (head, 64-row query tile), scale 0.125, keys >= 197
+//          at -1e30, 256 keys)
+// Bound: bytes for every pattern, and at these sizes (at most 0.5 MB)
+// launch latency more than either. stage_kernel and attention_kernel are
+// Hopper forms (probe_common.cuh); dlq_probe_mosaic_first runs their first
+// forms for patterns 0, 1, 3 and 5.
 #include "probe_common.cuh"
 
 namespace {
@@ -32,16 +35,32 @@ __global__ void __launch_bounds__(256) tanh_kernel(const bf16* __restrict__ x,
 }
 
 constexpr int kKeyTiles = 32;   // 256 keys
+constexpr int kValid = 197;     // unmasked keys
+
+constexpr Staged kStaged[] = {
+    {0, Op::kCopy, {128, 1536, 0, 256, 1, 128}},
+    {1, Op::kTimes2Bf16, {0, 512, 128, 256, 4, 128}},
+    {3, Op::kTimes2Bf16, {0, 512, 0, 1024, 1, 512}},
+};
+
+// unit = head h: q/k/v at lanes 64h, 256 + 64h, 512 + 64h of each [768]
+// row; out lanes 64h of each [256] row
+AttnArgs heads(const void* a, void* out) {
+  return AttnArgs{static_cast<const bf16*>(a), static_cast<bf16*>(out), 0, 768, 64, 0, 256, 64,
+                  0, 256, 512, 256, kValid, 0, 0, 0.125f};
+}
 
 }  // namespace
 
 extern "C" int dlq_probe_mosaic_prepare() {
   cudaError_t e;
-  if ((e = prepare(stage_kernel<16, Op::kCopy>)) != cudaSuccess) return (int)e;
-  if ((e = prepare(stage_kernel<16, Op::kTimes2Bf16>)) != cudaSuccess) return (int)e;
+  if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(nt_dot_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(tanh_kernel)) != cudaSuccess) return (int)e;
-  return (int)prepare(attention_kernel<kKeyTiles>, attention_smem<kKeyTiles>());
+  if ((e = prepare(empty_kernel)) != cudaSuccess) return (int)e;
+  constexpr int smem = AttnPlan<kKeyTiles>::SMEM;
+  if ((e = prepare(attention_kernel<kKeyTiles, kValid>, smem)) != cudaSuccess) return (int)e;
+  return (int)prepare(attention_first_kernel<kKeyTiles>, attention_first_smem<kKeyTiles>());
 }
 
 // a, b, c: the pattern's inputs (contiguous, the shapes above); out: its
@@ -49,32 +68,36 @@ extern "C" int dlq_probe_mosaic_prepare() {
 extern "C" int dlq_probe_mosaic(int pattern, const void* a, const void* b, const void*,
                                 void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 0:
-      return (int)stage<16, Op::kCopy>(a, out, Window{128, 1536, 0, 256, 1, 128}, st);
-    case 1:
-      return (int)stage<16, Op::kTimes2Bf16>(a, out, Window{0, 512, 128, 256, 4, 128}, st);
     case 2: {
       const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                      static_cast<float*>(out), 256, 256, 0, 0, 0};
       return (int)nt_dot(n, 1, st);
     }
-    case 3:
-      return (int)stage<16, Op::kTimes2Bf16>(a, out, Window{0, 512, 0, 1024, 1, 512}, st);
     case 4: {
       const int n8 = 256 * 768 / 8;
       tanh_kernel<<<(n8 + 255) / 256, 256, 0, st>>>(static_cast<const bf16*>(a),
                                                      static_cast<bf16*>(out), n8);
       return (int)cudaGetLastError();
     }
-    case 5: {
-      // unit = head h: q/k/v at lanes 64h, 256 + 64h, 512 + 64h of each
-      // [768] row; out lanes 64h of each [256] row
-      AttnArgs t{static_cast<const bf16*>(a), static_cast<bf16*>(out), 0, 768, 64, 0, 256, 64,
-                 0, 256, 512, 256, 197, 0, 0, 0.125f};
-      return (int)attention<kKeyTiles>(t, 4, st);
-    }
+    case 5:
+      return (int)attention<kKeyTiles, kValid>(heads(a, out), 4, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The first forms of patterns 0, 1, 3 (stage_first_kernel) and 5
+// (attention_first_kernel), arguments as dlq_probe_mosaic's; other patterns
+// have one form and return cudaErrorInvalidValue.
+extern "C" int dlq_probe_mosaic_first(int pattern, const void* a, const void*, const void*,
+                                      void* out, float, float, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const Staged* s = find_staged(kStaged, pattern))
+    return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 5) return (int)attention_first<kKeyTiles>(heads(a, out), 4, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+DLQ_PROBE_STAGE_ENTRIES(probe_mosaic, kStaged)

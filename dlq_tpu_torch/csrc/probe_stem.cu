@@ -10,6 +10,8 @@
 //   2 "C"  merge(x)[3:115, 928:1824] -> [112, 896] (stage_kernel)
 //   3 "D"  x[:128, :128] through shared memory in 16 pieces of 8 lanes per
 //          row (stage_kernel, 8-byte granules)
+//   (stage_kernel is a Hopper form, probe_common.cuh; dlq_probe_stem_first
+//   runs its first form for A, B, C and D)
 //   4 "E"  int8 dot [12544, 256] x [256, 64] -> int32 (int_dot_kernel:
 //          igemm.cuh's MmaTile and two-stage cp.async mainloop; the [K, N]
 //          weight is transposed stage by stage into K-major shared rows)
@@ -81,6 +83,13 @@ __global__ void __launch_bounds__(256) cols_kernel(const int8_t* __restrict__ x,
 
 constexpr int PW = 112, PC = 64, PROW = PW * PC;   // input row: 112 pixels x 64 bytes
 
+constexpr Staged kStaged[] = {
+    {0, Op::kCopy, {0, 1840, 0, 116, 1, 1840}},
+    {1, Op::kCopy, {0, 920, 0, 112, 1, 896}},
+    {2, Op::kCopy, {3 * 1840 + 928, 1840, 0, 112, 1, 896}},
+    {3, Op::kCopy, {0, 920, 8, 128, 16, 8}},
+};
+
 __global__ void __launch_bounds__(256) maxpool_kernel(const int8_t* __restrict__ x,
                                                       int8_t* __restrict__ out) {
   int8_t* rows = reinterpret_cast<int8_t*>(probe_smem);   // [3][PROW]
@@ -116,8 +125,7 @@ __global__ void __launch_bounds__(256) maxpool_kernel(const int8_t* __restrict__
 
 extern "C" int dlq_probe_stem_prepare() {
   cudaError_t e;
-  if ((e = prepare(stage_kernel<16, Op::kCopy>)) != cudaSuccess) return (int)e;
-  if ((e = prepare(stage_kernel<8, Op::kCopy>)) != cudaSuccess) return (int)e;
+  if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(int_dot_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(cols_kernel)) != cudaSuccess) return (int)e;
   return (int)prepare(maxpool_kernel);
@@ -127,15 +135,8 @@ extern "C" int dlq_probe_stem_prepare() {
 extern "C" int dlq_probe_stem(int pattern, const void* a, const void* b, const void*, void* out,
                               float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 0:
-      return (int)stage<16, Op::kCopy>(a, out, Window{0, 1840, 0, 116, 1, 1840}, st);
-    case 1:
-      return (int)stage<8, Op::kCopy>(a, out, Window{0, 920, 0, 112, 1, 896}, st);
-    case 2:
-      return (int)stage<16, Op::kCopy>(a, out, Window{3 * 1840 + 928, 1840, 0, 112, 1, 896}, st);
-    case 3:
-      return (int)stage<8, Op::kCopy>(a, out, Window{0, 920, 8, 128, 16, 8}, st);
     case 4:
       int_dot_kernel<<<EM / EBM, THREADS, 0, st>>>(static_cast<const int8_t*>(a),
                                                    static_cast<const int8_t*>(b),
@@ -153,3 +154,15 @@ extern "C" int dlq_probe_stem(int pattern, const void* a, const void* b, const v
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The first form of A, B, C and D (stage_first_kernel), arguments as
+// dlq_probe_stem's; other patterns have one form and return
+// cudaErrorInvalidValue.
+extern "C" int dlq_probe_stem_first(int pattern, const void* a, const void*, const void*,
+                                    void* out, float, float, void* stream) {
+  if (const Staged* s = find_staged(kStaged, pattern))
+    return (int)stage_first(s->op, a, out, s->w, static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
+}
+
+DLQ_PROBE_STAGE_ENTRIES(probe_stem, kStaged)

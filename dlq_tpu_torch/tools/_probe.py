@@ -1,22 +1,27 @@
 """What the four probe modules share: the pattern table, the kernel wrapper,
-the reference's three checks, and the run loop.
+the reference's three checks, the run loop, and the plans of the two Hopper
+forms the probes share (``stage_plan``, ``attention_plan``).
 
 Each probe module has, per pattern, a ``Spec`` (the reference's printed
 name, the input and output shapes and dtypes, the tolerance), a plain
 PyTorch version in ``PLAIN`` and a hand-written kernel in the module's
 ``csrc/<source>.cu`` (the copy patterns share ``probe_common.cuh``'s
-``stage_kernel``), reached through one C entry
-``dlq_<source>(pattern, a, b, c, out, s1, s2, stream)`` whose ``pattern``
-is the key's index in the module's ``SPEC``.
+``stage_kernel``, the attention patterns its ``attention_kernel``),
+reached through one C entry ``dlq_<source>(pattern, a, b, c, out, s1, s2,
+stream)`` whose ``pattern`` is the key's index in the module's ``SPEC``.
+The patterns in the module's ``FIRST_FORMS`` run on a redesigned Hopper
+form; their first forms stay callable through ``dlq_<source>_first``.
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor, and counts each launch on ``.launches`` and, per pattern key,
-on ``.by_shape``. ``run`` is the counterpart of the reference's ``run``
-helper: it runs each pattern once, holds it against the reference's numpy
-expectation with the reference's own check, on the card also against its
-plain version (``held``), prints ``[OK]/[FAIL] name: ...`` and returns one
-``Result`` per pattern. Unlike the reference's helper it catches nothing:
-a build or launch error propagates.
+CUDA tensor, and counts each launch on ``.launches``, per pattern key on
+``.by_shape``, and, for a redesigned pattern, on ``.by_form["hopper"]``;
+``wrapper.first(key, *xs)`` launches the first form, counted on
+``.by_form["first"]`` only. ``run`` is the counterpart of the reference's
+``run`` helper: it runs each pattern once, holds it against the
+reference's numpy expectation with the reference's own check, on the card
+also against its plain version (``held``), prints ``[OK]/[FAIL] name:
+...`` and returns one ``Result`` per pattern. Unlike the reference's helper
+it catches nothing: a build or launch error propagates.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -149,18 +154,32 @@ def held(got: torch.Tensor, ref: torch.Tensor, spec: Spec) -> Tuple[bool, str, f
 
 # --- the kernel wrapper -----------------------------------------------------
 
+_ENTRY_ARGS = ((ctypes.c_int,) + (ctypes.c_void_p,) * 4
+               + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+
+
 @functools.cache
-def _entry(source: str):
+def _lib(source: str):
     lib = _build.library(source)
     prepare = getattr(lib, f"dlq_{source}_prepare")
     prepare.restype = ctypes.c_int
     prepare.argtypes = []
     _build.check(prepare(), f"{source} prepare")
-    fn = getattr(lib, f"dlq_{source}")
+    return lib
+
+
+@functools.cache
+def _fn(source: str, suffix: str, argtypes: tuple):
+    fn = getattr(_lib(source), f"dlq_{source}{suffix}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = argtypes
     return fn
+
+
+def _entry(source: str, suffix: str = ""):
+    """``dlq_<source>`` (the Hopper forms), or with ``suffix="_first"`` the
+    first forms of the redesigned patterns."""
+    return _fn(source, suffix, _ENTRY_ARGS)
 
 
 def _check_args(source: str, key: str, spec: Spec, xs: Sequence[torch.Tensor]) -> None:
@@ -176,32 +195,238 @@ def _check_args(source: str, key: str, spec: Spec, xs: Sequence[torch.Tensor]) -
                              f"{shape} {dtype} contiguous")
 
 
-def make_wrapper(source: str, spec: Dict[str, Spec], plain: Dict[str, Callable]):
+def make_wrapper(source: str, spec: Dict[str, Spec], plain: Dict[str, Callable],
+                 first_forms: Sequence[str] = ()):
     """The module's kernel wrapper ``fn(key, *inputs)``: the plain version
-    ``plain[key]`` for CPU tensors, the kernel for CUDA tensors."""
+    ``plain[key]`` for CPU tensors, the kernel for CUDA tensors; the patterns
+    in ``first_forms`` run on their Hopper form, and ``fn.first(key,
+    *inputs)`` runs their first form."""
     keys = tuple(spec)
+
+    def launch(suffix: str, key: str, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        s = spec[key]
+        _check_args(source, key, s, xs)
+        out = torch.empty(s.out[0], dtype=s.out[1], device=xs[0].device)
+        ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
+        rc = _entry(source, suffix)(keys.index(key), *ptrs, out.data_ptr(), s.scalars[0],
+                                    s.scalars[1], _build.stream_ptr(xs[0].device))
+        _build.check(rc, f"{source}{suffix} {key}")
+        return out
 
     def wrapper(key: str, *xs: torch.Tensor) -> torch.Tensor:
         if key not in spec:
             raise KeyError(f"{source}: no pattern {key!r} (patterns: {keys})")
         if all(x.device.type == "cpu" for x in xs):
             return plain[key](*xs)
-        s = spec[key]
-        _check_args(source, key, s, xs)
-        out = torch.empty(s.out[0], dtype=s.out[1], device=xs[0].device)
-        ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
-        rc = _entry(source)(keys.index(key), *ptrs, out.data_ptr(), s.scalars[0],
-                            s.scalars[1], _build.stream_ptr(xs[0].device))
-        _build.check(rc, f"{source} {key}")
+        out = launch("", key, xs)
         wrapper.launches += 1
         wrapper.by_shape[key] += 1
+        if key in first_forms:
+            wrapper.by_form["hopper"] += 1
+        return out
+
+    def first(key: str, *xs: torch.Tensor) -> torch.Tensor:
+        """The first form of redesigned pattern ``key`` (CUDA tensors only):
+        what the card tests and ``chip_smoke.py`` hold the Hopper form to;
+        counted on ``by_form["first"]`` only."""
+        if key not in first_forms:
+            raise KeyError(f"{source}: {key!r} has no first form "
+                           f"(redesigned: {tuple(first_forms)})")
+        out = launch("_first", key, xs)
+        wrapper.by_form["first"] += 1
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = source
-    wrapper.prepare = lambda: _entry(source)   # build and load the library, no launch
+    wrapper.prepare = lambda: _lib(source)   # build and load the library, no launch
+    wrapper.first = first
     wrapper.launches = 0
     wrapper.by_shape = collections.Counter()
+    wrapper.by_form = collections.Counter()
     return wrapper
+
+
+# --- the Hopper forms' plans (probe_common.cuh) ------------------------------
+
+class Window(NamedTuple):
+    """A copy pattern: out [I][J][E bytes], contiguous, from the input's
+    bytes at base + i*si + j*sj + e (``probe_common.cuh``'s ``Window``)."""
+    base: int
+    si: int
+    sj: int
+    I: int  # noqa: E741
+    J: int
+    E: int
+
+
+STAGE_THREADS = 256
+STAGE_SHARE = 16 * STAGE_THREADS   # output bytes a block: one 16-byte granule a thread
+STAGE_MODES = ("g16", "g8", "halves")   # the C side's StageMode 0, 1, 2 (-1: refused)
+SMEM_MAX = 232448
+
+
+class StagePlan(NamedTuple):
+    mode: Optional[str]   # None: refused
+    grid: int
+    threads: int
+    smem: int
+    flat: Window          # the window the kernel walks: the same bytes, flattened
+
+
+def flatten(w: Window) -> Window:
+    """``w`` with its pieces merged where they touch (sj == E: one piece a
+    row), then its rows (one piece a row and si == E: one row)."""
+    if w.J > 1 and w.sj == w.E:
+        w = w._replace(E=w.E * w.J, J=1, sj=0)
+    if w.J == 1 and w.I > 1 and w.si == w.E:
+        w = w._replace(E=w.E * w.I, I=1, si=0)
+    return w
+
+
+def stage_plan(w: Window) -> StagePlan:
+    """``stage_kernel``'s launch (``probe_common.cuh: stage_plan``): a block
+    per 4 KB share of the output, one 16-byte output granule a thread, on
+    the flattened window. The source granules: ``g16``, one 16-byte copy
+    (E, base, si, sj multiples of 16); ``halves``, the 4-byte pieces at
+    bytes 4..7 of each 8-byte group of 16-byte-aligned rows (E 4, sj 8, base
+    4 mod 16), two 16-byte copies whose words 1 and 3 are kept; ``g8``, two
+    8-byte copies (multiples of 8). Shared memory: the block's staged bytes
+    (two granules a thread for ``halves``)."""
+    refused = StagePlan(None, 0, STAGE_THREADS, 0, w)
+    row = w.J * w.E
+    if (min(w.I, w.J, w.E) < 1 or min(w.base, w.si, w.sj) < 0 or row % 16
+            or row * w.I >= 2 ** 31):
+        return refused
+    f = flatten(w)
+    if all(v % 16 == 0 for v in (f.E, f.base, f.si, f.sj)):
+        mode = "g16"
+    elif f.E == 4 and f.sj == 8 and f.base % 16 == 4 and f.si % 16 == 0:
+        mode = "halves"
+    elif all(v % 8 == 0 for v in (f.E, f.base, f.si, f.sj)):
+        mode = "g8"
+    else:
+        return refused
+    grid = -(-(row * w.I // 16) // STAGE_THREADS)
+    return StagePlan(mode, grid, STAGE_THREADS, STAGE_SHARE * (2 if mode == "halves" else 1), f)
+
+
+def stage_sources(w: Window, granules: torch.Tensor) -> torch.Tensor:
+    """The kernel's index math on the flattened window: for each output
+    granule o (16 bytes at output byte 16 o), the source byte offset of each
+    byte it stages, [n, 16] (32 for ``halves``: its two aligned granules
+    whole), in staging order."""
+    plan = stage_plan(w)
+    if plan.mode is None:
+        raise ValueError(f"stage_kernel refuses {w}")
+    f = plan.flat
+    if f.I > 1:
+        rg = f.J * f.E // 16
+        i = granules // rg
+        q = 16 * (granules - i * rg)
+    else:
+        i, q = torch.zeros_like(granules), 16 * granules
+    r = f.base + i * f.si
+
+    def piece(qq):
+        if f.J == 1:
+            return r + qq
+        j = qq // f.E
+        return r + j * f.sj + (qq - j * f.E)
+
+    if plan.mode == "halves":
+        return (r + 2 * q - 4)[:, None] + torch.arange(32)
+    if plan.mode == "g16":
+        return piece(q)[:, None] + torch.arange(16)
+    halves = (piece(q)[:, None] + torch.arange(8), piece(q + 8)[:, None] + torch.arange(8))
+    return torch.cat(halves, 1)
+
+
+def stage_apply(src: torch.Tensor, w: Window, times2: bool = False) -> torch.Tensor:
+    """``stage_kernel`` block by block in torch on the flat bytes ``src``
+    (uint8): each block's threads stage their granules' source bytes, keep
+    words 1 and 3 of each staged 16 bytes for ``halves``, double the bf16
+    values where ``times2``, and store 16 bytes at their output granule.
+    Returns the output's bytes."""
+    plan = stage_plan(w)
+    total = w.I * w.J * w.E // 16
+    out = torch.empty(16 * total, dtype=torch.uint8)
+    for b in range(plan.grid):
+        o = torch.arange(b * plan.threads, min(total, (b + 1) * plan.threads))
+        staged = src[stage_sources(w, o)]
+        if plan.mode == "halves":
+            staged = staged.view(-1, 8, 4)[:, 1::2].reshape(-1, 16)
+        if times2:
+            staged = (staged.contiguous().view(torch.bfloat16) * 2).view(torch.uint8)
+        out[(16 * o)[:, None] + torch.arange(16)] = staged
+    return out
+
+
+ATTN_TILE = 64     # query rows a block (4 warps of 16)
+ATTN_CHUNK = 64    # keys a TMA box (and an mbarrier)
+ATTN_BOX = 64 * 128
+
+
+class AttnPlan(NamedTuple):
+    grid: Tuple[int, int]   # (query tiles, units)
+    threads: int
+    chunks: int
+    smem: int
+
+
+def attention_plan(rows: int, units: int, key_tiles: int) -> AttnPlan:
+    """``attention_kernel``'s launch (``probe_common.cuh: AttnPlan``): a block
+    of 4 warps per (64-row query tile, unit); keys padded to key_tiles x 8 in
+    64-key chunks, one TMA box each; shared memory 1,024 bytes of room to
+    align the swizzled boxes, the Q box, the K and V chunks, and an mbarrier
+    for Q, each K chunk and V."""
+    chunks = -(-key_tiles * 8 // ATTN_CHUNK)
+    return AttnPlan((-(-rows // ATTN_TILE), units), 128, chunks,
+                    1024 + (1 + 2 * chunks) * ATTN_BOX + (chunks + 2) * 8)
+
+
+# --- the C side's plans, windows and odd windows (card only) -----------------
+
+def c_window(source: str, key_index: int) -> Tuple[Window, bool]:
+    """Pattern ``key_index``'s window and op (x 2 in bf16) in ``source``'s C
+    table (``kStaged``)."""
+    v = (ctypes.c_longlong * 7)()
+    fn = _fn(source, "_window", (ctypes.c_int, ctypes.c_void_p))
+    _build.check(fn(key_index, ctypes.cast(v, ctypes.c_void_p)), f"{source} window {key_index}")
+    return Window(*v[:6]), bool(v[6])
+
+
+def c_stage_plan(source: str, w: Window) -> StagePlan:
+    """``probe_common.cuh``'s ``stage_plan`` of ``w``, as ``source`` computes it."""
+    v = (ctypes.c_longlong * 6)(*w)
+    plan = (ctypes.c_longlong * 10)()
+    fn = _fn(source, "_stage_plan", (ctypes.c_void_p, ctypes.c_void_p))
+    _build.check(fn(ctypes.cast(v, ctypes.c_void_p), ctypes.cast(plan, ctypes.c_void_p)),
+                 f"{source} stage_plan")
+    mode = STAGE_MODES[plan[0]] if plan[0] >= 0 else None
+    return StagePlan(mode, *plan[1:4], Window(*plan[4:10]))
+
+
+def stage_window(source: str, x: torch.Tensor, w: Window, times2: bool = False,
+                 first: bool = False) -> torch.Tensor:
+    """Window ``w`` of the CUDA tensor ``x``'s bytes on ``stage_kernel`` (or
+    its first form), as uint8 [I * J * E]; a window the form refuses
+    raises. Not counted: no pattern of a probe run."""
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("stage_window: a contiguous CUDA tensor")
+    out = torch.empty(w.I * w.J * w.E, dtype=torch.uint8, device=x.device)
+    v = (ctypes.c_longlong * 6)(*w)
+    fn = _fn(source, "_stage", (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4)
+    rc = fn(int(first), int(times2), ctypes.cast(v, ctypes.c_void_p), x.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(x.device))
+    _build.check(rc, f"{source} stage {w}")
+    return out
+
+
+def launch_floor_ms(source: str = "probe_mosaic") -> float:
+    """One empty kernel's device ms under ``spun_ms``'s timing: what any of
+    the probes' microsecond launches costs at the least."""
+    fn = _fn(source, "_empty", (ctypes.c_void_p,))
+    st = _build.stream_ptr(torch.device("cuda"))
+    return spun_ms(lambda: _build.check(fn(st), f"{source} empty"), 20, warmup=2, reps=3)
 
 
 def nbytes(spec: Spec, xs: Sequence[torch.Tensor]) -> int:

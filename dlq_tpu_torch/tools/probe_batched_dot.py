@@ -15,6 +15,8 @@ against the numpy expectation is the reference's (``max|got - expect| /
 max|expect| <= 2e-2``, finite); on the card the kernel is also held against
 its plain version: identical for C, within 1e-4 of max|plain| for A and B,
 and for D within one bf16 step of max|plain| on at most 1% of the outputs.
+C runs on ``probe_common.cuh``'s Hopper ``stage_kernel``, D on its Hopper
+``attention_kernel``; ``probe_batched_dot.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_batched_dot [--device cpu]
 """
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from dlq_tpu_torch.tools import _probe
-from dlq_tpu_torch.tools._probe import Spec
+from dlq_tpu_torch.tools._probe import Spec, Window
 
 SOURCE = "probe_batched_dot"
 ATOL = 2e-2
@@ -87,7 +89,16 @@ LIBRARY = {
                                                   scale=1.0),
 }
 
-probe_batched_dot = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+# the copy pattern on probe_common.cuh's stage_kernel (csrc/probe_batched_dot.cu's
+# kStaged; the card tests hold the two equal): key -> (window over the
+# input's bytes, x 2 in bf16)
+WINDOWS = {"C": (Window(0, 1152, 0, 1600, 1, 1152), False)}
+# the patterns on a Hopper form whose first form stays callable
+# (probe_batched_dot.first)
+FIRST_FORMS = (*WINDOWS, "D")
+KEY_TILES = 26   # attention_kernel's key tiles of 8 for D (200 keys and 8 pads)
+
+probe_batched_dot = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_rel   # the reference's check
 
 

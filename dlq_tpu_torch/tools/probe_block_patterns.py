@@ -15,7 +15,9 @@ O and D are bit-identical to the reference's kernels, which multiply in
 fp32. O's own numpy expectation multiplies in float64 and sits one step
 off (the reference's ``atol=1.0`` allows it); the port follows the kernel.
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
-the reference's (``max_abs <= 0.5``, 1.0 for O and D).
+the reference's (``max_abs <= 0.5``, 1.0 for O and D). A1, A2, S and L run
+on ``probe_common.cuh``'s Hopper ``stage_kernel``; ``probe_block.first``
+runs its first form.
 
     python -m dlq_tpu_torch.tools.probe_block_patterns [--device cpu]
 """
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.tools import _probe
-from dlq_tpu_torch.tools._probe import Spec
+from dlq_tpu_torch.tools._probe import Spec, Window
 
 SOURCE = "probe_block"
 I8, F32 = torch.int8, torch.float32
@@ -102,7 +104,19 @@ LIBRARY = {
     "L": lambda x: x.reshape(232, 116, 8)[:, :, 4:].contiguous(),
 }
 
-probe_block = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+# the copy patterns on probe_common.cuh's stage_kernel (csrc/probe_block.cu's
+# kStaged; the card tests hold the two equal): key -> (window over the
+# input's bytes, x 2 in bf16)
+WINDOWS = {
+    "A1": (Window(0, 1840, 0, 116, 1, 1840), False),
+    "A2": (Window(0, 7360, 0, 116, 1, 7360), False),
+    "S": (Window(19 * 128, 2 * 18 * 128, 2 * 128, 8, 8, 128), False),
+    "L": (Window(4, 928, 8, 232, 116, 4), False),
+}
+# the patterns on a Hopper form whose first form stays callable (probe_block.first)
+FIRST_FORMS = tuple(WINDOWS)
+
+probe_block = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs   # the reference's check
 
 

@@ -15,7 +15,9 @@ Inputs are ``default_rng(0)`` draws in the reference's order; the check
 against the numpy expectation is the reference's (``max_abs < 2e-2``,
 finite); on the card the kernel is also held against its plain version:
 identical for 1, 2 and 4, within 1e-4 of max|plain| for 3, and for 5 and 6
-within one bf16 step of max|plain| on at most 1% of the outputs.
+within one bf16 step of max|plain| on at most 1% of the outputs. 1, 2 and 4
+run on ``probe_common.cuh``'s Hopper ``stage_kernel``, 6 on its Hopper
+``attention_kernel``; ``probe_mosaic.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_mosaic_patterns [--device cpu]
 """
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dlq_tpu_torch.tools import _probe
-from dlq_tpu_torch.tools._probe import Spec
+from dlq_tpu_torch.tools._probe import Spec, Window
 
 SOURCE = "probe_mosaic"
 ATOL = 2e-2
@@ -95,7 +97,19 @@ LIBRARY = {
         scale=SCALE),
 }
 
-probe_mosaic = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+# the copy patterns on probe_common.cuh's stage_kernel (csrc/probe_mosaic.cu's
+# kStaged; the card tests hold the two equal): key -> (window over the
+# input's bytes, x 2 in bf16)
+WINDOWS = {
+    "1": (Window(128, 1536, 0, 256, 1, 128), False),
+    "2": (Window(0, 512, 128, 256, 4, 128), True),
+    "4": (Window(0, 512, 0, 1024, 1, 512), True),
+}
+# the patterns on a Hopper form whose first form stays callable (probe_mosaic.first)
+FIRST_FORMS = (*WINDOWS, "6")
+KEY_TILES = 32   # attention_kernel's key tiles of 8 for pattern 6 (256 keys)
+
+probe_mosaic = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs_below   # the reference's check
 
 

@@ -13,7 +13,9 @@ each as one hand-written kernel in ``csrc/probe_stem.cu``.
   K  3x3/s2 max pool with -128 padding  [112, 112, 64] -> [56, 3584]
 
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
-the reference's (``max_abs <= 0.5``, finite).
+the reference's (``max_abs <= 0.5``, finite). A, B, C and D run on
+``probe_common.cuh``'s Hopper ``stage_kernel``; ``probe_stem.first`` runs
+its first form.
 
     python -m dlq_tpu_torch.tools.probe_stem_patterns [--device cpu]
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.tools import _probe
-from dlq_tpu_torch.tools._probe import Spec
+from dlq_tpu_torch.tools._probe import Spec, Window
 
 SOURCE = "probe_stem"
 I8 = torch.int8
@@ -98,7 +100,19 @@ LIBRARY = {
     "J": lambda x: x.as_strided(COLS_VIEW, COLS_STRIDES).contiguous().view(12544, 256),
 }
 
-probe_stem = _probe.make_wrapper(SOURCE, SPEC, PLAIN)
+# the copy patterns on probe_common.cuh's stage_kernel (csrc/probe_stem.cu's
+# kStaged; the card tests hold the two equal): key -> (window over the
+# input's bytes, x 2 in bf16)
+WINDOWS = {
+    "A": (Window(0, 1840, 0, 116, 1, 1840), False),
+    "B": (Window(0, 920, 0, 112, 1, 896), False),
+    "C": (Window(3 * 1840 + 928, 1840, 0, 112, 1, 896), False),
+    "D": (Window(0, 920, 8, 128, 16, 8), False),
+}
+# the patterns on a Hopper form whose first form stays callable (probe_stem.first)
+FIRST_FORMS = tuple(WINDOWS)
+
+probe_stem = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs   # the reference's check
 
 

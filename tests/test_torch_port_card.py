@@ -610,6 +610,123 @@ def test_probe_kernels_on_card():
     assert n == 23
 
 
+PROBES = (("probe_mosaic_patterns", "probe_mosaic"), ("probe_batched_dot", "probe_batched_dot"),
+          ("probe_block_patterns", "probe_block"), ("probe_stem_patterns", "probe_stem"))
+
+
+def _probe_mods():
+    import importlib
+
+    return [(importlib.import_module(f"dlq_tpu_torch.tools.{m}"), n) for m, n in PROBES]
+
+
+@pytest.mark.gpu
+def test_probe_hopper_forms_equal_first_forms_on_card():
+    """The redesigned probe patterns (K19 6 and K20 D on attention_kernel,
+    the 12 copy patterns on stage_kernel) on their Hopper forms equal to
+    their first forms on every output, the copies also to their plain
+    versions; the launches counted by form: the wrapper's launch on
+    .launches and .by_form["hopper"], .first on .by_form["first"] only, a
+    pattern with one form on neither form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    n = 0
+    for mod, name in _probe_mods():
+        fn = getattr(mod, name)
+        for key, inputs, _ in mod.cases():
+            xs = tuple(x.to(dev) for x in inputs)
+            launches, forms = fn.launches, dict(fn.by_form)
+            got = fn(key, *xs)
+            if key not in mod.FIRST_FORMS:
+                assert (fn.launches, dict(fn.by_form)) == (launches + 1, forms), (name, key)
+                with pytest.raises(KeyError):
+                    fn.first(key, *xs)
+                continue
+            first = fn.first(key, *xs)
+            torch.cuda.synchronize()
+            assert fn.launches == launches + 1
+            assert fn.by_form["hopper"] == forms.get("hopper", 0) + 1
+            assert fn.by_form["first"] == forms.get("first", 0) + 1
+            assert torch.equal(got, first), (name, key, int((got != first).sum()))
+            if key in mod.WINDOWS:
+                assert torch.equal(got, mod.PLAIN[key](*xs)), (name, key)
+            n += 1
+    assert n == 14
+
+
+# windows beside the probes' own (as tests/test_torch_port_probe_hopper.py
+# holds their plans on the CPU): rows across block edges and shares that
+# split rows, one row, 4-byte pieces (one block and 250), 8-aligned pieces,
+# a doubled bf16 window
+ODD_WINDOWS = [
+    (0, 1040, 16, 301, 3, 48, False),
+    (32, 0, 64, 1, 5, 64, False),
+    (20, 944, 8, 37, 12, 4, False),
+    (4, 1024, 8, 2000, 128, 4, False),
+    (8, 920, 24, 50, 3, 16, False),
+    (0, 400, 0, 300, 1, 192, True),
+]
+
+
+@pytest.mark.gpu
+def test_probe_stage_plans_and_windows_on_card():
+    """The C side's windows of the 12 copy patterns equal each module's
+    WINDOWS, and its stage_plan equals _probe.stage_plan at each of them and
+    at the odd windows (one source of the plan: the kernel's launch is
+    held to the function the CPU tests hold)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+
+    n = 0
+    for mod, name in _probe_mods():
+        keys = tuple(mod.SPEC)
+        for key, (w, x2) in mod.WINDOWS.items():
+            assert _probe.c_window(name, keys.index(key)) == (w, x2), (name, key)
+            assert _probe.c_stage_plan(name, w) == _probe.stage_plan(w), (name, key)
+            n += 1
+        for v in ODD_WINDOWS:
+            w = _probe.Window(*v[:6])
+            assert _probe.c_stage_plan(name, w) == _probe.stage_plan(w), (name, w)
+    assert n == 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", ODD_WINDOWS)
+def test_probe_stage_odd_windows_on_card(v):
+    """Odd windows on stage_kernel, through every probe library: identical to
+    the window read by torch's as_strided (x 2 in bf16 where asked), to
+    _probe.stage_apply's block walk and to the first form; a window the
+    plan refuses (2-byte aligned pieces) raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+
+    dev = torch.device("cuda")
+    w, x2 = _probe.Window(*v[:6]), v[6]
+    total = w.I * w.J * w.E // 16
+    size = int(_probe.stage_sources(w, torch.arange(total)).max()) + 17
+    size += size % 2
+    rng = np.random.default_rng(sum(v[:6]))
+    if x2:
+        src = torch.from_numpy(rng.normal(0, 3, size // 2).astype(np.float32))
+        src = src.to(torch.bfloat16).view(torch.uint8)
+    else:
+        src = torch.from_numpy(rng.integers(0, 256, size).astype(np.uint8))
+    ref = torch.as_strided(src, (w.I, w.J, w.E), (w.si, w.sj, 1), w.base).flatten()
+    if x2:
+        ref = (ref.view(torch.bfloat16) * 2).view(torch.uint8)
+    assert torch.equal(_probe.stage_apply(src, w, x2), ref)
+    for _, name in PROBES:
+        got = _probe.stage_window(name, src.to(dev), w, x2)
+        first = _probe.stage_window(name, src.to(dev), w, x2, first=True)
+        assert torch.equal(got.cpu(), ref), name
+        assert torch.equal(first.cpu(), ref), name
+    with pytest.raises(RuntimeError):
+        _probe.stage_window("probe_block", src.to(dev), w._replace(base=2, E=8, sj=8), x2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", [32, 64])
 @pytest.mark.parametrize("rows", [1, 17, 64, 65, 197, 200, 256])
