@@ -135,7 +135,8 @@ Phases, one JSON line each:
      bf16-attention block engine and with itself on K18's first form, and
      profiled (on the first form too); at batch 64 the
      split-attention forward (loose pads) with attn="int8" (K18) and
-     "bf16" (K6; bit-identical to vit_forward_blockfused_w8), and
+     "bf16" (K6; bit-identical to vit_forward_blockfused_w8, and both
+     forwards again 200 times each, every run equal to the first), and
      make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12);
  11. the probes (K19 probe_mosaic, K20 probe_batched_dot, K21 probe_block,
      K22 probe_stem: the ports of tools/probe_*.py): the probe entry point
@@ -149,10 +150,13 @@ Phases, one JSON line each:
      pattern timed on a spinning card (device time of back-to-back
      launches: the kernels are microseconds long, shorter than their
      wrappers' host cost) beside the plain version, the bound and the one
-     PyTorch call where one computes the same function; the 14 patterns on
-     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, the 12
-     copy patterns on stage_kernel) must launch that form, and equal their
-     first forms on every output; each is timed in turns with its first
+     PyTorch call where one computes the same function; the 16 patterns on
+     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, K20 B
+     on nn_dot_hopper_kernel, K21 D on double_conv_cluster_kernel, a
+     cluster of 8 blocks, the 12 copy patterns on stage_kernel) must
+     launch that form, and equal their first forms on every output (each
+     module's FIRST_FORMS: 3 launches by form for probe_batched_dot, 5 for
+     probe_block); each is timed in turns with its first
      form (first, Hopper, Hopper, first), beside launch_floor_ms, one empty
      kernel's device time under the same timing.
 Each main path is driven with every launch count set to 0 just before it
@@ -340,6 +344,7 @@ TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "de
                "deit_fused_ln", "deit_deploy_fused_ln", "deit_split_int8", "deit_split_bf16",
                "deit_deploy_xla_int8")
 TOTALS_BATCH = 64
+SPLIT_REPEATS = 200   # runs of each forward held bit-identical to the first (a race shows)
 
 
 T0 = time.perf_counter()
@@ -2473,11 +2478,25 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
               "logits_cosine_vs_fp32": cos_s, "top1_agreement_vs_fp32": agree_s,
               "fp32_gelu": "tanh", "top1_gated": False, "logits_cosine_vs_plain_versions": cos_ps})
         del e
+    xt64 = torch.from_numpy(xb).to(dev)
     with torch.inference_mode():
-        fused = vit_forward_blockfused_w8(loose, torch.from_numpy(xb).to(dev), cfg).float()
+        fused = vit_forward_blockfused_w8(loose, xt64, cfg).float()
     if not np.array_equal(split["bf16"], fused.cpu().numpy()):
         raise AssertionError("deit_tiny split bf16 arm: logits differ from vit_forward_blockfused_w8")
-    emit({"phase": "deit_split_bf16_vs_blockfused_w8", "logits_bit_identical": True})
+    # both forwards again, SPLIT_REPEATS times each: a kernel that races
+    # (K5's y stages did: now and then one token row) differs in some run
+    differ = {"split": 0, "fused": 0}
+    with torch.inference_mode():
+        for _ in range(SPLIT_REPEATS):
+            differ["split"] += not torch.equal(
+                vit_forward_blockfused_w8_split(loose, xt64, cfg, attn="bf16").float(), fused)
+            differ["fused"] += not torch.equal(vit_forward_blockfused_w8(loose, xt64, cfg).float(),
+                                               fused)
+    if any(differ.values()):
+        raise AssertionError(f"deit_tiny split bf16 / blockfused_w8: runs differing from the first "
+                             f"of {SPLIT_REPEATS} each: {differ}")
+    emit({"phase": "deit_split_bf16_vs_blockfused_w8", "logits_bit_identical": True,
+          "repeats": SPLIT_REPEATS, "runs_differing": differ})
     del loose
 
     # ---- make_qforward(attn_impl="xla_int8") under DeployCtx, batch 64 ----
@@ -3013,6 +3032,8 @@ def probe_path():
                    "library_ms": (_probe.spun_ms(lambda: lib(*xs), 20, warmup=2, reps=3)
                                   if lib is not None else None),
                    "library": spec.library, "launch_floor_ms": floor}
+            if lib is not None:
+                row["library_in_turns_ms"] = probe_library_turns(fn, key, lib, xs)
             if key in mod.FIRST_FORMS:
                 row.update(probe_first_form(fn, key, xs))
             emit_row(row)
@@ -3021,6 +3042,20 @@ def probe_path():
         raise AssertionError(f"probes: {len(rows)} patterns, expected {PROBE_PATTERNS}")
     del results
     return rows, counts
+
+
+def probe_library_turns(fn, key, lib, xs):
+    """A pattern and its one PyTorch call timed in turns (kernel, library,
+    library, kernel), device time on a spinning card: the two read within
+    one stretch of the card's clocks, where ``ms`` and ``library_ms`` are
+    read apart."""
+    from dlq_tpu_torch.tools._probe import spun_ms
+
+    calls = {"kernel": lambda: fn(key, *xs), "library": lambda: lib(*xs)}
+    times = {"kernel": [], "library": []}
+    for tag in ("kernel", "library", "library", "kernel"):
+        times[tag].append(spun_ms(calls[tag], 20, warmup=2, reps=3))
+    return times
 
 
 def probe_first_form(fn, key, xs):
@@ -3045,15 +3080,17 @@ def probe_summary(rows, counts):
     """One entry per probe kernel (K19-K22): ``launches`` from the probe
     path's run; ``ms``, ``plain_ms`` and ``bound_ms`` summed over its
     patterns (one launch of each); no one PyTorch call computes a whole
-    probe, so ``library_ms`` is null there and given per pattern, each
-    pattern beside ``launch_floor_ms`` and, where redesigned, its first
-    form's and its Hopper form's times in turns."""
+    probe, so ``library_ms`` is null there and given per pattern (also
+    in turns with the kernel), each pattern beside ``launch_floor_ms`` and,
+    where redesigned, its first form's and its Hopper form's times in
+    turns."""
     out = []
     for name, (_, src, repl) in PROBES.items():
         rs = [r for r in rows if r["kernel"] == name]
         pats = [{k: r[k] for k in ("pattern", "name", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library", "launch_floor_ms",
-                                   "first_form_ms", "hopper_in_turns_ms") if k in r}
+                                   "library_in_turns_ms", "first_form_ms", "hopper_in_turns_ms")
+                 if k in r}
                 | {"launches": counts[name][1].get(r["pattern"], 0)} for r in rs]
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": counts[name][0], "max_abs_err": max(r["max_abs_err"] for r in rs),

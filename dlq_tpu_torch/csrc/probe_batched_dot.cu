@@ -7,8 +7,9 @@
 //          (nt_dot_kernel; 200 is no multiple of 16: rows and columns past
 //          200 are zero-filled at load and not stored)
 //   1 "B"  batched NN dot: a [8, 200, 200] x v [8, 200, 64] -> fp32
-//          [8, 200, 64] (nn_dot_kernel: K padded to 208 with zeros, the B
-//          operand read from row-major v through ldmatrix.trans)
+//          [8, 200, 64] (nn_dot_hopper_kernel, below; first form
+//          nn_dot_kernel: K padded to 208 with zeros, the B operand read
+//          from row-major v through ldmatrix.trans)
 //   2 "C"  split reshape [1600, 576] -> [8, 200, 576] (stage_kernel)
 //   3 "D"  per sample of x [1600, 576]: q, k, v = lanes 0, 64, 128 of its
 //          200 rows, no scale and no mask; out [8, 200, 192] bf16 with lanes
@@ -16,10 +17,12 @@
 //          tile); only lanes 0..191, 77 KB of the 230 KB sample, are read,
 //          the 208 keys' K and V in shared memory, the 8 pad keys zero and
 //          at -1e30)
-// Bound: A, B and D are 1.6-3.3 MFLOP of bf16 products against 0.2-1.3 MB:
-// bytes, and at these sizes launch latency. stage_kernel and
-// attention_kernel are Hopper forms (probe_common.cuh);
-// dlq_probe_batched_dot_first runs their first forms for C and D.
+// Bound: A and B are 41 MFLOP of bf16 products (2 x 8 x 200 x 200 x 64),
+// D 82 MFLOP, against 0.6-1.3 MB: bytes (B: 1.25 MB, 0.374 us at 3.35
+// TB/s), and at these sizes launch latency. B's, C's and D's kernels are
+// Hopper forms; dlq_probe_batched_dot_first runs their first forms
+// (nn_dot_kernel here, stage_first_kernel and attention_first_kernel in
+// probe_common.cuh).
 #include "probe_common.cuh"
 
 namespace {
@@ -86,6 +89,140 @@ __global__ void __launch_bounds__(128) nn_dot_kernel(const bf16* __restrict__ a,
   }
 }
 
+// nn_dot_hopper_kernel, the Hopper form of B. Bound: bytes, a 640,000 + v
+// 204,800 + out 409,600 = 1.25 MB, 0.374 us at 3.35 TB/s (its 41 MFLOP take
+// 0.041 us at 989 TFLOP/s). The first form (nn_dot_kernel, 5.27 us against
+// torch.matmul's 3.71, PERF.md) ran 32 blocks of 4 warps on 132 SMs, each
+// waiting for its whole 64 x 208 a tile and all of v (53 KB, one cp.async
+// group) before its first product. This form:
+//  - gives each block an output tile of 32 rows x 32 columns: a grid of
+//    (7, 2, 8) = 112 blocks, each reading 13 KB of a and 13 KB of v; each
+//    warp owns 16 rows x 16 columns (the last row tile's second pair of
+//    warps has no rows and does no products);
+//  - brings the keys in four chunks of 64, each an a box (32 rows x 64 keys,
+//    128-byte swizzle) and a v box (64 keys x 32 columns, 64-byte swizzle)
+//    by TMA on its own mbarrier, all issued by thread 0 at the start from
+//    3-D maps [sample][row][key] and [sample][key][column]: a box past a
+//    sample's 200 rows or keys lands zeros (the first form's zero-filled
+//    pads), and a warp runs a chunk's k16 steps while the later chunks land
+//    (four cp.async groups, 13 granules a thread, landed later than the
+//    boxes do);
+//  - reads every fragment by ldmatrix from the swizzled boxes, 8 distinct
+//    16-byte bank groups a phase;
+//  - writes the fp32 tile through shared memory as 16-byte row pieces,
+//    rows >= M not stored;
+//  - keeps the first form's arithmetic, so every output equals it: the same
+//    mma.sync m16n8k16 on the same A fragments (ldmatrix gives the bits the
+//    first form's 32-bit loads give) and B fragments (ldmatrix.trans of
+//    row-major v; the x4 form's lanes 0-15 give the x2 form's rows, lanes
+//    16-31 the next 8 columns'), the k16 steps 0..12 in order with keys
+//    200..207 zero (the fourth chunk's keys 208..255 are zeros it never
+//    reads).
+// What bounds it: the first chunk's latency and the launch.
+constexpr int kNnTile = 32;                        // output rows and columns a block
+constexpr int kNnChunk = 64;                       // keys a box
+constexpr int kNnChunks = (kKp + kNnChunk - 1) / kNnChunk;
+constexpr int kNnBox = kNnTile * kNnChunk * 2;     // bytes of an a box and of a v box: 4 KB
+constexpr int kLdO = kNnTile + 8;                  // fp32 row stride of the output tile
+
+// The shared address of 16-byte chunk c of row r in boxes of 64-byte rows
+// landed with TMA's 64-byte swizzle (base 512-byte aligned): chunk c ^ bits
+// 7-8 of the row's offset.
+__device__ __forceinline__ const unsigned char* swz64(const unsigned char* base, int r, int c) {
+  return base + r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+__global__ void __launch_bounds__(128) nn_dot_hopper_kernel(const __grid_constant__ CUtensorMap ta,
+                                                            const __grid_constant__ CUtensorMap tv,
+                                                            float* __restrict__ out, int M) {
+  __shared__ __align__(128) unsigned char raw[1024 + 2 * kNnChunks * kNnBox];
+  __shared__ __align__(16) float Os[kNnTile * kLdO];
+  __shared__ __align__(8) uint64_t bar[kNnChunks];
+  unsigned char* As = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);   // a chunk c at c * kNnBox
+  unsigned char* Vs = As + kNnChunks * kNnBox;
+  const int b = blockIdx.z, m0 = blockIdx.x * kNnTile, n0 = blockIdx.y * kNnTile;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+    for (int c = 0; c < kNnChunks; ++c) sm90::mbar_init(bar + c, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int c = 0; c < kNnChunks; ++c) {
+      sm90::expect_tx(bar + c, 2 * kNnBox);
+      tma_load3(As + c * kNnBox, &ta, c * kNnChunk, m0, b, bar + c);
+      tma_load3(Vs + c * kNnBox, &tv, n0, c * kNnChunk, b, bar + c);
+    }
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  if (m0 + wm * 16 < M) {   // a warp with rows (warp 0 always: it waits for every chunk)
+    const int ar = wm * 16 + (lane & 15), vc = wn * 2 + (lane >> 4);
+    float acc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kNnChunks; ++c) {
+      sm90::mbar_wait(bar + c, 0);
+#pragma unroll
+      for (int kl = 0; kl < kNnChunk / 16 && c * (kNnChunk / 16) + kl < kKp / 16; ++kl) {
+        uint32_t af[4], bq[4];   // bq: columns wn*16 .. +7 (bq[0..1]) and +8 .. +15 (bq[2..3])
+        ldsm_x4(af, swz(As + c * kNnBox, ar, 2 * kl + (lane >> 4)));
+        ldsm_x4_trans(bq, swz64(Vs + c * kNnBox, 16 * kl + (lane & 15), vc));
+        mma_bf16(acc[0], af, bq[0], bq[1]);
+        mma_bf16(acc[1], af, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(Os + (wm * 16 + g + hh * 8) * kLdO + wn * 16 + j * 8 + 2 * t) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+  }
+  __syncthreads();
+  float* og = out + ((long long)b * M + m0) * 64 + n0;
+  for (int i = tid; i < kNnTile * (kNnTile / 4); i += 128) {
+    const int r = i >> 3, q = (i & 7) * 4;
+    if (m0 + r < M)
+      *reinterpret_cast<float4*>(og + (long long)r * 64 + q) =
+          *reinterpret_cast<const float4*>(Os + r * kLdO + q);
+  }
+}
+
+// B on the Hopper form: a [batch][M][K], v [batch][K][64] (16-byte aligned);
+// K <= 208, K % 8 == 0.
+inline cudaError_t nn_dot_hopper(const bf16* a, const bf16* v, float* out, int batch, int M,
+                                 int K, cudaStream_t st) {
+  if (K > kKp || K % 8 || (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorInvalidValue;
+  const w4::EncodeTiled encode = w4::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint64_t adims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)batch};
+  const cuuint64_t astrides[2] = {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2};
+  const cuuint32_t abox[3] = {kNnChunk, kNnTile, 1};
+  const cuuint64_t vdims[3] = {64, (cuuint64_t)K, (cuuint64_t)batch};
+  const cuuint64_t vstrides[2] = {128, (cuuint64_t)K * 128};
+  const cuuint32_t vbox[3] = {kNnTile, kNnChunk, 1};
+  const auto map = [&](CUtensorMap* m, const bf16* p, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle sw) {
+    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(p), dims, strides, box,
+                  step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  CUtensorMap ta, tv;
+  if (!map(&ta, a, adims, astrides, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map(&tv, v, vdims, vstrides, vbox, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  nn_dot_hopper_kernel<<<dim3((M + kNnTile - 1) / kNnTile, 64 / kNnTile, batch), 128, 0, st>>>(
+      ta, tv, out, M);
+  return cudaGetLastError();
+}
+
 constexpr int kKeyTiles = 26;   // 208 keys: 200 and 8 pads
 constexpr int kValid = 200;     // unmasked keys
 
@@ -104,6 +241,7 @@ AttnArgs samples(const void* a, void* out) {
 extern "C" int dlq_probe_batched_dot_prepare() {
   cudaError_t e;
   if ((e = prepare(nt_dot_kernel)) != cudaSuccess) return (int)e;
+  if ((e = prepare(nn_dot_hopper_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(nn_dot_kernel, kNnSmem)) != cudaSuccess) return (int)e;
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   constexpr int smem = AttnPlan<kKeyTiles>::SMEM;
@@ -124,10 +262,8 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
       return (int)nt_dot(n, B, st);
     }
     case 1:
-      nn_dot_kernel<<<dim3((N + 63) / 64, B), 128, kNnSmem, st>>>(
-          static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(out), N,
-          N);
-      return (int)cudaGetLastError();
+      return (int)nn_dot_hopper(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                                static_cast<float*>(out), B, N, N, st);
     case 3:
       return (int)attention<kKeyTiles, kValid>(samples(a, out), B, st);
     default:
@@ -135,16 +271,31 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
   }
 }
 
-// The first forms of C (stage_first_kernel) and D (attention_first_kernel),
-// arguments as dlq_probe_batched_dot's; other patterns have one form and
-// return cudaErrorInvalidValue.
-extern "C" int dlq_probe_batched_dot_first(int pattern, const void* a, const void*, const void*,
+// The first forms of B (nn_dot_kernel), C (stage_first_kernel) and D
+// (attention_first_kernel), arguments as dlq_probe_batched_dot's; A has one
+// form and returns cudaErrorInvalidValue.
+extern "C" int dlq_probe_batched_dot_first(int pattern, const void* a, const void* b, const void*,
                                            void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int B = 8, N = 200;
   if (const Staged* s = find_staged(kStaged, pattern))
     return (int)stage_first(s->op, a, out, s->w, st);
-  if (pattern == 3) return (int)attention_first<kKeyTiles>(samples(a, out), 8, st);
+  if (pattern == 1) {
+    nn_dot_kernel<<<dim3((N + 63) / 64, B), 128, kNnSmem, st>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(out), N, N);
+    return (int)cudaGetLastError();
+  }
+  if (pattern == 3) return (int)attention_first<kKeyTiles>(samples(a, out), B, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// B's Hopper form's launch into v[0..5]: grid x, y, z, threads, key chunks
+// (one box pair and mbarrier each) and the bytes of a box (the card tests
+// hold it to dlq_tpu_torch/tools/probe_batched_dot.py: nn_dot_plan).
+extern "C" int dlq_probe_batched_dot_nn_plan(int* v) {
+  const int t[6] = {(200 + kNnTile - 1) / kNnTile, 64 / kNnTile, 8, 128, kNnChunks, kNnBox};
+  for (int k = 0; k < 6; ++k) v[k] = t[k];
+  return 0;
 }
 
 DLQ_PROBE_STAGE_ENTRIES(probe_batched_dot, kStaged)

@@ -294,9 +294,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < NJ; ++j)
           v[u][j] = rr < nr ? load_f(yrows + rr * DP + lane + 32 * j) : 0.0f;
       }
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(yempty + i);   // this warp is done with the stage
-      if (++yslot == NY) yslot = 0, yph ^= 1;
 #pragma unroll
       for (int u = 0; u < RPW; ++u) {
         const int rr = RPW * warp + u;
@@ -310,6 +307,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           *reinterpret_cast<__nv_bfloat16*>(As + sm90::core_off(k + rr, 2 * (lane + 32 * j), LDA)) =
               __float2bfloat16_rn(rr < nr ? ln_apply(v[u][j], mu, rs, lg[j], lb[j]) : 0.0f);
       }
+      // the stage goes back to the y producer only once this warp has used
+      // every value it loaded from it (vit_pre_iw.cuh: an arrival right
+      // after the loads let the next bulk copy overwrite unread rows)
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(yempty + i);   // this warp is done with the stage
+      if (++yslot == NY) yslot = 0, yph ^= 1;
     }
     sm90::fence_proxy_async();   // h1's st.shared, to wgmma
     wg_sync();

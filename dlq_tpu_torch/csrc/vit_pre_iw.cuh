@@ -280,11 +280,6 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
         for (int j = 0; j < NJ; ++j)
           v[u][j] = rr < nr ? ld(yrows + rr * DP + lane + 32 * j) : 0.0f;
       }
-      __syncwarp();
-      if (nr > 0) {   // this warp is done with the stage
-        if (lane == 0) sm90::mbar_arrive(yempty + i);
-        if (++yslot == NY) yslot = 0, yph ^= 1;
-      }
 #pragma unroll
       for (int u = 0; u < RPW; ++u) {
         const int rr = RPW * warp + u;
@@ -298,6 +293,15 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const Args a, const Plan pl
           As[sm90::core_off(k + rr, lane + 32 * j, DP)] =
               rr < nr ? (int8_t)quant_code(ln_apply(v[u][j], mu, rs, lg[j], lb[j]), a.inv_q)
                       : (int8_t)0;
+      }
+      // the stage goes back to the y producer only once this warp has used
+      // every value it loaded from it: with the arrival right after the
+      // loads, a row's loads were now and then still unread when the next
+      // bulk copy overwrote the stage (one token row of the output wrong)
+      __syncwarp();
+      if (nr > 0) {   // this warp is done with the stage
+        if (lane == 0) sm90::mbar_arrive(yempty + i);
+        if (++yslot == NY) yslot = 0, yph ^= 1;
       }
     }
     if (!w_ready) {   // the resident weight has landed (first tile only)

@@ -405,6 +405,15 @@ def c_stage_plan(source: str, w: Window) -> StagePlan:
     return StagePlan(mode, *plan[1:4], Window(*plan[4:10]))
 
 
+def c_plan(source: str, name: str, n: int) -> Tuple[int, ...]:
+    """The ``n`` ints ``source``'s ``dlq_<source>_<name>`` entry reports (a
+    Hopper form's launch constants)."""
+    v = (ctypes.c_int * n)()
+    fn = _fn(source, f"_{name}", (ctypes.c_void_p,))
+    _build.check(fn(ctypes.cast(v, ctypes.c_void_p)), f"{source} {name}")
+    return tuple(v)
+
+
 def stage_window(source: str, x: torch.Tensor, w: Window, times2: bool = False,
                  first: bool = False) -> torch.Tensor:
     """Window ``w`` of the CUDA tensor ``x``'s bytes on ``stage_kernel`` (or

@@ -4,7 +4,8 @@ attention, each as one hand-written kernel in ``csrc/probe_batched_dot.cu``.
 
   A  batched NT dot  bf16 [8, 200, 64] x [8, 200, 64]^T -> fp32 [8, 200, 200]
   B  batched NN dot  bf16 [8, 200, 200] x [8, 200, 64] -> fp32 [8, 200, 64]
-     (the B operand through ldmatrix.trans)
+     (the B operand through ldmatrix.trans; 32 x 32 output tiles, the keys
+     in four chunks: ``nn_dot_plan``)
   C  split reshape   bf16 [1600, 576] -> [8, 200, 576]
   D  one attention head per sample of x [1600, 576] viewed [8, 200, 576]:
      q, k, v = lanes 0, 64, 128 (64 wide); no scale, no mask;
@@ -15,8 +16,9 @@ against the numpy expectation is the reference's (``max|got - expect| /
 max|expect| <= 2e-2``, finite); on the card the kernel is also held against
 its plain version: identical for C, within 1e-4 of max|plain| for A and B,
 and for D within one bf16 step of max|plain| on at most 1% of the outputs.
-C runs on ``probe_common.cuh``'s Hopper ``stage_kernel``, D on its Hopper
-``attention_kernel``; ``probe_batched_dot.first`` runs their first forms.
+B runs on ``nn_dot_hopper_kernel``, C on ``probe_common.cuh``'s Hopper
+``stage_kernel``, D on its Hopper ``attention_kernel``;
+``probe_batched_dot.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_batched_dot [--device cpu]
 """
@@ -24,6 +26,7 @@ C runs on ``probe_common.cuh``'s Hopper ``stage_kernel``, D on its Hopper
 from __future__ import annotations
 
 import sys
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -95,8 +98,55 @@ LIBRARY = {
 WINDOWS = {"C": (Window(0, 1152, 0, 1600, 1, 1152), False)}
 # the patterns on a Hopper form whose first form stays callable
 # (probe_batched_dot.first)
-FIRST_FORMS = (*WINDOWS, "D")
+FIRST_FORMS = (*WINDOWS, "B", "D")
 KEY_TILES = 26   # attention_kernel's key tiles of 8 for D (200 keys and 8 pads)
+
+# B's Hopper form (csrc/probe_batched_dot.cu: nn_dot_hopper_kernel)
+NN_KP = 208      # keys padded to 13 k16 steps (200..207 zero)
+NN_TILE = 32     # output rows and columns a block (4 warps of 16 x 16)
+NN_CHUNK = 64    # keys a chunk: an a box (NN_TILE rows) and a v box (NN_TILE columns)
+NN_BOX = NN_TILE * NN_CHUNK * 2   # bytes of a box
+
+
+class NnTile(NamedTuple):
+    """One block of ``nn_dot_hopper_kernel``: sample ``b``, output rows
+    ``m0 ..`` and columns ``n0 ..`` (``NN_TILE`` each), and its 4 warps, each
+    (first row, first column, the k16 steps in the order it runs them); a
+    warp with no rows runs none."""
+    b: int
+    m0: int
+    n0: int
+    warps: Tuple[Tuple[int, int, Tuple[int, ...]], ...]
+
+
+def nn_dot_chunks(kp: int = NN_KP) -> List[range]:
+    """The k16 steps of each key chunk, in the order the chunks land."""
+    per = NN_CHUNK // 16
+    return [range(c * per, min((c + 1) * per, kp // 16)) for c in range(-(-kp // NN_CHUNK))]
+
+
+def nn_dot_plan(batch: int = B, m: int = NP, n: int = HD, kp: int = NN_KP) -> List[NnTile]:
+    """``nn_dot_hopper_kernel``'s grid (x: row tile, y: column tile, z:
+    sample), block by block: warp w owns the 16 rows at m0 + 16 (w >> 1)
+    and the 16 columns at n0 + 16 (w & 1), and runs each chunk's k16 steps
+    in turn where it has rows."""
+    steps = tuple(k for ch in nn_dot_chunks(kp) for k in ch)
+    tiles = []
+    for b in range(batch):
+        for nt in range(n // NN_TILE):
+            for mt in range(-(-m // NN_TILE)):
+                m0, n0 = mt * NN_TILE, nt * NN_TILE
+                warps = tuple((m0 + 16 * (w >> 1), n0 + 16 * (w & 1),
+                               steps if m0 + 16 * (w >> 1) < m else ()) for w in range(4))
+                tiles.append(NnTile(b, m0, n0, warps))
+    return tiles
+
+
+def nn_dot_launch(batch: int = B, m: int = NP, n: int = HD, kp: int = NN_KP) -> Tuple[int, ...]:
+    """(grid x, y, z, threads, key chunks, box bytes): what the C side's
+    ``dlq_probe_batched_dot_nn_plan`` reports."""
+    return (-(-m // NN_TILE), n // NN_TILE, batch, 128, len(nn_dot_chunks(kp)), NN_BOX)
+
 
 probe_batched_dot = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_rel   # the reference's check

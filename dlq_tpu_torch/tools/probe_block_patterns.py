@@ -16,8 +16,10 @@ fp32. O's own numpy expectation multiplies in float64 and sits one step
 off (the reference's ``atol=1.0`` allows it); the port follows the kernel.
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
 the reference's (``max_abs <= 0.5``, 1.0 for O and D). A1, A2, S and L run
-on ``probe_common.cuh``'s Hopper ``stage_kernel``; ``probe_block.first``
-runs its first form.
+on ``probe_common.cuh``'s Hopper ``stage_kernel``, D on
+``double_conv_cluster_kernel``, a cluster of ``D_RANKS`` blocks, rank r
+owning output channels ``D_CS`` r .. of both convs; ``probe_block.first``
+runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_block_patterns [--device cpu]
 """
@@ -114,7 +116,38 @@ WINDOWS = {
     "L": (Window(4, 928, 8, 232, 116, 4), False),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_block.first)
-FIRST_FORMS = tuple(WINDOWS)
+FIRST_FORMS = (*WINDOWS, "D")
+
+# D's Hopper form (csrc/probe_block.cu: double_conv_cluster_kernel): a
+# cluster of D_RANKS blocks of D_THREADS threads, rank r owning output
+# channels D_CS r .. D_CS r + D_CS - 1 of both convs
+D_RANKS, D_THREADS = 8, 256
+D_CS = C // D_RANKS
+D_LDB = C + 16         # bytes a transposed weight row (one output channel's 128 cin, padded)
+D_XBOX = 32            # slab pixels a TMA box (128-byte swizzle)
+D_HSLICE = (TOH + 2) * (OW + 2) * D_CS   # a rank's slice of h: 180 pixels x D_CS channels
+
+
+def d_smem() -> dict:
+    """The Hopper form's shared memory from a 1,024-byte aligned base (the
+    C side's ``dc`` layout), name -> (offset, bytes): the slab in 8 boxes of
+    32 pixels (pixels 240..255 land zeros), both weight slices as landed
+    ([conv][tap][cin][D_CS]), both transposed ([conv][tap][cout][D_LDB]), h
+    as D_RANKS rank slices, the output tile, the 4 mbarriers (slab, w1, w2,
+    h) and a word a warp for the loads' landing stores."""
+    parts = (("slab", -(-(TOH + 4) * (OW + 4) // D_XBOX) * D_XBOX * C),
+             ("slices", 2 * 9 * C * D_CS), ("transposed", 2 * 9 * D_CS * D_LDB),
+             ("h", D_RANKS * D_HSLICE), ("out", TOH * OW * D_CS), ("mbarriers", 4 * 8),
+             ("sink", D_THREADS // 32 * 4))
+    out, at = {}, 0
+    for name, size in parts:
+        out[name] = (at, size)
+        at += size
+    return out
+
+
+D_SMEM = 1024 + sum(size for _, size in d_smem().values())
+
 
 probe_block = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs   # the reference's check

@@ -623,7 +623,8 @@ def _probe_mods():
 @pytest.mark.gpu
 def test_probe_hopper_forms_equal_first_forms_on_card():
     """The redesigned probe patterns (K19 6 and K20 D on attention_kernel,
-    the 12 copy patterns on stage_kernel) on their Hopper forms equal to
+    K20 B on nn_dot_hopper_kernel, K21 D on double_conv_cluster_kernel, the
+    12 copy patterns on stage_kernel) on their Hopper forms equal to
     their first forms on every output, the copies also to their plain
     versions; the launches counted by form: the wrapper's launch on
     .launches and .by_form["hopper"], .first on .by_form["first"] only, a
@@ -652,7 +653,55 @@ def test_probe_hopper_forms_equal_first_forms_on_card():
             if key in mod.WINDOWS:
                 assert torch.equal(got, mod.PLAIN[key](*xs)), (name, key)
             n += 1
-    assert n == 14
+    assert n == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_nn_dot_and_double_conv_hopper_on_card(seed):
+    """K20 B's and K21 D's Hopper forms on the probe's own inputs (seed 0)
+    and on other draws (seeds 1, 2: K20 B's a and v from a normal draw; K21
+    D's slab and weights over the whole int8 range, so h and out clip at
+    both ends): K21 D identical to double_conv_plain and to its first form,
+    K20 B within _probe.held's fp32 limit (1e-4 of max|plain|) and equal to
+    its first form; each launch counted once on .launches and
+    .by_form["hopper"], .first only on .by_form["first"]. The C side's
+    launch constants equal the Python mirrors the CPU tests hold
+    (probe_batched_dot.nn_dot_launch; probe_block_patterns.D_*)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+    from dlq_tpu_torch.tools import probe_batched_dot as PB
+    from dlq_tpu_torch.tools import probe_block_patterns as PK
+
+    dev = torch.device("cuda")
+    assert _probe.c_plan("probe_batched_dot", "nn_plan", 6) == PB.nn_dot_launch()
+    assert _probe.c_plan("probe_block", "d_plan", 4) == (PK.D_RANKS, PK.D_THREADS, PK.D_SMEM,
+                                                         PK.D_CS)
+    rng = np.random.default_rng(seed)
+    if seed == 0:
+        (b_in,), (d_in,) = ([xs for k, xs, _ in mod.cases() if k == key]
+                            for mod, key in ((PB, "B"), (PK, "D")))
+    else:
+        b_in = tuple(_probe.bf16(rng.normal(0, 1, s)) for s in ((8, 200, 200), (8, 200, 64)))
+        d_in = (_i8(rng, (1, 12, 20, 128)), _i8(rng, (9, 128, 128)), _i8(rng, (9, 128, 128)))
+    for mod, fn, key, inputs in ((PB, PB.probe_batched_dot, "B", b_in),
+                                 (PK, PK.probe_block, "D", d_in)):
+        xs = tuple(x.to(dev) for x in inputs)
+        launches, forms, shapes = fn.launches, dict(fn.by_form), dict(fn.by_shape)
+        got = fn(key, *xs)
+        assert fn.launches == launches + 1 and fn.by_shape[key] == shapes.get(key, 0) + 1
+        assert fn.by_form["hopper"] == forms.get("hopper", 0) + 1
+        first = fn.first(key, *xs)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1 and fn.by_form["first"] == forms.get("first", 0) + 1
+        assert torch.equal(got, first), (key, int((got != first).sum()))
+        ref = mod.PLAIN[key](*xs)
+        if key == "D":
+            assert torch.equal(got, ref), int((got != ref).sum())
+        else:
+            ok, text, _ = _probe.held(got, ref, mod.SPEC[key])
+            assert ok, text
 
 
 # windows beside the probes' own (as tests/test_torch_port_probe_hopper.py
