@@ -150,15 +150,16 @@ Phases, one JSON line each:
      pattern timed on a spinning card (device time of back-to-back
      launches: the kernels are microseconds long, shorter than their
      wrappers' host cost) beside the plain version, the bound and the one
-     PyTorch call where one computes the same function; the 16 patterns on
-     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, K20 B
-     on nn_dot_hopper_kernel, K21 D on double_conv_cluster_kernel, a
-     cluster of 8 blocks, the 12 copy patterns on stage_kernel) must
+     PyTorch call where one computes the same function; the 19 patterns on
+     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, K19 3
+     and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel, K21
+     D on double_conv_cluster_kernel, a cluster of 8 blocks, K22 E on
+     int_dot_hopper_kernel, the 12 copy patterns on stage_kernel) must
      launch that form, and equal their first forms on every output (each
-     module's FIRST_FORMS: 3 launches by form for probe_batched_dot, 5 for
-     probe_block); each is timed in turns with its first
-     form (first, Hopper, Hopper, first), beside launch_floor_ms, one empty
-     kernel's device time under the same timing.
+     module's FIRST_FORMS: launches by form 5 for probe_mosaic, 4 for
+     probe_batched_dot, 5 for probe_block, 5 for probe_stem); each is timed
+     in turns with its first form (first, Hopper, Hopper, first), beside
+     launch_floor_ms, one empty kernel's device time under the same timing.
 Each main path is driven with every launch count set to 0 just before it
 and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper

@@ -4,8 +4,10 @@
 // stage_kernel; the plain versions and the numpy expectations sit in
 // dlq_tpu_torch/tools/probe_batched_dot.py):
 //   0 "A"  batched NT dot: q, k [8, 200, 64] bf16 -> fp32 [8, 200, 200]
-//          (nt_dot_kernel; 200 is no multiple of 16: rows and columns past
-//          200 are zero-filled at load and not stored)
+//          (nt_dot_hopper_kernel, probe_common.cuh: a block per (16 x 32
+//          output tile, sample), 728 blocks; the boxes land zeros past a
+//          sample's 200 rows, and no row or column past 200 is stored;
+//          first form nt_dot_kernel)
 //   1 "B"  batched NN dot: a [8, 200, 200] x v [8, 200, 64] -> fp32
 //          [8, 200, 64] (nn_dot_hopper_kernel, below; first form
 //          nn_dot_kernel: K padded to 208 with zeros, the B operand read
@@ -19,9 +21,9 @@
 //          at -1e30)
 // Bound: A and B are 41 MFLOP of bf16 products (2 x 8 x 200 x 200 x 64),
 // D 82 MFLOP, against 0.6-1.3 MB: bytes (B: 1.25 MB, 0.374 us at 3.35
-// TB/s), and at these sizes launch latency. B's, C's and D's kernels are
-// Hopper forms; dlq_probe_batched_dot_first runs their first forms
-// (nn_dot_kernel here, stage_first_kernel and attention_first_kernel in
+// TB/s), and at these sizes launch latency. Every pattern runs on a Hopper
+// form; dlq_probe_batched_dot_first runs their first forms (nn_dot_kernel
+// here, nt_dot_kernel, stage_first_kernel and attention_first_kernel in
 // probe_common.cuh).
 #include "probe_common.cuh"
 
@@ -143,8 +145,8 @@ __global__ void __launch_bounds__(128) nn_dot_hopper_kernel(const __grid_constan
   const int b = blockIdx.z, m0 = blockIdx.x * kNnTile, n0 = blockIdx.y * kNnTile;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+    prefetch_map(&ta);
+    prefetch_map(&tv);
     for (int c = 0; c < kNnChunks; ++c) sm90::mbar_init(bar + c, 1);
     sm90::mbar_init_fence();
   }
@@ -199,25 +201,16 @@ inline cudaError_t nn_dot_hopper(const bf16* a, const bf16* v, float* out, int b
                                  int K, cudaStream_t st) {
   if (K > kKp || K % 8 || (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorInvalidValue;
-  const w4::EncodeTiled encode = w4::encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t step[3] = {1, 1, 1};
-  const cuuint64_t adims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)batch};
-  const cuuint64_t astrides[2] = {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2};
-  const cuuint32_t abox[3] = {kNnChunk, kNnTile, 1};
-  const cuuint64_t vdims[3] = {64, (cuuint64_t)K, (cuuint64_t)batch};
-  const cuuint64_t vstrides[2] = {128, (cuuint64_t)K * 128};
-  const cuuint32_t vbox[3] = {kNnTile, kNnChunk, 1};
-  const auto map = [&](CUtensorMap* m, const bf16* p, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle sw) {
-    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(p), dims, strides, box,
-                  step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  };
+  const cuuint32_t abox[3] = {kNnChunk, kNnTile, 1}, vbox[3] = {kNnTile, kNnChunk, 1};
   CUtensorMap ta, tv;
-  if (!map(&ta, a, adims, astrides, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map(&tv, v, vdims, vstrides, vbox, CU_TENSOR_MAP_SWIZZLE_64B))
-    return cudaErrorInvalidValue;
+  cudaError_t e = tensor_map3(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a,
+                              {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)batch},
+                              {(cuuint64_t)K * 2, (cuuint64_t)M * K * 2}, abox,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tensor_map3(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, {64, (cuuint64_t)K, (cuuint64_t)batch},
+                    {128, (cuuint64_t)K * 128}, vbox, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e != cudaSuccess) return e;
   nn_dot_hopper_kernel<<<dim3((M + kNnTile - 1) / kNnTile, 64 / kNnTile, batch), 128, 0, st>>>(
       ta, tv, out, M);
   return cudaGetLastError();
@@ -241,6 +234,7 @@ AttnArgs samples(const void* a, void* out) {
 extern "C" int dlq_probe_batched_dot_prepare() {
   cudaError_t e;
   if ((e = prepare(nt_dot_kernel)) != cudaSuccess) return (int)e;
+  if ((e = prepare(nt_dot_hopper_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(nn_dot_hopper_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(nn_dot_kernel, kNnSmem)) != cudaSuccess) return (int)e;
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
@@ -256,11 +250,9 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
   constexpr int B = 8, N = 200;
   if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 0: {
-      const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                     static_cast<float*>(out), N, N, N * 64, N * 64, N * N};
-      return (int)nt_dot(n, B, st);
-    }
+    case 0:
+      return (int)nt_dot_hopper(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                                static_cast<float*>(out), B, N, N, st);
     case 1:
       return (int)nn_dot_hopper(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                                 static_cast<float*>(out), B, N, N, st);
@@ -271,15 +263,20 @@ extern "C" int dlq_probe_batched_dot(int pattern, const void* a, const void* b, 
   }
 }
 
-// The first forms of B (nn_dot_kernel), C (stage_first_kernel) and D
-// (attention_first_kernel), arguments as dlq_probe_batched_dot's; A has one
-// form and returns cudaErrorInvalidValue.
+// The first forms of A (nt_dot_kernel), B (nn_dot_kernel), C
+// (stage_first_kernel) and D (attention_first_kernel), arguments as
+// dlq_probe_batched_dot's.
 extern "C" int dlq_probe_batched_dot_first(int pattern, const void* a, const void* b, const void*,
                                            void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   constexpr int B = 8, N = 200;
   if (const Staged* s = find_staged(kStaged, pattern))
     return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 0) {
+    const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                   static_cast<float*>(out), N, N, N * 64, N * 64, N * N};
+    return (int)nt_dot(n, B, st);
+  }
   if (pattern == 1) {
     nn_dot_kernel<<<dim3((N + 63) / 64, B), 128, kNnSmem, st>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(out), N, N);
@@ -299,3 +296,4 @@ extern "C" int dlq_probe_batched_dot_nn_plan(int* v) {
 }
 
 DLQ_PROBE_STAGE_ENTRIES(probe_batched_dot, kStaged)
+DLQ_PROBE_NT_PLAN(probe_batched_dot, 8, 200, 200)

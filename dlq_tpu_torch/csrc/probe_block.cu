@@ -226,21 +226,6 @@ constexpr int SINK = BAR + 4 * 8;                     // a word a warp (conv_ste
 constexpr int SMEM = 1024 + SINK + 8 * 4;
 }  // namespace dc
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The 4 x 4 byte block of words w[0..3] (word i: row i's 4 bytes)
-// transposed in place (word j: byte j of each row, row 0 lowest).
-__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
-  w[0] = __byte_perm(t0, t1, 0x5410);
-  w[1] = __byte_perm(t0, t1, 0x7632);
-  w[2] = __byte_perm(t2, t3, 0x5410);
-  w[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 // A conv's slice from Ws ([tap][cin][16 couts]) into Bt ([tap][cout][cin],
 // rows LDB apart) by `threads` threads, this one the i-th: item c = (tap, 4
 // cin rows 4kb..4kb+3), a warp's 32 items one tap's 32 row blocks.
@@ -314,8 +299,7 @@ __global__ void __launch_bounds__(256) double_conv_cluster_kernel(
   const unsigned rank = cluster_rank();
   if (tid == 0) {
     const CUtensorMap* maps[3] = {&tx, &tw1, &tw2};
-    for (const CUtensorMap* m : maps)
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m)) : "memory");
+    for (const CUtensorMap* m : maps) prefetch_map(m);
     for (int b = 0; b < 4; ++b) sm90::mbar_init(bar + b, 1);
     sm90::mbar_init_fence();
     sm90::expect_tx(bar, kXBoxes * kXBox * C);

@@ -7,16 +7,19 @@
 //   1 "2"  scratch writes at 64-lane offsets, x 2: [256, 256] -> [256, 256]
 //          (stage_kernel: four 64-lane pieces per row staged at their
 //          offsets, doubled in bf16 on the way out; exact)
-//   2 "3"  NT dot: q [256, 64] x k [256, 64]^T -> fp32 [256, 256] (nt_dot_kernel)
+//   2 "3"  NT dot: q [256, 64] x k [256, 64]^T -> fp32 [256, 256]
+//          (nt_dot_hopper_kernel: a block per 16 x 32 output tile, 128
+//          blocks, q and k rows by TMA boxes)
 //   3 "4"  leading-dim merge [4, 256, 256] -> [1024, 256], x 2 (stage_kernel)
 //   4 "5"  tanh epilogue: bf16(tanhf(fp32(x))), [256, 768]
 //   5 "6"  the probe's 4-head attention on qkv [256, 768] (attention_kernel:
 //          a block per (head, 64-row query tile), scale 0.125, keys >= 197
 //          at -1e30, 256 keys)
 // Bound: bytes for every pattern, and at these sizes (at most 0.5 MB)
-// launch latency more than either. stage_kernel and attention_kernel are
-// Hopper forms (probe_common.cuh); dlq_probe_mosaic_first runs their first
-// forms for patterns 0, 1, 3 and 5.
+// launch latency more than either. stage_kernel, nt_dot_hopper_kernel and
+// attention_kernel are Hopper forms (probe_common.cuh); dlq_probe_mosaic_first
+// runs their first forms (stage_first_kernel, nt_dot_kernel,
+// attention_first_kernel) for patterns 0-3 and 5.
 #include "probe_common.cuh"
 
 namespace {
@@ -56,6 +59,7 @@ extern "C" int dlq_probe_mosaic_prepare() {
   cudaError_t e;
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(nt_dot_kernel)) != cudaSuccess) return (int)e;
+  if ((e = prepare(nt_dot_hopper_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(tanh_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(empty_kernel)) != cudaSuccess) return (int)e;
   constexpr int smem = AttnPlan<kKeyTiles>::SMEM;
@@ -70,11 +74,9 @@ extern "C" int dlq_probe_mosaic(int pattern, const void* a, const void* b, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 2: {
-      const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                     static_cast<float*>(out), 256, 256, 0, 0, 0};
-      return (int)nt_dot(n, 1, st);
-    }
+    case 2:
+      return (int)nt_dot_hopper(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                                static_cast<float*>(out), 1, 256, 256, st);
     case 4: {
       const int n8 = 256 * 768 / 8;
       tanh_kernel<<<(n8 + 255) / 256, 256, 0, st>>>(static_cast<const bf16*>(a),
@@ -88,16 +90,23 @@ extern "C" int dlq_probe_mosaic(int pattern, const void* a, const void* b, const
   }
 }
 
-// The first forms of patterns 0, 1, 3 (stage_first_kernel) and 5
-// (attention_first_kernel), arguments as dlq_probe_mosaic's; other patterns
-// have one form and return cudaErrorInvalidValue.
-extern "C" int dlq_probe_mosaic_first(int pattern, const void* a, const void*, const void*,
+// The first forms of patterns 0, 1, 3 (stage_first_kernel), 2
+// (nt_dot_kernel) and 5 (attention_first_kernel), arguments as
+// dlq_probe_mosaic's; pattern 4 has one form and returns
+// cudaErrorInvalidValue.
+extern "C" int dlq_probe_mosaic_first(int pattern, const void* a, const void* b, const void*,
                                       void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern))
     return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 2) {
+    const NtArgs n{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                   static_cast<float*>(out), 256, 256, 0, 0, 0};
+    return (int)nt_dot(n, 1, st);
+  }
   if (pattern == 5) return (int)attention_first<kKeyTiles>(heads(a, out), 4, st);
   return (int)cudaErrorInvalidValue;
 }
 
 DLQ_PROBE_STAGE_ENTRIES(probe_mosaic, kStaged)
+DLQ_PROBE_NT_PLAN(probe_mosaic, 1, 256, 256)

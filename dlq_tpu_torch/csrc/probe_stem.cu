@@ -10,11 +10,10 @@
 //   2 "C"  merge(x)[3:115, 928:1824] -> [112, 896] (stage_kernel)
 //   3 "D"  x[:128, :128] through shared memory in 16 pieces of 8 lanes per
 //          row (stage_kernel, 8-byte granules)
-//   (stage_kernel is a Hopper form, probe_common.cuh; dlq_probe_stem_first
-//   runs its first form for A, B, C and D)
-//   4 "E"  int8 dot [12544, 256] x [256, 64] -> int32 (int_dot_kernel:
-//          igemm.cuh's MmaTile and two-stage cp.async mainloop; the [K, N]
-//          weight is transposed stage by stage into K-major shared rows)
+//   4 "E"  int8 dot [12544, 256] x [256, 64] -> int32
+//          (int_dot_hopper_kernel, below: a block per 64 rows, 196 blocks,
+//          the rows by TMA, b transposed once a block, int8 wgmma; first
+//          form int_dot_kernel)
 //   5 "J"  the im2col cols build: piece t = (r, a, b), 32 of them, is
 //          merge(x)[a:a+112, 920r + 8b : +896] viewed [12544, 8], written to
 //          lanes 8t..8t+7 of cols [12544, 256] (cols_kernel: 3.2 MB of cols
@@ -25,7 +24,10 @@
 //          three input rows, the top halo row -128 for the first, and
 //          takes __vmaxs4 over the 9 taps)
 // Bound: bytes everywhere (E: 0.41 GOP of int8 against 6.4 MB, 1.9 us at
-// 3.35 TB/s); at these sizes launch latency. Nothing is tuned.
+// 3.35 TB/s); at these sizes launch latency. stage_kernel (probe_common.cuh)
+// and int_dot_hopper_kernel are Hopper forms; dlq_probe_stem_first runs
+// their first forms (stage_first_kernel for A-D, int_dot_kernel for E).
+// cols_kernel and maxpool_kernel have one form each, not redesigned.
 #include "probe_common.cuh"
 
 namespace {
@@ -35,6 +37,10 @@ using namespace dlq::probe;
 
 constexpr int EM = 12544, EK = 256, EN = 64, EBM = 128;
 
+// int_dot_kernel, the first form: a block per 128 rows (98 blocks) on
+// igemm.cuh's MmaTile (mma.sync m16n8k32) and two-stage cp.async mainloop;
+// the [K, N] b is transposed stage by stage into K-major shared rows by
+// byte stores, and the int32 sums are stored from the fragments.
 __global__ void __launch_bounds__(THREADS) int_dot_kernel(const int8_t* __restrict__ a,
                                                           const int8_t* __restrict__ b,
                                                           int* __restrict__ out) {
@@ -58,6 +64,124 @@ __global__ void __launch_bounds__(THREADS) int_dot_kernel(const int8_t* __restri
     for (int j = 0; j < 16; ++j) bs[(n0 + j) * LDS + k] = e[j];
   });
   tile.for_each([&](int row, int col, int v) { out[(long long)(m0 + row) * EN + col] = v; });
+}
+
+// int_dot_hopper_kernel, the Hopper form. Bound: bytes, a 3.21 MB + b 16 KB
+// + out 3.21 MB = 6.44 MB, 1.922 us at 3.35 TB/s (its 0.41 GOP take 0.21 us
+// at 1,979 TOP/s). The first form (int_dot_kernel, 8.65 us against
+// torch._int_mm's 13.05, PERF.md) ran 98 blocks on 132 SMs with at most two
+// of a block's four 64-byte K stages of a in flight, transposed b's 16 KB
+// again at every stage by byte stores in every block, and wrote the int32
+// output, half of its bytes, by 4-byte stores in fragment order. This form:
+//  - gives each block 64 rows (196 blocks of one warpgroup and 33 KB of
+//    shared memory: every SM pulls from memory, 64 of them for two blocks);
+//  - issues the block's whole a tile at its start: two TMA boxes (64 rows x
+//    128 bytes of K, 128-byte swizzle) on one mbarrier;
+//  - transposes b once a block while a lands: each thread reads two pieces
+//    of 4 K rows x 16 bytes straight from global memory (16-byte loads; L2
+//    serves every block after the first), transposes each 4 x 4 byte block
+//    by __byte_perm (transpose4x4) and stores the K-major words ([K half]
+//    [64 n][128 k bytes], the 128-byte swizzle wgmma's descriptors read) by
+//    32-bit stores, a warp's 32 on 32 banks (its lanes 32 consecutive K
+//    quads of one n); staged from a dense shared copy instead, the 4 rows a
+//    word needs would sit on one bank;
+//  - runs int8 wgmma m64n64k32, both operands in shared memory by swizzled
+//    descriptors, 8 k32 steps (int32 sums of int8 products are exact in any
+//    order: |sum| <= 256 x 128 x 128 < 2^31, so every output equals the
+//    first form's);
+//  - stores the int32 sums straight from the accumulator, 8 bytes a lane,
+//    a quad's 32 bytes one sector (the tile staged in shared memory and
+//    written by TMA stores, its 16 KB one contiguous span of out, tried
+//    first, was slower).
+// What bounds it: the 6.4 MB at the memory's rate, the launch, and a
+// block's a round trip before its products.
+constexpr int kIdRows = 64;             // rows of a and out a block
+constexpr int kIdBox = kIdRows * 128;   // 64 rows of 128 bytes, 128-byte swizzle: 8 KB
+namespace id {   // the shared-memory layout, from a 1,024-byte aligned base: 2 boxes each
+constexpr int A = 0;                  // a [K half][64 rows][128 k bytes]
+constexpr int B = A + 2 * kIdBox;     // b^T [K half][64 n][128 k bytes]
+constexpr int BAR = B + 2 * kIdBox;
+constexpr int SMEM = 1024 + BAR + 8;
+}  // namespace id
+
+__global__ void __launch_bounds__(128) int_dot_hopper_kernel(const __grid_constant__ CUtensorMap ta,
+                                                             const int8_t* __restrict__ b,
+                                                             int* __restrict__ out) {
+  unsigned char* base = probe_smem + ((1024 - (smem_u32(probe_smem) & 1023)) & 1023);
+  unsigned char* As = base + id::A;
+  unsigned char* Bs = base + id::B;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + id::BAR);
+  const int m0 = blockIdx.x * kIdRows, tid = threadIdx.x;
+  if (tid == 0) {
+    prefetch_map(&ta);
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_init_fence();
+    sm90::expect_tx(bar, 2 * kIdBox);
+    tma_load3(As, &ta, 0, m0, 0, bar);
+    tma_load3(As + kIdBox, &ta, 128, m0, 0, bar);
+  }
+  // b^T: warp w takes K half h = w & 1 of the 16-column pieces w >> 1 and
+  // 2 + (w >> 1); lane l the K quad kb = 32 h + l (k bytes 4 l .. of the half)
+  const int lane = tid & 31, warp = tid >> 5, h = warp & 1;
+  const int8_t* bq = b + 4 * (32 * h + lane) * EN + 16 * (warp >> 1);
+  uint4 rows[2][4];   // [piece][K row of the quad]
+#pragma unroll
+  for (int it = 0; it < 2; ++it)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rows[it][i] = *reinterpret_cast<const uint4*>(bq + i * EN + 32 * it);
+#pragma unroll
+  for (int it = 0; it < 2; ++it)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {   // columns n .. n + 3
+      uint32_t w[4] = {word(rows[it][0], q), word(rows[it][1], q), word(rows[it][2], q),
+                       word(rows[it][3], q)};
+      transpose4x4(w);
+      const int n = 16 * (2 * it + (warp >> 1)) + 4 * q;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)   // chunk l / 4 of row n + j
+        *reinterpret_cast<uint32_t*>(swz(Bs + h * kIdBox, n + j, lane >> 2) + 4 * (lane & 3)) =
+            w[j];
+    }
+  sm90::fence_proxy_async();   // b^T's st.shared, before wgmma reads it
+  __syncthreads();             // and the mbarrier is initialized
+  sm90::mbar_wait(bar, 0);
+
+  int acc[32];
+  sm90::zero(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < EK / 32; ++s) {
+    const int kh = s >> 2, k0 = 32 * (s & 3);
+    sm90::wgmma_s8_n64(acc, w4::desc_sw(As + kh * kIdBox + k0, 1024, 1),
+                       w4::desc_sw(Bs + kh * kIdBox + k0, 1024, 1));
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+  // acc[4 j + q]: row 16 warp + g + 8 (q >> 1), column 8 j + 2 t + (q & 1)
+  const int g = lane >> 2, t = lane & 3;
+  int* og = out + (long long)(m0 + 16 * warp + g) * EN + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<int2*>(og + 8 * hh * EN + 8 * j) =
+          make_int2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+}
+
+// E on the Hopper form: a [EM][EK], b [EK][EN] int8 (16-byte aligned) and
+// out [EM][EN] int32, contiguous.
+inline cudaError_t int_dot_hopper(const int8_t* a, const int8_t* b, int* out, cudaStream_t st) {
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return cudaErrorInvalidValue;
+  const cuuint32_t abox[3] = {128, kIdRows, 1};
+  CUtensorMap ta;
+  const cudaError_t e = tensor_map3(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, {EK, EM, 1},
+                                    {EK, (cuuint64_t)EM * EK}, abox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  int_dot_hopper_kernel<<<EM / kIdRows, 128, id::SMEM, st>>>(ta, b, out);
+  return cudaGetLastError();
 }
 
 constexpr int kColRows = 64;   // cols rows per block
@@ -127,6 +251,7 @@ extern "C" int dlq_probe_stem_prepare() {
   cudaError_t e;
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(int_dot_kernel)) != cudaSuccess) return (int)e;
+  if ((e = prepare(int_dot_hopper_kernel, id::SMEM)) != cudaSuccess) return (int)e;
   if ((e = prepare(cols_kernel)) != cudaSuccess) return (int)e;
   return (int)prepare(maxpool_kernel);
 }
@@ -138,10 +263,8 @@ extern "C" int dlq_probe_stem(int pattern, const void* a, const void* b, const v
   if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
     case 4:
-      int_dot_kernel<<<EM / EBM, THREADS, 0, st>>>(static_cast<const int8_t*>(a),
-                                                   static_cast<const int8_t*>(b),
-                                                   static_cast<int*>(out));
-      return (int)cudaGetLastError();
+      return (int)int_dot_hopper(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+                                 static_cast<int*>(out), st);
     case 5:
       cols_kernel<<<EM / kColRows, 256, kColRows * 256, st>>>(static_cast<const int8_t*>(a),
                                                                static_cast<int8_t*>(out));
@@ -155,14 +278,31 @@ extern "C" int dlq_probe_stem(int pattern, const void* a, const void* b, const v
   }
 }
 
-// The first form of A, B, C and D (stage_first_kernel), arguments as
-// dlq_probe_stem's; other patterns have one form and return
-// cudaErrorInvalidValue.
-extern "C" int dlq_probe_stem_first(int pattern, const void* a, const void*, const void*,
+// The first forms of A, B, C, D (stage_first_kernel) and E
+// (int_dot_kernel), arguments as dlq_probe_stem's; J and K have one form
+// and return cudaErrorInvalidValue.
+extern "C" int dlq_probe_stem_first(int pattern, const void* a, const void* b, const void*,
                                     void* out, float, float, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern))
-    return (int)stage_first(s->op, a, out, s->w, static_cast<cudaStream_t>(stream));
+    return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 4) {
+    int_dot_kernel<<<EM / EBM, THREADS, 0, st>>>(static_cast<const int8_t*>(a),
+                                                 static_cast<const int8_t*>(b),
+                                                 static_cast<int*>(out));
+    return (int)cudaGetLastError();
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// E's Hopper form's launch into v[0..5]: grid, threads, rows a block, bytes
+// of an a box, bytes of shared memory, the bytes its mbarrier counts (the
+// card tests hold it to dlq_tpu_torch/tools/probe_stem_patterns.py:
+// int_dot_launch).
+extern "C" int dlq_probe_stem_int_plan(int* v) {
+  const int t[6] = {EM / kIdRows, 128, kIdRows, kIdBox, id::SMEM, 2 * kIdBox};
+  for (int k = 0; k < 6; ++k) v[k] = t[k];
+  return 0;
 }
 
 DLQ_PROBE_STAGE_ENTRIES(probe_stem, kStaged)

@@ -1,12 +1,14 @@
 """What the four probe modules share: the pattern table, the kernel wrapper,
-the reference's three checks, the run loop, and the plans of the two Hopper
-forms the probes share (``stage_plan``, ``attention_plan``).
+the reference's three checks, the run loop, and the plans of the three
+Hopper forms the probes share (``stage_plan``, ``attention_plan``,
+``nt_dot_plan``).
 
 Each probe module has, per pattern, a ``Spec`` (the reference's printed
 name, the input and output shapes and dtypes, the tolerance), a plain
 PyTorch version in ``PLAIN`` and a hand-written kernel in the module's
 ``csrc/<source>.cu`` (the copy patterns share ``probe_common.cuh``'s
-``stage_kernel``, the attention patterns its ``attention_kernel``),
+``stage_kernel``, the NT dots its ``nt_dot_hopper_kernel``, the attention
+patterns its ``attention_kernel``),
 reached through one C entry ``dlq_<source>(pattern, a, b, c, out, s1, s2,
 stream)`` whose ``pattern`` is the key's index in the module's ``SPEC``.
 The patterns in the module's ``FIRST_FORMS`` run on a redesigned Hopper
@@ -381,6 +383,46 @@ def attention_plan(rows: int, units: int, key_tiles: int) -> AttnPlan:
     chunks = -(-key_tiles * 8 // ATTN_CHUNK)
     return AttnPlan((-(-rows // ATTN_TILE), units), 128, chunks,
                     1024 + (1 + 2 * chunks) * ATTN_BOX + (chunks + 2) * 8)
+
+
+NT_ROWS = 16         # output rows a block, and q rows a box
+NT_COLS = 32         # output columns a block, and k rows a box
+NT_ROW_BYTES = 128   # bytes of a box row: 64 bf16
+
+
+class NtTile(NamedTuple):
+    """One block of ``nt_dot_hopper_kernel``: sample ``b``, output rows
+    ``m0 ..`` and columns ``n0 ..``, and its two warps, each (first row,
+    first column, whether it runs: a warp whose 16 rows or 16 columns lie
+    wholly past M or N does no products)."""
+    b: int
+    m0: int
+    n0: int
+    warps: Tuple[Tuple[int, int, bool], ...]
+
+
+def nt_dot_plan(batch: int, m: int, n: int) -> List[NtTile]:
+    """``nt_dot_hopper_kernel``'s grid (x: column tile, y: row tile, z:
+    sample), block by block: 16 x 32 outputs, warp w owning the 16 rows at
+    m0 + 16 (w >> 1) and the 16 columns at n0 + 16 (w & 1); a running warp
+    stores no row >= m and no column >= n."""
+    tiles = []
+    for b in range(batch):
+        for mt in range(-(-m // NT_ROWS)):
+            for nt in range(-(-n // NT_COLS)):
+                m0, n0 = mt * NT_ROWS, nt * NT_COLS
+                warps = tuple((m0 + 16 * (w >> 1), n0 + 16 * (w & 1),
+                               m0 + 16 * (w >> 1) < m and n0 + 16 * (w & 1) < n)
+                              for w in range(NT_ROWS // 16 * 2))
+                tiles.append(NtTile(b, m0, n0, warps))
+    return tiles
+
+
+def nt_dot_launch(batch: int, m: int, n: int) -> Tuple[int, ...]:
+    """(grid x, y, z, threads, tile rows, tile columns, bytes of the q and k
+    boxes): what the C side's ``dlq_<probe>_nt_plan`` reports."""
+    return (-(-n // NT_COLS), -(-m // NT_ROWS), batch, 32 * (NT_ROWS // 16 * 2), NT_ROWS, NT_COLS,
+            (NT_ROWS + NT_COLS) * NT_ROW_BYTES)
 
 
 # --- the C side's plans, windows and odd windows (card only) -----------------

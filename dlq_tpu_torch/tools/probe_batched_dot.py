@@ -3,6 +3,7 @@
 attention, each as one hand-written kernel in ``csrc/probe_batched_dot.cu``.
 
   A  batched NT dot  bf16 [8, 200, 64] x [8, 200, 64]^T -> fp32 [8, 200, 200]
+     (16 x 32 output tiles, q and k rows by TMA: ``_probe.nt_dot_plan``)
   B  batched NN dot  bf16 [8, 200, 200] x [8, 200, 64] -> fp32 [8, 200, 64]
      (the B operand through ldmatrix.trans; 32 x 32 output tiles, the keys
      in four chunks: ``nn_dot_plan``)
@@ -16,9 +17,9 @@ against the numpy expectation is the reference's (``max|got - expect| /
 max|expect| <= 2e-2``, finite); on the card the kernel is also held against
 its plain version: identical for C, within 1e-4 of max|plain| for A and B,
 and for D within one bf16 step of max|plain| on at most 1% of the outputs.
-B runs on ``nn_dot_hopper_kernel``, C on ``probe_common.cuh``'s Hopper
-``stage_kernel``, D on its Hopper ``attention_kernel``;
-``probe_batched_dot.first`` runs their first forms.
+A runs on ``probe_common.cuh``'s Hopper ``nt_dot_hopper_kernel``, B on
+``nn_dot_hopper_kernel``, C on the Hopper ``stage_kernel``, D on the Hopper
+``attention_kernel``; ``probe_batched_dot.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_batched_dot [--device cpu]
 """
@@ -98,7 +99,7 @@ LIBRARY = {
 WINDOWS = {"C": (Window(0, 1152, 0, 1600, 1, 1152), False)}
 # the patterns on a Hopper form whose first form stays callable
 # (probe_batched_dot.first)
-FIRST_FORMS = (*WINDOWS, "B", "D")
+FIRST_FORMS = (*WINDOWS, "A", "B", "D")
 KEY_TILES = 26   # attention_kernel's key tiles of 8 for D (200 keys and 8 pads)
 
 # B's Hopper form (csrc/probe_batched_dot.cu: nn_dot_hopper_kernel)

@@ -5,6 +5,7 @@ each as one hand-written kernel in ``csrc/probe_mosaic.cu``.
   1  lane-slice read at a 64-lane offset      bf16 [256, 768] -> [256, 64]
   2  writes into shared memory at 64-lane offsets (x 2)   [256, 256]
   3  NT bf16 dot, fp32 out (mma.sync m16n8k16)  [256, 64] x [256, 64]^T
+     (16 x 32 output tiles, q and k rows by TMA: ``_probe.nt_dot_plan``)
   4  leading-dim merge [4, 256, 256] -> [1024, 256] (x 2)
   5  tanh epilogue: bf16(tanh(fp32(x)))         [256, 768]
   6  the probe's 4-head attention on qkv [256, 768]: per head h, q/k/v at
@@ -16,8 +17,9 @@ against the numpy expectation is the reference's (``max_abs < 2e-2``,
 finite); on the card the kernel is also held against its plain version:
 identical for 1, 2 and 4, within 1e-4 of max|plain| for 3, and for 5 and 6
 within one bf16 step of max|plain| on at most 1% of the outputs. 1, 2 and 4
-run on ``probe_common.cuh``'s Hopper ``stage_kernel``, 6 on its Hopper
-``attention_kernel``; ``probe_mosaic.first`` runs their first forms.
+run on ``probe_common.cuh``'s Hopper ``stage_kernel``, 3 on its Hopper
+``nt_dot_hopper_kernel``, 6 on its Hopper ``attention_kernel``;
+``probe_mosaic.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_mosaic_patterns [--device cpu]
 """
@@ -106,7 +108,7 @@ WINDOWS = {
     "4": (Window(0, 512, 0, 1024, 1, 512), True),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_mosaic.first)
-FIRST_FORMS = (*WINDOWS, "6")
+FIRST_FORMS = (*WINDOWS, "3", "6")
 KEY_TILES = 32   # attention_kernel's key tiles of 8 for pattern 6 (256 keys)
 
 probe_mosaic = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)

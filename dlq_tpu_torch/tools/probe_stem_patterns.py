@@ -6,16 +6,16 @@ each as one hand-written kernel in ``csrc/probe_stem.cu``.
   B  lane -> row split  x[:112, :896] -> [12544, 8]
   C  row / lane offset slice  merge(x)[3:115, 928:1824] -> [112, 896]
   D  writes into shared memory at 8-lane offsets  x[:128, :128]
-  E  int8 dot [12544, 256] x [256, 64] -> int32 (mma.sync m16n8k32 on the
-     cp.async pipeline of ``igemm.cuh``)
+  E  int8 dot [12544, 256] x [256, 64] -> int32 (int8 wgmma m64n64k32 on
+     64-row tiles, a by TMA, b transposed once a block: ``int_dot_plan``)
   J  the im2col cols build: 32 pieces (r, a, b) of merge(x),
      m[a:a+112, 920r + 8b : +896] -> [12544, 8], into cols [12544, 256]
   K  3x3/s2 max pool with -128 padding  [112, 112, 64] -> [56, 3584]
 
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
 the reference's (``max_abs <= 0.5``, finite). A, B, C and D run on
-``probe_common.cuh``'s Hopper ``stage_kernel``; ``probe_stem.first`` runs
-its first form.
+``probe_common.cuh``'s Hopper ``stage_kernel``, E on
+``int_dot_hopper_kernel``; ``probe_stem.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_stem_patterns [--device cpu]
 """
@@ -23,6 +23,7 @@ its first form.
 from __future__ import annotations
 
 import sys
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -110,7 +111,26 @@ WINDOWS = {
     "D": (Window(0, 920, 8, 128, 16, 8), False),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_stem.first)
-FIRST_FORMS = tuple(WINDOWS)
+FIRST_FORMS = (*WINDOWS, "E")
+
+# E's Hopper form (csrc/probe_stem.cu: int_dot_hopper_kernel)
+EM, EK, EN = 12544, 256, 64
+ID_ROWS = 64                 # rows of a and out a block
+ID_BOX = ID_ROWS * 128       # an a box (a K half) and a half of b^T: 8 KB
+ID_SMEM = 1024 + 4 * ID_BOX + 8   # aligning room; a and b^T, two boxes each; the mbarrier
+
+
+def int_dot_plan() -> List[range]:
+    """``int_dot_hopper_kernel``'s grid: the rows of a and out each block
+    owns."""
+    return [range(m0, min(m0 + ID_ROWS, EM)) for m0 in range(0, EM, ID_ROWS)]
+
+
+def int_dot_launch() -> Tuple[int, ...]:
+    """(grid, threads, rows a block, bytes of an a box, bytes of shared
+    memory, bytes the mbarrier counts): what the C side's
+    ``dlq_probe_stem_int_plan`` reports."""
+    return (len(int_dot_plan()), 128, ID_ROWS, ID_BOX, ID_SMEM, 2 * ID_BOX)
 
 probe_stem = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs   # the reference's check

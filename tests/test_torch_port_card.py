@@ -623,8 +623,9 @@ def _probe_mods():
 @pytest.mark.gpu
 def test_probe_hopper_forms_equal_first_forms_on_card():
     """The redesigned probe patterns (K19 6 and K20 D on attention_kernel,
-    K20 B on nn_dot_hopper_kernel, K21 D on double_conv_cluster_kernel, the
-    12 copy patterns on stage_kernel) on their Hopper forms equal to
+    K19 3 and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel,
+    K21 D on double_conv_cluster_kernel, K22 E on int_dot_hopper_kernel,
+    the 12 copy patterns on stage_kernel) on their Hopper forms equal to
     their first forms on every output, the copies also to their plain
     versions; the launches counted by form: the wrapper's launch on
     .launches and .by_form["hopper"], .first on .by_form["first"] only, a
@@ -653,7 +654,7 @@ def test_probe_hopper_forms_equal_first_forms_on_card():
             if key in mod.WINDOWS:
                 assert torch.equal(got, mod.PLAIN[key](*xs)), (name, key)
             n += 1
-    assert n == 16
+    assert n == 19
 
 
 @pytest.mark.gpu
@@ -702,6 +703,62 @@ def test_probe_nn_dot_and_double_conv_hopper_on_card(seed):
         else:
             ok, text, _ = _probe.held(got, ref, mod.SPEC[key])
             assert ok, text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_nt_dot_and_int_dot_hopper_on_card(seed):
+    """K19 3's and K20 A's NT dot (nt_dot_hopper_kernel) and K22 E's int8
+    dot (int_dot_hopper_kernel) on the probes' own inputs (seed 0) and on
+    other draws (seeds 1, 2: the dots' q and k from a normal draw, E's a and
+    b over the whole int8 range, -128 included): each Hopper form equal to
+    its first form on every output, E also to PLAIN["E"], the dots within
+    _probe.held's fp32 limit (1e-4 of max|plain|); each launch counted once
+    on .launches and .by_form["hopper"], .first only on .by_form["first"];
+    200 launches in a row give the same output every time. The C side's
+    launch constants equal the Python mirrors the CPU tests hold
+    (_probe.nt_dot_launch, probe_stem_patterns.int_dot_launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+    from dlq_tpu_torch.tools import probe_batched_dot as PB
+    from dlq_tpu_torch.tools import probe_mosaic_patterns as PM
+    from dlq_tpu_torch.tools import probe_stem_patterns as PS
+
+    dev = torch.device("cuda")
+    dots = ((PM, PM.probe_mosaic, "3", (1, 256, 256)),
+            (PB, PB.probe_batched_dot, "A", (8, 200, 200)))
+    for mod, fn, key, shape in dots:
+        assert _probe.c_plan(mod.SOURCE, "nt_plan", 7) == _probe.nt_dot_launch(*shape)
+    assert _probe.c_plan("probe_stem", "int_plan", 6) == PS.int_dot_launch()
+    rng = np.random.default_rng(seed)
+    cases = []
+    for mod, fn, key, shape in dots + ((PS, PS.probe_stem, "E", None),):
+        if seed == 0:
+            (inputs,) = [xs for k, xs, _ in mod.cases() if k == key]
+        elif key == "E":
+            inputs = (_i8(rng, (12544, 256), lo=-128), _i8(rng, (256, 64), lo=-128))
+        else:
+            inputs = tuple(_probe.bf16(rng.normal(0, 1, shp)) for shp, _ in mod.SPEC[key].ins)
+        cases.append((mod, fn, key, tuple(x.to(dev) for x in inputs)))
+    for mod, fn, key, xs in cases:
+        launches, forms, shapes = fn.launches, dict(fn.by_form), dict(fn.by_shape)
+        got = fn(key, *xs)
+        assert fn.launches == launches + 1 and fn.by_shape[key] == shapes.get(key, 0) + 1
+        assert fn.by_form["hopper"] == forms.get("hopper", 0) + 1
+        first = fn.first(key, *xs)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1 and fn.by_form["first"] == forms.get("first", 0) + 1
+        assert torch.equal(got, first), (key, int((got != first).sum()))
+        ref = mod.PLAIN[key](*xs)
+        if key == "E":
+            assert torch.equal(got, ref), int((got != ref).sum())
+        else:
+            ok, text, _ = _probe.held(got, ref, mod.SPEC[key])
+            assert ok, text
+        outs = [fn(key, *xs) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, got) for o in outs), key
 
 
 # windows beside the probes' own (as tests/test_torch_port_probe_hopper.py

@@ -1,20 +1,31 @@
-"""The Hopper forms of the probes' NN dot (K20 B, ``nn_dot_hopper_kernel``)
-and double conv (K21 D, ``double_conv_cluster_kernel``) on the CPU.
+"""The Hopper forms of the probes' dots and double conv on the CPU: the NT
+dot (K19 3, K20 A, ``nt_dot_hopper_kernel``), the NN dot (K20 B,
+``nn_dot_hopper_kernel``), the int8 dot (K22 E, ``int_dot_hopper_kernel``)
+and the double conv (K21 D, ``double_conv_cluster_kernel``).
 
 Each kernel's walk is emulated in numpy/torch from the kernel's own index
 math: the TMA boxes landed with their swizzle (128-byte: 16-byte chunk c of
 a 128-byte row r at c ^ (r & 7); 64-byte: at c ^ ((r >> 1) & 3)), every
 ldmatrix as the 8-row gathers its lanes address (lanes 8j..8j+7 give matrix
 j's rows), the mma.sync fragments assembled from those matrices, the tile
-plans, and for K21 D the 4 x 4-byte transposes by ``__byte_perm``, the rank
-slices of h and their exchange between the cluster's 8 ranks.
+plans, the 4 x 4-byte transposes by ``__byte_perm`` (K21 D's weight slices,
+K22 E's b), the stores from the fragments, and for K21 D the rank slices of
+h and their exchange between the cluster's 8 ranks.
 
-K20 B: the plan (``probe_batched_dot.nn_dot_plan``) covers every (sample,
-row, column) once, stores no row past 200, and walks the k16 steps 0..12 in
-order; the walk's fp32 sums (each k16 step's 16 exact products added to the
-sum and rounded once, as both emulations take an mma) equal the first
-form's walk on the probe's seed-0 inputs, and both sit within
-``_probe.held``'s limit of the plain version.
+K19 3 and K20 A: the plan (``_probe.nt_dot_plan``, 16 x 32 output tiles)
+covers every (sample, row, column) once at both shapes, and the walk
+stores nothing past M or N;
+its fp32 sums (each k16 step's 16 exact products added to the sum and
+rounded once, as every emulation here takes an mma) equal the first form's
+walk on the probes' seed-0 inputs, and both sit within ``_probe.held``'s
+limit of the plain version. K20 B likewise (``probe_batched_dot.
+nn_dot_plan``, the k16 steps 0..12 in order).
+
+K22 E: the plan (``probe_stem_patterns.int_dot_plan``) covers each of the
+12,544 rows once; b's transpose as the kernel's lanes make it equals b.T
+byte for byte, a warp's 32-bit stores on 32 banks; the int32 sums on the
+transposed copy equal ``PLAIN["E"]`` exactly, and the accumulator's
+stores write each output of a block once.
 
 K21 D: the partition (per-rank channel slices, the transposes, conv1 into
 the rank's slice of h, the bulk copies, conv2 per rank with the skip from
@@ -31,6 +42,8 @@ import torch
 from dlq_tpu_torch.tools import _probe
 from dlq_tpu_torch.tools import probe_batched_dot as PB
 from dlq_tpu_torch.tools import probe_block_patterns as PK
+from dlq_tpu_torch.tools import probe_mosaic_patterns as PM
+from dlq_tpu_torch.tools import probe_stem_patterns as PS
 
 LANES = np.arange(32)
 HI = LANES >> 4
@@ -62,6 +75,21 @@ def _ldsm(rows: np.ndarray) -> np.ndarray:
     """ldmatrix.x4 at the matrix level: the 32 lanes' rows ([..., 32, R])
     as its four 8-row matrices [..., 4, 8, R]."""
     return rows.reshape(rows.shape[:-2] + (4, 8) + rows.shape[-1:])
+
+
+def byte_perm(x: np.ndarray, y: np.ndarray, s: int) -> np.ndarray:
+    """__byte_perm(x, y, s) for selectors of bytes 0..7: byte n of the
+    result is byte (s >> 4n) & 7 of y:x."""
+    xy = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(xy[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def transpose4x4(w):
+    """probe_block.cu's transpose4x4 on uint32 words."""
+    t0, t1 = byte_perm(w[0], w[1], 0x5140), byte_perm(w[2], w[3], 0x5140)
+    t2, t3 = byte_perm(w[0], w[1], 0x7362), byte_perm(w[2], w[3], 0x7362)
+    return [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632), byte_perm(t2, t3, 0x5410),
+            byte_perm(t2, t3, 0x7632)]
 
 
 @pytest.mark.parametrize("span,rows", [(128, 32), (128, 256), (64, 64)])
@@ -192,6 +220,196 @@ def test_nn_dot_hopper_walk_equals_first_walk():
         assert ok, text
 
 
+# ---- K19 3, K20 A ----
+
+NT_SHAPES = {"3": (1, 256, 256), "A": (PB.B, PB.NP, PB.NP)}
+
+
+def _nt_case(key):
+    """The pattern's seed-0 inputs as [batch, rows, 64], its module and its
+    expectation."""
+    mod = PM if key == "3" else PB
+    (q, k), expect = [(xs, e) for kk, xs, e in mod.cases() if kk == key][0]
+    batch = NT_SHAPES[key][0]
+    return mod, q.reshape(batch, -1, 64), k.reshape(batch, -1, 64), expect
+
+
+@pytest.mark.parametrize("key", ["3", "A"])
+def test_nt_dot_plan_covers_outputs_once(key):
+    """K19 3 (8 x 16 = 128 blocks of 16 x 32 outputs) and K20 A (7 x 13 x 8
+    = 728): every (sample, row < M, column < N) owned by one running warp
+    of 16 x 16, every warp whose rows and columns start inside M, N runs,
+    and the launch (which the card tests hold the C side's to) matches."""
+    batch, m, n = NT_SHAPES[key]
+    rows = _probe.NT_ROWS
+    tiles = _probe.nt_dot_plan(batch, m, n)
+    launch = _probe.nt_dot_launch(batch, m, n)
+    assert launch == {"3": (8, 16, 1, 64, 16, 32, 6144), "A": (7, 13, 8, 64, 16, 32, 6144)}[key]
+    assert len(tiles) == launch[0] * launch[1] * batch
+    owned = np.zeros((batch, m, n), np.int64)
+    for t in tiles:
+        assert len(t.warps) == rows // 16 * 2
+        for r0, c0, runs in t.warps:
+            assert t.m0 <= r0 < t.m0 + rows and t.n0 <= c0 < t.n0 + _probe.NT_COLS
+            assert runs == (r0 < m and c0 < n)
+            if runs:
+                owned[t.b, r0:min(r0 + 16, m), c0:min(c0 + 16, n)] += 1
+    assert (owned == 1).all()
+
+
+def _nt_hopper_walk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """nt_dot_hopper_kernel's walk on q [B, M, 64], k [B, N, 64]: per block
+    the q box (16 rows) and k box (32 rows) landed swizzled, zeros past
+    a sample's rows; each running warp's A fragments by ldmatrix from the q
+    box, B fragments by ldmatrix from the k box (key rows, d contiguous),
+    the k16 steps 0..3 in order; each lane's pairs stored from its
+    fragments, rows >= M and columns >= N skipped. Returns fp32 [B, M, N];
+    raises on an output stored twice or never."""
+    batch, m, _ = q.shape
+    n = k.shape[1]
+    rows, cols = _probe.NT_ROWS, _probe.NT_COLS
+    tiles = _probe.nt_dot_plan(batch, m, n)
+    q_pad = torch.zeros(batch, -(-m // rows) * rows, 64, dtype=torch.bfloat16)
+    q_pad[:, :m] = q
+    k_pad = torch.zeros(batch, -(-n // cols) * cols, 64, dtype=torch.bfloat16)
+    k_pad[:, :n] = k
+    qbox = _land(np.stack([q_pad[t.b, t.m0:t.m0 + rows].contiguous().view(torch.uint8)
+                           .reshape(-1).numpy() for t in tiles]), 128)
+    kbox = _land(np.stack([k_pad[t.b, t.n0:t.n0 + cols].contiguous().view(torch.uint8)
+                           .reshape(-1).numpy() for t in tiles]), 128)
+    out = torch.full((batch, m, n), float("nan"))
+    g, t4 = LANES >> 2, LANES & 3
+    for w in range(rows // 16 * 2):
+        wm, wn = w >> 1, w & 1
+        acc = torch.zeros(len(tiles), 16, 16)
+        for kk in range(4):
+            am = _ldsm(_bf16(qbox[:, swz128(16 * wm + (LANES & 15), 2 * kk + HI)[:, None]
+                                  + np.arange(16)]))   # [T, 4, 8, 8]
+            bm = _ldsm(_bf16(kbox[:, swz128(16 * wn + 8 * HI + (LANES & 7),
+                                            2 * kk + ((LANES >> 3) & 1))[:, None]
+                                  + np.arange(16)]))
+            A = torch.from_numpy(np.concatenate([np.concatenate([am[:, 0], am[:, 2]], 2),
+                                                 np.concatenate([am[:, 1], am[:, 3]], 2)], 1))
+            for j in range(2):   # key tile 2 wn + j: its d 0-7 from matrix 2j, 8-15 from 2j + 1
+                Bj = torch.from_numpy(np.concatenate([bm[:, 2 * j], bm[:, 2 * j + 1]], 2))
+                acc[:, :, 8 * j:8 * j + 8] = _mma(acc[:, :, 8 * j:8 * j + 8], A,
+                                                  Bj.transpose(1, 2))
+        for ti, t in enumerate(tiles):
+            if not t.warps[w][2]:
+                continue
+            for hh in range(2):
+                for j in range(2):   # lane (g, t4): row g + 8 hh, columns 8 j + 2 t4, + 1
+                    row = t.m0 + 16 * wm + g + 8 * hh
+                    col = t.n0 + 16 * wn + 8 * j + 2 * t4
+                    keep = (row < m) & (col < n)
+                    for e in range(2):
+                        dst = out[t.b, row[keep], col[keep] + e]
+                        assert bool(dst.isnan().all())
+                        out[t.b, row[keep], col[keep] + e] = acc[ti, (g + 8 * hh)[keep],
+                                                                 (8 * j + 2 * t4 + e)[keep]]
+    assert not bool(out.isnan().any())
+    return out
+
+
+def _nt_first_walk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """nt_dot_kernel's walk: each output's k16 steps 0..3 from fp32 zero
+    (the blocks' and warps' split does not enter a sum)."""
+    acc = torch.zeros(q.shape[0], q.shape[1], k.shape[1])
+    for ks in range(4):
+        acc = _mma(acc, q[..., 16 * ks:16 * ks + 16], k[..., 16 * ks:16 * ks + 16].transpose(1, 2))
+    return acc
+
+
+@pytest.mark.parametrize("key", ["3", "A"])
+def test_nt_dot_hopper_walk_equals_first_walk(key):
+    """K19 3 and K20 A on the probes' seed-0 inputs: the Hopper walk equal to
+    the first form's on every output, both within _probe.held's fp32 limit
+    of the plain version and the reference's check against its
+    expectation."""
+    mod, q, k, expect = _nt_case(key)
+    hop, first = _nt_hopper_walk(q, k), _nt_first_walk(q, k)
+    assert torch.equal(hop, first)
+    shape = mod.SPEC[key].out[0]
+    plain = mod.PLAIN[key](q.reshape(mod.SPEC[key].ins[0][0]), k.reshape(mod.SPEC[key].ins[1][0]))
+    for got in (hop.reshape(shape), first.reshape(shape)):
+        ok, text, _ = _probe.held(got, plain, mod.SPEC[key])
+        assert ok, text
+        ok, text = mod.CHECK(got, expect, mod.SPEC[key].atol)
+        assert ok, text
+
+
+# ---- K22 E ----
+
+def test_int_dot_plan_covers_rows_once():
+    """196 blocks of 64 rows: each of the 12,544 rows of a and out owned by
+    one block; the shared memory (aligning room, the a tile, b^T, the
+    mbarrier) fits two blocks on an SM; the launch (which the card tests
+    hold the C side's to) as the kernel's notes give it."""
+    plan = PS.int_dot_plan()
+    assert PS.int_dot_launch() == (196, 128, 64, 8192, 33800, 16384)
+    rows = np.concatenate([np.asarray(r) for r in plan])
+    assert np.array_equal(np.sort(rows), np.arange(PS.EM)) and len(rows) == PS.EM
+    assert 2 * PS.ID_SMEM <= _probe.SMEM_MAX
+
+
+def _int_dot_bt(b: np.ndarray) -> np.ndarray:
+    """int_dot_hopper_kernel's b^T fill on b [256][64] int8: warp w, its K
+    half w & 1 and pieces w >> 1 and 2 + (w >> 1) of 16 columns, lane = K
+    quad kb & 31; each lane's 4 rows' 16 bytes as 4 little-endian words,
+    transpose4x4 per 4-column block, 32-bit stores at [K half][n][128]
+    with the 128-byte swizzle. Returns the 16 KB (-1: never stored); raises
+    on a byte stored twice or on a warp's store off 32 distinct banks."""
+    bt = np.full(2 * PS.ID_BOX, -1, np.int64)
+    bu = b.astype(np.uint8).astype(np.int64)
+    for warp in range(4):
+        h = warp & 1
+        kb = 32 * h + LANES
+        for it in range(2):
+            piece = 2 * it + (warp >> 1)
+            words = [(bu[4 * kb + i, 16 * piece:16 * piece + 16].reshape(32, 4, 4)
+                      << (8 * np.arange(4))).sum(-1) for i in range(4)]   # [lane][q] each
+            for q in range(4):
+                wt = transpose4x4([words[i][:, q] for i in range(4)])
+                for j in range(4):
+                    addr = h * PS.ID_BOX + swz128(16 * piece + 4 * q + j, LANES >> 2) \
+                        + 4 * (LANES & 3)
+                    assert len(set((addr // 4 % 32).tolist())) == 32
+                    for by in range(4):
+                        assert (bt[addr + by] == -1).all()
+                        bt[addr + by] = (wt[j] >> (8 * by)) & 0xFF
+    return bt
+
+
+def test_int_dot_transpose_and_sums_equal_plain():
+    """K22 E on the probe's seed-0 inputs: b^T as the kernel's lanes store
+    it, read back through the swizzled layout wgmma's descriptors read,
+    equals b.T byte for byte; the int32 sums of a and that copy equal
+    PLAIN["E"] exactly; the accumulator's pairs, stored by the kernel's
+    8-byte stores, write each output of a block's 64 rows once."""
+    (a, b), expect = [(xs, e) for k, xs, e in PS.cases() if k == "E"][0]
+    bt = _int_dot_bt(b.numpy())
+    assert (bt >= 0).all()
+    n, kk = np.meshgrid(np.arange(PS.EN), np.arange(PS.EK), indexing="ij")
+    logical = bt[(kk >> 7) * PS.ID_BOX + swz128(n, (kk & 127) >> 4) + (kk & 15)]   # [n][k]
+    b_t = logical.astype(np.uint8).view(np.int8)
+    assert np.array_equal(b_t, b.numpy().T)
+    sums = a.double() @ torch.from_numpy(b_t.T.astype(np.float64))
+    plain = PS.PLAIN["E"](a, b)
+    assert torch.equal(sums.to(torch.int32), plain)
+    ok, text = PS.CHECK(plain, expect, PS.SPEC["E"].atol)
+    assert ok, text
+    # acc[4 j + q] of thread 32 w + 4 g + t: row 16 w + g + 8 (q >> 1), column
+    # 8 j + 2 t + (q & 1); pair (q, q + 1) at q = 2 hh, one 8-byte store
+    stored = np.zeros((PS.ID_ROWS, PS.EN), np.int64)
+    g, t4 = LANES >> 2, LANES & 3
+    for w in range(4):
+        for j in range(8):
+            for hh in range(2):
+                for e in range(2):
+                    np.add.at(stored, (16 * w + g + 8 * hh, 8 * j + 2 * t4 + e), 1)
+    assert (stored == 1).all()
+
+
 # ---- K21 D ----
 
 TOH, OW, C = PK.TOH, PK.OW, PK.C
@@ -199,21 +417,6 @@ SH, SW, H1, W1 = TOH + 4, OW + 4, TOH + 2, OW + 2
 M1 = H1 * W1
 CS, LDB, R = PK.D_CS, PK.D_LDB, PK.D_RANKS
 TAPB, HSL = CS * LDB, PK.D_HSLICE
-
-
-def byte_perm(x: np.ndarray, y: np.ndarray, s: int) -> np.ndarray:
-    """__byte_perm(x, y, s) for selectors of bytes 0..7: byte n of the
-    result is byte (s >> 4n) & 7 of y:x."""
-    xy = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
-    return sum(xy[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
-
-
-def transpose4x4(w):
-    """probe_block.cu's transpose4x4 on uint32 words."""
-    t0, t1 = byte_perm(w[0], w[1], 0x5140), byte_perm(w[2], w[3], 0x5140)
-    t2, t3 = byte_perm(w[0], w[1], 0x7362), byte_perm(w[2], w[3], 0x7362)
-    return [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632), byte_perm(t2, t3, 0x5410),
-            byte_perm(t2, t3, 0x7632)]
 
 
 def _transposed(w: np.ndarray, rank: int) -> np.ndarray:
