@@ -80,9 +80,10 @@ Phases, one JSON line each:
      K13_REL), with a bf16 torch.matmul on the dequantized weights as the
      yardstick, K11 and K12 also against their first forms (W4A16_TOL) and
      timed as device time beside them, with the form their launch took;
-     then 4,000 launches each of K3, K5, K7, K8, K9, K11, K12 and K14 (the
-     kernels whose producer gives registers to its consumers by setmaxnreg)
-     at their block-path shape (K3 at [256, 28, 28, 128]), the last result equal to the first, each
+     then 4,000 launches each of K1-K5 and K7-K15 (the kernels whose
+     producer gives registers to its consumers by setmaxnreg) at a
+     main-path shape, K5, K7 and K14 also at their loose pads, every
+     launch's output equal to the first's (counted on the device), each
      with its register split and ptxas report; then digests of K5's and
      K11's outputs over their forms on seeded inputs, equal to the digests
      of the sources before K8 and K14 shared their Hopper bodies
@@ -150,18 +151,26 @@ Phases, one JSON line each:
      pattern timed on a spinning card (device time of back-to-back
      launches: the kernels are microseconds long, shorter than their
      wrappers' host cost) beside the plain version, the bound and the one
-     PyTorch call where one computes the same function; the 19 patterns on
+     PyTorch call where one computes the same function; the 21 patterns on
      a redesigned Hopper form (K19 6 and K20 D on attention_kernel, K19 3
      and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel, K21
      D on double_conv_cluster_kernel, a cluster of 8 blocks, K22 E on
-     int_dot_hopper_kernel, the 12 copy patterns on stage_kernel) must
-     launch that form, and equal their first forms on every output (each
-     module's FIRST_FORMS: launches by form 5 for probe_mosaic, 4 for
-     probe_batched_dot, 5 for probe_block, 5 for probe_stem); each is timed
-     in turns with its first form (first, Hopper, Hopper, first), beside
-     launch_floor_ms, one empty kernel's device time under the same timing.
-Each main path is driven with every launch count set to 0 just before it
-and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
+     int_dot_hopper_kernel, K22 J on cols_kernel, K22 K on maxpool_kernel,
+     the 12 copy patterns on stage_kernel) must launch that form, and equal
+     their first forms on every output (each module's FIRST_FORMS: launches
+     by form 5 for probe_mosaic, 4 for probe_batched_dot, 5 for
+     probe_block, 7 for probe_stem); each is timed in turns with its first
+     form (first, Hopper, Hopper, first), beside launch_floor_ms, one empty
+     kernel's device time under the same timing; each pattern with a
+     library call is timed in ten alternating pairs with it (five rounds
+     of kernel, library, library, kernel), with the pairs' median ratio
+     and the pairs the kernel lost.
+Each timed forward of ResNet-18/-50 (fused2, PallasBlockCtx) and of
+DeiT-Tiny's block paths (W8A8 with and without int8 attention, W4A8,
+W4A16, bf16 at both pads) runs SPLIT_REPEATS more times at batch 256, every
+run's logits equal to the first's (counted on the device; a race differs in
+some run). Each main path is driven with every launch count set to 0 just
+before it and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
 form, and on every path every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16,
 mhsa_f32 and K18 launch (the per-form counts are printed per path). Then
@@ -1723,20 +1732,28 @@ def check_groupwise_routes(dev):
 
 # ---------------------------------------------------------------------------
 # phases 3-5: the main paths
-# the kernels whose producer warpgroup gives registers to its two consumer
+# the kernels whose producer warpgroup gives registers to its consumer
 # warpgroups by setmaxnreg, as their sources set the split (producer,
 # consumer registers a thread), and the mark of their Hopper kernels' names
-# in the ptxas report: K3 (csrc/basic_block.cu), K5 and K8
-# (csrc/vit_pre_iw.cuh), K7 and K9 (csrc/vit_post_iw.cuh), K11 and K14
-# (csrc/vit_pre_hw.cuh), K12 (csrc/vit_post_hw.cuh)
-SPLIT_KERNELS = {"basic_block": (40, 232, "basic_hopper_kernel"),
+# in the ptxas report: K1 and K2 (csrc/i8gemm.cuh), K3
+# (csrc/basic_block.cu), K4 (csrc/bottleneck_block.cu), K5 and K8
+# (csrc/vit_pre_iw.cuh), K7 and K9 (csrc/vit_post_iw.cuh), K10 and K13
+# (csrc/w4gemm.cuh), K11 and K14 (csrc/vit_pre_hw.cuh), K12 and K15
+# (csrc/vit_post_hw.cuh)
+SPLIT_KERNELS = {"conv_int8": (40, 232, "i8_kernel"),
+                 "matmul_int8": (40, 232, "i8_kernel"),
+                 "basic_block": (40, 232, "basic_hopper_kernel"),
+                 "bottleneck_block": (40, 232, "bottleneck_hopper_kernel"),
                  "vit_pre_w8": (40, 232, "pre_iw6kernel"),
                  "vit_pre_w4a8": (40, 232, "pre_iw6kernel"),
                  "vit_post_w8": (40, 232, "post_iw6kernel"),
                  "vit_post_w4a8": (88, 208, "post_iw6kernel"),
+                 "matmul_int4a8": (56, 224, "gemm_kernel"),
                  "vit_pre_w4": (88, 208, "pre_hw6kernel"),
+                 "vit_post_w4": (88, 208, "post_hw6kernel"),
+                 "matmul_int4": (56, 224, "gemm_kernel"),
                  "vit_pre_bf16": (40, 232, "pre_hw6kernel"),
-                 "vit_post_w4": (88, 208, "post_hw6kernel")}
+                 "vit_post_bf16": (40, 232, "post_hw6kernel")}
 STRESS_LAUNCHES = 4000
 
 
@@ -1794,20 +1811,79 @@ def first_form(module, name: str, first, on: bool = True):
         setattr(module, name, keep)
 
 
+def repeat_differing(fn, first, runs: int) -> int:
+    """``runs`` more calls of ``fn()``, each output compared with ``first``
+    on the device: the number of calls whose output differs anywhere, counted
+    in a device int32 and read after one synchronize."""
+    differ = torch.zeros((), dtype=torch.int32, device=first.device)
+    for _ in range(runs):
+        differ += torch.ne(fn(), first).any()
+    return int(differ)   # synchronizes: a fault in any launch raises here
+
+
+REPEATS = {}   # served path -> its repeat_forward reading
+
+
+def repeat_forward(path: str, fn) -> None:
+    """The served forward ``fn()`` (logits of a resident batch) run
+    SPLIT_REPEATS more times, each run's logits compared with the first's on
+    the device (repeat_differing): a kernel that races differs in some run.
+    Records and prints the runs that differ and the seconds; check_repeats
+    gates them."""
+    with torch.inference_mode():
+        first = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        differ = repeat_differing(fn, first, SPLIT_REPEATS)
+    REPEATS[path] = {"repeats": SPLIT_REPEATS, "runs_differing": differ,
+                     "seconds": time.perf_counter() - t0}
+    emit({"phase": "repeat_forward", "path": path, **REPEATS[path]})
+
+
+def check_repeats() -> None:
+    """Every served forward that repeat_forward ran: no run differs from
+    its first."""
+    want = {"r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_block",
+            "deit_block_attn_int8", "deit_block_w4a8", "deit_block_w4", "deit_bf16_loose",
+            "deit_bf16_tight"}
+    differ = {k: v["runs_differing"] for k, v in REPEATS.items() if v["runs_differing"]}
+    emit({"phase": "repeat_forwards", "paths": len(REPEATS), "repeats": SPLIT_REPEATS,
+          "runs_differing": {k: v["runs_differing"] for k, v in REPEATS.items()},
+          "seconds": sum(v["seconds"] for v in REPEATS.values())})
+    if set(REPEATS) != want:
+        raise AssertionError(f"repeat_forwards: paths {sorted(REPEATS)}, expected {sorted(want)}")
+    if differ:
+        raise AssertionError(f"repeat_forwards: runs differing from the first of "
+                             f"{SPLIT_REPEATS} each: {differ}")
+
+
 def stress_split_kernels(dev):
-    """STRESS_LAUNCHES launches each of the SPLIT_KERNELS at their DeiT-Tiny
-    block-path shape ([256, 200, 192] bf16 -> bf16; K3 at ResNet-18's
-    [256, 28, 28, 128]), then one synchronize: a producer that keeps fewer
-    registers than its code uses faults only now and then (K12's at 56,
-    PERF.md). The last result must equal the first bit for bit (the kernels
-    are deterministic); each kernel's line carries its register split and
-    its ptxas report."""
-    from dlq_tpu_torch.ops.block_fused import basic_block_fused
-    from dlq_tpu_torch.ops.conv_int8 import pack_conv_weight
+    """STRESS_LAUNCHES launches each of the SPLIT_KERNELS at a main-path
+    shape: DeiT-Tiny's block path at [256, 200, 192] bf16 -> bf16 (K5, K7,
+    K8, K9, K11, K12, K14, K15), K5 and K7 also at the split forward's loose
+    [64, 256, 256] and K14 at the bf16 forward's loose [256, 256, 256]; K1
+    at ResNet's 56x56x64 3x3/s1 conv, K2 at ResNet-50 layer1's 802816x64 @
+    64x256, K3 at [256, 28, 28, 128], K4 at layer1's 56x56x256 mid 64
+    (weights resident), K10 at the deploy path's fc1 (50432x192 @ 192x768)
+    and K13 at its G128 fc2 (50432x768 @ 768x192, the group-wise site K13
+    serves). Every launch's output is compared with the first's on the
+    device (repeat_differing; the kernels are deterministic): a producer
+    that keeps fewer registers than its code uses faults only now and then
+    (K12's at 56, PERF.md), and a race (K5's y stages did) differs in
+    some launch. Gate: no launch differs. Each case's line carries the
+    differing count, its seconds, its register split, the form its launch
+    took and its library's ptxas report."""
+    from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
+    from dlq_tpu_torch.ops.conv_int8 import conv_int8, pack_conv_weight
+    from dlq_tpu_torch.ops.matmul_int4 import matmul_int4, pack_int4_weight
+    from dlq_tpu_torch.ops.matmul_int4a8 import matmul_int4a8, pack_int4a8_weight
+    from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
     from dlq_tpu_torch.ops.vit_block import (
-        vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8, vit_block_pre_bf16,
-        vit_block_pre_w4, vit_block_pre_w4a8, vit_block_pre_w8,
+        vit_block_post_bf16, vit_block_post_w4, vit_block_post_w4a8, vit_block_post_w8,
+        vit_block_pre_bf16, vit_block_pre_w4, vit_block_pre_w4a8, vit_block_pre_w8,
     )
+    from dlq_tpu_torch.quant.qconfig import INT4_WEIGHT_ONLY_G128, INT4A8_PER_CHANNEL
+    from dlq_tpu_torch.quant.quantize import quantize_tensor
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     d, bf = VIT_DP, torch.bfloat16
@@ -1815,40 +1891,110 @@ def stress_split_kernels(dev):
     a = torch.randn((BATCH, VIT_NP, d), generator=gen, device=dev).to(bf)
     w8, w4a8, w4 = _vit_layer(gen, dev), _w4a8_layer(gen, dev), _w4a16_layer(gen, dev)
     wbf = _bf16_layer(gen, dev, d)
+    # the loose pads: the split forward's [64, 256, 256] and the bf16 forward's [256, 256, 256]
+    lp, ld = VIT_NP_LOOSE, VIT_DP_LOOSE
+    ys = torch.randn((TOTALS_BATCH, lp, ld), generator=gen, device=dev).to(bf)
+    as_ = torch.randn((TOTALS_BATCH, lp, ld), generator=gen, device=dev).to(bf)
+    yl = torch.randn((BATCH, lp, ld), generator=gen, device=dev).to(bf)
+    w8l, wbfl = _vit_layer(gen, dev, ld), _bf16_layer(gen, dev, ld)
     xb = _rand_int8(gen, (BATCH, 28, 28, 128), dev, lo=0)
     bpack = {"w1": pack_conv_weight(_rand_int8(gen, (3, 3, 128, 128), dev)),
              "w2": pack_conv_weight(_rand_int8(gen, (3, 3, 128, 128), dev)),
              "inv": (float(np.float32(800.0)), float(np.float32(800.0)), float(np.float32(0.7)))}
     for i in (1, 2):
         bpack[f"s{i}"], bpack[f"b{i}"], _ = _epi_params(gen, 128, 9 * 128, dev)
-    fns = {"basic_block": lambda: basic_block_fused(xb, bpack),
-           "vit_pre_w8": lambda: vit_block_pre_w8(y, w8, d),
-           "vit_pre_w4a8": lambda: vit_block_pre_w4a8(y, w4a8, d),
-           "vit_post_w8": lambda: vit_block_post_w8(y, a, w8, d, True, bf, True),
-           "vit_post_w4a8": lambda: vit_block_post_w4a8(y, a, w4a8, d),
-           "vit_pre_w4": lambda: vit_block_pre_w4(y, w4, d),
-           "vit_pre_bf16": lambda: vit_block_pre_bf16(y, wbf, d),
-           "vit_post_w4": lambda: vit_block_post_w4(y, a, w4, d)}
-    out = {}
-    for name, fn in fns.items():
+    # K1: 56x56x64 -> 64 3x3/s1, relu, int8 out (ResNet layer1)
+    xc = _rand_int8(gen, (BATCH, 56, 56, 64), dev)
+    wc = pack_conv_weight(_rand_int8(gen, (3, 3, 64, 64), dev))
+    sc1, bc1, oc1 = _epi_params(gen, 64, 9 * 64, dev)
+    # K2: ResNet-50 layer1's 1x1 conv3, 802816x64 @ 64x256, int8 out
+    xm = _rand_int8(gen, (BATCH * 56 * 56, 64), dev)
+    wm = pack_dense_weight(_rand_int8(gen, (64, 256), dev))
+    sm2, bm2, om2 = _epi_params(gen, 256, 64, dev)
+    # K4: layer1, 56x56x256 mid 64
+    x4 = _rand_int8(gen, (BATCH, 56, 56, 256), dev, lo=0)
+    inv = float(np.float32(40.0 / 0.05))
+    p4 = {"inv": (inv, inv, inv, float(np.float32(0.7)))}
+    for i, (k, c, oc) in enumerate(((1, 256, 64), (3, 64, 64), (1, 64, 256)), 1):
+        p4[f"w{i}"] = pack_conv_weight(_rand_int8(gen, (k, k, c, oc), dev))
+        p4[f"s{i}"], p4[f"b{i}"], _ = _epi_params(gen, oc, k * k * c, dev)
+    # K10: the W4A8 deploy path's fc1, 256 x 197 rows, 192 -> 768
+    x10 = _rand_int8(gen, (BATCH * VIT_N, 192), dev)
+    w10 = pack_int4a8_weight(quantize_tensor(torch.randn((192, 768), generator=gen, device=dev),
+                                             INT4A8_PER_CHANNEL.weights))
+    s10, b10, _ = _epi_params(gen, 768, 192, dev)
+    s10 = s10 * 16.0
+    # K13: the G128 deploy path's fc2, 256 x 197 rows, 768 -> 192
+    x13 = torch.randn((BATCH * VIT_N, 768), generator=gen, device=dev).to(bf)
+    w13 = pack_int4_weight(quantize_tensor(0.02 * torch.randn((768, 192), generator=gen, device=dev),
+                                           INT4_WEIGHT_ONLY_G128.weights))
+    b13 = (0.02 * torch.randn(192, generator=gen, device=dev)).contiguous()
+    # (label, wrapper, library, call, shape)
+    tight = f"{BATCH}x{VIT_NP}x{d} bf16"
+    cases = [
+        ("conv_int8", conv_int8, "conv_int8",
+         lambda: conv_int8(xc, wc, 1, 1, sc1, bc1, True, oc1), f"{BATCH}x56x56x64->64 3x3/s1"),
+        ("matmul_int8", matmul_int8, "matmul_int8",
+         lambda: matmul_int8(xm, wm, sm2, bm2, False, om2), f"{BATCH * 56 * 56}x64@64x256"),
+        ("basic_block", basic_block_fused, "basic_block",
+         lambda: basic_block_fused(xb, bpack), f"{BATCH}x28x28x128"),
+        ("bottleneck_block", bottleneck_block_fused, "bottleneck_block",
+         lambda: bottleneck_block_fused(x4, p4), f"{BATCH}x56x56x256 mid 64"),
+        ("vit_pre_w8", vit_block_pre_w8, "vit_pre_w8", lambda: vit_block_pre_w8(y, w8, d), tight),
+        ("vit_pre_w8_loose", vit_block_pre_w8, "vit_pre_w8",
+         lambda: vit_block_pre_w8(ys, w8l, d), f"{TOTALS_BATCH}x{lp}x{ld} bf16"),
+        ("vit_pre_w4a8", vit_block_pre_w4a8, "vit_pre_w4a8",
+         lambda: vit_block_pre_w4a8(y, w4a8, d), tight),
+        ("vit_post_w8", vit_block_post_w8, "vit_post_w8",
+         lambda: vit_block_post_w8(y, a, w8, d, True, bf, True), tight),
+        ("vit_post_w8_loose", vit_block_post_w8, "vit_post_w8",
+         lambda: vit_block_post_w8(ys, as_, w8l, d), f"{TOTALS_BATCH}x{lp}x{ld} bf16"),
+        ("vit_post_w4a8", vit_block_post_w4a8, "vit_post_w4a8",
+         lambda: vit_block_post_w4a8(y, a, w4a8, d), tight),
+        ("matmul_int4a8", matmul_int4a8, "matmul_int4a8",
+         lambda: matmul_int4a8(x10, w10, s10, b10, False), f"{BATCH * VIT_N}x192@192x768 int4"),
+        ("vit_pre_w4", vit_block_pre_w4, "vit_pre_w4", lambda: vit_block_pre_w4(y, w4, d), tight),
+        ("vit_post_w4", vit_block_post_w4, "vit_post_w4",
+         lambda: vit_block_post_w4(y, a, w4, d), tight),
+        ("matmul_int4", matmul_int4, "matmul_int4",
+         lambda: matmul_int4(x13, w13, b13, False), f"{BATCH * VIT_N}x768@768x192 int4 g128"),
+        ("vit_pre_bf16", vit_block_pre_bf16, "vit_pre_bf16",
+         lambda: vit_block_pre_bf16(y, wbf, d), tight),
+        ("vit_pre_bf16_loose", vit_block_pre_bf16, "vit_pre_bf16",
+         lambda: vit_block_pre_bf16(yl, wbfl, d), f"{BATCH}x{lp}x{ld} bf16"),
+        ("vit_post_bf16", vit_block_post_bf16, "vit_post_bf16",
+         lambda: vit_block_post_bf16(y, a, wbf, d), tight),
+    ]
+    if {lib for _, _, lib, _, _ in cases} != set(SPLIT_KERNELS):
+        raise AssertionError("setmaxnreg_stress: its cases do not cover SPLIT_KERNELS")
+    out, bad, t_all = {}, {}, time.perf_counter()
+    for label, wrapper, lib, fn, shape in cases:
+        forms = getattr(wrapper, "by_form", None)
+        if forms is not None:
+            forms.clear()
         first = fn()
+        form = None if forms is None else dict(forms)
+        if form is not None and form != {"hopper": 1}:
+            raise AssertionError(f"setmaxnreg_stress {label}: launch took {form}, not the "
+                                 f"Hopper (split) form")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STRESS_LAUNCHES - 1):
-            last = fn()
-        torch.cuda.synchronize()
+        differ = repeat_differing(fn, first, STRESS_LAUNCHES - 1)
         secs = time.perf_counter() - t0
-        if not torch.equal(last, first):
-            raise AssertionError(f"{name}: launch {STRESS_LAUNCHES} differs from the first at "
-                                 f"{int((last != first).sum())} outputs")
-        producer, consumer, mark = SPLIT_KERNELS[name]
-        out[name] = {"launches": STRESS_LAUNCHES, "last_equals_first": True, "seconds": secs,
-                     "producer_registers": producer, "consumer_registers": consumer,
-                     "ptxas": ptxas_report(name, mark)}
-        del first, last
-    emit({"phase": "setmaxnreg_stress", "shape": f"{BATCH}x{VIT_NP}x{d} bf16 -> bf16; "
-                                                  f"basic_block {BATCH}x28x28x128 int8",
-          "kernels": out})
+        producer, consumer, mark = SPLIT_KERNELS[lib]
+        out[label] = {"shape": shape, "launches": STRESS_LAUNCHES,
+                      "launches_differing_from_first": differ, "seconds": secs, "form": form,
+                      "producer_registers": producer, "consumer_registers": consumer,
+                      "ptxas": ptxas_report(lib, mark)}
+        if differ:
+            bad[label] = differ
+        del first
+    emit({"phase": "setmaxnreg_stress", "kernels": out, "cases": len(out),
+          "libraries": len(SPLIT_KERNELS), "launches_differing": bad,
+          "seconds": time.perf_counter() - t_all})
+    if bad:
+        raise AssertionError(f"setmaxnreg_stress: launches differing from the first of "
+                             f"{STRESS_LAUNCHES}: {bad}")
 
 
 def check_pre_digests(dev):
@@ -2141,6 +2287,7 @@ def main_paths(dev, card, depth, images):
                                      int8_stages, f"{model} fused2")
         xt = torch.from_numpy(x0).to(dev)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward(path, lambda: eng._fn(eng.params, xt))
         # the 224 px stem alone (bf16 conv, int8 requant, int8 maxpool): no kernel of this port
         with torch.inference_mode():
             stem_ms = time_ms(lambda: eng.params.maxpool(
@@ -2193,6 +2340,7 @@ def main_paths(dev, card, depth, images):
                                     int8_stages, f"{model} PallasBlockCtx")
         del taps_b, taps_f2
         ms_b = time_ms(lambda: blk._fn(blk.params, xt), iters=10)
+        repeat_forward(path, lambda: blk._fn(blk.params, xt))
         turns = None
         if depth == 18:
             # the same forward with K3 on its first form (the parent's kernel,
@@ -2318,6 +2466,7 @@ def deit_paths(dev, card, d, images):
                      top1=False)[1]
         per_layer = layer_contract(eng.params, xt, cfg)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward("deit_block", lambda: eng._fn(eng.params, xt))
         # the bound of the reference's one launch per chunk, as its I/O
         # defines it: the bf16 stream in and out once per chunk, the int8
         # weights once, every int8 GEMM and the bf16 attention products over
@@ -2430,6 +2579,7 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
         with first_form(vit_block, "mhsa_i8", mhsa_i8_first, tag.endswith("first_form")):
             ab.setdefault(tag, []).append(time_ms(lambda: e._fn(e.params, xt), iters=10))
     ms = min(ab["int8_attention"])
+    repeat_forward("deit_block_attn_int8", lambda: eng._fn(eng.params, xt))
     w_bytes = VIT_DP * 3 * VIT_DP + VIT_DP * VIT_DP + 2 * VIT_DP * VIT_HP
     t_ops = cfg.depth * (2.0 * BATCH * VIT_NP * w_bytes
                          + 4.0 * BATCH * VIT_HEADS * VIT_NP * VIT_N * VIT_HD) / PEAK_INT8_OPS
@@ -2486,13 +2636,11 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
         raise AssertionError("deit_tiny split bf16 arm: logits differ from vit_forward_blockfused_w8")
     # both forwards again, SPLIT_REPEATS times each: a kernel that races
     # (K5's y stages did: now and then one token row) differs in some run
-    differ = {"split": 0, "fused": 0}
     with torch.inference_mode():
-        for _ in range(SPLIT_REPEATS):
-            differ["split"] += not torch.equal(
-                vit_forward_blockfused_w8_split(loose, xt64, cfg, attn="bf16").float(), fused)
-            differ["fused"] += not torch.equal(vit_forward_blockfused_w8(loose, xt64, cfg).float(),
-                                               fused)
+        differ = {"split": repeat_differing(lambda: vit_forward_blockfused_w8_split(
+                      loose, xt64, cfg, attn="bf16").float(), fused, SPLIT_REPEATS),
+                  "fused": repeat_differing(lambda: vit_forward_blockfused_w8(
+                      loose, xt64, cfg).float(), fused, SPLIT_REPEATS)}
     if any(differ.values()):
         raise AssertionError(f"deit_tiny split bf16 / blockfused_w8: runs differing from the first "
                              f"of {SPLIT_REPEATS} each: {differ}")
@@ -2570,6 +2718,7 @@ def deit_w4a8_paths(dev, card, d, act_scales, images):
                      top1=False)[1]
         per_layer = layer_contract(eng.params, xt, cfg)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward("deit_block_w4a8", lambda: eng._fn(eng.params, xt))
         emit({"phase": "main_path_deit_block_w4a8", "model": "deit_tiny", "size": 224,
               "batch": BATCH, "batches": NB, "scheme": "INT4A8_PER_CHANNEL", "engine": eng.name,
               "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
@@ -2691,6 +2840,7 @@ def deit_w4a16_paths(dev, card, d, images):
                      top1=False)[1]
         per_layer = layer_contract(eng.params, xt, cfg)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward("deit_block_w4", lambda: eng._fn(eng.params, xt))
         emit({"phase": "main_path_deit_block_w4", "model": "deit_tiny", "size": 224,
               "batch": BATCH, "batches": NB, "scheme": "INT4_WEIGHT_ONLY_PER_OC",
               "engine": eng.name, "img_per_s_classify": eng.stats.images_per_sec,
@@ -2782,6 +2932,7 @@ def deit_bf16_paths(dev, card, d, act_scales, images):
                      top1=False)[1]
         per_layer = layer_contract(eng.params, xt, cfg, tight=tight)
         ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward(path, lambda: eng._fn(eng.params, xt))
         emit({"phase": f"main_path_deit_bf16_{tag}", "model": "deit_tiny", "size": 224,
               "batch": BATCH, "batches": NB, "pads": "/".join(map(str, vit_pads(cfg, tight))),
               "engine": eng.name, "img_per_s_classify": eng.stats.images_per_sec,
@@ -3045,18 +3196,27 @@ def probe_path():
     return rows, counts
 
 
+LIBRARY_ROUNDS = 5   # rounds of (kernel, library, library, kernel): ten alternating pairs
+
+
 def probe_library_turns(fn, key, lib, xs):
-    """A pattern and its one PyTorch call timed in turns (kernel, library,
-    library, kernel), device time on a spinning card: the two read within
-    one stretch of the card's clocks, where ``ms`` and ``library_ms`` are
-    read apart."""
+    """A pattern and its one PyTorch call timed in turns, LIBRARY_ROUNDS
+    rounds of (kernel, library, library, kernel), device time on a spinning
+    card: ten alternating pairs (each round's kernel-library and
+    library-kernel), each read within one stretch of the card's clocks,
+    where ``ms`` and ``library_ms`` are read apart. Returns the times, each
+    pair's kernel / library ratio, their median and the pairs the kernel
+    lost (slower than the library call)."""
     from dlq_tpu_torch.tools._probe import spun_ms
 
     calls = {"kernel": lambda: fn(key, *xs), "library": lambda: lib(*xs)}
     times = {"kernel": [], "library": []}
-    for tag in ("kernel", "library", "library", "kernel"):
-        times[tag].append(spun_ms(calls[tag], 20, warmup=2, reps=3))
-    return times
+    for _ in range(LIBRARY_ROUNDS):
+        for tag in ("kernel", "library", "library", "kernel"):
+            times[tag].append(spun_ms(calls[tag], 20, warmup=2, reps=3))
+    ratios = [k / b for k, b in zip(times["kernel"], times["library"])]
+    return {**times, "ratios": ratios, "median_ratio": float(np.median(ratios)),
+            "pairs": len(ratios), "pairs_kernel_lost": sum(r > 1.0 for r in ratios)}
 
 
 def probe_first_form(fn, key, xs):
@@ -3261,6 +3421,7 @@ def main() -> int:
     paths.update(deit_w4a16_paths(dev, card, deit, images))
     paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
+    check_repeats()
     probe_rows, probe_counts = probe_path()
     kernels = summary(rows, paths) + probe_summary(probe_rows, probe_counts)
     print(card_line())

@@ -16,18 +16,19 @@
 //          form int_dot_kernel)
 //   5 "J"  the im2col cols build: piece t = (r, a, b), 32 of them, is
 //          merge(x)[a:a+112, 920r + 8b : +896] viewed [12544, 8], written to
-//          lanes 8t..8t+7 of cols [12544, 256] (cols_kernel: 3.2 MB of cols
-//          is no shared-memory scratch, so 64-row tiles are built in shared
-//          memory with 8-byte cp.async granules and written out)
+//          lanes 8t..8t+7 of cols [12544, 256] (cols_kernel, below: no
+//          staging, a thread per 16-byte output granule from two 8-byte
+//          loads; first form cols_first_kernel)
 //   6 "K"  3x3/s2 max pool of [112, 112, 64] int8 with -128 padding ->
-//          [56, 3584] (maxpool_kernel: one block per output row stages its
-//          three input rows, the top halo row -128 for the first, and
-//          takes __vmaxs4 over the 9 taps)
+//          [56, 3584] (maxpool_kernel, below: no staging, a thread per 16
+//          channels of one output pixel, its 9 taps as 16-byte loads; first
+//          form maxpool_first_kernel)
 // Bound: bytes everywhere (E: 0.41 GOP of int8 against 6.4 MB, 1.9 us at
-// 3.35 TB/s); at these sizes launch latency. stage_kernel (probe_common.cuh)
-// and int_dot_hopper_kernel are Hopper forms; dlq_probe_stem_first runs
-// their first forms (stage_first_kernel for A-D, int_dot_kernel for E).
-// cols_kernel and maxpool_kernel have one form each, not redesigned.
+// 3.35 TB/s); at these sizes launch latency. Every pattern runs on a Hopper
+// form: stage_kernel (probe_common.cuh) for A-D, int_dot_hopper_kernel,
+// cols_kernel and maxpool_kernel; dlq_probe_stem_first runs their first
+// forms (stage_first_kernel for A-D, int_dot_kernel, cols_first_kernel,
+// maxpool_first_kernel).
 #include "probe_common.cuh"
 
 namespace {
@@ -184,10 +185,12 @@ inline cudaError_t int_dot_hopper(const int8_t* a, const int8_t* b, int* out, cu
   return cudaGetLastError();
 }
 
+// cols_first_kernel, J's first form: 64-row tiles staged in shared memory by
+// 8-byte cp.async granules, waited for whole, then copied out.
 constexpr int kColRows = 64;   // cols rows per block
 
-__global__ void __launch_bounds__(256) cols_kernel(const int8_t* __restrict__ x,
-                                                   int8_t* __restrict__ cols) {
+__global__ void __launch_bounds__(256) cols_first_kernel(const int8_t* __restrict__ x,
+                                                         int8_t* __restrict__ cols) {
   int8_t* tile = reinterpret_cast<int8_t*>(probe_smem);   // [kColRows][256]
   const int p0 = blockIdx.x * kColRows;
   for (int c = threadIdx.x; c < kColRows * 32; c += 256) {
@@ -205,6 +208,37 @@ __global__ void __launch_bounds__(256) cols_kernel(const int8_t* __restrict__ x,
   for (int c = threadIdx.x; c < kColRows * 256 / 16; c += 256) o[c] = s[c];
 }
 
+// cols_kernel, J's Hopper form. Bound: bytes, cols 3.21 MB out + x 0.21 MB
+// in, 1.022 us at 3.35 TB/s. The first form (cols_first_kernel, 3.62 us,
+// PERF.md) ran load, wait and store in series within each of its 196
+// blocks, through a shared-memory pass the data does not need. Here
+// cols[112 i + j, 128 r + 32 a + 16 h ..+16] = merge(x)[a + i, 920 r + 8 j +
+// 16 h ..+16]: each 16-byte output granule is 16 contiguous source bytes,
+// 8-aligned (920 is an odd multiple of 8), so:
+//  - a thread owns one granule: two 8-byte read-only loads, one 16-byte
+//    store; a warp's 32 store 512 contiguous bytes (two cols rows);
+//  - 200,704 threads in 784 blocks, all resident at once (about 6 blocks of
+//    8 warps an SM): the SMs keep as many loads in flight as threads (4 or
+//    8 granules a thread, fewer threads, ran slower: PERF.md);
+//  - the 213 KB x stays in L1/L2 (a row's (r, a) runs overlap its
+//    neighbour's by 24 bytes), so the loads cost round trips, not bytes;
+//  - no shared memory, no barrier. (TMA cannot take the source view: its
+//    8-byte strides are not multiples of 16.)
+// What bounds it: the 3.2 MB of stores at the memory's rate and the launch.
+constexpr int kColThreads = 256;
+constexpr int kColGranules = EM * 256 / 16;            // cols [12544][256]: 200,704 granules
+constexpr int kColGrid = kColGranules / kColThreads;   // 784
+
+__global__ void __launch_bounds__(kColThreads) cols_kernel(const int8_t* __restrict__ x,
+                                                           int8_t* __restrict__ cols) {
+  const int g = blockIdx.x * kColThreads + threadIdx.x;
+  const int p = g >> 4, q = g & 15, i = p / 112, j = p - 112 * i;
+  const int8_t* src = x + (((q >> 1) & 3) + i) * 1840 + 920 * (q >> 3) + 8 * j + 16 * (q & 1);
+  const uint2 lo = __ldg(reinterpret_cast<const uint2*>(src));
+  const uint2 hi = __ldg(reinterpret_cast<const uint2*>(src + 8));
+  *reinterpret_cast<uint4*>(cols + 16LL * g) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
 constexpr int PW = 112, PC = 64, PROW = PW * PC;   // input row: 112 pixels x 64 bytes
 
 constexpr Staged kStaged[] = {
@@ -214,8 +248,11 @@ constexpr Staged kStaged[] = {
     {3, Op::kCopy, {0, 920, 8, 128, 16, 8}},
 };
 
-__global__ void __launch_bounds__(256) maxpool_kernel(const int8_t* __restrict__ x,
-                                                      int8_t* __restrict__ out) {
+// maxpool_first_kernel, K's first form: a block per output row stages its
+// three input rows (the top halo row -128 for the first) by cp.async, then
+// takes __vmaxs4 over the 9 taps, 4 bytes a thread.
+__global__ void __launch_bounds__(256) maxpool_first_kernel(const int8_t* __restrict__ x,
+                                                            int8_t* __restrict__ out) {
   int8_t* rows = reinterpret_cast<int8_t*>(probe_smem);   // [3][PROW]
   const int oi = blockIdx.x;
   for (int c = threadIdx.x; c < 3 * PROW / 16; c += 256) {
@@ -245,6 +282,57 @@ __global__ void __launch_bounds__(256) maxpool_kernel(const int8_t* __restrict__
   }
 }
 
+// maxpool_kernel, K's Hopper form. Bound: bytes, 0.80 MB in + 0.20 MB out,
+// 0.300 us at 3.35 TB/s. The first form (maxpool_first_kernel, 4.95 us,
+// PERF.md) ran 56 blocks on 132 SMs, each staging three whole input rows
+// (21.5 KB) and waiting for all of them before its first max, every input
+// row loaded by up to two blocks, and read shared memory 4 bytes at a time
+// (9 loads per 4 output bytes). Here:
+//  - a thread owns one 16-byte output granule, 16 channels of one output
+//    pixel (12,544 threads); neighbouring threads own neighbouring
+//    granules, so a warp stores 512 contiguous bytes;
+//  - its 9 taps are independent 16-byte read-only loads straight from
+//    global memory, all in flight at once: L1/L2 serve the 2.25x overlap of
+//    the taps, so the input crosses the memory bus about once;
+//  - blocks of one warp (392 of them, about 3 an SM): ptxas gives this
+//    launch bound 50 registers, room for the 9 loads' 36 at once; at 64 to
+//    256 threads a block it used 32, and at 128 and 256 ran 0.34-0.43 us
+//    slower in turns (PERF.md);
+//  - a tap above row 0 or left of column 0 is the padding, -128, the least
+//    int8: the max starts at 0x80808080 and skips it. The centre tap (2 oi,
+//    2 oj) always lies inside;
+//  - 4 __vmaxs4 a tap, one 16-byte store.
+// What bounds it: the launch and one L2 round trip before the store.
+constexpr int kPoolThreads = 32;
+constexpr int kPoolGranules = 56 * 56 * PC / 16;            // 12,544
+constexpr int kPoolGrid = kPoolGranules / kPoolThreads;     // 392
+
+__device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y), __vmaxs4(a.z, b.z),
+                    __vmaxs4(a.w, b.w));
+}
+
+__global__ void __launch_bounds__(kPoolThreads) maxpool_kernel(const int8_t* __restrict__ x,
+                                                               int8_t* __restrict__ out) {
+  const int t = blockIdx.x * kPoolThreads + threadIdx.x;
+  const int oi = t / (56 * PC / 16), oj = (t >> 2) % 56, c16 = 16 * (t & 3);
+  uint4 v[9];
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const int ir = 2 * oi - 1 + kh, ic = 2 * oj - 1 + kw;
+      v[3 * kh + kw] = ir >= 0 && ic >= 0
+                           ? __ldg(reinterpret_cast<const uint4*>(x + ir * PROW + ic * PC + c16))
+                           : make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
+    }
+  uint4 m = v[4];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    if (k != 4) m = vmax16(m, v[k]);
+  *reinterpret_cast<uint4*>(out + 16 * t) = m;
+}
+
 }  // namespace
 
 extern "C" int dlq_probe_stem_prepare() {
@@ -252,7 +340,9 @@ extern "C" int dlq_probe_stem_prepare() {
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
   if ((e = prepare(int_dot_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(int_dot_hopper_kernel, id::SMEM)) != cudaSuccess) return (int)e;
+  if ((e = prepare(cols_first_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(cols_kernel)) != cudaSuccess) return (int)e;
+  if ((e = prepare(maxpool_first_kernel)) != cudaSuccess) return (int)e;
   return (int)prepare(maxpool_kernel);
 }
 
@@ -266,33 +356,42 @@ extern "C" int dlq_probe_stem(int pattern, const void* a, const void* b, const v
       return (int)int_dot_hopper(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
                                  static_cast<int*>(out), st);
     case 5:
-      cols_kernel<<<EM / kColRows, 256, kColRows * 256, st>>>(static_cast<const int8_t*>(a),
-                                                               static_cast<int8_t*>(out));
+      cols_kernel<<<kColGrid, kColThreads, 0, st>>>(static_cast<const int8_t*>(a),
+                                                    static_cast<int8_t*>(out));
       return (int)cudaGetLastError();
     case 6:
-      maxpool_kernel<<<56, 256, 3 * PROW, st>>>(static_cast<const int8_t*>(a),
-                                                static_cast<int8_t*>(out));
+      maxpool_kernel<<<kPoolGrid, kPoolThreads, 0, st>>>(static_cast<const int8_t*>(a),
+                                                         static_cast<int8_t*>(out));
       return (int)cudaGetLastError();
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The first forms of A, B, C, D (stage_first_kernel) and E
-// (int_dot_kernel), arguments as dlq_probe_stem's; J and K have one form
-// and return cudaErrorInvalidValue.
+// The first forms of A, B, C, D (stage_first_kernel), E (int_dot_kernel),
+// J (cols_first_kernel) and K (maxpool_first_kernel), arguments as
+// dlq_probe_stem's.
 extern "C" int dlq_probe_stem_first(int pattern, const void* a, const void* b, const void*,
                                     void* out, float, float, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern))
     return (int)stage_first(s->op, a, out, s->w, st);
-  if (pattern == 4) {
-    int_dot_kernel<<<EM / EBM, THREADS, 0, st>>>(static_cast<const int8_t*>(a),
-                                                 static_cast<const int8_t*>(b),
-                                                 static_cast<int*>(out));
-    return (int)cudaGetLastError();
+  const int8_t* x = static_cast<const int8_t*>(a);
+  switch (pattern) {
+    case 4:
+      int_dot_kernel<<<EM / EBM, THREADS, 0, st>>>(x, static_cast<const int8_t*>(b),
+                                                   static_cast<int*>(out));
+      break;
+    case 5:
+      cols_first_kernel<<<EM / kColRows, 256, kColRows * 256, st>>>(x, static_cast<int8_t*>(out));
+      break;
+    case 6:
+      maxpool_first_kernel<<<56, 256, 3 * PROW, st>>>(x, static_cast<int8_t*>(out));
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // E's Hopper form's launch into v[0..5]: grid, threads, rows a block, bytes
@@ -302,6 +401,21 @@ extern "C" int dlq_probe_stem_first(int pattern, const void* a, const void* b, c
 extern "C" int dlq_probe_stem_int_plan(int* v) {
   const int t[6] = {EM / kIdRows, 128, kIdRows, kIdBox, id::SMEM, 2 * kIdBox};
   for (int k = 0; k < 6; ++k) v[k] = t[k];
+  return 0;
+}
+
+// J's and K's Hopper forms' launches into v[0..2]: grid, threads, output
+// bytes a thread (the card tests hold them to probe_stem_patterns.py:
+// cols_launch, pool_launch).
+extern "C" int dlq_probe_stem_cols_plan(int* v) {
+  const int t[3] = {kColGrid, kColThreads, 16};
+  for (int k = 0; k < 3; ++k) v[k] = t[k];
+  return 0;
+}
+
+extern "C" int dlq_probe_stem_pool_plan(int* v) {
+  const int t[3] = {kPoolGrid, kPoolThreads, 16};
+  for (int k = 0; k < 3; ++k) v[k] = t[k];
   return 0;
 }
 

@@ -10,12 +10,16 @@ each as one hand-written kernel in ``csrc/probe_stem.cu``.
      64-row tiles, a by TMA, b transposed once a block: ``int_dot_plan``)
   J  the im2col cols build: 32 pieces (r, a, b) of merge(x),
      m[a:a+112, 920r + 8b : +896] -> [12544, 8], into cols [12544, 256]
-  K  3x3/s2 max pool with -128 padding  [112, 112, 64] -> [56, 3584]
+     (no staging: a thread per 16-byte output granule from two 8-byte
+     loads, ``cols_granules`` / ``cols_sources``)
+  K  3x3/s2 max pool with -128 padding  [112, 112, 64] -> [56, 3584] (a
+     thread per 16 output bytes, its 9 taps as 16-byte loads: ``pool_taps``)
 
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
 the reference's (``max_abs <= 0.5``, finite). A, B, C and D run on
 ``probe_common.cuh``'s Hopper ``stage_kernel``, E on
-``int_dot_hopper_kernel``; ``probe_stem.first`` runs their first forms.
+``int_dot_hopper_kernel``, J on ``cols_kernel``, K on ``maxpool_kernel``;
+``probe_stem.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_stem_patterns [--device cpu]
 """
@@ -111,7 +115,7 @@ WINDOWS = {
     "D": (Window(0, 920, 8, 128, 16, 8), False),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_stem.first)
-FIRST_FORMS = (*WINDOWS, "E")
+FIRST_FORMS = (*WINDOWS, "E", "J", "K")
 
 # E's Hopper form (csrc/probe_stem.cu: int_dot_hopper_kernel)
 EM, EK, EN = 12544, 256, 64
@@ -131,6 +135,63 @@ def int_dot_launch() -> Tuple[int, ...]:
     memory, bytes the mbarrier counts): what the C side's
     ``dlq_probe_stem_int_plan`` reports."""
     return (len(int_dot_plan()), 128, ID_ROWS, ID_BOX, ID_SMEM, 2 * ID_BOX)
+
+
+# J's Hopper form (csrc/probe_stem.cu: cols_kernel): a thread per 16-byte
+# granule of cols
+COLS_THREADS = 256
+COLS_GRANULES = 12544 * 256 // 16
+
+
+def cols_launch() -> Tuple[int, int, int]:
+    """(grid, threads, output bytes a thread): what the C side's
+    ``dlq_probe_stem_cols_plan`` reports."""
+    return (COLS_GRANULES // COLS_THREADS, COLS_THREADS, 16)
+
+
+def cols_granules() -> torch.Tensor:
+    """``cols_kernel``'s walk: [block, thread], the output granule (16 bytes
+    at byte 16 g of cols) that thread ``thread`` of block ``block``
+    stores."""
+    grid, threads, _ = cols_launch()
+    return torch.arange(grid)[:, None] * threads + torch.arange(threads)[None, :]
+
+
+def cols_sources(g: torch.Tensor) -> torch.Tensor:
+    """The byte offsets in x of the two 8-byte loads that fill granule
+    ``g``, [..., 2]: cols[112 i + j, 128 r + 32 a + 16 h ..+16] is
+    merge(x)[a + i, 920 r + 8 j + 16 h ..+16]."""
+    p, q = g >> 4, g & 15
+    i, j = p // 112, p % 112
+    src = (((q >> 1) & 3) + i) * 1840 + 920 * (q >> 3) + 8 * j + 16 * (q & 1)
+    return torch.stack((src, src + 8), -1)
+
+
+# K's Hopper form (csrc/probe_stem.cu: maxpool_kernel): a thread per 16-byte
+# output granule (16 channels of one output pixel)
+POOL_THREADS = 32
+POOL_GRANULES = 56 * 56 * 64 // 16
+
+
+def pool_launch() -> Tuple[int, int, int]:
+    """(grid, threads, output bytes a thread): what the C side's
+    ``dlq_probe_stem_pool_plan`` reports."""
+    return (POOL_GRANULES // POOL_THREADS, POOL_THREADS, 16)
+
+
+def pool_taps(t: torch.Tensor) -> torch.Tensor:
+    """For thread ``t`` (global index; it stores output bytes 16 t ..+16),
+    the byte offset in the [112, 112, 64] map of each of its 9 taps'
+    16-byte loads, in (kh, kw) order, [..., 9]; -1 for a tap in the padding
+    (above row 0 or left of column 0), which the kernel takes as -128."""
+    oi, oj, c16 = t // 224, (t >> 2) % 56, 16 * (t & 3)
+    taps = []
+    for kh in range(3):
+        for kw in range(3):
+            ir, ic = 2 * oi - 1 + kh, 2 * oj - 1 + kw
+            taps.append(torch.where((ir >= 0) & (ic >= 0), (ir * 112 + ic) * 64 + c16, -1))
+    return torch.stack(taps, -1)
+
 
 probe_stem = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)
 CHECK = _probe.check_max_abs   # the reference's check

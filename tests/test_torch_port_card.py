@@ -625,7 +625,8 @@ def test_probe_hopper_forms_equal_first_forms_on_card():
     """The redesigned probe patterns (K19 6 and K20 D on attention_kernel,
     K19 3 and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel,
     K21 D on double_conv_cluster_kernel, K22 E on int_dot_hopper_kernel,
-    the 12 copy patterns on stage_kernel) on their Hopper forms equal to
+    K22 J on cols_kernel, K22 K on maxpool_kernel, the 12 copy patterns on
+    stage_kernel) on their Hopper forms equal to
     their first forms on every output, the copies also to their plain
     versions; the launches counted by form: the wrapper's launch on
     .launches and .by_form["hopper"], .first on .by_form["first"] only, a
@@ -654,7 +655,7 @@ def test_probe_hopper_forms_equal_first_forms_on_card():
             if key in mod.WINDOWS:
                 assert torch.equal(got, mod.PLAIN[key](*xs)), (name, key)
             n += 1
-    assert n == 19
+    assert n == 21
 
 
 @pytest.mark.gpu
@@ -756,6 +757,53 @@ def test_probe_nt_dot_and_int_dot_hopper_on_card(seed):
         else:
             ok, text, _ = _probe.held(got, ref, mod.SPEC[key])
             assert ok, text
+        outs = [fn(key, *xs) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, got) for o in outs), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_cols_and_maxpool_hopper_on_card(seed):
+    """K22 J's cols build (cols_kernel) and K22 K's max pool
+    (maxpool_kernel) on the probe's own inputs (seed 0) and on the CPU
+    tests' draws (seeds 1, 2: the whole int8 range, -128 included; for K
+    also the all-negative map, where a 0 padding would show on the top row
+    and the left column): each Hopper form equal to its first form and to
+    PLAIN on every output; each launch counted once on .launches and
+    .by_form["hopper"], .first only on .by_form["first"]; 200 launches in a
+    row give the same output every time. The C side's launch constants
+    equal the Python mirrors the CPU tests hold
+    (probe_stem_patterns.cols_launch, pool_launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+    from dlq_tpu_torch.tools import probe_stem_patterns as PS
+
+    dev = torch.device("cuda")
+    assert _probe.c_plan("probe_stem", "cols_plan", 3) == PS.cols_launch()
+    assert _probe.c_plan("probe_stem", "pool_plan", 3) == PS.pool_launch()
+    if seed == 0:
+        cases = [(k, xs) for k, xs, _ in PS.cases() if k in ("J", "K")]
+    else:
+        cases = [(key, (_i8(np.random.default_rng(seed), shape, lo=-128),))
+                 for key, shape in (("J", (232, 920)), ("K", (12544, 64)))]
+        if seed == 1:
+            neg = np.random.default_rng(3).integers(-128, 0, (12544, 64)).astype(np.int8)
+            cases.append(("K", (torch.from_numpy(neg),)))
+    fn = PS.probe_stem
+    for key, inputs in cases:
+        xs = tuple(x.to(dev) for x in inputs)
+        launches, forms, shapes = fn.launches, dict(fn.by_form), dict(fn.by_shape)
+        got = fn(key, *xs)
+        assert fn.launches == launches + 1 and fn.by_shape[key] == shapes.get(key, 0) + 1
+        assert fn.by_form["hopper"] == forms.get("hopper", 0) + 1
+        first = fn.first(key, *xs)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1 and fn.by_form["first"] == forms.get("first", 0) + 1
+        assert torch.equal(got, first), (key, int((got != first).sum()))
+        ref = PS.PLAIN[key](*xs)
+        assert torch.equal(got, ref), (key, int((got != ref).sum()))
         outs = [fn(key, *xs) for _ in range(200)]
         torch.cuda.synchronize()
         assert all(torch.equal(o, got) for o in outs), key
