@@ -151,26 +151,34 @@ Phases, one JSON line each:
      pattern timed on a spinning card (device time of back-to-back
      launches: the kernels are microseconds long, shorter than their
      wrappers' host cost) beside the plain version, the bound and the one
-     PyTorch call where one computes the same function; the 21 patterns on
-     a redesigned Hopper form (K19 6 and K20 D on attention_kernel, K19 3
-     and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel, K21
-     D on double_conv_cluster_kernel, a cluster of 8 blocks, K22 E on
+     PyTorch call where one computes the same function; all 23 patterns
+     run on a redesigned Hopper form (K19 6 and K20 D on attention_kernel,
+     K19 3 and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel,
+     K21 D on double_conv_cluster_kernel, a cluster of 8 blocks, K22 E on
      int_dot_hopper_kernel, K22 J on cols_kernel, K22 K on maxpool_kernel,
-     the 12 copy patterns on stage_kernel) must launch that form, and equal
-     their first forms on every output (each module's FIRST_FORMS: launches
-     by form 5 for probe_mosaic, 4 for probe_batched_dot, 5 for
-     probe_block, 7 for probe_stem); each is timed in turns with its first
-     form (first, Hopper, Hopper, first), beside launch_floor_ms, one empty
-     kernel's device time under the same timing; each pattern with a
-     library call is timed in ten alternating pairs with it (five rounds
-     of kernel, library, library, kernel), with the pairs' median ratio
-     and the pairs the kernel lost.
+     K21 O on requant_kernel, K19 5 on tanh_kernel, the 12 copy patterns
+     on stage_kernel), must launch that form, and equal their first forms
+     on every output (each module's FIRST_FORMS: launches by form 6 for
+     probe_mosaic, 4 for probe_batched_dot, 6 for probe_block, 7 for
+     probe_stem); each is timed in turns with its first form (first,
+     Hopper, Hopper, first), beside launch_floor_ms, one empty kernel's
+     device time under the same timing; each pattern with a library call
+     is timed in ten alternating pairs with it (five rounds of kernel,
+     library, library, kernel), with the pairs' median ratio and the
+     pairs the kernel lost; then probe_exhaustive: K21 O's and K19 5's
+     Hopper forms against their first forms and plain versions on every
+     input value (O's 256 int8 values at four scales, 5's 65,536 bf16 bit
+     patterns, NaN and +-inf included), the outputs that differ counted
+     and gated at 0 against the first form, with both forms' ptxas
+     registers and stack frames.
 Each timed forward of ResNet-18/-50 (fused2, PallasBlockCtx) and of
 DeiT-Tiny's block paths (W8A8 with and without int8 attention, W4A8,
-W4A16, bf16 at both pads) runs SPLIT_REPEATS more times at batch 256, every
-run's logits equal to the first's (counted on the device; a race differs in
-some run). Each main path is driven with every launch count set to 0 just
-before it and read just after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
+W4A16, bf16 at both pads) runs SPLIT_REPEATS more times at batch 256, and
+each DeiT-Tiny deploy forward (W8A8, with fused_ln and with xla_int8; W4A8
+"packed" and "int8"; G128) at batch 64, every run's logits equal to the
+first's (counted on the device; a race differs in some run). Each main path
+is driven with every launch count set to 0 just before it and read just
+after; on ResNet-18/-50 fused2 and PallasBlockCtx and on
 DeiT-Tiny's deploy paths every K1 and K2 launch must have taken its Hopper
 form, and on every path every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16,
 mhsa_f32 and K18 launch (the per-form counts are printed per path). Then
@@ -185,7 +193,6 @@ import dataclasses
 import functools
 import json
 import math
-import re
 import subprocess
 import sys
 import tempfile
@@ -355,6 +362,10 @@ TOTALS_ONLY = ("r18_deploy", "r50_deploy", "deit_blockfused", "deit_deploy", "de
                "deit_deploy_xla_int8")
 TOTALS_BATCH = 64
 SPLIT_REPEATS = 200   # runs of each forward held bit-identical to the first (a race shows)
+# the DeiT deploy forwards repeated at batch 64 (K2 on W8A8, fused_ln,
+# xla_int8 with K18, W4A8 "int8"; K10 on W4A8 "packed"; K13 on G128)
+DEPLOY_REPEATS = ("deit_deploy", "deit_deploy_fused_ln", "deit_deploy_xla_int8",
+                  "deit_deploy_w4a8", "deit_deploy_w4a8_int8", "deit_deploy_g128")
 
 
 T0 = time.perf_counter()
@@ -1757,44 +1768,17 @@ SPLIT_KERNELS = {"conv_int8": (40, 232, "i8_kernel"),
 STRESS_LAUNCHES = 4000
 
 
-def ptxas_report(lib: str, mark: str):
-    """From kernel library ``lib``'s -Xptxas -v report (kept beside it): its
-    entries whose names hold ``mark``, their register counts and their
-    largest stack frame and spill stores and loads (bytes), and the
-    library's count of C7520 warnings (ptxas serializing every wgmma of a
-    kernel)."""
-    from dlq_tpu_torch import _build
-
-    text = (_build.BUILD / f"lib{lib}.log").read_text()
-    regs, props, entry, fn = {}, {}, None, None
-    for line in text.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            entry = m.group(1)
-        elif m := re.search(r"Function properties for (\S+)", line):
-            fn = m.group(1)
-        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                            r"(\d+) bytes spill loads", line):
-            props[fn] = tuple(int(g) for g in m.groups())
-        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
-            regs[entry] = int(m.group(1))
-    mine = [k for k in regs if mark in k]
-    if not mine:
-        raise AssertionError(f"{lib}: no kernel named *{mark}* in its ptxas report")
-    worst = [max(props.get(k, (0, 0, 0))[i] for k in mine) for i in range(3)]
-    return {"entries": len(mine), "registers": sorted({regs[k] for k in mine}),
-            "stack_frame_max": worst[0], "spill_stores_max": worst[1], "spill_loads_max": worst[2],
-            "c7520_warnings": text.count("C7520")}
-
-
 def attention_ptxas():
     """The ptxas reports of mhsa_f32's and K18's libraries: registers, stack
     frame, spills and the library's C7520 count, for each Hopper form and
     first form."""
+    from dlq_tpu_torch import _build
+
     emit({"phase": "attention_ptxas",
-          "mhsa_f32_hopper": ptxas_report("mhsa", "mhsa_f32_hopper"),
-          "mhsa_f32_first": ptxas_report("mhsa", "mhsa_f32_kernel"),
-          "mhsa_i8_hopper": ptxas_report("mhsa_i8", "mhsa_i8_hopper"),
-          "mhsa_i8_first": ptxas_report("mhsa_i8", "mhsa_i8_kernel")})
+          "mhsa_f32_hopper": _build.ptxas_report("mhsa", "mhsa_f32_hopper"),
+          "mhsa_f32_first": _build.ptxas_report("mhsa", "mhsa_f32_kernel"),
+          "mhsa_i8_hopper": _build.ptxas_report("mhsa_i8", "mhsa_i8_hopper"),
+          "mhsa_i8_first": _build.ptxas_report("mhsa_i8", "mhsa_i8_kernel")})
 
 
 @contextlib.contextmanager
@@ -1825,11 +1809,12 @@ REPEATS = {}   # served path -> its repeat_forward reading
 
 
 def repeat_forward(path: str, fn) -> None:
-    """The served forward ``fn()`` (logits of a resident batch) run
-    SPLIT_REPEATS more times, each run's logits compared with the first's on
-    the device (repeat_differing): a kernel that races differs in some run.
-    Records and prints the runs that differ and the seconds; check_repeats
-    gates them."""
+    """The served forward ``fn()`` (logits of a resident batch: 256 on the
+    timed paths, 64 on the DeiT deploy paths) run SPLIT_REPEATS more times,
+    each run's logits compared with the first's on the device
+    (repeat_differing): a kernel that races differs in some run. Records
+    and prints the runs that differ and the seconds; check_repeats gates
+    them."""
     with torch.inference_mode():
         first = fn()
         torch.cuda.synchronize()
@@ -1845,11 +1830,12 @@ def check_repeats() -> None:
     its first."""
     want = {"r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_block",
             "deit_block_attn_int8", "deit_block_w4a8", "deit_block_w4", "deit_bf16_loose",
-            "deit_bf16_tight"}
+            "deit_bf16_tight", *DEPLOY_REPEATS}
     differ = {k: v["runs_differing"] for k, v in REPEATS.items() if v["runs_differing"]}
     emit({"phase": "repeat_forwards", "paths": len(REPEATS), "repeats": SPLIT_REPEATS,
           "runs_differing": {k: v["runs_differing"] for k, v in REPEATS.items()},
-          "seconds": sum(v["seconds"] for v in REPEATS.values())})
+          "seconds": sum(v["seconds"] for v in REPEATS.values()),
+          "deploy_seconds": sum(REPEATS[k]["seconds"] for k in DEPLOY_REPEATS if k in REPEATS)})
     if set(REPEATS) != want:
         raise AssertionError(f"repeat_forwards: paths {sorted(REPEATS)}, expected {sorted(want)}")
     if differ:
@@ -1873,6 +1859,7 @@ def stress_split_kernels(dev):
     some launch. Gate: no launch differs. Each case's line carries the
     differing count, its seconds, its register split, the form its launch
     took and its library's ptxas report."""
+    from dlq_tpu_torch import _build
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.conv_int8 import conv_int8, pack_conv_weight
     from dlq_tpu_torch.ops.matmul_int4 import matmul_int4, pack_int4_weight
@@ -1985,7 +1972,7 @@ def stress_split_kernels(dev):
         out[label] = {"shape": shape, "launches": STRESS_LAUNCHES,
                       "launches_differing_from_first": differ, "seconds": secs, "form": form,
                       "producer_registers": producer, "consumer_registers": consumer,
-                      "ptxas": ptxas_report(lib, mark)}
+                      "ptxas": _build.ptxas_report(lib, mark)}
         if differ:
             bad[label] = differ
         del first
@@ -2520,6 +2507,8 @@ def deit_paths(dev, card, d, images):
                   "top1_vs_fp32": top1_report(lg, ref[rk][:64]),
                   "logits_cosine_vs_plain_versions": cos_pd,
                   "top1_agreement_vs_plain_versions": numerics.top1_agreement(lg, lpd)})
+            if name == "deploy":
+                repeat_forward("deit_deploy", lambda: e._fn(e.params, xt[:64]))
             del e
         del bf, packed
     torch.cuda.empty_cache()
@@ -2666,6 +2655,7 @@ def deit_attn_int8_paths(dev, card, d, store, images, eng_block, act_scales):
     emit({"phase": "deit_deploy_xla_int8", "model": "deit_tiny", "batch": TOTALS_BATCH,
           "launches": c, "logits_cosine_vs_fp32": cos_d, "top1_agreement_vs_fp32": agree_d,
           "fp32_gelu": "exact", "top1_gated": False, "logits_cosine_vs_plain_versions": cos_pd})
+    repeat_forward("deit_deploy_xla_int8", lambda: e._fn(e.params, xt[:TOTALS_BATCH]))
     del e, qd, sd, ed
     torch.cuda.empty_cache()
     return out
@@ -2763,6 +2753,7 @@ def deit_w4a8_paths(dev, card, d, act_scales, images):
                   "card": card})
             if rt == "packed":
                 profile_forward(e, xt, "deit_tiny_deploy_w4a8_packed")
+            repeat_forward(path, lambda: e._fn(e.params, xt[:TOTALS_BATCH]))
             del e
         # the same int32 sums and epilogue on K10 and K2, and K6 is
         # deterministic: the two runtimes give the same logits bit for bit
@@ -2884,6 +2875,7 @@ def deit_w4a16_paths(dev, card, d, images):
               "timed_batch": BATCH, "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
               "card": card})
         profile_forward(e, xt, "deit_tiny_deploy_g128")
+        repeat_forward("deit_deploy_g128", lambda: e._fn(e.params, xt[:TOTALS_BATCH]))
         del e
     torch.cuda.empty_cache()
     return out
@@ -3006,6 +2998,7 @@ def deit_bf16_paths(dev, card, d, act_scales, images):
             expect_counts(c, "deit_deploy_fused_ln", 1, "deit_tiny deploy fused_ln")
             out["deit_deploy_fused_ln"] = (c, sh)
             lpd = plain_twin(e, x0[:TOTALS_BATCH], "deit_tiny deploy fused_ln")
+            repeat_forward("deit_deploy_fused_ln", lambda: e._fn(e.params, xt[:TOTALS_BATCH]))
         del e
     agree_u, cos_u = gate(lgq[True], lgq[False], "deit_tiny deploy fused_ln vs unfused",
                           DEIT_FUSED_LN_COS, top1=False)
@@ -3185,9 +3178,9 @@ def probe_path():
                                   if lib is not None else None),
                    "library": spec.library, "launch_floor_ms": floor}
             if lib is not None:
-                row["library_in_turns_ms"] = probe_library_turns(fn, key, lib, xs)
+                row["library_in_turns_ms"] = _probe.library_turns(fn, key, lib, xs)
             if key in mod.FIRST_FORMS:
-                row.update(probe_first_form(fn, key, xs))
+                row.update(_probe.first_form_turns(fn, key, xs))
             emit_row(row)
             rows.append(row)
     if len(rows) != PROBE_PATTERNS:
@@ -3196,45 +3189,43 @@ def probe_path():
     return rows, counts
 
 
-LIBRARY_ROUNDS = 5   # rounds of (kernel, library, library, kernel): ten alternating pairs
+def probe_exhaustive():
+    """O's and 5's Hopper forms on every input value (their inputs hold 256
+    and 65,536 distinct values): O on an int8 [256, 1024] holding each value
+    1,024 times at four scales (the probe's f32(0.11); 0.5, exact ties; 1.7,
+    the clip binds; 1/127), 5 on a bf16 [256, 768] holding every bit pattern
+    three times (in order, reversed, seeded order; NaN, +-inf, -0 and the
+    subnormals included). Per case the outputs differing from the first
+    form (bit for bit, NaN for NaN) and from the plain version (bit for bit
+    for O; _probe.held on the non-NaN inputs for 5, every NaN giving NaN);
+    raises unless every case has 0 against the first form and holds against
+    the plain version. Also the C launch plans against their Python mirrors,
+    and both forms' ptxas registers and stack frames. Outside the counted
+    probe run."""
+    from dlq_tpu_torch import _build
+    from dlq_tpu_torch.tools import _probe
+    from dlq_tpu_torch.tools import probe_block_patterns as PK
+    from dlq_tpu_torch.tools import probe_mosaic_patterns as PM
 
-
-def probe_library_turns(fn, key, lib, xs):
-    """A pattern and its one PyTorch call timed in turns, LIBRARY_ROUNDS
-    rounds of (kernel, library, library, kernel), device time on a spinning
-    card: ten alternating pairs (each round's kernel-library and
-    library-kernel), each read within one stretch of the card's clocks,
-    where ``ms`` and ``library_ms`` are read apart. Returns the times, each
-    pair's kernel / library ratio, their median and the pairs the kernel
-    lost (slower than the library call)."""
-    from dlq_tpu_torch.tools._probe import spun_ms
-
-    calls = {"kernel": lambda: fn(key, *xs), "library": lambda: lib(*xs)}
-    times = {"kernel": [], "library": []}
-    for _ in range(LIBRARY_ROUNDS):
-        for tag in ("kernel", "library", "library", "kernel"):
-            times[tag].append(spun_ms(calls[tag], 20, warmup=2, reps=3))
-    ratios = [k / b for k, b in zip(times["kernel"], times["library"])]
-    return {**times, "ratios": ratios, "median_ratio": float(np.median(ratios)),
-            "pairs": len(ratios), "pairs_kernel_lost": sum(r > 1.0 for r in ratios)}
-
-
-def probe_first_form(fn, key, xs):
-    """A redesigned pattern against its first form: equal on every output
-    (raises otherwise), then device time on a spinning card in turns
-    (first, Hopper, Hopper, first)."""
-    from dlq_tpu_torch.tools._probe import spun_ms
-
-    hop, first = fn(key, *xs), fn.first(key, *xs)
-    if not torch.equal(hop, first):
-        raise AssertionError(f"{fn.__name__} {key}: the Hopper form differs from its first form "
-                             f"at {int((hop != first).sum())} outputs")
-    times = {"first": [], "hopper": []}
-    for tag in ("first", "hopper", "hopper", "first"):
-        call = fn.first if tag == "first" else fn
-        times[tag].append(spun_ms(lambda: call(key, *xs), 20, warmup=2, reps=3))
-    return {"equal_to_first_form": True, "first_form_ms": times["first"],
-            "hopper_in_turns_ms": times["hopper"]}
+    dev = torch.device("cuda")
+    plans = {"o_plan": (_probe.c_plan("probe_block", "o_plan", 3), PK.o_launch()),
+             "tanh_plan": (_probe.c_plan("probe_mosaic", "tanh_plan", 3), PM.tanh_launch())}
+    if any(c != py for c, py in plans.values()):
+        raise AssertionError(f"probe_exhaustive: C plans against their Python mirrors {plans}")
+    rows = []
+    for mod, fn in ((PK, PK.probe_block), (PM, PM.probe_mosaic)):
+        cases = [(lab, key, x.to(dev), s) for lab, key, x, s in mod.exhaustive_cases()]
+        rows += _probe.exhaustive(fn, mod.SPEC, mod.PLAIN, cases)
+    ptxas = {mark: _build.ptxas_report(lib, mark)
+             for lib, mark in (("probe_block", "requant_kernel"),
+                               ("probe_block", "requant_first_kernel"),
+                               ("probe_mosaic", "tanh_kernel"),
+                               ("probe_mosaic", "tanh_first_kernel"))}
+    emit({"phase": "probe_exhaustive", "cases": rows, "plans": {k: v[0] for k, v in plans.items()},
+          "ptxas": ptxas})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"probe_exhaustive: {bad}")
 
 
 def probe_summary(rows, counts):
@@ -3423,6 +3414,7 @@ def main() -> int:
     del deit
     check_repeats()
     probe_rows, probe_counts = probe_path()
+    probe_exhaustive()
     kernels = summary(rows, paths) + probe_summary(probe_rows, probe_counts)
     print(card_line())
     emit({"kernels": kernels})

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -94,6 +95,33 @@ def library(name: str) -> ctypes.CDLL:
     if _stale(name):
         build_all((name,))
     return ctypes.CDLL(str(lib_path(name)))
+
+
+def ptxas_report(lib: str, mark: str) -> dict:
+    """From kernel library ``lib``'s -Xptxas -v report (``build/lib<lib>.log``):
+    its entries whose names hold ``mark``, their register counts and their
+    largest stack frame and spill stores and loads (bytes), and the
+    library's count of C7520 warnings (ptxas serializing every wgmma of a
+    kernel)."""
+    text = (BUILD / f"lib{lib}.log").read_text()
+    regs, props, entry, fn = {}, {}, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            props[fn] = tuple(int(g) for g in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            regs[entry] = int(m.group(1))
+    mine = [k for k in regs if mark in k]
+    if not mine:
+        raise AssertionError(f"{lib}: no kernel named *{mark}* in its ptxas report")
+    worst = [max(props.get(k, (0, 0, 0))[i] for k in mine) for i in range(3)]
+    return {"entries": len(mine), "registers": sorted({regs[k] for k in mine}),
+            "stack_frame_max": worst[0], "spill_stores_max": worst[1], "spill_loads_max": worst[2],
+            "c7520_warnings": text.count("C7520")}
 
 
 def check(rc: int, what: str) -> None:

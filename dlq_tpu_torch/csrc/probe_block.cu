@@ -9,8 +9,10 @@
 //   3 "L"  lane split and half: [232, 928] viewed [232, 116, 8], lanes 4..7
 //          of each group (stage_kernel)
 //   4 "O"  int8 requant: clip(rint(f32(x) * s), -127, 127), s = f32(0.11)
-//          (requant_kernel; the reference's kernel multiplies in fp32, its
-//          numpy expectation in float64, one step apart)
+//          or the caller's (requant_kernel, below: a thread per 8 bytes on
+//          every SM, the bytes in registers; first form requant_first_kernel;
+//          the reference's kernel multiplies in fp32, its numpy expectation
+//          in float64, one step apart)
 //   5 "D"  K3's core on a [1, 12, 20, 128] slab, two [9, 128, 128] weight
 //          stacks ([tap][cin][cout]) and fp32 scales s1, s2
 //          (double_conv_cluster_kernel, below; first form double_conv_kernel):
@@ -22,8 +24,8 @@
 // peak, against 342 KB, 0.10 us); at these sizes launch latency.
 // stage_kernel is a Hopper form (probe_common.cuh: L reads each 928-byte
 // row as aligned 16-byte granules and keeps words 1 and 3 of each), and so
-// is D's kernel; dlq_probe_block_first runs their first forms for A1, A2,
-// S, L and D.
+// are O's and D's kernels; dlq_probe_block_first runs the first forms of
+// all six patterns.
 #include "probe_common.cuh"
 
 namespace {
@@ -31,8 +33,12 @@ namespace {
 using namespace dlq;
 using namespace dlq::probe;
 
-__global__ void __launch_bounds__(256) requant_kernel(const int8_t* __restrict__ x,
-                                                      int8_t* __restrict__ out, int n16, float s) {
+// requant_first_kernel, O's first form: 64 blocks of 256 threads, a thread
+// per 16 bytes through a byte view of a local int4 (kept in registers:
+// ptxas reports no stack frame).
+__global__ void __launch_bounds__(256) requant_first_kernel(const int8_t* __restrict__ x,
+                                                            int8_t* __restrict__ out, int n16,
+                                                            float s) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n16) return;
   int4 v = reinterpret_cast<const int4*>(x)[i];
@@ -42,6 +48,48 @@ __global__ void __launch_bounds__(256) requant_kernel(const int8_t* __restrict__
     e[k] = static_cast<int8_t>(
         fminf(fmaxf(rintf(__fmul_rn(static_cast<float>(e[k]), s)), -127.0f), 127.0f));
   reinterpret_cast<int4*>(out)[i] = v;
+}
+
+// requant_kernel, O's Hopper form. Bound: bytes, 256 KB in + 256 KB out,
+// 0.157 us at 3.35 TB/s; at this size the launch and one round trip. The
+// first form (requant_first_kernel, 2.75 us, PERF.md) left 68 of the 132
+// SMs idle (64 blocks of 256) with 16 bytes a thread, each byte three
+// conversion instructions (I2F, FRND, F2I in its SASS) that run at a
+// fraction of the fp32 rate. Here:
+//  - every SM works: kOGrid blocks (128: one an SM) of kOThreads threads
+//    (256), a thread per kOBytes bytes (8: one read-only uint2 load and one
+//    store), so each SM's conversions are spread over 8 warps; of the
+//    shapes timed (PERF.md) 32-thread blocks ran no faster than the first
+//    form, and a 256-entry table of the results a block, built in shared
+//    memory while its loads fly, helped at 16 bytes a thread but not at
+//    this shape;
+//  - the bytes stay in registers, taken apart and packed back by
+//    __byte_perm;
+//  - each byte's arithmetic is the first form's (the fp32 product
+//    __fmul_rn, rintf half to even, the clip in fp32), so the two are equal
+//    for any s.
+constexpr int kOThreads = 256;
+constexpr int kOBytes = 8;   // one uint2 a thread
+constexpr int kOGrid = 256 * 1024 / (kOThreads * kOBytes);
+static_assert(kOGrid * kOThreads * kOBytes == 256 * 1024, "O: the grid covers the output");
+
+// the four bytes of w requantized, in place
+__device__ __forceinline__ uint32_t requant4(uint32_t w, float s) {
+  uint32_t r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float q = static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
+    r[k] = static_cast<uint32_t>(
+        static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(q, s)), -127.0f), 127.0f)));
+  }
+  return __byte_perm(__byte_perm(r[0], r[1], 0x0040), __byte_perm(r[2], r[3], 0x0040), 0x5410);
+}
+
+__global__ void __launch_bounds__(kOThreads) requant_kernel(const int8_t* __restrict__ x,
+                                                            int8_t* __restrict__ out, float s) {
+  const int i = blockIdx.x * kOThreads + threadIdx.x;
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(x) + i);
+  reinterpret_cast<uint2*>(out)[i] = make_uint2(requant4(v.x, s), requant4(v.y, s));
 }
 
 // D's first form: one block of 8 warps holds the slab (240 pixels, 144-byte
@@ -449,6 +497,7 @@ constexpr Staged kStaged[] = {
 extern "C" int dlq_probe_block_prepare() {
   cudaError_t e;
   if ((e = prepare_stage()) != cudaSuccess) return (int)e;
+  if ((e = prepare(requant_first_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare(requant_kernel)) != cudaSuccess) return (int)e;
   if ((e = prepare_cluster(double_conv_cluster_kernel, 256, dc::SMEM, kRanks)) != cudaSuccess)
     return (int)e;
@@ -462,12 +511,10 @@ extern "C" int dlq_probe_block(int pattern, const void* a, const void* b, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern)) return (int)stage(s->op, a, out, s->w, st);
   switch (pattern) {
-    case 4: {
-      const int n16 = 256 * 1024 / 16;
-      requant_kernel<<<(n16 + 255) / 256, 256, 0, st>>>(static_cast<const int8_t*>(a),
-                                                         static_cast<int8_t*>(out), n16, s1);
+    case 4:
+      requant_kernel<<<kOGrid, kOThreads, 0, st>>>(static_cast<const int8_t*>(a),
+                                                    static_cast<int8_t*>(out), s1);
       return (int)cudaGetLastError();
-    }
     case 5:
       return (int)double_conv_cluster(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
                                       static_cast<const int8_t*>(c), static_cast<int8_t*>(out), s1,
@@ -477,14 +524,20 @@ extern "C" int dlq_probe_block(int pattern, const void* a, const void* b, const 
   }
 }
 
-// The first forms of A1, A2, S, L (stage_first_kernel) and D
-// (double_conv_kernel), arguments as dlq_probe_block's; O has one form and
-// returns cudaErrorInvalidValue.
+// The first forms of A1, A2, S, L (stage_first_kernel), O
+// (requant_first_kernel) and D (double_conv_kernel), arguments as
+// dlq_probe_block's.
 extern "C" int dlq_probe_block_first(int pattern, const void* a, const void* b, const void* c,
                                      void* out, float s1, float s2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const Staged* s = find_staged(kStaged, pattern))
     return (int)stage_first(s->op, a, out, s->w, st);
+  if (pattern == 4) {
+    const int n16 = 256 * 1024 / 16;
+    requant_first_kernel<<<(n16 + 255) / 256, 256, 0, st>>>(static_cast<const int8_t*>(a),
+                                                             static_cast<int8_t*>(out), n16, s1);
+    return (int)cudaGetLastError();
+  }
   if (pattern != 5) return (int)cudaErrorInvalidValue;
   double_conv_kernel<<<1, 256, kDoubleConvSmem, st>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<const int8_t*>(c),
@@ -499,6 +552,14 @@ extern "C" int dlq_probe_block_first(int pattern, const void* a, const void* b, 
 extern "C" int dlq_probe_block_d_plan(int* v) {
   const int t[4] = {kRanks, 256, dc::SMEM, CS};
   for (int k = 0; k < 4; ++k) v[k] = t[k];
+  return 0;
+}
+
+// O's Hopper form's launch into v[0..2]: grid, threads, bytes a thread (the
+// card tests hold it to probe_block_patterns.py: o_launch).
+extern "C" int dlq_probe_block_o_plan(int* v) {
+  const int t[3] = {kOGrid, kOThreads, kOBytes};
+  for (int k = 0; k < 3; ++k) v[k] = t[k];
   return 0;
 }
 

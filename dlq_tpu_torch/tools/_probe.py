@@ -18,8 +18,10 @@ The wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, and counts each launch on ``.launches``, per pattern key on
 ``.by_shape``, and, for a redesigned pattern, on ``.by_form["hopper"]``;
 ``wrapper.first(key, *xs)`` launches the first form, counted on
-``.by_form["first"]`` only. ``run`` is the counterpart of the reference's
-``run`` helper: it runs each pattern once, holds it against the
+``.by_form["first"]`` only. A pattern whose ``Spec`` is ``settable`` takes
+the caller's fp32 scale (``scale=``) in place of the probe's. ``run`` is the
+counterpart of the reference's ``run`` helper: it runs each pattern once,
+holds it against the
 reference's numpy expectation with the reference's own check, on the card
 also against its plain version (``held``), prints ``[OK]/[FAIL] name:
 ...`` and returns one ``Result`` per pattern. Unlike the reference's helper
@@ -34,6 +36,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import sys
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,7 +58,9 @@ class Spec:
     tensor-core operations (2 per multiply-add) at ``peak`` ("int8" or
     "bf16"); ``read_bytes`` the input bytes the function reads where it
     reads a window of its input (None: every input once). ``scalars`` are
-    the probe's fp32 constants (``s1``, ``s2`` of the C entry). ``library``
+    the probe's fp32 constants (``s1``, ``s2`` of the C entry); where
+    ``settable``, a caller may give its own ``s1`` (``fn(key, *xs,
+    scale=s)``), which the plain version takes as ``scale``. ``library``
     names the one PyTorch call that computes the same function, or why there
     is none."""
     name: str
@@ -67,6 +72,7 @@ class Spec:
     peak: str = ""
     read_bytes: Optional[int] = None
     scalars: Tuple[float, float] = (0.0, 0.0)
+    settable: bool = False
     library: str = ""
 
 
@@ -205,36 +211,45 @@ def make_wrapper(source: str, spec: Dict[str, Spec], plain: Dict[str, Callable],
     *inputs)`` runs their first form."""
     keys = tuple(spec)
 
-    def launch(suffix: str, key: str, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def s1_of(key: str, scale: Optional[float]) -> float:
+        if scale is None:
+            return spec[key].scalars[0]
+        if not spec[key].settable:
+            raise ValueError(f"{source} {key}: the pattern takes no scale from the caller")
+        return float(np.float32(scale))
+
+    def launch(suffix: str, key: str, xs: Sequence[torch.Tensor],
+               scale: Optional[float]) -> torch.Tensor:
         s = spec[key]
         _check_args(source, key, s, xs)
         out = torch.empty(s.out[0], dtype=s.out[1], device=xs[0].device)
         ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
-        rc = _entry(source, suffix)(keys.index(key), *ptrs, out.data_ptr(), s.scalars[0],
+        rc = _entry(source, suffix)(keys.index(key), *ptrs, out.data_ptr(), s1_of(key, scale),
                                     s.scalars[1], _build.stream_ptr(xs[0].device))
         _build.check(rc, f"{source}{suffix} {key}")
         return out
 
-    def wrapper(key: str, *xs: torch.Tensor) -> torch.Tensor:
+    def wrapper(key: str, *xs: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
         if key not in spec:
             raise KeyError(f"{source}: no pattern {key!r} (patterns: {keys})")
         if all(x.device.type == "cpu" for x in xs):
-            return plain[key](*xs)
-        out = launch("", key, xs)
+            s1_of(key, scale)
+            return plain[key](*xs) if scale is None else plain[key](*xs, scale=scale)
+        out = launch("", key, xs, scale)
         wrapper.launches += 1
         wrapper.by_shape[key] += 1
         if key in first_forms:
             wrapper.by_form["hopper"] += 1
         return out
 
-    def first(key: str, *xs: torch.Tensor) -> torch.Tensor:
+    def first(key: str, *xs: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
         """The first form of redesigned pattern ``key`` (CUDA tensors only):
         what the card tests and ``chip_smoke.py`` hold the Hopper form to;
         counted on ``by_form["first"]`` only."""
         if key not in first_forms:
             raise KeyError(f"{source}: {key!r} has no first form "
                            f"(redesigned: {tuple(first_forms)})")
-        out = launch("_first", key, xs)
+        out = launch("_first", key, xs, scale)
         wrapper.by_form["first"] += 1
         return out
 
@@ -472,6 +487,44 @@ def stage_window(source: str, x: torch.Tensor, w: Window, times2: bool = False,
     return out
 
 
+def differing(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """The outputs of ``got`` whose bits differ from ``ref``'s, a NaN against
+    a NaN counting as equal whatever its bits."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise ValueError(f"{tuple(got.shape)} {got.dtype} against {tuple(ref.shape)} {ref.dtype}")
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    differ = got.view(as_int) != ref.view(as_int)
+    if got.is_floating_point():
+        differ &= ~(torch.isnan(got) & torch.isnan(ref))
+    return int(differ.sum())
+
+
+def exhaustive(fn, spec: Dict[str, Spec], plain: Dict[str, Callable], cases) -> List[dict]:
+    """Each case (label, key, input, scale or None) on the Hopper form, the
+    first form and the plain version: the outputs differing from the first
+    form bit for bit (NaN for NaN), and from the plain version, bit for bit
+    where the pattern is exact, else by ``held`` on the outputs of the
+    non-NaN inputs with every NaN input giving NaN. One row each, ``ok``
+    where nothing differs from the first form and the plain version holds."""
+    rows = []
+    for label, key, x, scale in cases:
+        got, first = fn(key, x, scale=scale), fn.first(key, x, scale=scale)
+        ref = plain[key](x) if scale is None else plain[key](x, scale=scale)
+        d_first, d_plain = differing(got, first), differing(got, ref)
+        if spec[key].exact:
+            ok_plain, text = d_plain == 0, "identical" if d_plain == 0 else "differs"
+        else:
+            nan = torch.isnan(x) if x.is_floating_point() else torch.zeros_like(x, dtype=torch.bool)
+            ok_plain, text, _ = held(got[~nan], ref[~nan], spec[key])
+            nan_kept = bool(torch.isnan(got[nan]).all() and torch.isnan(ref[nan]).all())
+            ok_plain = ok_plain and nan_kept
+            text += f" nan_inputs={int(nan.sum())} nan_out={nan_kept}"
+        rows.append({"case": label, "pattern": key, "outputs": got.numel(),
+                     "differing_from_first": d_first, "differing_from_plain": d_plain,
+                     "vs_plain": text, "ok": d_first == 0 and ok_plain})
+    return rows
+
+
 def launch_floor_ms(source: str = "probe_mosaic") -> float:
     """One empty kernel's device ms under ``spun_ms``'s timing: what any of
     the probes' microsecond launches costs at the least."""
@@ -493,17 +546,64 @@ def nbytes(spec: Spec, xs: Sequence[torch.Tensor]) -> int:
 
 Case = Tuple[str, Tuple[torch.Tensor, ...], np.ndarray]
 SPIN_CYCLES = 40_000_000   # ~20 ms of device spin at the H100's ~2 GHz
+SPIN_TRIES = 3             # timings a call gets, the spin doubled after each one the host outlasted
 
 
 def spun_ms(fn: Callable[[], object], iters: int = 1, warmup: int = 0, reps: int = 1) -> float:
     """Device ms per call of ``fn()`` (``time_fn``'s median window), with the
-    card spinning while the host enqueues each window; raises if the host
-    took longer than the spin, as the window would then time the host."""
-    r = time_fn(fn, iters=iters, warmup=warmup, reps=reps, spin_cycles=SPIN_CYCLES)
-    if r["enqueue_ms_max"] >= r["spin_ms_min"]:
-        raise RuntimeError(f"enqueue {r['enqueue_ms_max']} ms outlasted the spin "
-                           f"{r['spin_ms_min']} ms")
-    return r["ms_median"]
+    card spinning while the host enqueues each window. A timing in which the
+    host took longer than the spin timed the host, not the card: it is
+    thrown away and taken again with twice the spin (a stall of the host,
+    such as a shared core taken away for tens of ms, outlasts 20 ms of
+    spin), each such timing named on stderr; raises if the host outlasts
+    the spin in all ``SPIN_TRIES``."""
+    cycles, outlasted = SPIN_CYCLES, []
+    for _ in range(SPIN_TRIES):
+        r = time_fn(fn, iters=iters, warmup=warmup, reps=reps, spin_cycles=cycles)
+        if r["enqueue_ms_max"] < r["spin_ms_min"]:
+            return r["ms_median"]
+        outlasted.append(f"enqueue {r['enqueue_ms_max']} ms against spin {r['spin_ms_min']} ms")
+        print(f"spun_ms: timing again, the host outlasted the spin: {outlasted[-1]}",
+              file=sys.stderr)
+        cycles *= 2
+    raise RuntimeError("the host outlasted the spin in every timing: " + "; ".join(outlasted))
+
+
+LIBRARY_ROUNDS = 5   # rounds of (kernel, library, library, kernel): ten alternating pairs
+
+
+def library_turns(fn, key, lib, xs, rounds: int = LIBRARY_ROUNDS) -> dict:
+    """A pattern and its one PyTorch call timed in turns, ``rounds`` rounds of
+    (kernel, library, library, kernel), device time on a spinning card: two
+    alternating pairs a round (kernel-library and library-kernel), each read
+    within one stretch of the card's clocks. Returns the times, each pair's
+    kernel / library ratio, their median and the pairs the kernel lost
+    (slower than the library call)."""
+    calls = {"kernel": lambda: fn(key, *xs), "library": lambda: lib(*xs)}
+    times = {"kernel": [], "library": []}
+    for _ in range(rounds):
+        for tag in ("kernel", "library", "library", "kernel"):
+            times[tag].append(spun_ms(calls[tag], 20, warmup=2, reps=3))
+    ratios = [k / b for k, b in zip(times["kernel"], times["library"])]
+    return {**times, "ratios": ratios, "median_ratio": float(np.median(ratios)),
+            "pairs": len(ratios), "pairs_kernel_lost": sum(r > 1.0 for r in ratios)}
+
+
+def first_form_turns(fn, key, xs, rounds: int = 1) -> dict:
+    """A redesigned pattern against its first form: equal on every output
+    (raises otherwise), then device time on a spinning card in turns,
+    ``rounds`` rounds of (first, Hopper, Hopper, first)."""
+    hop, first = fn(key, *xs), fn.first(key, *xs)
+    if differing(hop, first):
+        raise AssertionError(f"{fn.__name__} {key}: the Hopper form differs from its first form "
+                             f"at {differing(hop, first)} outputs")
+    times = {"first": [], "hopper": []}
+    for _ in range(rounds):
+        for tag in ("first", "hopper", "hopper", "first"):
+            call = fn.first if tag == "first" else fn
+            times[tag].append(spun_ms(lambda: call(key, *xs), 20, warmup=2, reps=3))
+    return {"equal_to_first_form": True, "first_form_ms": times["first"],
+            "hopper_in_turns_ms": times["hopper"]}
 
 
 @dataclasses.dataclass

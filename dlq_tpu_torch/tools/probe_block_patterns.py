@@ -6,7 +6,9 @@ each as one hand-written kernel in ``csrc/probe_block.cu``.
   A2  the same on fp32
   S   stride-2 slices of a 4D slab  int8 [1, 18, 18, 128] -> [1, 8, 8, 128]
   L   lane split and half  int8 [232, 928] -> [232, 116, 8][..., 4:]
-  O   int8 requant out: clip(rint(f32(x) * f32(0.11)), -127, 127)
+  O   int8 requant out: clip(rint(f32(x) * f32(0.11)), -127, 127) (a
+      thread per ``O_BYTES`` bytes on every SM, the bytes in registers:
+      ``o_launch``; the scale settable by the caller, ``scale=``)
   D   K3's core: conv3x3 (9 int8 taps of [180, 128] x [128, 128]),
       h = clip(rint(f32(acc) * s1), 0, 127) int8, conv3x3 over h,
       out = clip(rint(f32(acc2) * s2) + res, 0, 127) int8
@@ -16,9 +18,9 @@ fp32. O's own numpy expectation multiplies in float64 and sits one step
 off (the reference's ``atol=1.0`` allows it); the port follows the kernel.
 Inputs are ``default_rng(0)`` draws in the reference's order; the check is
 the reference's (``max_abs <= 0.5``, 1.0 for O and D). A1, A2, S and L run
-on ``probe_common.cuh``'s Hopper ``stage_kernel``, D on
-``double_conv_cluster_kernel``, a cluster of ``D_RANKS`` blocks, rank r
-owning output channels ``D_CS`` r .. of both convs; ``probe_block.first``
+on ``probe_common.cuh``'s Hopper ``stage_kernel``, O on ``requant_kernel``,
+D on ``double_conv_cluster_kernel``, a cluster of ``D_RANKS`` blocks, rank
+r owning output channels ``D_CS`` r .. of both convs; ``probe_block.first``
 runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_block_patterns [--device cpu]
@@ -27,6 +29,7 @@ runs their first forms.
 from __future__ import annotations
 
 import sys
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -53,7 +56,7 @@ SPEC = {
               ((232, 116, 4), I8), True, 0.5, read_bytes=232 * 116 * 4,
               library="x.reshape(232, 116, 8)[:, :, 4:].contiguous()"),
     "O": Spec("O int8 out blockspec + requant", (((256, 1024), I8),), ((256, 1024), I8),
-              True, 1.0, scalars=(float(O_SCALE), 0.0),
+              True, 1.0, scalars=(float(O_SCALE), 0.0), settable=True,
               library="none: the fp32 product, rint and clip to +-127 take three calls"),
     "D": Spec("D fused double-conv + i8 interchange",
               (((1, TOH + 4, OW + 4, C), I8), ((9, C, C), I8), ((9, C, C), I8)),
@@ -64,10 +67,11 @@ SPEC = {
 }
 
 
-def requant_plain(x: torch.Tensor) -> torch.Tensor:
+def requant_plain(x: torch.Tensor, scale: float = O_SCALE) -> torch.Tensor:
     """O: the fp32 product, rounded half to even, clipped (a float scalar
-    multiplies a float32 tensor as float32: the product is f32(x) * f32(0.11))."""
-    y = x.float() * float(O_SCALE)
+    multiplies a float32 tensor as float32: the product is f32(x) *
+    f32(scale), by default f32(0.11))."""
+    y = x.float() * float(np.float32(scale))
     return torch.clamp(torch.round(y), -127, 127).to(I8)
 
 
@@ -116,7 +120,40 @@ WINDOWS = {
     "L": (Window(4, 928, 8, 232, 116, 4), False),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_block.first)
-FIRST_FORMS = (*WINDOWS, "D")
+FIRST_FORMS = (*WINDOWS, "O", "D")
+
+# O's Hopper form (csrc/probe_block.cu: requant_kernel): a thread per O_BYTES
+# bytes (one load, one store), blocks of O_THREADS
+O_THREADS, O_BYTES = 256, 8
+O_N = 256 * 1024
+# the scales the card holds O's two forms equal at on every int8 value: the
+# probe's, 0.5 (exact ties: half to even shows), 1.7 (the clip binds), 1/127
+O_SCALES = tuple(np.float32(s) for s in (0.11, 0.5, 1.7, 1 / 127))
+
+
+def o_launch() -> Tuple[int, int, int]:
+    """(grid, threads, bytes a thread): what the C side's
+    ``dlq_probe_block_o_plan`` reports."""
+    return (O_N // (O_THREADS * O_BYTES), O_THREADS, O_BYTES)
+
+
+def o_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The byte offsets thread ``t`` (global index) loads and stores, [...,
+    O_BYTES], in the order of its 32-bit words' bytes."""
+    return (t * O_BYTES)[..., None] + torch.arange(O_BYTES)
+
+
+def o_exhaustive_input() -> torch.Tensor:
+    """An int8 [256, 1024] holding each of the 256 values 1,024 times, in a
+    seeded order."""
+    v = np.random.default_rng(0).permutation(np.arange(O_N) % 256) - 128
+    return torch.from_numpy(v.astype(np.int8)).reshape(256, 1024)
+
+
+def exhaustive_cases():
+    """(label, key, input, scale) of the card's exhaustive check of O."""
+    x = o_exhaustive_input()
+    return [(f"O s={float(s):.9g}", "O", x, s) for s in O_SCALES]
 
 # D's Hopper form (csrc/probe_block.cu: double_conv_cluster_kernel): a
 # cluster of D_RANKS blocks of D_THREADS threads, rank r owning output

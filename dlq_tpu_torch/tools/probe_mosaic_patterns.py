@@ -8,6 +8,7 @@ each as one hand-written kernel in ``csrc/probe_mosaic.cu``.
      (16 x 32 output tiles, q and k rows by TMA: ``_probe.nt_dot_plan``)
   4  leading-dim merge [4, 256, 256] -> [1024, 256] (x 2)
   5  tanh epilogue: bf16(tanh(fp32(x)))         [256, 768]
+     (a thread per ``TANH_VALUES`` values on every SM: ``tanh_launch``)
   6  the probe's 4-head attention on qkv [256, 768]: per head h, q/k/v at
      lanes 64h, 256 + 64h, 512 + 64h; s = (q k^T) * 0.125; keys >= 197 at
      -1e30; p = exp(s - max); a = bf16(p / sum p); out[:, 64h:] = bf16(a v)
@@ -18,8 +19,8 @@ finite); on the card the kernel is also held against its plain version:
 identical for 1, 2 and 4, within 1e-4 of max|plain| for 3, and for 5 and 6
 within one bf16 step of max|plain| on at most 1% of the outputs. 1, 2 and 4
 run on ``probe_common.cuh``'s Hopper ``stage_kernel``, 3 on its Hopper
-``nt_dot_hopper_kernel``, 6 on its Hopper ``attention_kernel``;
-``probe_mosaic.first`` runs their first forms.
+``nt_dot_hopper_kernel``, 5 on ``tanh_kernel``, 6 on its Hopper
+``attention_kernel``; ``probe_mosaic.first`` runs their first forms.
 
     python -m dlq_tpu_torch.tools.probe_mosaic_patterns [--device cpu]
 """
@@ -27,6 +28,7 @@ run on ``probe_common.cuh``'s Hopper ``stage_kernel``, 3 on its Hopper
 from __future__ import annotations
 
 import sys
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -108,7 +110,37 @@ WINDOWS = {
     "4": (Window(0, 512, 0, 1024, 1, 512), True),
 }
 # the patterns on a Hopper form whose first form stays callable (probe_mosaic.first)
-FIRST_FORMS = (*WINDOWS, "3", "6")
+FIRST_FORMS = (*WINDOWS, "3", "5", "6")
+
+# 5's Hopper form (csrc/probe_mosaic.cu: tanh_kernel): a thread per
+# TANH_VALUES values (one load, one store), blocks of TANH_THREADS
+TANH_THREADS, TANH_VALUES = 256, 4
+TANH_N = 256 * 768
+
+
+def tanh_launch() -> Tuple[int, int, int]:
+    """(grid, threads, values a thread): what the C side's
+    ``dlq_probe_mosaic_tanh_plan`` reports."""
+    return (TANH_N // (TANH_THREADS * TANH_VALUES), TANH_THREADS, TANH_VALUES)
+
+
+def tanh_values(t: torch.Tensor) -> torch.Tensor:
+    """The element offsets thread ``t`` (global index) loads and stores,
+    [..., TANH_VALUES], in the order of its 32-bit words' halves."""
+    return (t * TANH_VALUES)[..., None] + torch.arange(TANH_VALUES)
+
+
+def tanh_exhaustive_input() -> torch.Tensor:
+    """A bf16 [256, 768] holding each of the 65,536 bit patterns three times:
+    in order, reversed, and in a seeded order."""
+    bits = np.arange(65536, dtype=np.int64)
+    v = np.concatenate([bits, bits[::-1], np.random.default_rng(0).permutation(bits)])
+    return torch.from_numpy(v.astype(np.uint16).view(np.int16)).view(BF).reshape(256, 768)
+
+
+def exhaustive_cases():
+    """(label, key, input, scale) of the card's exhaustive check of 5."""
+    return [("5 every bf16 x3", "5", tanh_exhaustive_input(), None)]
 KEY_TILES = 32   # attention_kernel's key tiles of 8 for pattern 6 (256 keys)
 
 probe_mosaic = _probe.make_wrapper(SOURCE, SPEC, PLAIN, FIRST_FORMS)

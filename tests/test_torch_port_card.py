@@ -622,15 +622,16 @@ def _probe_mods():
 
 @pytest.mark.gpu
 def test_probe_hopper_forms_equal_first_forms_on_card():
-    """The redesigned probe patterns (K19 6 and K20 D on attention_kernel,
-    K19 3 and K20 A on nt_dot_hopper_kernel, K20 B on nn_dot_hopper_kernel,
-    K21 D on double_conv_cluster_kernel, K22 E on int_dot_hopper_kernel,
-    K22 J on cols_kernel, K22 K on maxpool_kernel, the 12 copy patterns on
-    stage_kernel) on their Hopper forms equal to
-    their first forms on every output, the copies also to their plain
-    versions; the launches counted by form: the wrapper's launch on
-    .launches and .by_form["hopper"], .first on .by_form["first"] only, a
-    pattern with one form on neither form."""
+    """The redesigned probe patterns, all 23 (K19 6 and K20 D on
+    attention_kernel, K19 3 and K20 A on nt_dot_hopper_kernel, K20 B on
+    nn_dot_hopper_kernel, K21 D on double_conv_cluster_kernel, K22 E on
+    int_dot_hopper_kernel, K22 J on cols_kernel, K22 K on maxpool_kernel,
+    K21 O on requant_kernel, K19 5 on tanh_kernel, the 12 copy patterns on
+    stage_kernel) on their Hopper forms equal to their first forms on every
+    output, the copies also to their plain versions; the launches counted
+    by form: the wrapper's launch on .launches and .by_form["hopper"],
+    .first on .by_form["first"] only, a pattern with one form (none is
+    left) on neither form."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -655,7 +656,7 @@ def test_probe_hopper_forms_equal_first_forms_on_card():
             if key in mod.WINDOWS:
                 assert torch.equal(got, mod.PLAIN[key](*xs)), (name, key)
             n += 1
-    assert n == 21
+    assert n == 23
 
 
 @pytest.mark.gpu
@@ -807,6 +808,67 @@ def test_probe_cols_and_maxpool_hopper_on_card(seed):
         outs = [fn(key, *xs) for _ in range(200)]
         torch.cuda.synchronize()
         assert all(torch.equal(o, got) for o in outs), key
+
+
+def _elementwise_cases(draw):
+    """(module, key, input, scale) of K21 O and K19 5: the probe's own
+    inputs (seed 0), other draws (seeds 1, 2: O over the whole int8 range
+    at a drawn scale, 5 a normal draw of sigma 3), or the exhaustive inputs
+    (O's 256 values at its four scales, 5's 65,536 bit patterns)."""
+    from dlq_tpu_torch.tools import probe_block_patterns as PK
+    from dlq_tpu_torch.tools import probe_mosaic_patterns as PM
+
+    if draw == "exhaustive":
+        return [(mod, key, x, s) for mod in (PK, PM) for _, key, x, s in mod.exhaustive_cases()]
+    if draw == 0:
+        return [(mod, key, xs[0], None) for mod, key in ((PK, "O"), (PM, "5"))
+                for k, xs, _ in mod.cases() if k == key]
+    from dlq_tpu_torch.tools import _probe
+
+    rng = np.random.default_rng(draw)
+    return [(PK, "O", _i8(rng, (256, 1024), lo=-128), float(rng.uniform(0.01, 2.0))),
+            (PM, "5", _probe.bf16(rng.normal(0, 3, (256, 768))), None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draw", [0, 1, 2, "exhaustive"])
+def test_probe_requant_and_tanh_hopper_on_card(draw):
+    """K21 O's requant (requant_kernel) and K19 5's tanh (tanh_kernel) on
+    the probe's own inputs (seed 0), other draws (seeds 1, 2) and every
+    input value (O's 256 int8 values at four scales, 5's 65,536 bf16 bit
+    patterns, NaN and +-inf included): each Hopper form equal to its first
+    form bit for bit, NaN for NaN, and to its plain version (O bit for bit,
+    5 by _probe.held on the non-NaN inputs, NaN for NaN); each launch
+    counted once on .launches and .by_form["hopper"], .first only on
+    .by_form["first"]; 200 launches in a row give the same output every
+    time. The C side's launch constants equal the Python mirrors the CPU
+    tests hold (probe_block_patterns.o_launch,
+    probe_mosaic_patterns.tanh_launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.tools import _probe
+    from dlq_tpu_torch.tools import probe_block_patterns as PK
+    from dlq_tpu_torch.tools import probe_mosaic_patterns as PM
+
+    dev = torch.device("cuda")
+    assert _probe.c_plan("probe_block", "o_plan", 3) == PK.o_launch()
+    assert _probe.c_plan("probe_mosaic", "tanh_plan", 3) == PM.tanh_launch()
+    for mod, key, x, scale in _elementwise_cases(draw):
+        fn = getattr(mod, mod.SOURCE)
+        x = x.to(dev)
+        launches, forms, shapes = fn.launches, dict(fn.by_form), dict(fn.by_shape)
+        got = fn(key, x, scale=scale)
+        assert fn.launches == launches + 1 and fn.by_shape[key] == shapes.get(key, 0) + 1
+        assert fn.by_form["hopper"] == forms.get("hopper", 0) + 1
+        first = fn.first(key, x, scale=scale)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1 and fn.by_form["first"] == forms.get("first", 0) + 1
+        assert _probe.differing(got, first) == 0, (key, scale, _probe.differing(got, first))
+        (row,) = _probe.exhaustive(fn, mod.SPEC, mod.PLAIN, [(str(draw), key, x, scale)])
+        assert row["ok"], row
+        outs = [fn(key, x, scale=scale) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(_probe.differing(o, got) == 0 for o in outs), (key, scale)
 
 
 # windows beside the probes' own (as tests/test_torch_port_probe_hopper.py

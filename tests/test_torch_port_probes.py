@@ -324,3 +324,27 @@ def test_library_computes_the_pattern(port_cases, tool, key):
         top = float(ref.double().abs().max())
         err = float((got.double() - ref.double()).abs().max())
         assert err <= 2 * 2.0 ** (np.frexp(top)[1] - 8), f"{err} at max {top}"
+
+
+@pytest.mark.parametrize("outlasted", [0, 1, _probe.SPIN_TRIES - 1, _probe.SPIN_TRIES])
+def test_spun_ms_retimes_what_the_host_outlasted(monkeypatch, outlasted):
+    """``spun_ms`` returns only a timing whose host enqueue stayed inside
+    the spin: one the host outlasted is taken again with twice the spin,
+    and after ``SPIN_TRIES`` outlasted timings it raises, returning none of
+    them. ``time_fn`` is replaced by a stand-in whose first ``outlasted``
+    timings the host outlasts."""
+    calls = []
+
+    def time_fn(fn, iters, warmup, reps, spin_cycles):
+        calls.append(spin_cycles)
+        late, spin = len(calls) <= outlasted, 20.0 * spin_cycles / _probe.SPIN_CYCLES
+        return {"ms_median": 99.0 if late else 0.5,
+                "enqueue_ms_max": 2 * spin if late else 1.0, "spin_ms_min": spin}
+
+    monkeypatch.setattr(_probe, "time_fn", time_fn)
+    if outlasted == _probe.SPIN_TRIES:
+        with pytest.raises(RuntimeError, match="outlasted the spin in every timing"):
+            _probe.spun_ms(lambda: None, 20, warmup=2, reps=3)
+    else:
+        assert _probe.spun_ms(lambda: None, 20, warmup=2, reps=3) == 0.5
+    assert calls == [_probe.SPIN_CYCLES * 2 ** i for i in range(min(outlasted + 1, _probe.SPIN_TRIES))]
