@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
 DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
-fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, 224 px; and the four
-lowering probes).
+fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, MobileNetV2 1.0x W8A8,
+224 px; and the four lowering probes).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -139,6 +139,26 @@ Phases, one JSON line each:
      "bf16" (K6; bit-identical to vit_forward_blockfused_w8, and both
      forwards again 200 times each, every run equal to the first), and
      make_qforward(attn_impl="xla_int8") under DeployCtx (K2 50, K18 12);
+ 10b. MobileNetV2 1.0x (224 px, 1000 classes, seed-0 weights): K23
+     depthwise_int8 at its ten depthwise shapes at batch 256 with both
+     epilogues (fp32 out, as under deploy; int8 out with relu6, as under
+     fused2), bit-identical to its plain version, timed beside the plain
+     version, the bound and the fp32 grouped conv (F.conv2d(groups=C), TF32
+     off: the same exact sums), also as device time on a spinning card; odd
+     shapes (C = 40, odd H and W, stride 2 from an odd H) bit-identical and a
+     C = 12 refused; K1 and K2 with relu6 and int8 out at its stem, expand,
+     project and head shapes, bit-identical (the mnv2_relu6_epilogues line;
+     these two checks run with phase 2); then Engine.quantized (calibrated
+     on 8 images), save_quantized and Engine.from_store(ctx="deploy") driven
+     through classify (main_path_mnv2_deploy: K1 1, K2 35, K23 17 per
+     forward, K23 per shape), gated against the fp32 forward
+     (MNV2_DEPLOY_FP32_COS), bit-identical to its plain-version twin (every
+     block's output, the pooled vector, the logits), timed, repeated 200
+     times and profiled; then make_qforward_fused under FullFusedCtx on the
+     same store (mnv2_fused2: the same launches, int8 out everywhere but the
+     fc), gated against deploy (MNV2_FUSED2_DEPLOY_COS), every block's int8
+     output and the logits bit-identical to its plain-version twin, timed,
+     repeated 200 times and profiled;
  11. the probes (K19 probe_mosaic, K20 probe_batched_dot, K21 probe_block,
      K22 probe_stem: the ports of tools/probe_*.py): the probe entry point
      itself, each module's results() (its main() without the exit status)
@@ -171,9 +191,10 @@ Phases, one JSON line each:
      patterns, NaN and +-inf included), the outputs that differ counted
      and gated at 0 against the first form, with both forms' ptxas
      registers and stack frames.
-Each timed forward of ResNet-18/-50 (fused2, PallasBlockCtx) and of
+Each timed forward of ResNet-18/-50 (fused2, PallasBlockCtx), of
 DeiT-Tiny's block paths (W8A8 with and without int8 attention, W4A8,
-W4A16, bf16 at both pads) runs SPLIT_REPEATS more times at batch 256, and
+W4A16, bf16 at both pads) and of MobileNetV2 (deploy, fused2) runs
+SPLIT_REPEATS more times at batch 256, and
 each DeiT-Tiny deploy forward (W8A8, with fused_ln and with xla_int8; W4A8
 "packed" and "int8"; G128) at batch 64, every run's logits equal to the
 first's (counted on the device; a race differs in some run). Each main path
@@ -289,11 +310,24 @@ NO_INT8_ATTN = ("none: no PyTorch call computes int8 attention; sdpa_bf16_ms is 
 # Its bf16-attention multiblock forward is at 0.99889: with near-uniform
 # attention over 197 keys most probabilities are 0 or 1 in steps of 1/127
 DEIT_ATTN_INT8_FP32_COS = 0.987
+# MobileNetV2 1.0x (224 px, 1000 classes, seed-0 weights calibrated on 8
+# images of seed MNV2_CALIB_SEED): the deploy logits vs the port's fp32
+# engine, and the fused2 forward (make_qforward_fused under FullFusedCtx) vs
+# deploy, just under the reference's own figures on these weights
+# (tools/mnv2_reference_error.py, 16 images, CPU; PERF.md §2): its deploy
+# forward at cosine 0.99887 of fp32, its FullFusedCtx forward at 0.99904 of
+# deploy (0.99880 of fp32), top-1 1.0 (the random-weight logits pick one
+# class for the whole batch, so top-1 is reported, not gated)
+MNV2_CALIB_SEED = SEED + 2
+MNV2_DEPLOY_FP32_COS = 0.998
+MNV2_FUSED2_DEPLOY_COS = 0.998
+DW_FP32 = ("F.conv2d(groups=C) in fp32 with TF32 off on the same integer values, channels-last "
+           "(the reference's depthwise='fp32' sums, exact here; no epilogue)")
 
 KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
            "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
            "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm_fused",
-           "residual_layernorm", "mhsa_f32", "mhsa_i8")
+           "residual_layernorm", "mhsa_f32", "mhsa_i8", "depthwise_int8")
 
 
 def _per(**launches):
@@ -352,7 +386,13 @@ PER_FORWARD = {
     "deit_split_int8": _per(vit_pre_w8=12, mhsa_i8=12, vit_post_w8=12),
     "deit_split_bf16": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
     "deit_deploy_xla_int8": _per(matmul_int8=50, mhsa_i8=12),
+    # MobileNetV2 1.0x: the stem on K1, 16 expand + 17 project 1x1 convs, the
+    # head and the fc on K2, 17 depthwise convs on K23
+    "mnv2_deploy": _per(conv_int8=1, matmul_int8=35, depthwise_int8=17),
+    "mnv2_fused2": _per(conv_int8=1, matmul_int8=35, depthwise_int8=17),
 }
+# MobileNetV2's paths: K1 and K2 checked by totals, K23 by shape (its case table)
+MNV2_PATHS = ("mnv2_deploy", "mnv2_fused2")
 # paths run at batch 64 and checked by totals only (the shape tables are at
 # batch 256; where a kernel's times are summed per forward on such a path,
 # its case table's launches per forward weight them)
@@ -626,6 +666,24 @@ def mhsa_i8_cases():
             (VIT_N, VIT_N, "zero_pad", "float32", "float32"): {}}
 
 
+def depthwise_cases():
+    """K23: (H, C, stride, activation, int8_out) -> launches per forward per
+    path: every depthwise site of MobileNetV2 1.0x at 224 px (ten distinct
+    shapes), fp32 out with no activation under deploy (its relu6 runs on the
+    fp32 interchange), int8 out with relu6 under fused2."""
+    from dlq_tpu_torch.models.mobilenetv2 import MobileNetV2Config, block_meta
+
+    sites, h = {}, 112
+    for m in block_meta(MobileNetV2Config()):
+        sites[(h, m["hidden"], m["stride"])] = sites.get((h, m["hidden"], m["stride"]), 0) + 1
+        h = (h - 1) // m["stride"] + 1
+    out = {}
+    for (h, c, s), n in sites.items():
+        out[(h, c, s, False, False)] = {"mnv2_deploy": n}
+        out[(h, c, s, "relu6", True)] = {"mnv2_fused2": n}
+    return out
+
+
 def _conv_key(case):
     h, c, oc, k, s, relu, int8_out = case
     return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
@@ -655,7 +713,9 @@ KEYS = {"conv_int8": (conv_cases, _conv_key),
         "residual_layernorm": (residual_layernorm_cases,
                                lambda c: (BATCH * VIT_N, VIT_DP, *c)),
         "mhsa_f32": (mhsa_f32_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, c[1])),
-        "mhsa_i8": (mhsa_i8_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, *c[1:]))}
+        "mhsa_i8": (mhsa_i8_cases, lambda c: (BATCH, c[0], VIT_HEADS, VIT_HD, *c[1:])),
+        "depthwise_int8": (depthwise_cases,
+                           lambda c: (BATCH, c[0], c[0], c[1], 3, 3, c[2], 1, *c[3:]))}
 
 
 def expected_by_shape(path: str, forwards: int):
@@ -671,6 +731,8 @@ def _check_tables():
         if path in TOTALS_ONLY:
             continue
         got = {k: sum(v.values()) for k, v in expected_by_shape(path, 1).items()}
+        if path in MNV2_PATHS:   # K1 and K2 by totals only
+            got.update(conv_int8=totals["conv_int8"], matmul_int8=totals["matmul_int8"])
         if got != totals:
             raise AssertionError(f"{path}: case tables give {got}, expected {totals}")
 
@@ -1702,6 +1764,130 @@ def check_ln_kernels(dev):
     return rows
 
 
+def check_depthwise_kernel(dev):
+    """K23 at every depthwise shape of MobileNetV2 1.0x at batch 256, with
+    both of its paths' epilogues (fp32 out under deploy, int8 out with relu6
+    under fused2), bit-identical to its plain version, timed beside the
+    plain version, the bound and the fp32 grouped conv (DW_FP32), also as
+    device time on a spinning card; then odd shapes (C = 40 in 8-byte
+    granules, odd H and W, stride 2 from an odd H) held bit-identical; a C
+    that is not a multiple of 8 refused."""
+    import torch.nn.functional as F
+
+    from dlq_tpu_torch.models.common import fp32_conv
+    from dlq_tpu_torch.ops.conv_int8 import out_hw
+    from dlq_tpu_torch.ops.depthwise_int8 import (
+        depthwise_int8, depthwise_int8_plain, pack_depthwise_weight,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows = []
+    for case, per in depthwise_cases().items():
+        h, c, s, act, int8_out = case
+        relu6 = act == "relu6"
+        x = _rand_int8(gen, (BATCH, h, h, c), dev)
+        pk = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, c), dev))
+        scale, bias, osc = _epi_params(gen, c, 9, dev)
+        if relu6:
+            # y spread past 6 (std ~4), at an output scale whose 6 / s < 127,
+            # so the clip before the division shows
+            scale, osc = scale * 80.0, 0.1
+        osc = osc if int8_out else None
+        fn = functools.partial(depthwise_int8, x, pk, s, 1, scale, bias, False, osc, relu6)
+        plain = functools.partial(depthwise_int8_plain, x, pk, s, 1, scale, bias, False, osc,
+                                  relu6)
+        got, ref = fn(), plain()
+        oh, ow = out_hw(h, h, 3, 3, s, 1)
+        xf = x.permute(0, 3, 1, 2).float()          # channels-last fp32 of the same values
+        wf = pk.hwio().permute(3, 2, 0, 1).float()  # [C, 1, 3, 3]
+
+        def lib():
+            with fp32_conv():
+                return F.conv2d(xf, wf, stride=s, padding=1, groups=c)
+
+        rows.append(_row(
+            "depthwise_int8", KEYS["depthwise_int8"][1](case),
+            f"{BATCH}x{h}x{h}x{c} 3x3/s{s}", got, ref, fn, plain,
+            2.0 * BATCH * oh * ow * c * 9,
+            x.numel() + 9 * c + 8 * c + got.numel() * got.element_size(),
+            per, library=lib, library_name=DW_FP32, spun=True,
+            act=act, out="int8" if int8_out else "fp32"))
+        del x, got, ref, xf
+    odd = []
+    for n, h, w, c, s in ((2, 9, 9, 40, 1), (2, 13, 11, 40, 2), (3, 7, 5, 24, 2),
+                          (2, 15, 15, 16, 2)):
+        x = _rand_int8(gen, (n, h, w, c), dev)
+        pk = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, c), dev))
+        scale, bias, _ = _epi_params(gen, c, 9, dev)
+        for relu6, osc in ((False, None), (True, 0.1)):
+            sc = scale * 80.0 if relu6 else scale
+            got = depthwise_int8(x, pk, s, 1, sc, bias, False, osc, relu6)
+            ref = depthwise_int8_plain(x, pk, s, 1, sc, bias, False, osc, relu6)
+            err = float((got.float() - ref.float()).abs().max())
+            if err:
+                raise AssertionError(f"depthwise_int8 {(n, h, w, c, s, relu6)}: max_abs_err {err}")
+            odd.append({"shape": [n, h, w, c], "stride": s, "relu6": relu6, "max_abs_err": err})
+    try:
+        bad = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, 12), dev))
+        depthwise_int8(_rand_int8(gen, (1, 8, 8, 12), dev), bad, 1, 1, scale[:12].contiguous(),
+                       bias[:12].contiguous())
+        raise AssertionError("depthwise_int8: C = 12 was not refused")
+    except ValueError as e:
+        refused = str(e)
+    emit({"phase": "depthwise_odd_shapes", "cases": odd, "refused_c12": refused})
+    return rows
+
+
+def check_mnv2_epilogues(dev):
+    """K1 and K2 with relu6 and int8 out at MobileNetV2 1.0x's stem, expand,
+    project and head shapes at batch 256, bit-identical to their plain
+    versions, y spread past 6 at output scales whose 6 / s is below (0.1) and
+    above (0.025) 127: the stem C = 3 -> 32 3x3/s2/p1 (first form), the
+    expand convs K = 16 -> 96 and K = 24 -> 144 (K % 16 != 0: first form),
+    the project convs to N = 24 (int8 rows not 16-byte multiples: the
+    unaligned store branch) and N = 16, the head 320 -> 1280; each with the
+    form its launch took and its time."""
+    from dlq_tpu_torch.ops.conv_int8 import conv_int8, conv_int8_plain, pack_conv_weight
+    from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, matmul_int8_plain, pack_dense_weight
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    out = []
+
+    def held(kernel, what, fn, plain, by_form):
+        by_form.clear()
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        if err:
+            raise AssertionError(f"{kernel} relu6 {what}: max_abs_err {err}")
+        out.append({"kernel": kernel, "shape": what, "max_abs_err": err,
+                    "form": by_form.most_common(1)[0][0], "ms": time_ms(fn, iters=10)})
+
+    x = _rand_int8(gen, (BATCH, 224, 224, 3), dev)
+    pk = pack_conv_weight(_rand_int8(gen, (3, 3, 3, 32), dev))
+    scale, bias, _ = _epi_params(gen, 32, 27, dev)
+    for osc in (0.1, 0.025):
+        held("conv_int8", f"{BATCH}x224x224x3->32 3x3/s2 out_scale {osc}",
+             functools.partial(conv_int8, x, pk, 2, 1, scale * 80.0, bias, False, osc, True),
+             functools.partial(conv_int8_plain, x, pk, 2, 1, scale * 80.0, bias, False, osc,
+                               True), conv_int8.by_form)
+    del x
+    for hw, k, n, relu6 in ((112 * 112, 16, 96, True), (56 * 56, 24, 144, True),
+                            (56 * 56, 144, 24, False), (112 * 112, 32, 16, False),
+                            (7 * 7, 320, 1280, True)):
+        x = _rand_int8(gen, (BATCH * hw, k), dev)
+        pk = pack_dense_weight(_rand_int8(gen, (k, n), dev))
+        scale, bias, _ = _epi_params(gen, n, k, dev)
+        sc = scale * 80.0 if relu6 else scale * 40.0
+        for osc in (0.1, 0.025):
+            held("matmul_int8", f"{BATCH * hw}x{k}@{k}x{n} relu6={relu6} out_scale {osc}",
+                 functools.partial(matmul_int8, x, pk, sc, bias, False, osc, relu6),
+                 functools.partial(matmul_int8_plain, x, pk, sc, bias, False, osc, relu6),
+                 matmul_int8.by_form)
+        del x
+    emit({"phase": "mnv2_relu6_epilogues", "cases": out})
+
+
 def check_groupwise_routes(dev):
     """Group-wise int4 dense sites on the card: with activation scales the
     activations are fake-quantized and K13 runs (launch counted, held
@@ -1830,7 +2016,7 @@ def check_repeats() -> None:
     its first."""
     want = {"r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_block",
             "deit_block_attn_int8", "deit_block_w4a8", "deit_block_w4", "deit_bf16_loose",
-            "deit_bf16_tight", *DEPLOY_REPEATS}
+            "deit_bf16_tight", *DEPLOY_REPEATS, *MNV2_PATHS}
     differ = {k: v["runs_differing"] for k, v in REPEATS.items() if v["runs_differing"]}
     emit({"phase": "repeat_forwards", "paths": len(REPEATS), "repeats": SPLIT_REPEATS,
           "runs_differing": {k: v["runs_differing"] for k, v in REPEATS.items()},
@@ -2003,6 +2189,7 @@ def _wrappers():
     from dlq_tpu_torch.ops.block_fused import basic_block_fused, bottleneck_block_fused
     from dlq_tpu_torch.ops.int8_attention import mhsa_i8
     from dlq_tpu_torch.ops.conv_int8 import conv_int8
+    from dlq_tpu_torch.ops.depthwise_int8 import depthwise_int8
     from dlq_tpu_torch.ops.layernorm import layernorm_fused, residual_layernorm
     from dlq_tpu_torch.ops.matmul_int4 import matmul_int4
     from dlq_tpu_torch.ops.matmul_int4a8 import matmul_int4a8
@@ -2019,7 +2206,8 @@ def _wrappers():
           "vit_pre_w4": vit_block_pre_w4, "vit_post_w4": vit_block_post_w4,
           "matmul_int4": matmul_int4, "vit_pre_bf16": vit_block_pre_bf16,
           "vit_post_bf16": vit_block_post_bf16, "layernorm_fused": layernorm_fused,
-          "residual_layernorm": residual_layernorm, "mhsa_f32": mhsa_f32, "mhsa_i8": mhsa_i8}
+          "residual_layernorm": residual_layernorm, "mhsa_f32": mhsa_f32, "mhsa_i8": mhsa_i8,
+          "depthwise_int8": depthwise_int8}
     assert tuple(ws) == KERNELS
     return ws
 
@@ -2122,8 +2310,8 @@ def plain_kernels():
     """Route every kernel call of the contexts to its plain PyTorch version
     (on the same card): the reference numerics of the same forward."""
     from dlq_tpu_torch.ops import (
-        attention, block_fused, conv_int8, int8_attention, layernorm, matmul_int4, matmul_int4a8,
-        matmul_int8, qops, vit_block,
+        attention, block_fused, conv_int8, depthwise_int8, int8_attention, layernorm,
+        matmul_int4, matmul_int4a8, matmul_int8, qops, vit_block,
     )
     from dlq_tpu_torch.quant import model_quant
 
@@ -2147,6 +2335,7 @@ def plain_kernels():
             (qops, "matmul_int8", matmul_int8.matmul_int8_plain),
             (qops, "matmul_int4a8", matmul_int4a8.matmul_int4a8_plain),
             (qops, "matmul_int4", matmul_int4.matmul_int4_plain),
+            (qops, "depthwise_int8", depthwise_int8.depthwise_int8_plain),
             (block_fused, "basic_block_fused", block_fused.basic_block_plain),
             (block_fused, "bottleneck_block_fused", block_fused.bottleneck_block_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in subs]
@@ -2382,6 +2571,127 @@ def main_paths(dev, card, depth, images):
                   "top1_gated": top1, "top1_vs_fp32": top1_report(lg, ref_logits[:64]),
                   "logits_equal_plain_versions": True})
             del e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mnv2_drive(eng, images, path, what, fused2=False):
+    """drive() for a MobileNetV2 path: launches per kernel per forward, K23's
+    per shape (K1 and K2 by totals); under fused2 every K1, K2 and K23 output
+    is int8 but the fc's."""
+    eng.classify(images[:BATCH])                   # warm (first launches)
+    eng.stats.images_timed, eng.stats.ms_total = 0, 0.0
+    reset_counts()
+    preds = eng.classify(images, pipeline=2)
+    counts, shapes = read_counts()
+    expect_counts(counts, path, NB, what)
+    want = expected_by_shape(path, NB)["depthwise_int8"]
+    if shapes["depthwise_int8"] != want:
+        raise AssertionError(f"{what}: K23 launches per shape {shapes['depthwise_int8']}, "
+                             f"expected {want}")
+    if fused2:
+        fp32_out = {(k, name) for name in ("conv_int8", "matmul_int8", "depthwise_int8")
+                    for k in shapes[name] if not k[-1]}
+        if fp32_out != {((BATCH, 1280, 1000, False, False), "matmul_int8")}:
+            raise AssertionError(f"{what}: fp32-out launches other than the fc's {fp32_out}")
+    return preds, counts, shapes
+
+
+def mnv2_paths(dev, card, images):
+    """MobileNetV2 1.0x W8A8 (224 px, 1000 classes, seed-0 weights): calibrated
+    and quantized by Engine.quantized, saved as a store, served by
+    Engine.from_store(ctx="deploy") (main_path_mnv2_deploy), then
+    make_qforward_fused under FullFusedCtx on the same store (mnv2_fused2);
+    returns {path: (counts, shapes)}."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.mobilenetv2 import (
+        MobileNetV2Config, block_meta, fold_mobilenetv2, init_mobilenetv2, make_qforward,
+        make_qforward_fused, mobilenetv2_forward,
+    )
+    from dlq_tpu_torch.quant.model_quant import FullFusedCtx
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import load_quantized, save_quantized
+
+    cfg = MobileNetV2Config()
+    meta = block_meta(cfg)
+    params = init_mobilenetv2(SEED, cfg)
+    x0 = images[:BATCH]
+    xt = torch.from_numpy(x0).to(dev)
+    fp32 = Engine.fp32(mobilenetv2_forward, params, cfg, batch=BATCH, device=dev,
+                       name="mobilenetv2_fp32")
+    ref_logits = fp32(x0).float().cpu().numpy()
+    del fp32
+    calib = [np.random.default_rng(MNV2_CALIB_SEED).normal(0, 1, (8, 224, 224, 3))
+             .astype(np.float32)]
+    t0 = time.perf_counter()
+    qf = make_qforward(meta)
+    eng_q = Engine.quantized(qf, fold_mobilenetv2(params), cfg, INT8_PER_CHANNEL,
+                             calib_batches=calib, batch=BATCH, device=dev)
+    out = {}
+    blocks = [f"block{i}" for i in range(len(meta))]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_quantized(tmp, "mobilenetv2", eng_q.qflat, eng_q.act_scales, INT8_PER_CHANNEL,
+                       meta={"config": {"num_classes": cfg.num_classes, "small_input": False}})
+        del eng_q
+        eng = Engine.from_store(tmp, ctx="deploy", batch=BATCH, device=dev)
+        setup_s = time.perf_counter() - t0
+
+        # ---- main_path_mnv2_deploy ----
+        path = "mnv2_deploy"
+        preds, counts, shapes = _mnv2_drive(eng, images, path, "mobilenetv2 deploy")
+        logits, taps = _taps(eng, x0, cfg, qf)
+        if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+            raise AssertionError("mobilenetv2 deploy: classify and the taps forward disagree")
+        # random-weight logits: top-1 is reported beside the margins, not gated
+        agree, cos = gate(logits, ref_logits, "mobilenetv2 deploy vs fp32", MNV2_DEPLOY_FP32_COS,
+                          top1=False)
+        plain = plain_equivalence(eng, x0, cfg, qf, logits, taps, (*blocks, "gap"),
+                                  "mobilenetv2 deploy")
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward(path, lambda: eng._fn(eng.params, xt))
+        emit({"phase": "main_path_mnv2_deploy", "model": "mobilenetv2", "width_mult": 1.0,
+              "size": 224, "batch": BATCH, "batches": NB,
+              "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
+              "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+              "launches_per_forward": {k: v / NB for k, v in counts.items()},
+              "top1_agreement_vs_fp32": agree, "logits_cosine_vs_fp32": cos,
+              "cosine_gate": MNV2_DEPLOY_FP32_COS, "top1_gated": False,
+              "top1_vs_fp32": top1_report(logits, ref_logits),
+              "max_abs_vs_plain_versions": plain, "setup_s": setup_s, "card": card})
+        profile_forward(eng, xt, "mobilenetv2_deploy")
+        out[path] = (counts, shapes)
+        del eng, taps
+
+        # ---- mnv2_fused2: make_qforward_fused under FullFusedCtx, same store ----
+        qflat, scales, qcfg, _ = load_quantized(tmp)
+        ctx = FullFusedCtx(to_device(qflat, dev), to_device(scales, dev), qcfg)
+    qff = make_qforward_fused(meta)
+    eng2 = Engine(lambda c, x: qff(c, x, cfg), ctx, batch=BATCH, device=dev,
+                  name="mobilenetv2_fused2")
+    path = "mnv2_fused2"
+    preds2, counts2, shapes2 = _mnv2_drive(eng2, images, path, "mobilenetv2 fused2", fused2=True)
+    logits2, taps2 = _taps(eng2, x0, cfg, qff)
+    if not np.array_equal(preds2[:BATCH], logits2.argmax(-1)):
+        raise AssertionError("mobilenetv2 fused2: classify and the taps forward disagree")
+    agree2, cos2 = gate(logits2, logits, "mobilenetv2 fused2 vs deploy", MNV2_FUSED2_DEPLOY_COS,
+                        top1=False)
+    cos2_fp32 = numerics.diff(logits2, ref_logits).cosine
+    plain2 = plain_equivalence(eng2, x0, cfg, qff, logits2, taps2, blocks, "mobilenetv2 fused2")
+    ms2 = time_ms(lambda: eng2._fn(eng2.params, xt), iters=10)
+    repeat_forward(path, lambda: eng2._fn(eng2.params, xt))
+    emit({"phase": "mnv2_fused2", "model": "mobilenetv2", "width_mult": 1.0, "size": 224,
+          "batch": BATCH, "batches": NB, "img_per_s_classify": eng2.stats.images_per_sec,
+          "ms_per_batch": ms2, "img_per_s_device": BATCH / (ms2 / 1e3), "launches": counts2,
+          "launches_per_forward": {k: v / NB for k, v in counts2.items()},
+          "top1_agreement_vs_deploy": agree2, "logits_cosine_vs_deploy": cos2,
+          "cosine_gate": MNV2_FUSED2_DEPLOY_COS, "logits_cosine_vs_fp32": cos2_fp32,
+          "top1_vs_deploy": top1_report(logits2, logits),
+          "int8_block_taps_equal_plain_versions": True,
+          "max_abs_vs_plain_versions": plain2, "card": card})
+    profile_forward(eng2, xt, "mobilenetv2_fused2")
+    out[path] = (counts2, shapes2)
+    del eng2, ctx
     torch.cuda.empty_cache()
     return out
 
@@ -3376,6 +3686,38 @@ def summary(rows, paths):
     return out
 
 
+def mnv2_summary(rows, paths):
+    """K23's entry of the kernels line: per forward of each MobileNetV2 path,
+    each shape's time (batch ``BATCH``) weighted by its launches per forward
+    as counted on that path's run of ``NB`` forwards; ``main``: deploy."""
+    per_path = []
+    for path, (counts, shapes) in paths.items():
+        w = [shapes["depthwise_int8"].get(r["key"], 0) / NB for r in rows]
+
+        def tot(f):
+            vals = [r.get(f) for r in rows]
+            return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
+
+        per_path.append({"path": path, "launches": counts["depthwise_int8"], "forwards": NB,
+                         "batch": BATCH, "launches_per_forward": counts["depthwise_int8"] / NB,
+                         "bound_by": max((n * r["bound_ms"], r["bound_by"])
+                                         for n, r in zip(w, rows) if n)[1],
+                         **{f: tot(f) for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "device_ms", "library_device_ms")}})
+    m = per_path[0]
+    return [{"name": "depthwise_int8", "route": "cuda",
+             "source": "dlq_tpu_torch/csrc/depthwise_int8.cu",
+             "replaces": "dlq_tpu/ops/qops.py:182 _conv_int8, its grouped branch (groups == C; an "
+                         "XLA function, no pallas_call; oracle _depthwise_int8_stencil :162)",
+             "launches": m["launches"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+             **{f: m[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "device_ms", "library_device_ms")},
+             "library": DW_FP32, "main": m["path"],
+             "per": f"launches: the {m['path']} run of {NB} forward(s) at batch {BATCH}; "
+                    f"times: one forward at batch {BATCH}",
+             "paths": per_path}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3398,6 +3740,8 @@ def main() -> int:
             + check_int4a8_matmul(dev) + check_w4a16_kernels(dev) + check_int4_matmul(dev)
             + check_bf16_kernels(dev) + check_ln_kernels(dev)
             + check_int8_attention_kernels(dev))
+    dw_rows = check_depthwise_kernel(dev)
+    check_mnv2_epilogues(dev)
     check_groupwise_routes(dev)
     attention_ptxas()
     stress_split_kernels(dev)
@@ -3412,10 +3756,12 @@ def main() -> int:
     paths.update(deit_w4a16_paths(dev, card, deit, images))
     paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
+    mnv2 = mnv2_paths(dev, card, images)
     check_repeats()
     probe_rows, probe_counts = probe_path()
     probe_exhaustive()
-    kernels = summary(rows, paths) + probe_summary(probe_rows, probe_counts)
+    kernels = (summary(rows, paths) + mnv2_summary(dw_rows, mnv2)
+               + probe_summary(probe_rows, probe_counts))
     print(card_line())
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ BUILD = PKG.parent / "build" / "dlq_tpu_torch"
 SOURCES = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8", "mhsa",
            "vit_post_w8", "vit_pre_w4a8", "vit_post_w4a8", "matmul_int4a8", "vit_pre_w4",
            "vit_post_w4", "matmul_int4", "vit_pre_bf16", "vit_post_bf16", "layernorm", "mhsa_i8",
-           "probe_mosaic", "probe_batched_dot", "probe_block", "probe_stem")
+           "probe_mosaic", "probe_batched_dot", "probe_block", "probe_stem", "depthwise_int8")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

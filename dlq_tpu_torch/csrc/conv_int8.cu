@@ -7,8 +7,8 @@
 // symmetric padding.
 //
 //   acc[m, oc] = sum_k A[m, k] * w[oc, k]     m = (n, oh, ow), k = (kh, kw, c)
-//   y = fma(float(acc), scale[oc], bias[oc]), relu
-//   out = y (fp32) | clip(rint(y / out_scale), relu ? 0 : -127, 127) (int8)
+//   y = fma(float(acc), scale[oc], bias[oc]), then relu or relu6 (clip to [0, 6])
+//   out = y (fp32) | clip(rint(y / out_scale), act ? 0 : -127, 127) (int8)
 //
 // Bound: operations at ResNet's 3x3 convs from 28^2 x 128 on (7^2 x 512:
 // ~2,300 int8 operations per byte), near the card's ridge of ~590 at 56^2 x
@@ -51,11 +51,11 @@ struct Args {
   void* out;
   int N, H, W, C, OC, KH, KW, stride, pad, OH, OW, Kp;
   long long M;
-  int relu, out_int8;
+  int act, out_int8;   // act: ACT_NONE, ACT_RELU or ACT_RELU6 (igemm.cuh)
   float out_scale;
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC, bool R6>
 __global__ void __launch_bounds__(THREADS) conv_int8_kernel(const Args a) {
   __shared__ __align__(16) int8_t As[2 * BM * LDS];
   __shared__ __align__(16) int8_t Bs[2 * BN * LDS];
@@ -89,13 +89,13 @@ __global__ void __launch_bounds__(THREADS) conv_int8_kernel(const Args a) {
                                      load_b<BN>(bs, a.w, a.OC, a.Kp, n0, kt);
                                    });
 
-  const bool relu = a.relu != 0;
+  const bool relu = a.act != ACT_NONE;
   const float lo = relu ? 0.0f : -127.0f;
   tile.for_each([&](int row, int col, int v) {
     const long long m = m0 + row;
     const int oc = n0 + col;
     if (m >= a.M || oc >= a.OC) return;
-    const float y = epi_fma(v, a.scale[oc], a.bias[oc], relu);
+    const float y = epi_act<R6>(v, a.scale[oc], a.bias[oc], relu);
     const size_t o = (size_t)m * a.OC + oc;
     if (a.out_int8)
       static_cast<int8_t*>(a.out)[o] = requant_div(y, a.out_scale, lo);
@@ -104,14 +104,21 @@ __global__ void __launch_bounds__(THREADS) conv_int8_kernel(const Args a) {
   });
 }
 
-template <int BM, int BN, int WM, int WN>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <int BM, int BN, int WM, int WN, bool R6>
+cudaError_t launch_act(const Args& a, cudaStream_t stream) {
   dim3 grid((unsigned)((a.M + BM - 1) / BM), (unsigned)((a.OC + BN - 1) / BN));
   if (a.C % 16 == 0)
-    conv_int8_kernel<BM, BN, WM, WN, true><<<grid, THREADS, 0, stream>>>(a);
+    conv_int8_kernel<BM, BN, WM, WN, true, R6><<<grid, THREADS, 0, stream>>>(a);
   else
-    conv_int8_kernel<BM, BN, WM, WN, false><<<grid, THREADS, 0, stream>>>(a);
+    conv_int8_kernel<BM, BN, WM, WN, false, R6><<<grid, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// relu6 takes kernels of its own, so the others compile to the epilogue without it
+template <int BM, int BN, int WM, int WN>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  return a.act == ACT_RELU6 ? launch_act<BM, BN, WM, WN, true>(a, stream)
+                            : launch_act<BM, BN, WM, WN, false>(a, stream);
 }
 
 }  // namespace
@@ -163,11 +170,13 @@ extern "C" int dlq_conv_int8_plan(int N, int H, int W, int C, int OC, int KH, in
 }
 
 // x: int8 NHWC [N, H, W, C] (16-byte aligned); w: int8 [OC, Kp], K = (kh,
-// kw, c); scale, bias: fp32 [OC]; out: fp32 or int8 NHWC [N, OH, OW, OC].
+// kw, c); scale, bias: fp32 [OC]; out: fp32 or int8 NHWC [N, OH, OW, OC];
+// act: 0 none, 1 relu, 2 relu6.
 extern "C" int dlq_conv_int8(const int8_t* x, const int8_t* w, const float* scale,
                              const float* bias, void* out, int N, int H, int W, int C, int OC,
-                             int KH, int KW, int stride, int pad, int Kp, int relu, int out_int8,
+                             int KH, int KW, int stride, int pad, int Kp, int act, int out_int8,
                              float out_scale, void* stream) {
+  if (act < ACT_NONE || act > ACT_RELU6) return (int)cudaErrorInvalidValue;
   const int OH = (H + 2 * pad - KH) / stride + 1, OW = (W + 2 * pad - KW) / stride + 1;
   if (Kp % BK != 0 || Kp < KH * KW * C || OH <= 0 || OW <= 0) return (int)cudaErrorInvalidValue;
   if (N == 0 || OC == 0) return 0;
@@ -178,7 +187,7 @@ extern "C" int dlq_conv_int8(const int8_t* x, const int8_t* w, const float* scal
     a.N = N, a.H = H, a.W = W, a.C = C, a.OC = OC, a.KH = KH, a.KW = KW;
     a.stride = stride, a.pad = pad, a.OH = OH, a.OW = OW, a.Kp = Kp;
     a.M = (long long)N * OH * OW;
-    a.relu = relu, a.out_int8 = out_int8, a.out_scale = out_scale;
+    a.act = act, a.out_int8 = out_int8, a.out_scale = out_scale;
     // 64-wide output-channel tiles for OC = 64 (layer1), 128 otherwise
     return (int)(OC <= 64 ? launch<128, 64, 4, 2>(a, s) : launch<128, 128, 2, 4>(a, s));
   }
@@ -193,7 +202,7 @@ extern "C" int dlq_conv_int8(const int8_t* x, const int8_t* w, const float* scal
     return (int)e;
   i8::Args a{};
   a.scale = scale, a.bias = bias, a.out = out, a.M = 0, a.N = OC, a.Kp = Kp;
-  a.relu = relu, a.out_int8 = out_int8, a.out_scale = out_scale;
+  a.act = act, a.out_int8 = out_int8, a.out_scale = out_scale;
   a.units = (N + h.g.imgs - 1) / h.g.imgs * h.g.rb, a.cbs = C / 64, a.taps = KH * KW;
   a.a_bytes = i8::conv_a_bytes(h.g);
   a.nimg = N, a.oh = OH, a.ow = OW, a.gw = h.g.gw, a.toh = h.g.toh, a.rb = h.g.rb;

@@ -83,6 +83,26 @@ __device__ __forceinline__ float epi_fma(int acc, float scale, float bias, bool 
   return relu ? fmaxf(y, 0.0f) : y;
 }
 
+// The fused epilogues' activation argument (K1, K2, K23): none, relu, or
+// relu6, which clips y to [0, 6] before any requant divides (the reference's
+// fuse_relu6); an int8 output's clip is then bounded by 0 below, as relu's.
+enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2 };
+
+// The epilogue with relu6: clip(fma(float(acc), scale, bias), 0, 6).
+__device__ __forceinline__ float epi_fma_relu6(int acc, float scale, float bias) {
+  return fminf(fmaxf(__fmaf_rn(__int2float_rn(acc), scale, bias), 0.0f), 6.0f);
+}
+
+// The epilogue by activation: relu6, or epi_fma with relu (a compile-time
+// R6, so a kernel without relu6 compiles to epi_fma alone).
+template <bool R6>
+__device__ __forceinline__ float epi_act(int acc, float scale, float bias, bool relu) {
+  if constexpr (R6)
+    return epi_fma_relu6(acc, scale, bias);
+  else
+    return epi_fma(acc, scale, bias, relu);
+}
+
 // int8 requant: clip(rint(y / s), lo, 127); division (not a reciprocal
 // multiply) and round-half-to-even, as the reference computes it.
 __device__ __forceinline__ int8_t requant_div(float y, float s, float lo) {

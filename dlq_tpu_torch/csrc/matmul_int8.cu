@@ -5,8 +5,8 @@
 // epilogue of the reference's mm1x1 rewrite (FullFusedCtx.conv on a 1x1/s1
 // conv, model_quant.py:403-430):
 //   acc = x[M, K] @ w^T (w K-major [N, Kp], int32 accumulation)
-//   y = fma(float(acc), scale[n], bias[n]), relu
-//   out = y (fp32) | clip(rint(y / out_scale), relu ? 0 : -127, 127) (int8)
+//   y = fma(float(acc), scale[n], bias[n]), then relu or relu6 (clip to [0, 6])
+//   out = y (fp32) | clip(rint(y / out_scale), act ? 0 : -127, 127) (int8)
 //
 // Bound: bytes at the ResNet fc (M = batch: every weight byte is used by
 // only M rows), at DeiT-Tiny's deploy sites and at most of ResNet-50's 1x1
@@ -47,11 +47,11 @@ struct Args {
   const float* bias;
   void* out;
   int M, N, K, Kp;
-  int relu, out_int8;
+  int act, out_int8;   // act: ACT_NONE, ACT_RELU or ACT_RELU6 (igemm.cuh)
   float out_scale;
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool R6>
 __global__ void __launch_bounds__(THREADS) matmul_int8_kernel(const Args a) {
   __shared__ __align__(16) int8_t As[2 * BM * LDS];
   __shared__ __align__(16) int8_t Bs[2 * BN * LDS];
@@ -76,12 +76,12 @@ __global__ void __launch_bounds__(THREADS) matmul_int8_kernel(const Args a) {
   MmaTile<BM, BN, WARPS_M, WARPS_N> tile;
   mainloop<decltype(tile), BM, BN>(tile, As, Bs, a.Kp / BK, load);
 
-  const bool relu = a.relu != 0;
+  const bool relu = a.act != ACT_NONE;
   const float lo = relu ? 0.0f : -127.0f;
   tile.for_each([&](int row, int col, int v) {
     const int m = m0 + row, n = n0 + col;
     if (m >= a.M || n >= a.N) return;
-    const float y = epi_fma(v, a.scale[n], a.bias[n], relu);
+    const float y = epi_act<R6>(v, a.scale[n], a.bias[n], relu);
     const size_t o = (size_t)m * a.N + n;
     if (a.out_int8)
       static_cast<int8_t*>(a.out)[o] = requant_div(y, a.out_scale, lo);
@@ -90,10 +90,14 @@ __global__ void __launch_bounds__(THREADS) matmul_int8_kernel(const Args a) {
   });
 }
 
+// relu6 takes kernels of its own, so the others compile to the epilogue without it
 template <int BM, int BN, int WM, int WN>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   dim3 grid((unsigned)((a.M + BM - 1) / BM), (unsigned)((a.N + BN - 1) / BN));
-  matmul_int8_kernel<BM, BN, WM, WN><<<grid, THREADS, 0, stream>>>(a);
+  if (a.act == ACT_RELU6)
+    matmul_int8_kernel<BM, BN, WM, WN, true><<<grid, THREADS, 0, stream>>>(a);
+  else
+    matmul_int8_kernel<BM, BN, WM, WN, false><<<grid, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -125,14 +129,16 @@ extern "C" int dlq_matmul_int8_plan(int M, int N, int Kp, int out_int8, int sms,
 
 // x: int8 [M, K] (16-byte aligned rows when K % 16 == 0); w: int8 [N, Kp];
 // scale, bias: fp32 [N]; out: fp32 or int8 [M, N]. Kp a multiple of 64, >= K.
+// act: 0 none, 1 relu, 2 relu6.
 extern "C" int dlq_matmul_int8(const int8_t* x, const int8_t* w, const float* scale,
                                const float* bias, void* out, int M, int N, int K, int Kp,
-                               int relu, int out_int8, float out_scale, void* stream) {
-  if (Kp % BK != 0 || Kp < K) return (int)cudaErrorInvalidValue;
+                               int act, int out_int8, float out_scale, void* stream) {
+  if (Kp % BK != 0 || Kp < K || act < ACT_NONE || act > ACT_RELU6)
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!dlq_matmul_int8_form(K)) {
-    Args f{x, w, scale, bias, out, M, N, K, Kp, relu, out_int8, out_scale};
+    Args f{x, w, scale, bias, out, M, N, K, Kp, act, out_int8, out_scale};
     return (int)(N <= 64 ? launch<128, 64, 4, 2>(f, s) : launch<128, 128, 2, 4>(f, s));
   }
   int dev = 0, sms = 0;
@@ -144,7 +150,7 @@ extern "C" int dlq_matmul_int8(const int8_t* x, const int8_t* w, const float* sc
   if ((e = i8::kmajor_map(&ta, x, K, M, i8::BM)) != cudaSuccess) return (int)e;
   i8::Args a{};
   a.scale = scale, a.bias = bias, a.out = out, a.M = M, a.N = N, a.Kp = Kp;
-  a.relu = relu, a.out_int8 = out_int8, a.out_scale = out_scale;
+  a.act = act, a.out_int8 = out_int8, a.out_scale = out_scale;
   a.units = (M + i8::BM - 1) / i8::BM, a.cbs = Kp / i8::KS, a.taps = 1;
   a.a_bytes = i8::K2_A_STAGE;
   return (int)i8::launch<false>(a, pl, ta, w, dev, s);

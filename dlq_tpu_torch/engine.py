@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.device import DeviceLike, resolve_device
+from dlq_tpu_torch.ops.qops import resolve_depthwise
 from dlq_tpu_torch.quant.calibrate import calibrate
 from dlq_tpu_torch.quant.model_quant import DeployCtx, make_sites_fn, quantize_weights
 from dlq_tpu_torch.quant.qconfig import QConfig
@@ -96,10 +97,14 @@ class Engine:
     def quantized(qforward, flat_params, cfg, qcfg: QConfig,
                   calib_batches: Optional[Iterable] = None,
                   act_scales: Optional[Dict[str, torch.Tensor]] = None,
+                  depthwise: Optional[str] = None,
                   *, device: DeviceLike = None, **kw) -> "Engine":
         """PTQ an fp32 flat-param model into a deployed W8A8 engine
         (DeployCtx). ``calib_batches`` is required unless the config is
-        weight-only or ``act_scales`` are given."""
+        weight-only or ``act_scales`` are given. ``depthwise``: the
+        depthwise-conv implementation ("int8" | "fp32" | "stencil"),
+        resolved once here (``ops.qops.resolve_depthwise``)."""
+        dw = resolve_depthwise(depthwise)
         dev = resolve_device(device)
         flat = to_device(flat_params, dev)
         if not qcfg.weight_only and act_scales is None:
@@ -110,7 +115,7 @@ class Engine:
             act_scales = calibrate(make_sites_fn(qforward, cfg), flat, batches, qcfg)
         act_scales = to_device(act_scales or {}, dev)
         qflat = quantize_weights(flat, qcfg)
-        ctx = DeployCtx(qflat, act_scales, qcfg)
+        ctx = DeployCtx(qflat, act_scales, qcfg, depthwise=dw)
         eng = Engine(lambda c, x: qforward(c, x, cfg), ctx, device=dev, **kw)
         eng.act_scales = act_scales
         eng.qflat = qflat
@@ -118,15 +123,22 @@ class Engine:
         return eng
 
     @staticmethod
-    def from_store(qmanifest: str, ctx: str = "deploy", int4_runtime: str = "packed", *,
+    def from_store(qmanifest: str, ctx: str = "deploy", int4_runtime: str = "packed",
+                   depthwise: Optional[str] = None, *,
                    device: DeviceLike = None, **kw) -> "Engine":
         """Cold-start an engine from a quantized store (``quant.store``), no
         calibration data or fp32 weights. ResNet-18/34/50/101/152 with ctx
         "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
         interchange; "fused" is BasicBlock-only, as the reference's
-        ``qforward_fused`` is), and DeiT (``deit_tiny``) with ctx "block"
-        (the W8A8 block kernels K5/K6/K7, K8/K6/K9 on per-OC int4 weights
-        with activations, K11/K6/K12 on weight-only per-OC int4 weights) |
+        ``qforward_fused`` is); MobileNetV2 with the same four, each running
+        ``make_qforward`` under its context (``dlq_tpu/engine.py:245-252``;
+        the config from ``num_classes`` and ``small_input`` only, as the
+        reference's, so a store's width multiplier is not read), its
+        depthwise convs by ``depthwise`` ("int8" | "fp32" | "stencil",
+        resolved once: ``ops.qops.resolve_depthwise``); and DeiT
+        (``deit_tiny``) with ctx "block" (the W8A8 block kernels K5/K6/K7,
+        K8/K6/K9 on per-OC int4 weights with activations, K11/K6/K12 on
+        weight-only per-OC int4 weights) |
         "deploy" (every dense on K2, or K10 for a per-OC int4 one with
         activations, K13 for a group-wise int4 weight-only one; attention on
         K6 on the card).
@@ -138,6 +150,7 @@ class Engine:
         from dlq_tpu_torch.manifest import Manifest
         from dlq_tpu_torch.quant.store import load_quantized, materialize_int8
 
+        dw = resolve_depthwise(depthwise)
         dev = resolve_device(device)
         man = Manifest.load(qmanifest)
         model = man.model
@@ -149,27 +162,41 @@ class Engine:
             raise ValueError(f"int4_runtime must be 'packed' or 'int8', got {int4_runtime!r}")
         if model == "deit_tiny":
             return _vit_from_store(qflat, act_scales, qcfg, extras, mcfg, ctx, dev, **kw)
-        if not model.startswith("resnet"):
-            raise NotImplementedError(
-                f"from_store: model {model!r} is not ported yet (ROADMAP.md, queue A)")
-        from dlq_tpu_torch.models.resnet import (
-            ResNetConfig, qforward, qforward_fused, qforward_fused2,
-        )
         from dlq_tpu_torch.quant import model_quant as MQ
 
-        cfg = ResNetConfig(depth=int(model[6:]), num_classes=mcfg.get("num_classes", 1000),
-                           small_input=bool(mcfg.get("small_input", False)))
-        ctxs = {"deploy": (MQ.DeployCtx, qforward), "pallas": (MQ.PallasDeployCtx, qforward),
-                "fused": (MQ.FusedDeployCtx, qforward_fused),
-                "fused2": (MQ.FullFusedCtx, qforward_fused2)}
-        if ctx not in ctxs:
-            raise ValueError(f"ctx must be one of {sorted(ctxs)}, got {ctx!r}")
-        if ctx == "fused" and cfg.bottleneck:
+        Ctxs = {"deploy": MQ.DeployCtx, "pallas": MQ.PallasDeployCtx,
+                "fused": MQ.FusedDeployCtx, "fused2": MQ.FullFusedCtx}
+        if model == "mobilenetv2":
+            from dlq_tpu_torch.models.mobilenetv2 import (
+                MobileNetV2Config, block_meta, make_qforward,
+            )
+
+            cfg = MobileNetV2Config(num_classes=mcfg.get("num_classes", 1000),
+                                    small_input=bool(mcfg.get("small_input", False)))
+            qf = make_qforward(block_meta(cfg))
+        elif model.startswith("resnet"):
+            from dlq_tpu_torch.models.resnet import (
+                ResNetConfig, qforward, qforward_fused, qforward_fused2,
+            )
+
+            cfg = ResNetConfig(depth=int(model[6:]), num_classes=mcfg.get("num_classes", 1000),
+                               small_input=bool(mcfg.get("small_input", False)))
+            if ctx == "fused" and cfg.bottleneck:
+                raise NotImplementedError(
+                    f"ctx='fused' is BasicBlock-only; {model} runs with ctx='fused2', "
+                    "'deploy' or 'pallas'")
+            qf = {"fused": qforward_fused, "fused2": qforward_fused2}.get(ctx, qforward)
+        else:
             raise NotImplementedError(
-                f"ctx='fused' is BasicBlock-only; {model} runs with ctx='fused2', "
-                "'deploy' or 'pallas'")
-        Ctx, qf = ctxs[ctx]
-        c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg)
+                f"from_store: model {model!r} is not ported yet (ROADMAP.md, queue A: "
+                "LeNet-5 and the MLP are A.2/A.8)")
+        if ctx == "dynamic":
+            raise NotImplementedError(
+                "ctx='dynamic' (DynamicDeployCtx) is not ported yet (ROADMAP.md, A.2/A.8)")
+        if ctx not in Ctxs:
+            raise ValueError(f"ctx must be one of {sorted(Ctxs)}, got {ctx!r}")
+        Ctx = Ctxs[ctx]
+        c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg, depthwise=dw)
         eng = Engine(lambda cc, x: qf(cc, x, cfg), c, device=dev, name=f"{model}_{ctx}", **kw)
         eng.qcfg = qcfg
         eng.model_cfg = cfg

@@ -136,3 +136,8 @@ def global_avgpool(x: torch.Tensor) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, 6) (``dlq_tpu/models/mobilenetv2.py:56``)."""
+    return torch.clamp(x, 0, 6)

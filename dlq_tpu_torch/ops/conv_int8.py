@@ -4,8 +4,8 @@ Replaces ``dlq_tpu/ops/pallas_conv.py:int8_conv3x3_s1`` and
 ``int8_conv3x3_s1_dp`` (kernel in ``csrc/conv_int8.cu``). Computes
 
     acc[n, oh, ow, oc] = sum_{kh, kw, c} x[n, oh*s - p + kh, ow*s - p + kw, c] * w[oc, kh, kw, c]
-    y = fma(float(acc), scale[oc], bias[oc]);  y = max(y, 0) if relu
-    out = y (fp32)   or   clip(rint(y / out_scale), relu ? 0 : -127, 127) (int8)
+    y = fma(float(acc), scale[oc], bias[oc]);  y = max(y, 0) if relu, clip(y, 0, 6) if relu6
+    out = y (fp32)   or   clip(rint(y / out_scale), relu|relu6 ? 0 : -127, 127) (int8)
 
 on int8 NHWC input with int32 accumulation, for any kernel size, stride and
 symmetric zero padding (ResNet uses 3x3/s1, 3x3/s2 and 1x1/s2; the 7x7/s2
@@ -27,8 +27,10 @@ C=3 stems), by a static shape rule the kernel library reports
 (``dlq_conv_int8_form``; mirrored with the plan in ``ops.i8plan``): a
 refused launch raises, it never falls back. ``conv_int8.launches`` counts
 kernel launches, ``conv_int8.by_shape`` counts them per (N, H, W, C, OC,
-KH, KW, stride, pad, relu, int8 out), ``conv_int8.by_form`` per form
-(``"hopper"``, ``"first"``).
+KH, KW, stride, pad, activation (``act_key``), int8 out),
+``conv_int8.by_form`` per form (``"hopper"``, ``"first"``). A relu6 launch
+takes kernels of its own (a compile-time activation), so the others
+compile to the epilogue without it.
 """
 
 from __future__ import annotations
@@ -104,25 +106,40 @@ def conv_acc_plain(x: torch.Tensor, w_hwio: torch.Tensor, stride: int, pad: int)
     return acc.permute(0, 2, 3, 1)
 
 
+def act_code(relu: bool, relu6: bool) -> int:
+    """The kernels' activation argument: 0 none, 1 relu, 2 relu6 (relu6
+    clips y to [0, 6], so it takes relu's place)."""
+    return 2 if relu6 else int(bool(relu))
+
+
+def act_key(relu: bool, relu6: bool):
+    """The activation in a ``by_shape`` key: ``bool(relu)``, or ``"relu6"``."""
+    return "relu6" if relu6 else bool(relu)
+
+
 def epilogue_plain(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, relu: bool,
-                   out_scale: Optional[float]) -> torch.Tensor:
+                   out_scale: Optional[float], relu6: bool = False) -> torch.Tensor:
     """The kernels' shared epilogue on exact sums: fp32 fused multiply-add
-    (``addcmul``), relu, then fp32 out or an int8 requant that divides."""
+    (``addcmul``), relu or relu6 (a clip to [0, 6] before the requant
+    divides, as the reference's ``fuse_relu6``), then fp32 out or an int8
+    requant that divides, clipped at 0 below under either activation."""
     y = torch.addcmul(bias, acc.float(), scale)
-    if relu:
+    if relu6:
+        y = torch.clamp(y, 0.0, 6.0)
+    elif relu:
         y = torch.clamp_min(y, 0.0)
     if out_scale is None:
         return y.contiguous()
     q = torch.round(fdiv(y, out_scale))
-    return torch.clamp(q, 0.0 if relu else -127.0, 127.0).to(torch.int8).contiguous()
+    return torch.clamp(q, 0.0 if (relu or relu6) else -127.0, 127.0).to(torch.int8).contiguous()
 
 
 def conv_int8_plain(x: torch.Tensor, pk: PackedConv, stride: int, pad: int,
                     scale: torch.Tensor, bias: torch.Tensor, relu: bool = False,
-                    out_scale: Optional[float] = None) -> torch.Tensor:
+                    out_scale: Optional[float] = None, relu6: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K1 (same inputs, same outputs)."""
     acc = conv_acc_plain(x, pk.hwio(), stride, pad)
-    return epilogue_plain(acc, scale, bias, relu, out_scale)
+    return epilogue_plain(acc, scale, bias, relu, out_scale, relu6)
 
 
 def check_launch_args(what: str, x: torch.Tensor, pk: PackedConv, scale: torch.Tensor,
@@ -170,12 +187,13 @@ def launch_form(h: int, w: int, c: int, oc: int, kh: int, kw: int, stride: int, 
 
 def conv_int8(x: torch.Tensor, pk: PackedConv, stride: int, pad: int,
               scale: torch.Tensor, bias: torch.Tensor, relu: bool = False,
-              out_scale: Optional[float] = None) -> torch.Tensor:
+              out_scale: Optional[float] = None, relu6: bool = False) -> torch.Tensor:
     """int8 NHWC conv with fused epilogue. ``scale``/``bias``: fp32 [OC]
-    (combined act*weight scale and folded bias); ``out_scale``: None for an
-    fp32 output, else the consumer's activation scale for an int8 output."""
+    (combined act*weight scale and folded bias); ``relu`` / ``relu6``: the
+    activation; ``out_scale``: None for an fp32 output, else the consumer's
+    activation scale for an int8 output."""
     if x.device.type == "cpu":
-        return conv_int8_plain(x, pk, stride, pad, scale, bias, relu, out_scale)
+        return conv_int8_plain(x, pk, stride, pad, scale, bias, relu, out_scale, relu6)
     check_launch_args("conv_int8", x, pk, scale, bias)
     n, h, w, c = x.shape
     oc = pk.oc
@@ -184,12 +202,12 @@ def conv_int8(x: torch.Tensor, pk: PackedConv, stride: int, pad: int,
                       dtype=torch.float32 if out_scale is None else torch.int8)
     rc = _entry()(x.data_ptr(), pk.wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             n, h, w, c, oc, pk.kh, pk.kw, stride, pad, pk.wk.shape[1],
-            int(relu), int(out_scale is not None),
+            act_code(relu, relu6), int(out_scale is not None),
             float(out_scale) if out_scale is not None else 1.0,
             _build.stream_ptr(x.device))
     _build.check(rc, "conv_int8")
     conv_int8.launches += 1
-    conv_int8.by_shape[(n, h, w, c, oc, pk.kh, pk.kw, stride, pad, bool(relu),
+    conv_int8.by_shape[(n, h, w, c, oc, pk.kh, pk.kw, stride, pad, act_key(relu, relu6),
                         out_scale is not None)] += 1
     conv_int8.by_form[launch_form(h, w, c, oc, pk.kh, pk.kw, stride, pad,
                                   out_scale is not None)] += 1

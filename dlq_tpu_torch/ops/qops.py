@@ -13,7 +13,9 @@ its weight kept 4-bit on the card. A groups-1
 1x1/s1/p0 conv takes the reference's ``mm1x1`` rewrite (``qops.py:384-387``,
 on by default in its deploy contexts): K2 on the free ``[N*H*W, C]`` view of
 the NHWC input (``conv1x1_int8``). Every other int8 conv (3x3, the 1x1/s2
-downsamples, the stems) goes through K1 (``ops.conv_int8``). A per-OC int4
+downsamples, the stems) goes through K1 (``ops.conv_int8``), and every
+depthwise conv (``groups == C``, HWIO ``[kh, kw, 1, C]``) through K23
+(``ops.depthwise_int8``, ``resolve_depthwise``). A per-OC int4
 conv weight is unpacked to int8 once, when its context is built, and runs on
 K1/K2; the reference unpacks it in the graph on every forward
 (``dlq_tpu/ops/qops.py:380``). Both are exact, and no Pallas kernel is
@@ -34,12 +36,16 @@ to XLA.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from dlq_tpu_torch.models.common import conv2d, fp32_matmul
-from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, pack_conv_weight
+from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8, epilogue_plain, pack_conv_weight
+from dlq_tpu_torch.ops.depthwise_int8 import (
+    PackedDepthwise, depthwise_int8, is_depthwise_weight, pack_depthwise_weight,
+)
 from dlq_tpu_torch.ops.matmul_int4 import PackedInt4G, matmul_int4, pack_int4_weight
 from dlq_tpu_torch.ops.matmul_int4a8 import PackedInt4, matmul_int4a8, pack_int4a8_weight
 from dlq_tpu_torch.ops.matmul_int8 import matmul_int8, pack_dense_weight
@@ -54,6 +60,57 @@ def int_weight_packed(qw: QTensor) -> PackedConv:
                          "use the weight-only path")
     w = unpack_to_layout(qw).to(torch.int8)
     return pack_dense_weight(w) if w.ndim == 2 else pack_conv_weight(w)
+
+
+def resolve_depthwise(impl: Optional[str] = None) -> str:
+    """The depthwise-conv implementation, resolved once when an engine or a
+    context is built (``dlq_tpu/ops/qops.py:64 resolve_depthwise``): a given
+    name is used as it is; None takes the ``DLQ_DEPTHWISE`` environment
+    variable, default ``"int8"``; any other name raises ValueError.
+
+    ``"int8"`` and ``"stencil"`` both run K23 on the card (its plain version,
+    an exact int32 stencil, on the CPU): they are the same exact int32 sums,
+    and the reference tells them apart only to dodge a TPU miscompile, which
+    its one-time canary guards against by falling back to the stencil. Here
+    K23 is held to its plain version on the card instead, so a wrong kernel
+    fails loudly and nothing falls back. ``"fp32"`` is the reference's A/B
+    route (``dlq_tpu/ops/qops.py:142-159``): an fp32 grouped conv of the
+    integer values with TF32 off, then the same epilogue; exact, as every
+    sum satisfies |sum| <= 9 * 127^2 < 2^24."""
+    if impl is None:
+        impl = os.environ.get("DLQ_DEPTHWISE", "int8")
+    if impl not in ("int8", "fp32", "stencil"):
+        raise ValueError(f"DLQ_DEPTHWISE must be int8|fp32|stencil, got {impl!r}")
+    return impl
+
+
+def depthwise_weight_packed(qw: QTensor) -> PackedDepthwise:
+    """The ``[kh * kw, C]`` int8 weight of a depthwise site for K23; int4
+    per-OC weights (quantized on the ``[kh * kw, C]`` view) unpack exactly
+    to int8 first."""
+    if qw.group is not None:
+        raise ValueError("group-wise scales cannot fold into the int8 epilogue; "
+                         "use the weight-only path")
+    return pack_depthwise_weight(unpack_to_layout(qw).to(torch.int8))
+
+
+def depthwise_conv(xq: torch.Tensor, pk: PackedDepthwise, stride, padding, scale: torch.Tensor,
+                   bias: torch.Tensor, impl: str, relu: bool = False, relu6: bool = False,
+                   out_scale: Optional[float] = None) -> torch.Tensor:
+    """An int8 depthwise conv with the fused epilogue by the resolved
+    ``impl``: K23 for ``"int8"`` and ``"stencil"``; for ``"fp32"`` an fp32
+    grouped conv of the integer values (TF32 off) and the plain epilogue."""
+    if impl == "fp32":
+        acc = conv2d(xq.float(), pk.hwio().float(), stride=stride, padding=padding, groups=pk.c)
+        return epilogue_plain(acc, scale, bias, relu, out_scale, relu6)
+    return depthwise_int8(xq, pk, _int(stride), _int(padding), scale, bias, relu=relu,
+                          out_scale=out_scale, relu6=relu6)
+
+
+def is_depthwise(qw: QTensor, groups: int) -> bool:
+    """Is this conv a depthwise one (``groups == C`` on a ``[kh, kw, 1, C]`` weight)?"""
+    return (groups > 1 and is_depthwise_weight(tuple(qw.layout_shape))
+            and qw.layout_shape[3] == groups)
 
 
 def site_weight_packed(qw: QTensor):
@@ -108,26 +165,36 @@ def is_mm1x1(pk: PackedConv, stride, padding) -> bool:
 
 
 def conv1x1_int8(xq: torch.Tensor, pk: PackedConv, scale: torch.Tensor, bias: torch.Tensor,
-                 relu: bool = False, out_scale: Optional[float] = None) -> torch.Tensor:
+                 relu: bool = False, out_scale: Optional[float] = None,
+                 relu6: bool = False) -> torch.Tensor:
     """A 1x1/s1 int8 conv as K2 on the ``[N*H*W, C]`` view (a free reshape of
     contiguous NHWC); returns NHWC, fp32 or int8 at ``out_scale``."""
     lead = xq.shape[:-1]
     y = matmul_int8(xq.reshape(-1, xq.shape[-1]), pk, scale, bias, relu=relu,
-                    out_scale=out_scale)
+                    out_scale=out_scale, relu6=relu6)
     return y.reshape(lead + (pk.oc,))
 
 
 def qconv2d(x: torch.Tensor, qw: QTensor, bias: Optional[torch.Tensor], act_scale: float,
             stride=1, padding=0, groups: int = 1, fuse_relu: bool = False,
-            act_qmax: int = 127, packed: Optional[PackedConv] = None) -> torch.Tensor:
+            act_qmax: int = 127, packed=None, depthwise: Optional[str] = None) -> torch.Tensor:
     """W8A8 conv: quantize the input with the calibrated static scale, int8
-    conv with int32 accumulation (K2 for a 1x1/s1 conv, K1 otherwise), fp32
-    per-channel epilogue (+bias, +relu).
-    ``packed``: the site's K-major weights, when the caller keeps them."""
+    conv with int32 accumulation (K2 for a 1x1/s1 conv, K23 for a depthwise
+    conv, by ``depthwise`` (``resolve_depthwise``), K1 otherwise), fp32
+    per-channel epilogue (+bias, +relu). Any other grouped conv raises: no
+    model of the repo has one.
+    ``packed``: the site's packed weights, when the caller keeps them."""
     if groups != 1:
-        raise NotImplementedError("grouped/depthwise int8 conv is not ported yet "
-                                  "(ROADMAP.md, queue A item 5)")
-    pk = int_weight_packed(qw) if packed is None else packed
+        if not is_depthwise(qw, groups):
+            raise NotImplementedError(
+                f"grouped int8 conv with groups={groups} on a {tuple(qw.layout_shape)} weight: "
+                "only depthwise convs (groups == C, [kh, kw, 1, C]) are ported")
+        pk = depthwise_weight_packed(qw) if packed is None else packed
+        xq = quantize_act(x, act_scale, act_qmax)
+        return depthwise_conv(xq, pk, stride, padding, combined_scale(act_scale, qw, pk.c),
+                              bias_or_zeros(bias, pk.c, x.device), resolve_depthwise(depthwise),
+                              relu=fuse_relu)
+    pk = int_weight_packed(qw) if not isinstance(packed, PackedConv) else packed
     xq = quantize_act(x, act_scale, act_qmax)
     comb = combined_scale(act_scale, qw, pk.oc)
     b = bias_or_zeros(bias, pk.oc, x.device)

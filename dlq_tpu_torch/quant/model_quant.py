@@ -6,11 +6,13 @@ arithmetic:
 
   ObserveCtx      fp32 compute; records each quantized op's input (calibration)
   DeployCtx       W8A8: int8 convs on K1, 1x1/s1 convs (``mm1x1``) and int8
-                  dense on K2, W4A8 dense on K10, fp32 interchange; weight-only:
-                  group-wise int4 dense on K13 (W4A16), the rest dequantized
+                  dense on K2, depthwise convs on K23, W4A8 dense on K10, fp32
+                  interchange; weight-only: group-wise int4 dense on K13
+                  (W4A16), the rest dequantized
   PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
                   same kernels as DeployCtx
-  FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue)
+  FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue,
+                  relu or relu6 folded into it)
   FullFusedCtx    every inter-op tensor int8 (stem, maxpool, junctions)
   PallasBlockCtx  FullFusedCtx + identity BasicBlocks as one K3 launch and
                   identity Bottlenecks as one K4 launch
@@ -18,13 +20,15 @@ arithmetic:
 A context is built once per engine: it repacks every int8 weight K-major for
 the kernels when it is constructed (a per-OC int4 dense weight stays 4-bit,
 repacked for K10, and so does a group-wise int4 dense, for K13;
-an int4 conv weight is unpacked to int8), keeps the
+an int4 conv weight is unpacked to int8; a depthwise weight, HWIO
+``[kh, kw, 1, C]``, is kept as its ``[kh * kw, C]`` int8 view for K23), resolves
+its depthwise implementation once (``qops.resolve_depthwise``), keeps the
 activation scales both as exact fp32 host values (kernel arguments,
 host-side scale arithmetic) and as 0-dim device tensors (divisors of device
 ops), and caches the per-site combined epilogue scales.
 
-Not ported yet (ROADMAP.md): tensor-parallel wire routing, depthwise convs,
-the dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
+Not ported yet (ROADMAP.md): tensor-parallel wire routing, the
+dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
 conv on K1, as under the reference's default ``rewrites=("mm1x1",)``), the
 s2d and uint8 stems, DynamicDeployCtx, SimulateCtx.
 """
@@ -37,10 +41,12 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
-from dlq_tpu_torch.ops.conv_int8 import conv_int8
+from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8
+from dlq_tpu_torch.ops.depthwise_int8 import is_depthwise_weight
 from dlq_tpu_torch.ops.qops import (
-    bias_or_zeros, combined_scale, conv1x1_int8, dense_int, dequant_conv2d, is_mm1x1, qconv2d,
-    qdense, site_weight_packed, weight_only_packed,
+    bias_or_zeros, combined_scale, conv1x1_int8, dense_int, depthwise_conv,
+    depthwise_weight_packed, dequant_conv2d, int_weight_packed, is_depthwise, is_mm1x1, qconv2d,
+    qdense, resolve_depthwise, site_weight_packed, weight_only_packed,
 )
 from dlq_tpu_torch.quant.qconfig import QConfig
 from dlq_tpu_torch.quant.quantize import (
@@ -106,17 +112,23 @@ class QAct:
 
 class DeployCtx:
     """W8A8 deploy with fp32 interchange: every int8 conv on K1, every int8
-    dense on K2, every per-OC int4 dense on K10 (W4A8; an int4 store read
-    with ``int4_runtime="int8"`` arrives materialized to int8 and runs on
-    K2); every group-wise int4 dense runs on K13 (W4A16; with activation
-    scales, on fake-quantized activations, as the reference), and
-    weight-only schemes dequantize the other sites."""
+    dense on K2, every depthwise conv on K23 (by ``depthwise``, resolved
+    once here: ``qops.resolve_depthwise``), every per-OC int4 dense on K10
+    (W4A8; an int4 store read with ``int4_runtime="int8"`` arrives
+    materialized to int8 and runs on K2); every group-wise int4 dense runs
+    on K13 (W4A16; with activation scales, on fake-quantized activations, as
+    the reference), and weight-only schemes dequantize the other sites.
+
+    A site whose weight is ``[kh, kw, 1, C]`` (C > 1) is packed for K23; a
+    groups-1 conv on such a weight (one input channel, as no model of the
+    repo has) is packed K-major by ``qconv2d`` at each call."""
 
     def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
-                 qcfg: QConfig):
+                 qcfg: QConfig, depthwise: Optional[str] = None):
         self.qflat = qflat
         self.act_scales = act_scales or {}
         self.qcfg = qcfg
+        self.depthwise = resolve_depthwise(depthwise)
         # host fp32 values (kernel arguments, scalar math) and device
         # tensors (divisors of device ops), per calibration site
         self.scale = {k: f32(v) for k, v in self.act_scales.items()}
@@ -127,8 +139,12 @@ class DeployCtx:
             qw = p["qw"]
             # group-wise weights take the weight-only route with or without
             # activation scales (qops.qdense)
-            pk = (weight_only_packed(qw) if qcfg.weight_only or qw.group is not None
-                  else site_weight_packed(qw))
+            if qcfg.weight_only or qw.group is not None:
+                pk = weight_only_packed(qw)
+            elif is_depthwise_weight(tuple(qw.layout_shape)):
+                pk = depthwise_weight_packed(qw)
+            else:
+                pk = site_weight_packed(qw)
             if pk is not None:
                 self.packed[site] = pk
         self._comb: Dict[Any, torch.Tensor] = {}
@@ -161,7 +177,8 @@ class DeployCtx:
                                   groups=groups, fuse_relu=fuse_relu)
         return qconv2d(x, p["qw"], p.get("b"), self.scale_t[name], stride=stride,
                        padding=padding, groups=groups, fuse_relu=fuse_relu,
-                       act_qmax=self.qcfg.acts.qmax, packed=self.packed.get(name))
+                       act_qmax=self.qcfg.acts.qmax, packed=self.packed.get(name),
+                       depthwise=self.depthwise)
 
     def dense(self, name, x, *, fuse_relu=False):
         p = self.qflat[name]
@@ -186,11 +203,14 @@ class FusedDeployCtx(DeployCtx):
     """W8A8 with int8 interchange: a conv given ``out_site`` requantizes its
     output to that site's calibrated scale in the kernel epilogue and
     returns a QAct; without ``out_site`` it returns fp32. A 1x1/s1 conv runs
-    on K2 (the reference's ``mm1x1``, ``model_quant.py:403-430``), every
-    other conv on K1."""
+    on K2 (the reference's ``mm1x1``, ``model_quant.py:403-430``), a
+    depthwise conv on K23, every other conv on K1. ``fuse_relu6`` clips y to
+    [0, 6] before the requant divides (the int8 clip's lower bound is then
+    0), as the reference's ``:420-426``; without ``out_site`` the result is
+    fp32 ``clip(y, 0, 6)``."""
 
-    def __init__(self, qflat, act_scales, qcfg):
-        super().__init__(qflat, act_scales, qcfg)
+    def __init__(self, qflat, act_scales, qcfg, depthwise: Optional[str] = None):
+        super().__init__(qflat, act_scales, qcfg, depthwise=depthwise)
         if qcfg.weight_only or qcfg.acts.qmax != 127:
             raise NotImplementedError("int8 interchange needs 8-bit activations")
 
@@ -198,10 +218,12 @@ class FusedDeployCtx(DeployCtx):
         return QAct(quantize_act(y, self.scale_t[site], self.qcfg.acts.qmax), self.scale[site])
 
     def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False,
-             out_site: Optional[str] = None):
-        if groups != 1:
-            raise NotImplementedError("grouped/depthwise int8 conv is not ported yet "
-                                      "(ROADMAP.md, queue A item 5)")
+             fuse_relu6=False, out_site: Optional[str] = None):
+        qw = self.qflat[name]["qw"]
+        if groups != 1 and not is_depthwise(qw, groups):
+            raise NotImplementedError(
+                f"grouped int8 conv with groups={groups} on a {tuple(qw.layout_shape)} weight: "
+                "only depthwise convs (groups == C, [kh, kw, 1, C]) are ported")
         if isinstance(x, QAct):
             xq, s_in = x.q, x.scale
         else:
@@ -209,12 +231,19 @@ class FusedDeployCtx(DeployCtx):
             xq = quantize_act(x, self.scale_t[name], self.qcfg.acts.qmax)
         out_scale = None if out_site is None else self.scale[out_site]
         pk = self.packed[name]
+        if groups != 1:
+            y = depthwise_conv(xq, pk, stride, padding, self.comb(name, s_in), self.bias(name),
+                               self.depthwise, relu=fuse_relu, relu6=fuse_relu6,
+                               out_scale=out_scale)
+            return y if out_site is None else QAct(y, out_scale)
+        if not isinstance(pk, PackedConv):   # a groups-1 conv on a one-channel weight
+            pk = int_weight_packed(qw)
         if is_mm1x1(pk, stride, padding):
             y = conv1x1_int8(xq, pk, self.comb(name, s_in), self.bias(name), relu=fuse_relu,
-                             out_scale=out_scale)
+                             out_scale=out_scale, relu6=fuse_relu6)
         else:
             y = conv_int8(xq, pk, stride, padding, self.comb(name, s_in), self.bias(name),
-                          relu=fuse_relu, out_scale=out_scale)
+                          relu=fuse_relu, out_scale=out_scale, relu6=fuse_relu6)
         return y if out_site is None else QAct(y, out_scale)
 
     def add(self, a: QAct, b: QAct) -> QAct:

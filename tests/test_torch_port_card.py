@@ -2076,3 +2076,95 @@ def test_layernorm_first_form_rule_on_card():
         assert layernorm_fused.by_form["first"] == before + 1
     with pytest.raises(ValueError, match="CUDA"):
         layernorm_fused_first(x.cpu(), g.cpu(), b.cpu())
+
+
+# MobileNetV2 1.0x's nine distinct depthwise shapes (H, C, stride), and odd
+# ones: C = 40 (8-byte granules), odd H and W, stride 2 from an odd H
+MNV2_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1), (28, 192, 2),
+           (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1)]
+DW_ODD = [(9, 40, 1, 9), (13, 40, 2, 11), (7, 24, 2, 5), (15, 16, 2, 15)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MNV2_DW + DW_ODD)
+def test_depthwise_kernel_on_card(case):
+    """K23 bit-identical to its plain version with both epilogues (fp32 out,
+    no activation; int8 out with relu6, y spread past 6, at output scales
+    whose 6 / s is above and below 127; int8 out with relu), counted once a
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.depthwise_int8 import (
+        depthwise_int8, depthwise_int8_plain, pack_depthwise_weight,
+    )
+
+    h, c, s, w = case if len(case) == 4 else (*case, case[0])
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(h * 1000 + c + s)
+    x = _i8(rng, (2, h, w, c)).to(dev)
+    pk = pack_depthwise_weight(_i8(rng, (3, 3, 1, c)).to(dev))
+    scale, bias = _epi(rng, c, 9, dev)
+    for relu, relu6, osc in ((False, False, None), (False, True, 0.025), (True, False, 0.1),
+                             (False, True, 0.1)):
+        sc = scale * 6.0 if relu6 else scale
+        before = depthwise_int8.launches
+        got = depthwise_int8(x, pk, s, 1, sc, bias, relu=relu, out_scale=osc, relu6=relu6)
+        assert depthwise_int8.launches == before + 1
+        ref = depthwise_int8_plain(x, pk, s, 1, sc, bias, relu=relu, out_scale=osc,
+                                   relu6=relu6)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (relu, relu6, osc)
+
+
+@pytest.mark.gpu
+def test_depthwise_kernel_refuses_on_card():
+    """K23 raises on a C that is not a multiple of 8, a misaligned input and
+    a scale of the wrong length, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.depthwise_int8 import depthwise_int8, pack_depthwise_weight
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    before = depthwise_int8.launches
+    pk = pack_depthwise_weight(_i8(rng, (3, 3, 1, 12)).to(dev))
+    scale, bias = _epi(rng, 12, 9, dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        depthwise_int8(_i8(rng, (1, 8, 8, 12)).to(dev), pk, 1, 1, scale, bias)
+    pk = pack_depthwise_weight(_i8(rng, (3, 3, 1, 16)).to(dev))
+    scale, bias = _epi(rng, 16, 9, dev)
+    buf = _i8(rng, (1 * 8 * 8 * 16 + 8,)).to(dev)
+    with pytest.raises(ValueError, match="aligned"):
+        depthwise_int8(buf[8:].view(1, 8, 8, 16), pk, 1, 1, scale, bias)
+    with pytest.raises(ValueError, match="fp32"):
+        depthwise_int8(_i8(rng, (1, 8, 8, 16)).to(dev), pk, 1, 1, scale[:8].contiguous(), bias)
+    assert depthwise_int8.launches == before
+
+
+@pytest.mark.gpu
+def test_relu6_epilogues_of_k1_k2_on_card():
+    """K1 and K2 with relu6 and int8 out (and fp32 out) bit-identical to
+    their plain versions at MobileNetV2's shapes: the C = 3 -> 32 3x3/s2/p1
+    stem (first form), expand convs K = 16 -> 96 (Hopper form) and K = 24
+    -> 144 (first form, K % 16 != 0), a project conv to N = 24 (int8 rows
+    not 16-byte multiples: the unaligned store branch) and N = 16, the head
+    320 -> 1280, at output scales whose 6 / s is below and above 127."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 31, 33, 3)).astype(np.float32))
+    xq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8).to(dev)
+    pk = pack_conv_weight(_i8(rng, (3, 3, 3, 32)).to(dev))
+    scale, bias = _epi(rng, 32, 27, dev)
+    for osc in (0.025, 0.1, None):
+        args = (xq, pk, 2, 1, scale * 6.0, bias, False, osc)
+        assert torch.equal(conv_int8(*args, relu6=True), conv_int8_plain(*args, relu6=True))
+    for (m, k, n) in [(700, 16, 96), (700, 24, 144), (700, 144, 24), (700, 96, 16),
+                      (98, 320, 1280)]:
+        xm = _i8(rng, (m, k)).to(dev)
+        pk = pack_dense_weight(_i8(rng, (k, n)).to(dev))
+        scale, bias = _epi(rng, n, k, dev)
+        for relu6, osc in ((True, 0.025), (True, 0.1), (True, None), (False, 0.025)):
+            args = (xm, pk, scale * 6.0 if relu6 else scale, bias, False, osc)
+            assert torch.equal(matmul_int8(*args, relu6=relu6),
+                               matmul_int8_plain(*args, relu6=relu6)), (m, k, n, relu6, osc)
