@@ -1767,18 +1767,24 @@ def check_ln_kernels(dev):
 def check_depthwise_kernel(dev):
     """K23 at every depthwise shape of MobileNetV2 1.0x at batch 256, with
     both of its paths' epilogues (fp32 out under deploy, int8 out with relu6
-    under fused2), bit-identical to its plain version, timed beside the
-    plain version, the bound and the fp32 grouped conv (DW_FP32), also as
-    device time on a spinning card; then odd shapes (C = 40 in 8-byte
-    granules, odd H and W, stride 2 from an odd H) held bit-identical; a C
-    that is not a multiple of 8 refused."""
+    under fused2), on the Hopper form (asserted by ``by_form``),
+    bit-identical to its plain version and to its first form, timed beside
+    the plain version, the bound and the fp32 grouped conv (DW_FP32), also as
+    device time on a spinning card, and in turns with the first form
+    (hopper, first, first, hopper); then odd shapes held bit-identical on
+    both forms, each launch on the form the rule names (C = 40 and 24 on the
+    first form, odd H and W, stride 2 from an odd H); a C that is not a
+    multiple of 8 refused; the Hopper kernels' ptxas report."""
     import torch.nn.functional as F
 
+    from dlq_tpu_torch import _build
     from dlq_tpu_torch.models.common import fp32_conv
     from dlq_tpu_torch.ops.conv_int8 import out_hw
     from dlq_tpu_torch.ops.depthwise_int8 import (
-        depthwise_int8, depthwise_int8_plain, pack_depthwise_weight,
+        depthwise_form, depthwise_int8, depthwise_int8_first, depthwise_int8_plain,
+        pack_depthwise_weight,
     )
+    from dlq_tpu_torch.tools._probe import spun_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     rows = []
@@ -1793,10 +1799,15 @@ def check_depthwise_kernel(dev):
             # so the clip before the division shows
             scale, osc = scale * 80.0, 0.1
         osc = osc if int8_out else None
-        fn = functools.partial(depthwise_int8, x, pk, s, 1, scale, bias, False, osc, relu6)
-        plain = functools.partial(depthwise_int8_plain, x, pk, s, 1, scale, bias, False, osc,
-                                  relu6)
+        args = (x, pk, s, 1, scale, bias, False, osc, relu6)
+        fn = functools.partial(depthwise_int8, *args)
+        first = functools.partial(depthwise_int8_first, *args)
+        plain = functools.partial(depthwise_int8_plain, *args)
+        depthwise_int8.by_form.clear()
         got, ref = fn(), plain()
+        form = depthwise_int8.by_form.most_common(1)[0][0]
+        if form != "hopper" or not torch.equal(first(), got):
+            raise AssertionError(f"depthwise_int8 {case}: form {form}, or the first form differs")
         oh, ow = out_hw(h, h, 3, 3, s, 1)
         xf = x.permute(0, 3, 1, 2).float()          # channels-last fp32 of the same values
         wf = pk.hwio().permute(3, 2, 0, 1).float()  # [C, 1, 3, 3]
@@ -1805,28 +1816,41 @@ def check_depthwise_kernel(dev):
             with fp32_conv():
                 return F.conv2d(xf, wf, stride=s, padding=1, groups=c)
 
+        turns = {"first_form": [], "hopper": []}
+        for tag in ("hopper", "first_form", "first_form", "hopper"):
+            turns[tag].append(spun_ms(first if tag == "first_form" else fn, 20, warmup=2, reps=3))
         rows.append(_row(
             "depthwise_int8", KEYS["depthwise_int8"][1](case),
             f"{BATCH}x{h}x{h}x{c} 3x3/s{s}", got, ref, fn, plain,
             2.0 * BATCH * oh * ow * c * 9,
             x.numel() + 9 * c + 8 * c + got.numel() * got.element_size(),
             per, library=lib, library_name=DW_FP32, spun=True,
-            act=act, out="int8" if int8_out else "fp32"))
+            act=act, out="int8" if int8_out else "fp32", form=form, first_form_equal=True,
+            first_form_ms=time_ms(first), first_form_device_ms=min(turns["first_form"]),
+            device_ms_in_turns=turns))
         del x, got, ref, xf
     odd = []
     for n, h, w, c, s in ((2, 9, 9, 40, 1), (2, 13, 11, 40, 2), (3, 7, 5, 24, 2),
-                          (2, 15, 15, 16, 2)):
+                          (2, 15, 15, 16, 2), (2, 13, 11, 32, 2), (1, 9, 20, 48, 1),
+                          (2, 30, 30, 208, 1)):
         x = _rand_int8(gen, (n, h, w, c), dev)
         pk = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, c), dev))
         scale, bias, _ = _epi_params(gen, c, 9, dev)
+        want = depthwise_form(n, h, w, c, 3, 3, s, 1)
         for relu6, osc in ((False, None), (True, 0.1)):
             sc = scale * 80.0 if relu6 else scale
+            depthwise_int8.by_form.clear()
             got = depthwise_int8(x, pk, s, 1, sc, bias, False, osc, relu6)
+            form = depthwise_int8.by_form.most_common(1)[0][0]
+            first = depthwise_int8_first(x, pk, s, 1, sc, bias, False, osc, relu6)
             ref = depthwise_int8_plain(x, pk, s, 1, sc, bias, False, osc, relu6)
-            err = float((got.float() - ref.float()).abs().max())
-            if err:
-                raise AssertionError(f"depthwise_int8 {(n, h, w, c, s, relu6)}: max_abs_err {err}")
-            odd.append({"shape": [n, h, w, c], "stride": s, "relu6": relu6, "max_abs_err": err})
+            err = max(float((got.float() - ref.float()).abs().max()),
+                      float((first.float() - ref.float()).abs().max()))
+            if err or form != want:
+                raise AssertionError(f"depthwise_int8 {(n, h, w, c, s, relu6)}: form {form} "
+                                     f"(rule: {want}), max_abs_err {err}")
+            odd.append({"shape": [n, h, w, c], "stride": s, "relu6": relu6, "form": form,
+                        "max_abs_err": err, "first_form_equal": True})
     try:
         bad = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, 12), dev))
         depthwise_int8(_rand_int8(gen, (1, 8, 8, 12), dev), bad, 1, 1, scale[:12].contiguous(),
@@ -1834,7 +1858,9 @@ def check_depthwise_kernel(dev):
         raise AssertionError("depthwise_int8: C = 12 was not refused")
     except ValueError as e:
         refused = str(e)
-    emit({"phase": "depthwise_odd_shapes", "cases": odd, "refused_c12": refused})
+    emit({"phase": "depthwise_odd_shapes", "cases": odd, "refused_c12": refused,
+          "ptxas_hopper": _build.ptxas_report("depthwise_int8", "depthwise_hopper_kernel"),
+          "ptxas_first": _build.ptxas_report("depthwise_int8", "depthwise_int8_kernel")})
     return rows
 
 
@@ -2230,22 +2256,23 @@ def reset_counts():
 
 # paths on which every K1 and K2 launch must take the Hopper form (their
 # first form serves only the C=3 stems of deploy/pallas and K % 16 != 0);
-# every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16, mhsa_f32 and K18 launch
-# of every path must (their first forms serve no main-path shape: K3 C not
+# every K3, K4, K5, K8, K9, K11, K12, K14, K15, K16, mhsa_f32, K18 and K23
+# launch of every path must (their first forms serve no main-path shape: K3 C not
 # a multiple of 128 or W > 83; K4 W > 126; Dp other than 128, 192, 256, for
 # K8 also 256; K9, K12 and K15 also an Hp whose ring would hold fewer than
 # 3 stages; K16 rows not a multiple of 16 bytes, D > 512 or a misaligned
-# x; mhsa_f32 256 keys at hd 64; K18 fp32 in at 256 rows)
+# x; mhsa_f32 256 keys at hd 64; K18 fp32 in at 256 rows; K23 other than
+# 3x3, pad 1, stride 1 or 2, C % 16 == 0)
 HOPPER_PATHS = ("r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_deploy",
                 "deit_deploy_w4a8_int8", "deit_deploy_fused_ln", "deit_deploy_xla_int8")
 FORM_KERNELS = ("conv_int8", "matmul_int8", "basic_block", "bottleneck_block", "vit_pre_w8",
                 "vit_pre_w4a8", "vit_post_w4a8", "vit_pre_w4", "vit_post_w4", "vit_pre_bf16",
-                "vit_post_bf16", "layernorm_fused", "mhsa_f32", "mhsa_i8")
+                "vit_post_bf16", "layernorm_fused", "mhsa_f32", "mhsa_i8", "depthwise_int8")
 
 
 def read_forms():
     """Launches per form of K1, K2, K3, K4, K5, K8, K9, K11, K12, K14, K15,
-    K16, mhsa_f32 and K18 since the counts were last set to 0."""
+    K16, mhsa_f32, K18 and K23 since the counts were last set to 0."""
     ws = _wrappers()
     return {k: dict(ws[k].by_form) for k in FORM_KERNELS}
 
@@ -3686,10 +3713,17 @@ def summary(rows, paths):
     return out
 
 
+DW_TIMES = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "library_device_ms",
+            "first_form_ms", "first_form_device_ms")
+
+
 def mnv2_summary(rows, paths):
     """K23's entry of the kernels line: per forward of each MobileNetV2 path,
     each shape's time (batch ``BATCH``) weighted by its launches per forward
-    as counted on that path's run of ``NB`` forwards; ``main``: deploy."""
+    as counted on that path's run of ``NB`` forwards; ``main``: deploy.
+    Both forms are listed: the Hopper form's times (every main-path launch:
+    expect_counts held each path's launches to it) and the first form's,
+    timed beside it at the same shapes."""
     per_path = []
     for path, (counts, shapes) in paths.items():
         w = [shapes["depthwise_int8"].get(r["key"], 0) / NB for r in rows]
@@ -3702,17 +3736,20 @@ def mnv2_summary(rows, paths):
                          "batch": BATCH, "launches_per_forward": counts["depthwise_int8"] / NB,
                          "bound_by": max((n * r["bound_ms"], r["bound_by"])
                                          for n, r in zip(w, rows) if n)[1],
-                         **{f: tot(f) for f in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                "device_ms", "library_device_ms")}})
+                         **{f: tot(f) for f in DW_TIMES}})
     m = per_path[0]
     return [{"name": "depthwise_int8", "route": "cuda",
              "source": "dlq_tpu_torch/csrc/depthwise_int8.cu",
              "replaces": "dlq_tpu/ops/qops.py:182 _conv_int8, its grouped branch (groups == C; an "
                          "XLA function, no pallas_call; oracle _depthwise_int8_stencil :162)",
              "launches": m["launches"], "max_abs_err": max(r["max_abs_err"] for r in rows),
-             **{f: m[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "device_ms", "library_device_ms")},
+             "bound_by": m["bound_by"], **{f: m[f] for f in DW_TIMES},
              "library": DW_FP32, "main": m["path"],
+             "forms": {"hopper": {"kernel": "depthwise_hopper_kernel", "ms": m["ms"],
+                                  "device_ms": m["device_ms"],
+                                  "launches": m["launches"]},
+                       "first": {"kernel": "depthwise_int8_kernel", "ms": m["first_form_ms"],
+                                 "device_ms": m["first_form_device_ms"], "launches": 0}},
              "per": f"launches: the {m['path']} run of {NB} forward(s) at batch {BATCH}; "
                     f"times: one forward at batch {BATCH}",
              "paths": per_path}]

@@ -18,11 +18,18 @@ tap-major and channel-contiguous (``pack_depthwise_weight``, once per site).
 
 ``depthwise_int8`` launches the kernel for a CUDA tensor and runs
 ``depthwise_int8_plain`` (an exact int32 stencil, never ``F.conv2d`` on
-int8) for a CPU tensor. The kernel takes C % 16 == 0 in 16-byte channel
-granules and C % 16 == 8 in 8-byte ones; it refuses any other C, and a
-refused launch raises. ``depthwise_int8.launches`` counts kernel launches,
+int8) for a CPU tensor. The kernel has two forms, taken by a static shape
+rule (``depthwise_form``, the library's ``dlq_depthwise_int8_form``): the
+Hopper form for 3x3, pad 1, stride 1 or 2 and C % 16 == 0 (every MobileNetV2
+width), on the plan ``depthwise_hopper_plan`` (the mirror of the C
+``make_plan``); the first form for every other shape, in 16-byte channel
+granules for C % 16 == 0 and 8-byte ones for C % 16 == 8. Any other C is
+refused, and a refused launch raises. ``depthwise_int8_first`` runs the
+first form at any shape it takes (a CUDA tensor only, not counted).
+``depthwise_int8.launches`` counts kernel launches,
 ``depthwise_int8.by_shape`` counts them per (N, H, W, C, KH, KW, stride,
-pad, activation (``act_key``), int8 out).
+pad, activation (``act_key``), int8 out), ``depthwise_int8.by_form`` per
+form.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,6 +80,121 @@ def pack_depthwise_weight(w_hwio: torch.Tensor) -> PackedDepthwise:
                          f"{w_hwio.dtype} {tuple(w_hwio.shape)}")
     kh, kw, _, c = w_hwio.shape
     return PackedDepthwise(w_hwio.reshape(kh * kw, c).contiguous(), kh, kw)
+
+
+# The Hopper form's plan constants (csrc/depthwise_int8.cu)
+HOP_THREADS = 256
+HOP_MIN_THREADS = 128
+STAGE_MAX = 36 * 1024
+RING_MAX = 113 * 1024
+MAX_STAGES = 4
+CS_MAX = 192
+BOX_MAX = 256
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+REG_BLOCKS = 16
+R_CAND = (4, 7)
+
+
+class DepthwisePlan(NamedTuple):
+    """The Hopper form's plan (the C ``Plan``, field for field): output
+    pixels a pixel group (r), channels a slice (cs), output rows a band
+    (th), its input rows (rb) and columns (wb), pixel groups a row (cg),
+    channel quads a slice (q), pixel groups at once (pg), threads, a stage's
+    bytes and pitch, stages, dynamic shared memory, bands an image, slices,
+    items and blocks."""
+
+    ok: int
+    r: int
+    cs: int
+    th: int
+    rb: int
+    wb: int
+    cg: int
+    q: int
+    pg: int
+    threads: int
+    stage: int
+    pitch: int
+    stages: int
+    smem: int
+    bands: int
+    slices: int
+    items: int
+    grid: int
+
+
+NO_PLAN = DepthwisePlan(*([0] * 18))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.cache
+def depthwise_hopper_plan(n: int, h: int, w: int, c: int, stride: int,
+                          sms: int) -> DepthwisePlan:
+    """The Hopper form's plan for a 3x3, pad-1 depthwise conv of N x H x W x
+    C at ``stride`` on ``sms`` SMs (the C ``make_plan``, step for step):
+    every (R, CS, TH) scored (CS at least 64 or C where one fits, else any
+    multiple of 16 dividing C) by the lanes' useful share, the last wave's,
+    the square root of a band's useful input rows and threads / 128 up to
+    1; the highest score wins, a later candidate on a tie. ``NO_PLAN``
+    (ok 0) where none fits: the first form's shape."""
+    best, best_score = NO_PLAN, -1.0
+    if stride not in (1, 2) or c % 16 or n < 1 or h < 1 or w < 1 or sms < 1:
+        return best
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    for narrow in (False, True):
+        if narrow and best.ok:
+            break
+        for r in R_CAND:
+            cg = _cdiv(ow, r)
+            wb = (cg * r - 1) * stride + 3
+            if wb > BOX_MAX:
+                continue
+            for cs in range(16, min(c, CS_MAX) + 1, 16):
+                if c % cs or (not narrow and cs < 64 and cs != c):
+                    continue
+                q, slices = cs // 4, c // cs
+                pg0 = HOP_THREADS // q
+                for th in range(1, oh + 1):
+                    rb = (th - 1) * stride + 3
+                    stage = cs * wb * rb
+                    if stage > STAGE_MAX or rb > BOX_MAX:
+                        break
+                    tasks = th * cg
+                    pg = min(tasks, pg0)
+                    threads = q * pg
+                    pitch = _cdiv(stage, 128) * 128
+                    stages = min(RING_MAX // pitch, MAX_STAGES)
+                    smem = stages * pitch + 8 * stages
+                    warps = _cdiv(threads, 32)
+                    bps = max(1, min(SMEM_SM // (smem + SMEM_RESERVED), REG_BLOCKS // warps))
+                    bands = _cdiv(oh, th)
+                    items = n * bands * slices
+                    if items > 0x7FFFFFFF:
+                        return NO_PLAN
+                    grid = max(slices, min(items, bps * sms) // slices * slices)
+                    lane = (float(oh) * ow / r) / (float(bands) * _cdiv(tasks, pg) * pg)
+                    blk = float(items) / (float(_cdiv(items, grid)) * grid)
+                    halo = math.sqrt(float(th * stride) / rb)
+                    occ = threads / HOP_MIN_THREADS if threads < HOP_MIN_THREADS else 1.0
+                    score = lane * blk * halo * occ
+                    if score >= best_score:
+                        best_score = score
+                        best = DepthwisePlan(1, r, cs, th, rb, wb, cg, q, pg, threads, stage, pitch,
+                                             stages, smem, bands, slices, items, grid)
+    return best
+
+
+def depthwise_form(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
+                   pad: int) -> str:
+    """K23's form for a launch (the library's rule): ``"hopper"`` for 3x3,
+    pad 1, stride 1 or 2, C % 16 == 0 and a plan that fits, else
+    ``"first"`` (not the card: the plan's fit does not depend on the SMs)."""
+    takes = kh == 3 and kw == 3 and pad == 1 and depthwise_hopper_plan(n, h, w, c, stride, 1).ok
+    return "hopper" if takes else "first"
 
 
 def depthwise_acc_plain(x: torch.Tensor, pk: PackedDepthwise, stride: int,
@@ -122,8 +245,8 @@ def check_depthwise_args(x: torch.Tensor, pk: PackedDepthwise, scale: torch.Tens
 
 
 @functools.cache
-def _entry():
-    fn = _build.library("depthwise_int8").dlq_depthwise_int8
+def _entry(name: str = "dlq_depthwise_int8"):
+    fn = getattr(_build.library("depthwise_int8"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     return fn
@@ -131,12 +254,53 @@ def _entry():
 
 @functools.cache
 def launch_granule(c: int) -> int:
-    """The channel granule in bytes the kernel library takes for C (its own
-    rule: 16, 8, or 0 for a refused C)."""
+    """The channel granule in bytes the first form takes for C (the
+    library's own rule: 16, 8, or 0 for a refused C)."""
     fn = _build.library("depthwise_int8").dlq_depthwise_int8_granule
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int]
     return fn(c)
+
+
+@functools.cache
+def library_form(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
+                 pad: int) -> str:
+    """The form the kernel library takes for a launch (its own rule)."""
+    fn = _build.library("depthwise_int8").dlq_depthwise_int8_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 8
+    return "hopper" if fn(n, h, w, c, kh, kw, stride, pad) else "first"
+
+
+def library_plan(n: int, h: int, w: int, c: int, stride: int, sms: int) -> DepthwisePlan:
+    """The kernel library's own Hopper plan (what the card tests hold
+    ``depthwise_hopper_plan`` to)."""
+    fn = _build.library("depthwise_int8").dlq_depthwise_int8_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 18)()
+    fn(n, h, w, c, stride, sms, ctypes.addressof(out))
+    return DepthwisePlan(*out)
+
+
+def _launch(name: str, x: torch.Tensor, pk: PackedDepthwise, stride: int, pad: int,
+            scale: torch.Tensor, bias: torch.Tensor, relu: bool, out_scale: Optional[float],
+            relu6: bool) -> torch.Tensor:
+    check_depthwise_args(x, pk, scale, bias, launch_granule(pk.c))
+    n, h, w, c = x.shape
+    if h + 2 * pad < pk.kh or w + 2 * pad < pk.kw or stride < 1 or pad < 0:
+        raise ValueError(f"depthwise_int8: no output for {tuple(x.shape)}, "
+                         f"{pk.kh}x{pk.kw}/s{stride}/p{pad}")
+    oh, ow = out_hw(h, w, pk.kh, pk.kw, stride, pad)
+    out = torch.empty((n, oh, ow, c), device=x.device,
+                      dtype=torch.float32 if out_scale is None else torch.int8)
+    rc = _entry(name)(x.data_ptr(), pk.w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                      out.data_ptr(), n, h, w, c, pk.kh, pk.kw, stride, pad,
+                      act_code(relu, relu6), int(out_scale is not None),
+                      float(out_scale) if out_scale is not None else 1.0,
+                      _build.stream_ptr(x.device))
+    _build.check(rc, "depthwise_int8")
+    return out
 
 
 def depthwise_int8(x: torch.Tensor, pk: PackedDepthwise, stride: int, pad: int,
@@ -147,25 +311,27 @@ def depthwise_int8(x: torch.Tensor, pk: PackedDepthwise, stride: int, pad: int,
     an fp32 output, else the consumer's activation scale for an int8 one."""
     if x.device.type == "cpu":
         return depthwise_int8_plain(x, pk, stride, pad, scale, bias, relu, out_scale, relu6)
-    check_depthwise_args(x, pk, scale, bias, launch_granule(pk.c))
+    out = _launch("dlq_depthwise_int8", x, pk, stride, pad, scale, bias, relu, out_scale, relu6)
     n, h, w, c = x.shape
-    if h + 2 * pad < pk.kh or w + 2 * pad < pk.kw or stride < 1 or pad < 0:
-        raise ValueError(f"depthwise_int8: no output for {tuple(x.shape)}, "
-                         f"{pk.kh}x{pk.kw}/s{stride}/p{pad}")
-    oh, ow = out_hw(h, w, pk.kh, pk.kw, stride, pad)
-    out = torch.empty((n, oh, ow, c), device=x.device,
-                      dtype=torch.float32 if out_scale is None else torch.int8)
-    rc = _entry()(x.data_ptr(), pk.w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), n, h, w, c, pk.kh, pk.kw, stride, pad,
-                  act_code(relu, relu6), int(out_scale is not None),
-                  float(out_scale) if out_scale is not None else 1.0,
-                  _build.stream_ptr(x.device))
-    _build.check(rc, "depthwise_int8")
     depthwise_int8.launches += 1
     depthwise_int8.by_shape[(n, h, w, c, pk.kh, pk.kw, stride, pad, act_key(relu, relu6),
                              out_scale is not None)] += 1
+    depthwise_int8.by_form[library_form(n, h, w, c, pk.kh, pk.kw, stride, pad)] += 1
     return out
+
+
+def depthwise_int8_first(x: torch.Tensor, pk: PackedDepthwise, stride: int, pad: int,
+                         scale: torch.Tensor, bias: torch.Tensor, relu: bool = False,
+                         out_scale: Optional[float] = None, relu6: bool = False) -> torch.Tensor:
+    """K23's first form at any shape it takes (a CUDA tensor only; not
+    counted): what the card tests and ``chip_smoke.py`` hold the Hopper form
+    to, output for output."""
+    if x.device.type != "cuda":
+        raise ValueError("depthwise_int8_first: a CUDA tensor (the kernel's first form)")
+    return _launch("dlq_depthwise_int8_first", x, pk, stride, pad, scale, bias, relu, out_scale,
+                   relu6)
 
 
 depthwise_int8.launches = 0
 depthwise_int8.by_shape = collections.Counter()
+depthwise_int8.by_form = collections.Counter()

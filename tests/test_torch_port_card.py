@@ -2078,7 +2078,7 @@ def test_layernorm_first_form_rule_on_card():
         layernorm_fused_first(x.cpu(), g.cpu(), b.cpu())
 
 
-# MobileNetV2 1.0x's nine distinct depthwise shapes (H, C, stride), and odd
+# MobileNetV2 1.0x's ten distinct depthwise shapes (H, C, stride), and odd
 # ones: C = 40 (8-byte granules), odd H and W, stride 2 from an odd H
 MNV2_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1), (28, 192, 2),
            (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1)]
@@ -2138,6 +2138,48 @@ def test_depthwise_kernel_refuses_on_card():
     with pytest.raises(ValueError, match="fp32"):
         depthwise_int8(_i8(rng, (1, 8, 8, 16)).to(dev), pk, 1, 1, scale[:8].contiguous(), bias)
     assert depthwise_int8.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MNV2_DW + DW_ODD)
+def test_depthwise_hopper_form_on_card(case):
+    """K23 at each case on the form its rule names (the library's rule equal
+    to the mirror ``depthwise_form``: the Hopper form at every MobileNetV2
+    shape and at 15 x 15 x 16 / s2, the first form at C = 40 and 24),
+    counted in ``by_form``; bit-identical to the plain version and to
+    ``depthwise_int8_first`` with both epilogues and relu; the library's
+    plan equal to the mirror ``depthwise_hopper_plan`` at batch 2 and 256 on
+    this card's SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.depthwise_int8 import (
+        depthwise_form, depthwise_hopper_plan, depthwise_int8, depthwise_int8_first,
+        depthwise_int8_plain, library_form, library_plan, pack_depthwise_weight,
+    )
+
+    h, c, s, w = case if len(case) == 4 else (*case, case[0])
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    form = depthwise_form(2, h, w, c, 3, 3, s, 1)
+    assert library_form(2, h, w, c, 3, 3, s, 1) == form
+    assert form == ("first" if c % 16 else "hopper")
+    for n in (2, 256):
+        assert library_plan(n, h, w, c, s, sms) == depthwise_hopper_plan(n, h, w, c, s, sms)
+    rng = np.random.default_rng(h * 1000 + c + s + 7)
+    x = _i8(rng, (2, h, w, c)).to(dev)
+    pk = pack_depthwise_weight(_i8(rng, (3, 3, 1, c)).to(dev))
+    scale, bias = _epi(rng, c, 9, dev)
+    for relu, relu6, osc in ((False, False, None), (False, True, 0.025), (True, False, 0.1),
+                             (False, True, 0.1), (True, False, None)):
+        sc = scale * 6.0 if relu6 else scale
+        args = (x, pk, s, 1, sc, bias, relu, osc, relu6)
+        before = depthwise_int8.by_form[form]
+        got = depthwise_int8(*args)
+        assert depthwise_int8.by_form[form] == before + 1
+        assert torch.equal(got, depthwise_int8_plain(*args)), (relu, relu6, osc)
+        assert torch.equal(got, depthwise_int8_first(*args)), (relu, relu6, osc)
+    with pytest.raises(ValueError, match="CUDA"):
+        depthwise_int8_first(x.cpu(), pk, s, 1, scale, bias)
 
 
 @pytest.mark.gpu
