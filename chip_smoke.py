@@ -1764,6 +1764,24 @@ def check_ln_kernels(dev):
     return rows
 
 
+def _dw_off_fast_path(scale, bias, force):
+    """K23's epilogue parameters off the Hopper form's int8 fast path, y / s
+    spread over the int8 range: "s_small" / "s_large" an output scale of
+    2^-31 / 2^31 (s_fast fails; scale and bias scaled with it), "quad" s =
+    0.1 with a bias of +-1e18 in channel 8k and a scale of 1e13 in channel
+    16k + 5 (those quads take requant_exact, the others the fast path, in
+    one launch)."""
+    scale = scale * 80.0
+    if force == "quad":
+        scale, bias = scale.clone(), bias.clone()
+        sign = torch.where(torch.arange(bias[0::8].numel(), device=bias.device) % 2 == 1, -1.0, 1.0)
+        bias[0::8] = 1e18 * sign
+        scale[5::16] = 1e13
+        return scale, bias, 0.1
+    s = 2.0 ** -31 if force == "s_small" else 2.0 ** 31
+    return scale * (s / 0.1), bias * (s / 0.1), s
+
+
 def check_depthwise_kernel(dev):
     """K23 at every depthwise shape of MobileNetV2 1.0x at batch 256, with
     both of its paths' epilogues (fp32 out under deploy, int8 out with relu6
@@ -1773,8 +1791,11 @@ def check_depthwise_kernel(dev):
     device time on a spinning card, and in turns with the first form
     (hopper, first, first, hopper); then odd shapes held bit-identical on
     both forms, each launch on the form the rule names (C = 40 and 24 on the
-    first form, odd H and W, stride 2 from an odd H); a C that is not a
-    multiple of 8 refused; the Hopper kernels' ptxas report."""
+    first form, odd H and W, stride 2 from an odd H); the Hopper form off its
+    int8 fast path (requant_exact: output scales 2^-31 and 2^31, quads past
+    its check's bound) with relu6, relu and no activation, bit-identical to
+    both; a C that is not a multiple of 8 refused; the Hopper kernels'
+    ptxas report."""
     import torch.nn.functional as F
 
     from dlq_tpu_torch import _build
@@ -1851,6 +1872,26 @@ def check_depthwise_kernel(dev):
                                      f"(rule: {want}), max_abs_err {err}")
             odd.append({"shape": [n, h, w, c], "stride": s, "relu6": relu6, "form": form,
                         "max_abs_err": err, "first_form_equal": True})
+    fallback = []
+    for n, h, w, c, s in ((2, 15, 15, 16, 2), (2, 30, 30, 208, 1), (2, 14, 14, 576, 2)):
+        x = _rand_int8(gen, (n, h, w, c), dev)
+        pk = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, c), dev))
+        scale0, bias0, _ = _epi_params(gen, c, 9, dev)
+        for force in ("s_small", "s_large", "quad"):
+            scale, bias, osc = _dw_off_fast_path(scale0, bias0, force)
+            for relu, relu6 in ((False, True), (True, False), (False, False)):
+                args = (x, pk, s, 1, scale, bias, relu, osc, relu6)
+                depthwise_int8.by_form.clear()
+                got = depthwise_int8(*args)
+                form = depthwise_int8.by_form.most_common(1)[0][0]
+                if (form != "hopper" or not torch.equal(got, depthwise_int8_plain(*args))
+                        or not torch.equal(got, depthwise_int8_first(*args))):
+                    raise AssertionError(f"depthwise_int8 {(n, h, w, c, s)} off the fast path "
+                                         f"({force}, relu {relu}, relu6 {relu6}): form {form}, "
+                                         f"or it differs from the plain version or first form")
+                fallback.append({"shape": [n, h, w, c], "stride": s, "force": force,
+                                 "relu": relu, "relu6": relu6, "form": form, "equal": True,
+                                 "codes": len(torch.unique(got))})
     try:
         bad = pack_depthwise_weight(_rand_int8(gen, (3, 3, 1, 12), dev))
         depthwise_int8(_rand_int8(gen, (1, 8, 8, 12), dev), bad, 1, 1, scale[:12].contiguous(),
@@ -1858,7 +1899,8 @@ def check_depthwise_kernel(dev):
         raise AssertionError("depthwise_int8: C = 12 was not refused")
     except ValueError as e:
         refused = str(e)
-    emit({"phase": "depthwise_odd_shapes", "cases": odd, "refused_c12": refused,
+    emit({"phase": "depthwise_odd_shapes", "cases": odd, "exact_fallback": fallback,
+          "refused_c12": refused,
           "ptxas_hopper": _build.ptxas_report("depthwise_int8", "depthwise_hopper_kernel"),
           "ptxas_first": _build.ptxas_report("depthwise_int8", "depthwise_int8_kernel")})
     return rows
@@ -2611,6 +2653,7 @@ def _mnv2_drive(eng, images, path, what, fused2=False):
     reset_counts()
     preds = eng.classify(images, pipeline=2)
     counts, shapes = read_counts()
+    forms = read_forms()["depthwise_int8"]
     expect_counts(counts, path, NB, what)
     want = expected_by_shape(path, NB)["depthwise_int8"]
     if shapes["depthwise_int8"] != want:
@@ -2621,7 +2664,7 @@ def _mnv2_drive(eng, images, path, what, fused2=False):
                     for k in shapes[name] if not k[-1]}
         if fp32_out != {((BATCH, 1280, 1000, False, False), "matmul_int8")}:
             raise AssertionError(f"{what}: fp32-out launches other than the fc's {fp32_out}")
-    return preds, counts, shapes
+    return preds, counts, shapes, forms
 
 
 def mnv2_paths(dev, card, images):
@@ -2629,7 +2672,7 @@ def mnv2_paths(dev, card, images):
     and quantized by Engine.quantized, saved as a store, served by
     Engine.from_store(ctx="deploy") (main_path_mnv2_deploy), then
     make_qforward_fused under FullFusedCtx on the same store (mnv2_fused2);
-    returns {path: (counts, shapes)}."""
+    returns {path: (counts, shapes, K23's launches by form)}."""
     from dlq_tpu_torch import numerics
     from dlq_tpu_torch.engine import Engine, to_device
     from dlq_tpu_torch.models.mobilenetv2 import (
@@ -2666,7 +2709,7 @@ def mnv2_paths(dev, card, images):
 
         # ---- main_path_mnv2_deploy ----
         path = "mnv2_deploy"
-        preds, counts, shapes = _mnv2_drive(eng, images, path, "mobilenetv2 deploy")
+        preds, counts, shapes, forms = _mnv2_drive(eng, images, path, "mobilenetv2 deploy")
         logits, taps = _taps(eng, x0, cfg, qf)
         if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
             raise AssertionError("mobilenetv2 deploy: classify and the taps forward disagree")
@@ -2687,7 +2730,7 @@ def mnv2_paths(dev, card, images):
               "top1_vs_fp32": top1_report(logits, ref_logits),
               "max_abs_vs_plain_versions": plain, "setup_s": setup_s, "card": card})
         profile_forward(eng, xt, "mobilenetv2_deploy")
-        out[path] = (counts, shapes)
+        out[path] = (counts, shapes, forms)
         del eng, taps
 
         # ---- mnv2_fused2: make_qforward_fused under FullFusedCtx, same store ----
@@ -2697,7 +2740,8 @@ def mnv2_paths(dev, card, images):
     eng2 = Engine(lambda c, x: qff(c, x, cfg), ctx, batch=BATCH, device=dev,
                   name="mobilenetv2_fused2")
     path = "mnv2_fused2"
-    preds2, counts2, shapes2 = _mnv2_drive(eng2, images, path, "mobilenetv2 fused2", fused2=True)
+    preds2, counts2, shapes2, forms2 = _mnv2_drive(eng2, images, path, "mobilenetv2 fused2",
+                                                   fused2=True)
     logits2, taps2 = _taps(eng2, x0, cfg, qff)
     if not np.array_equal(preds2[:BATCH], logits2.argmax(-1)):
         raise AssertionError("mobilenetv2 fused2: classify and the taps forward disagree")
@@ -2717,7 +2761,7 @@ def mnv2_paths(dev, card, images):
           "int8_block_taps_equal_plain_versions": True,
           "max_abs_vs_plain_versions": plain2, "card": card})
     profile_forward(eng2, xt, "mobilenetv2_fused2")
-    out[path] = (counts2, shapes2)
+    out[path] = (counts2, shapes2, forms2)
     del eng2, ctx
     torch.cuda.empty_cache()
     return out
@@ -3721,11 +3765,12 @@ def mnv2_summary(rows, paths):
     """K23's entry of the kernels line: per forward of each MobileNetV2 path,
     each shape's time (batch ``BATCH``) weighted by its launches per forward
     as counted on that path's run of ``NB`` forwards; ``main``: deploy.
-    Both forms are listed: the Hopper form's times (every main-path launch:
-    expect_counts held each path's launches to it) and the first form's,
-    timed beside it at the same shapes."""
+    Both forms are listed: each with its launches in that path's run (read
+    by form; expect_counts held every launch to the Hopper form) and its
+    times, the first form's timed beside the Hopper form's at the same
+    shapes."""
     per_path = []
-    for path, (counts, shapes) in paths.items():
+    for path, (counts, shapes, forms) in paths.items():
         w = [shapes["depthwise_int8"].get(r["key"], 0) / NB for r in rows]
 
         def tot(f):
@@ -3733,6 +3778,7 @@ def mnv2_summary(rows, paths):
             return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
 
         per_path.append({"path": path, "launches": counts["depthwise_int8"], "forwards": NB,
+                         "launches_by_form": {f: forms.get(f, 0) for f in ("hopper", "first")},
                          "batch": BATCH, "launches_per_forward": counts["depthwise_int8"] / NB,
                          "bound_by": max((n * r["bound_ms"], r["bound_by"])
                                          for n, r in zip(w, rows) if n)[1],
@@ -3747,9 +3793,10 @@ def mnv2_summary(rows, paths):
              "library": DW_FP32, "main": m["path"],
              "forms": {"hopper": {"kernel": "depthwise_hopper_kernel", "ms": m["ms"],
                                   "device_ms": m["device_ms"],
-                                  "launches": m["launches"]},
+                                  "launches": m["launches_by_form"]["hopper"]},
                        "first": {"kernel": "depthwise_int8_kernel", "ms": m["first_form_ms"],
-                                 "device_ms": m["first_form_device_ms"], "launches": 0}},
+                                 "device_ms": m["first_form_device_ms"],
+                                 "launches": m["launches_by_form"]["first"]}},
              "per": f"launches: the {m['path']} run of {NB} forward(s) at batch {BATCH}; "
                     f"times: one forward at batch {BATCH}",
              "paths": per_path}]

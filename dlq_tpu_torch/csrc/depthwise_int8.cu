@@ -64,15 +64,6 @@
 //     word or one 16-byte fp32 vector a pixel a thread; a warp's lanes hold
 //     consecutive quads of a pixel, so each store is contiguous.
 //
-// Variants for timing (dlq_tpu_torch/tools/depthwise_variants.py builds each
-// with its -D flag; the default build defines none): DLQ_DW_LANE, one
-// __dp4a a product on untransposed words, each weight byte alone in its
-// lane (this form's first products); DLQ_DW_PER_PIXEL, each pixel's
-// epilogue and store in turn with the range tested per value (this form's
-// first epilogue); DLQ_DW_MAGIC, float(acc) by the magic-number add;
-// DLQ_DW_DIV, the int8 code by requant_div (the IEEE division);
-// DLQ_DW_STAGE_MAX=bytes, another stage ceiling for the plan.
-//
 // The first form (depthwise_int8_kernel; dlq_depthwise_int8_first): a thread
 // per output pixel and G-byte channel granule (G = 16, or 8 when C % 16 ==
 // 8; C % 8 != 0 is refused), consecutive threads on consecutive granules of
@@ -207,10 +198,7 @@ cudaError_t launch(const Args& a, long long pixels, cudaStream_t s) {
 
 constexpr int HOP_THREADS = 256;      // the most threads a block
 constexpr int HOP_MIN_THREADS = 128;  // fewer are scored down (latency hidden by few warps)
-#ifndef DLQ_DW_STAGE_MAX
-#define DLQ_DW_STAGE_MAX (36 * 1024)
-#endif
-constexpr int STAGE_MAX = DLQ_DW_STAGE_MAX;  // bytes of one stage, an item's input band
+constexpr int STAGE_MAX = 36 * 1024;  // bytes of one stage, an item's input band
 constexpr int RING_MAX = 113 * 1024;  // bytes of a block's ring: two blocks share an SM
 constexpr int MAX_STAGES = 4;
 constexpr int CS_MAX = 192;           // channels a slice (a box's innermost extent <= 256)
@@ -317,22 +305,11 @@ __device__ __forceinline__ void issue(const HArgs& a, const CUtensorMap* tm, uin
                 full + st);
 }
 
-// float(acc): the conversion; with DLQ_DW_MAGIC the magic-number add (for
-// |acc| < 2^22, 1.5 x 2^23 + acc is exact and its bits are those of 1.5 x
-// 2^23 plus acc: the same value off the conversion pipe, on two of the
-// integer and fp32 pipes' slots, which the permutes and clips keep busy).
-__device__ __forceinline__ float to_float(int acc) {
-#ifdef DLQ_DW_MAGIC
-  return __fsub_rn(__int_as_float(acc + 0x4B400000), 12582912.0f);
-#else
-  return __int2float_rn(acc);
-#endif
-}
-
-// epi_act on float(acc) from to_float
+// epi_act: fma(float(acc), scale, bias) and the activation (float(acc) is
+// exact: |acc| <= 9 x 128 x 128 < 2^24)
 template <bool R6>
-__device__ __forceinline__ float epi_f(float f, float scale, float bias, bool relu) {
-  const float y = __fmaf_rn(f, scale, bias);
+__device__ __forceinline__ float epi_f(int acc, float scale, float bias, bool relu) {
+  const float y = __fmaf_rn(__int2float_rn(acc), scale, bias);
   if constexpr (R6)
     return fminf(fmaxf(y, 0.0f), 6.0f);
   else
@@ -357,25 +334,17 @@ __device__ __forceinline__ uint32_t requant4(const int (&acc)[4], const float (&
                                              const float (&bi)[4], float s, bool fast, float qhi,
                                              bool relu, float lo) {
   uint32_t cd[4];
-#ifdef DLQ_DW_DIV
-  (void)fast, (void)qhi;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    cd[c] = static_cast<uint8_t>(requant_div(epi_f<R6>(to_float(acc[c]), sc[c], bi[c], relu),
-                                             s, lo));
-#else
   if (fast) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float q = i8::div_rn_fast(__fmaf_rn(to_float(acc[c]), sc[c], bi[c]), s);
+      const float q = i8::div_rn_fast(__fmaf_rn(__int2float_rn(acc[c]), sc[c], bi[c]), s);
       cd[c] = __float_as_uint(__fadd_rn(fminf(fmaxf(q, lo), qhi), 12582912.0f));
     }
   } else {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      cd[c] = i8::requant_exact(epi_f<R6>(to_float(acc[c]), sc[c], bi[c], relu), s, lo);
+      cd[c] = i8::requant_exact(epi_f<R6>(acc[c], sc[c], bi[c], relu), s, lo);
   }
-#endif
   return pack4(cd);
 }
 
@@ -435,23 +404,12 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
     for (int k = 0; k < a.stages && k < mine; ++k) issue(a, &tm, smem, full, k);
 
   // this thread's quad of the block's slice: its weights (tap-row words
-  // wt[u][k] = (w[u, 0, k], w[u, 1, k], w[u, 2, k], 0) for channel k; one-lane
-  // words wl[t][k], byte k of tap t alone in lane k, for DLQ_DW_LANE), scales
+  // wt[u][k] = (w[u, 0, k], w[u, 1, k], w[u, 2, k], 0) for channel k), scales
   // and biases
   const int c0 = (blockIdx.x % a.slices) * a.cs + 4 * q;
   uint32_t w9[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) w9[t] = __ldg(reinterpret_cast<const uint32_t*>(a.w + t * a.C + c0));
-#ifdef DLQ_DW_LANE
-  uint32_t wl[9][4];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    wl[t][0] = __byte_perm(w9[t], 0, 0x4440);
-    wl[t][1] = __byte_perm(w9[t], 0, 0x4414);
-    wl[t][2] = __byte_perm(w9[t], 0, 0x4244);
-    wl[t][3] = __byte_perm(w9[t], 0, 0x3444);
-  }
-#else
   uint32_t wt[3][4];
 #pragma unroll
   for (int u = 0; u < 3; ++u)
@@ -459,7 +417,6 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
     for (int k = 0; k < 4; ++k)
       wt[u][k] = __byte_perm(__byte_perm(w9[3 * u], w9[3 * u + 1], k | (4 + k) << 4),
                              __byte_perm(w9[3 * u + 2], 0, 0x4440 | k), 0x5410);
-#endif
   float sc[4], bi[4];
   const float s = a.out_scale;
   bool fast = i8::s_fast(s);   // the division's fast path is exact for every y of the quad
@@ -499,49 +456,14 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
 #pragma unroll
         for (int j = 0; j < 4 * XT; ++j)
           xw[j] = j < XW ? *reinterpret_cast<const uint32_t*>(p + (u * a.wb + j) * a.cs) : 0u;
-#ifdef DLQ_DW_LANE
-#pragma unroll
-        for (int j = 0; j < R; ++j)
-#pragma unroll
-          for (int v = 0; v < 3; ++v)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[j][c] = __dp4a((int)xw[j * S + v], (int)wl[3 * u + v][c], acc[j][c]);
-#else
         uint32_t t[XT][4];   // channel k of pixels 4m .. 4m + 3 of the row
 #pragma unroll
         for (int m = 0; m < XT; ++m)
           transpose4(xw[4 * m], xw[4 * m + 1], xw[4 * m + 2], xw[4 * m + 3], t[m]);
         row_taps<R, S>(acc, t, wt[u]);
-#endif
       }
       const int ow0 = cgi * R;
       const size_t o = (((size_t)n * a.OH + oh) * a.OW + ow0) * a.C + c0;
-#ifdef DLQ_DW_PER_PIXEL
-      // each pixel's epilogue and store in turn, the range tested per value
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (ow0 + j >= a.OW) break;
-        float y[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) y[c] = epi_f<R6>(to_float(acc[j][c]), sc[c], bi[c], relu);
-        if constexpr (I8) {
-          uint32_t cd[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) cd[c] = i8::requant_fast(y[c], s, lo);
-          const float ymax = fmaxf(fmaxf(fabsf(y[0]), fabsf(y[1])), fmaxf(fabsf(y[2]), fabsf(y[3])));
-          if (!i8::s_fast(s) || !(ymax <= i8::FAST_Y_MAX)) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) cd[c] = i8::requant_exact(y[c], s, lo);
-          }
-          *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.out) + o + (size_t)j * a.C) =
-              pack4(cd);
-        } else {
-          *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o + (size_t)j * a.C) =
-              make_float4(y[0], y[1], y[2], y[3]);
-        }
-      }
-#else
       // every pixel's epilogue first (independent chains the scheduler
       // interleaves), then the stores, each under its own predicate
       if constexpr (I8) {
@@ -558,16 +480,15 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
         float4 y[R];
 #pragma unroll
         for (int j = 0; j < R; ++j)
-          y[j] = make_float4(epi_f<R6>(to_float(acc[j][0]), sc[0], bi[0], relu),
-                             epi_f<R6>(to_float(acc[j][1]), sc[1], bi[1], relu),
-                             epi_f<R6>(to_float(acc[j][2]), sc[2], bi[2], relu),
-                             epi_f<R6>(to_float(acc[j][3]), sc[3], bi[3], relu));
+          y[j] = make_float4(epi_f<R6>(acc[j][0], sc[0], bi[0], relu),
+                             epi_f<R6>(acc[j][1], sc[1], bi[1], relu),
+                             epi_f<R6>(acc[j][2], sc[2], bi[2], relu),
+                             epi_f<R6>(acc[j][3], sc[3], bi[3], relu));
 #pragma unroll
         for (int j = 0; j < R; ++j)
           if (ow0 + j < a.OW)
             *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o + (size_t)j * a.C) = y[j];
       }
-#endif
     }
     __syncthreads();   // every thread is done with stage st
     if (tid == 0 && k + a.stages < mine) issue(a, &tm, smem, full, k + a.stages);

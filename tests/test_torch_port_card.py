@@ -2182,6 +2182,53 @@ def test_depthwise_hopper_form_on_card(case):
         depthwise_int8_first(x.cpu(), pk, s, 1, scale, bias)
 
 
+def _dw_forced(scale, bias, force):
+    """K23's epilogue parameters off requant4's fast path, y / s spread over
+    the int8 range: "s_small" / "s_large" an output scale of 2^-31 / 2^31
+    (scale and bias scaled with it), "quad" s = 0.1 with a bias of +-1e18 in
+    channel 8k and a scale of 1e13 in channel 16k + 5 (those quads take
+    requant_exact, the others the fast path, in one launch)."""
+    scale = scale * 6.0
+    if force == "quad":
+        scale, bias = scale.clone(), bias.clone()
+        sign = torch.where(torch.arange(bias[0::8].numel(), device=bias.device) % 2 == 1, -1.0, 1.0)
+        bias[0::8] = 1e18 * sign
+        scale[5::16] = 1e13
+        return scale, bias, 0.1
+    s = 2.0 ** -31 if force == "s_small" else 2.0 ** 31
+    return scale * (s / 0.1), bias * (s / 0.1), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(112, 32, 1), (14, 576, 2), (15, 16, 2, 15)])
+@pytest.mark.parametrize("force", ["s_small", "s_large", "quad"])
+def test_depthwise_hopper_exact_fallback_on_card(case, force):
+    """K23's Hopper form off its int8 fast path (``requant4``'s
+    ``requant_exact`` branch: an output scale outside [2^-30, 2^30], or a
+    quad whose |scale| or |bias| could put |y| past 2^60), with relu6, relu
+    and no activation: on the Hopper form, bit-identical to the plain
+    version and to ``depthwise_int8_first``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.depthwise_int8 import (
+        depthwise_int8, depthwise_int8_first, depthwise_int8_plain, pack_depthwise_weight,
+    )
+
+    h, c, s, w = case if len(case) == 4 else (*case, case[0])
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(h * 1000 + c + s + 11)
+    x = _i8(rng, (2, h, w, c)).to(dev)
+    pk = pack_depthwise_weight(_i8(rng, (3, 3, 1, c)).to(dev))
+    scale, bias, osc = _dw_forced(*_epi(rng, c, 9, dev), force)
+    for relu, relu6 in ((False, True), (True, False), (False, False)):
+        args = (x, pk, s, 1, scale, bias, relu, osc, relu6)
+        before = depthwise_int8.by_form["hopper"]
+        got = depthwise_int8(*args)
+        assert depthwise_int8.by_form["hopper"] == before + 1
+        assert torch.equal(got, depthwise_int8_plain(*args)), (force, relu, relu6)
+        assert torch.equal(got, depthwise_int8_first(*args)), (force, relu, relu6)
+
+
 @pytest.mark.gpu
 def test_relu6_epilogues_of_k1_k2_on_card():
     """K1 and K2 with relu6 and int8 out (and fp32 out) bit-identical to

@@ -10,8 +10,10 @@ and pixel groups t / Q, t / Q + PG, ...; a pixel group's R outputs from the
 (R - 1) s + 3 words of each tap row, transposed four pixels at a time into
 channel streams; output j's three taps of a row as one ``__dp4a`` of the
 stream's window of pixels j s .. j s + 3 and the tap-row weight word;
-float(acc) and the epilogue; the stores, each output once. No card, no
-``nvcc``.
+the epilogue as ``epi_f`` and ``requant4`` order it (the fma on float(acc);
+int8 codes from the unclipped y / s clipped to [lo, qhi] where a quad's
+check admits the division's fast path, else the activation on y and
+``requant_exact``); the stores, each output once. No card, no ``nvcc``.
 """
 
 import jax
@@ -38,7 +40,7 @@ MNV2_DW = {(112, 32, 1): (7, 32, 8, 256, 3, 264), (112, 96, 2): (7, 96, 1, 192, 
 ODD = [(2, 15, 15, 16, 2), (2, 13, 11, 32, 2), (1, 9, 20, 48, 1), (2, 5, 3, 16, 1),
        (1, 1, 1, 16, 1), (1, 30, 30, 208, 1)]
 ACC_MAX = 9 * 128 * 128      # the largest |acc| of a 3x3 int8 depthwise sum
-MAGIC_I, MAGIC_F = 0x4B400000, np.float32(12582912.0)
+MAGIC_F = np.float32(12582912.0)   # 1.5 x 2^23: requant_code's rounding add
 
 
 def _draw(seed, n, h, w, c, extreme=False):
@@ -52,12 +54,6 @@ def _draw(seed, n, h, w, c, extreme=False):
     scale = rng.uniform(0.5, 1.5, c).astype(np.float32) * np.float32(0.05 / (73 * 73 * 3))
     bias = rng.normal(0, 0.02, c).astype(np.float32)
     return x, wq, scale, bias
-
-
-def magic_float(acc: np.ndarray) -> np.ndarray:
-    """float(acc) of the DLQ_DW_MAGIC build: the bits of 1.5 x 2^23 plus acc,
-    minus 1.5 x 2^23."""
-    return (acc.astype(np.int32) + np.int32(MAGIC_I)).view(np.float32) - MAGIC_F
 
 
 def dp4a(xw: np.ndarray, ww: np.ndarray, acc: np.ndarray) -> np.ndarray:
@@ -151,21 +147,47 @@ def hopper_walk(x, wq, stride, plan):
     return acc, writes
 
 
-def _walk_out(acc, scale, bias, relu, out_scale, relu6):
-    """The kernel's epilogue on the walk's sums: float(acc) (the conversion,
-    and the magic add of the DLQ_DW_MAGIC build, equal), then the fma, the
-    activation and the requant as the plain epilogue computes them."""
-    f = acc.astype(np.float32)
-    assert np.array_equal(f, magic_float(acc))
-    y = torch.addcmul(torch.from_numpy(bias), torch.from_numpy(f), torch.from_numpy(scale))
+def fast_quads(scale, bias, s) -> np.ndarray:
+    """Per channel, whether its quad (channels 4k .. 4k + 3, one thread's)
+    takes requant4's fast path: s_fast(s) (2^-30 <= s <= 2^30) and
+    ACC_MAX |scale| + |bias| <= 2^59 for all four channels, so |y| <= 2^60
+    and the division's fast path is the correctly rounded quotient."""
+    ok = 2.0 ** -30 <= float(s) <= 2.0 ** 30
+    big = ACC_MAX * np.abs(scale.astype(np.float64)) + np.abs(bias.astype(np.float64)) > 2.0 ** 59
+    return np.repeat(~big.reshape(-1, 4).any(-1), 4) & ok
+
+
+def _act(y, relu, relu6):
     if relu6:
-        y = torch.clamp(y, 0.0, 6.0)
-    elif relu:
-        y = torch.clamp_min(y, 0.0)
+        return torch.clamp(y, 0.0, 6.0)
+    return torch.clamp_min(y, 0.0) if relu else y
+
+
+def _walk_out(acc, scale, bias, relu, out_scale, relu6):
+    """The Hopper form's epilogue on the walk's sums, in the kernel's order
+    (``depthwise_int8.cu``: ``epi_f``, ``requant4``): y = fma(float(acc),
+    scale, bias) (float(acc) exact, |acc| <= 9 x 128 x 128 < 2^24). fp32
+    out: the activation on y. int8 out, a quad on the fast path: q = y / s
+    of the unclipped y (the division's fast path is the IEEE quotient under
+    ``fast_quads``; the card tests hold that part), clipped to [lo, qhi],
+    qhi = min(6 / s, 127) with relu6, else 127; a quad off it: the
+    activation on y, then ``requant_exact`` (a zero y skips the division),
+    clipped to [lo, 127]. The code: the low byte of q + 1.5 x 2^23."""
+    f = torch.from_numpy(acc.astype(np.float32))
+    assert np.array_equal(f.numpy().astype(np.int64), acc)
+    y = torch.addcmul(torch.from_numpy(bias), f, torch.from_numpy(scale))
     if out_scale is None:
-        return y
-    q = torch.round(fdiv(y, out_scale))
-    return torch.clamp(q, 0.0 if (relu or relu6) else -127.0, 127.0).to(torch.int8)
+        return _act(y, relu, relu6)
+    s = torch.tensor(out_scale, dtype=torch.float32)
+    lo = 0.0 if (relu or relu6) else -127.0
+    qhi = min(float(fdiv(torch.tensor([6.0]), s)), 127.0) if relu6 else 127.0
+    q_fast = torch.clamp(fdiv(y, s), lo, qhi)
+    ya = _act(y, relu, relu6)
+    zero = ya == 0
+    q_exact = torch.where(zero, 0.0, fdiv(torch.where(zero, 1.0, ya), s)).clamp(lo, 127.0)
+    q = torch.where(torch.from_numpy(fast_quads(scale, bias, s)), q_fast, q_exact)
+    bits = (q.numpy() + MAGIC_F).astype(np.float32).view(np.uint32)
+    return torch.from_numpy((bits & np.uint32(0xFF)).astype(np.uint8).view(np.int8))
 
 
 def _plain(x, wq, stride, scale, bias, relu, out_scale, relu6):
@@ -252,6 +274,8 @@ def test_walk_equals_plain_at_mobilenetv2_shapes(shape, epi):
     p = D.depthwise_hopper_plan(1, h, h, c, s, SMS)
     acc, writes = hopper_walk(x, wq, s, p)
     assert (writes == 1).all()
+    if relu6:
+        assert fast_quads(scale, bias, osc).all()   # fused2's launches take the fast path
     got = _walk_out(acc, scale, bias, False, osc, relu6)
     ref = _plain(x, wq, s, scale, bias, False, osc, relu6)
     assert got.dtype == ref.dtype and torch.equal(got, ref)
@@ -277,6 +301,52 @@ def test_walk_equals_plain_at_odd_shapes(case, relu, relu6, osc):
     assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
+def forced_epilogue(scale, bias, force):
+    """Scale, bias and output scale that send requant4 off its fast path,
+    with y / s spread over the int8 range as fused2's (scale x 80, s = 0.1)
+    spreads it: "s_small" / "s_large" an output scale of 2^-31 / 2^31
+    (s_fast fails for every quad; scale and bias scaled with s), "quad" s =
+    0.1 with one channel of some quads past the check's bound (a bias of
+    +-1e18 in channel 8k, a scale of 1e13 in channel 16k + 5), so those
+    quads' other channels, which carry ordinary values, take requant_exact
+    while the remaining quads take the fast path in the same launch."""
+    scale = scale * np.float32(80.0)
+    if force == "quad":
+        bias = bias.copy()
+        scale = scale.copy()
+        bias[0::8] = np.float32(1e18) * np.where(np.arange(bias[0::8].size) % 2, -1, 1)
+        scale[5::16] = np.float32(1e13)
+        return scale, bias, 0.1
+    s = 2.0 ** -31 if force == "s_small" else 2.0 ** 31
+    k = np.float32(s / 0.1)
+    return scale * k, bias * k, s
+
+
+@pytest.mark.parametrize("case", [(2, 15, 15, 16, 2), (1, 9, 20, 48, 1)])
+@pytest.mark.parametrize("act", ["relu6", "relu", "none"])
+@pytest.mark.parametrize("force", ["s_small", "s_large", "quad"])
+def test_walk_exact_fallback_equals_plain(case, act, force):
+    """requant4's exact fall-back (``requant_exact`` after the activation on
+    y) where its check refuses the fast path: an output scale outside
+    [2^-30, 2^30], or a quad whose |scale| or |bias| could put |y| past
+    2^60, with relu6, relu and no activation; the walk's int8 codes
+    bit-identical to the plain version, each output stored once."""
+    n, h, w, c, s = case
+    x, wq, scale, bias = _draw(n * 100 + h + w + c + s, n, h, w, c)
+    scale, bias, osc = forced_epilogue(scale, bias, force)
+    fast = fast_quads(scale, bias, osc)
+    assert (fast.any() and not fast.all()) if force == "quad" else not fast.any()
+    relu, relu6 = act == "relu", act == "relu6"
+    acc, writes = hopper_walk(x, wq, s, D.depthwise_hopper_plan(n, h, w, c, s, SMS))
+    assert (writes == 1).all()
+    got = _walk_out(acc, scale, bias, relu, osc, relu6)
+    ref = _plain(x, wq, s, scale, bias, relu, osc, relu6)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if not (relu6 and force == "s_large"):       # there y <= 6 makes every code 0
+        slow = torch.from_numpy(~fast).expand_as(ref)
+        assert len(torch.unique(ref[slow])) > 2  # the fall-back's codes are not all one value
+
+
 @pytest.mark.parametrize("n,h,w,c,stride,extreme", [
     (2, 14, 14, 32, 1, False), (2, 15, 15, 16, 2, False), (1, 13, 11, 48, 2, False),
     (2, 7, 7, 64, 1, True), (1, 9, 20, 48, 1, False),
@@ -298,17 +368,13 @@ def test_walk_sums_match_jax(n, h, w, c, stride, extreme):
         assert np.abs(acc).max() >= 9 * 127 * 127
 
 
-def test_magic_conversion_exact():
-    """float(acc) by the magic-number add (the DLQ_DW_MAGIC build) equals the
-    IEEE conversion at every |acc| <= 9 x 128 x 128, the most a 3x3
-    depthwise sum reaches (the form rule takes no other kernel size), and up
-    to 2^22 (the add's exact range)."""
-    assert ACC_MAX < 2 ** 22
+def test_acc_conversion_exact():
+    """float(acc) (``__int2float_rn``) is exact at every |acc| <= 9 x 128 x
+    128, the most a 3x3 depthwise sum reaches (the form rule takes no other
+    kernel size): the fma sees the exact sum, and ACC_MAX |scale| + |bias|
+    bounds |y| in requant4's check."""
     acc = np.arange(-ACC_MAX, ACC_MAX + 1, dtype=np.int32)
-    np.testing.assert_array_equal(magic_float(acc), acc.astype(np.float32))
-    edge = np.array([-(2 ** 22) + 1, 2 ** 22 - 1, 2 ** 22], np.int32)
-    np.testing.assert_array_equal(magic_float(edge), edge.astype(np.float32))
-    assert magic_float(np.array([2 ** 22 + 1], np.int32))[0] != np.float32(2 ** 22 + 1)
+    np.testing.assert_array_equal(acc.astype(np.float32).astype(np.int64), acc)
 
 
 def test_transpose_window_dp4a():
