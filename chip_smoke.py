@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (ResNet-18, ResNet-50 and
 DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
 fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, MobileNetV2 1.0x W8A8,
-224 px; and the four lowering probes).
+224 px; ResNet-18 and MobileNetV2 with run-time activation scales, ResNet-18
+in bf16, LeNet-5 and the MNIST MLP; and the four lowering probes).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -41,7 +42,18 @@ Phases, one JSON line each:
      profile; on ResNet-18 the same forward with K3 on its first form, its
      logits equal, timed in turns (Hopper, first, first, Hopper) and
      profiled;
-  5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2;
+  5. ctx="deploy" and ctx="pallas" at batch 64, gated as fused2; on
+     ResNet-18 then the engine paths: Engine.from_store(ctx="dynamic") on
+     the same store at batch 256 (DynamicDeployCtx: each site's scale from
+     its input on the card; K1 20, K2 1 a forward), driven through classify,
+     gated against the fp32 engine (R18_DYNAMIC_FP32_COS) and bit-identical
+     to its plain-version twin, one forward under
+     torch.cuda.set_sync_debug_mode("error") (no synchronizing call), timed
+     in turns with ctx="deploy" on the same store at batch 256 (deploy,
+     dynamic, dynamic, deploy), both profiled; then Engine.bf16 on the
+     folded qforward(ObserveCtx) forward (as bench.py times it) and on the
+     unfolded resnet_forward (no kernel of the port), each gated against
+     fp32 (R18_BF16_FP32_COS) and timed;
   6. DeiT-Tiny (224 px, dim 192, depth 12, 3 heads, 1000 classes, seeded
      random weights): K5 vit_pre_w8, K6 mhsa and K7 vit_post_w8 at every
      shape of its block path and K2 at its deploy shapes, at batch 256,
@@ -158,7 +170,20 @@ Phases, one JSON line each:
      same store (mnv2_fused2: the same launches, int8 out everywhere but the
      fc), gated against deploy (MNV2_FUSED2_DEPLOY_COS), every block's int8
      output and the logits bit-identical to its plain-version twin, timed,
-     repeated 200 times and profiled;
+     repeated 200 times and profiled; then Engine.from_store(ctx="dynamic")
+     on the deploy store at batch 64 (mnv2_dynamic: K1 1, K2 35, K23 17 a
+     forward, every K23 launch on its Hopper form), gated against fp32
+     (MNV2_DYNAMIC_FP32_COS), bit-identical to its plain-version twin, one
+     forward under set_sync_debug_mode("error");
+ 10c. LeNet-5 and the MLP (seed-0 weights from the registry's builders,
+     INT8_PER_CHANNEL stores by save_quantized, 28 x 28 x 1 images, the
+     MLP's as 784-wide rows): Engine.from_store(ctx="deploy") and
+     ctx="dynamic" at batch 256, driven through classify (LeNet-5: K1 2 on
+     its first form, K2 3 (fc1 Hopper, fc2 and fc3 first); the MLP: K2 2
+     on the Hopper form; per shape, with their case rows in phase 2), gated
+     against the fp32 forward (MNIST_FP32_COS), bit-identical to the
+     plain-version twin, the dynamic forwards under
+     set_sync_debug_mode("error"), timed and profiled;
  11. the probes (K19 probe_mosaic, K20 probe_batched_dot, K21 probe_block,
      K22 probe_stem: the ports of tools/probe_*.py): the probe entry point
      itself, each module's results() (its main() without the exit status)
@@ -193,8 +218,9 @@ Phases, one JSON line each:
      registers and stack frames.
 Each timed forward of ResNet-18/-50 (fused2, PallasBlockCtx), of
 DeiT-Tiny's block paths (W8A8 with and without int8 attention, W4A8,
-W4A16, bf16 at both pads) and of MobileNetV2 (deploy, fused2) runs
-SPLIT_REPEATS more times at batch 256, and
+W4A16, bf16 at both pads), of MobileNetV2 (deploy, fused2) and of the
+engine paths (ResNet-18 dynamic and deploy, both bf16 forwards; LeNet-5 and
+the MLP, deploy and dynamic) runs SPLIT_REPEATS more times at batch 256, and
 each DeiT-Tiny deploy forward (W8A8, with fused_ln and with xla_int8; W4A8
 "packed" and "int8"; G128) at batch 64, every run's logits equal to the
 first's (counted on the device; a race differs in some run). Each main path
@@ -321,6 +347,24 @@ DEIT_ATTN_INT8_FP32_COS = 0.987
 MNV2_CALIB_SEED = SEED + 2
 MNV2_DEPLOY_FP32_COS = 0.998
 MNV2_FUSED2_DEPLOY_COS = 0.998
+# The engine paths (ResNet-18 ctx="dynamic" and Engine.bf16, LeNet-5 and the
+# MLP under deploy and dynamic, MobileNetV2 ctx="dynamic"), gated against the
+# port's fp32 forwards just under the reference's own errors on the same
+# weights and inputs (scripts/engine_reference_error.py, CPU; PERF.md §2):
+# ResNet-18 dynamic 0.99988 (16 images; the gate is bench.py:138-145's
+# 0.999), its bf16 engine 0.999993 on the folded ObserveCtx forward and on
+# resnet_forward; LeNet-5 deploy / dynamic 0.99980 / 0.99985, the MLP
+# 0.99983 / 0.99989 (256 images); MobileNetV2 dynamic 0.99882 (16 images;
+# the deploy path's 0.998). Top-1 is reported, not gated: the MNIST models'
+# random logits sit at 0.98-0.99 of fp32 in the reference itself.
+R18_DYNAMIC_FP32_COS = 0.999
+R18_BF16_FP32_COS = 0.9999
+MNIST_FP32_COS = 0.999
+MNV2_DYNAMIC_FP32_COS = 0.998
+MNV2_DYNAMIC_BATCH = 64
+MNIST_SEED = SEED + 28        # the MNIST models' images (28 x 28 x 1; the MLP's as 784-wide rows)
+MNIST_CALIB_SEED = SEED + 5   # their 8 calibration images
+NO_INT_MM = "none at this shape: torch._int_mm needs K and N multiples of 8"
 DW_FP32 = ("F.conv2d(groups=C) in fp32 with TF32 off on the same integer values, channels-last "
            "(the reference's depthwise='fp32' sums, exact here; no epilogue)")
 
@@ -390,7 +434,31 @@ PER_FORWARD = {
     # head and the fc on K2, 17 depthwise convs on K23
     "mnv2_deploy": _per(conv_int8=1, matmul_int8=35, depthwise_int8=17),
     "mnv2_fused2": _per(conv_int8=1, matmul_int8=35, depthwise_int8=17),
+    # the engine paths: ResNet-18 under ctx="dynamic" (and "deploy" at batch
+    # 256, its yardstick) as r18_deploy; its bf16 engines launch no kernel of
+    # the port; LeNet-5's two 5x5 convs on K1 and three dense on K2, the
+    # MLP's two dense on K2; MobileNetV2 dynamic as its deploy path
+    "r18_dynamic": _per(conv_int8=20, matmul_int8=1),
+    "r18_deploy_256": _per(conv_int8=20, matmul_int8=1),
+    "r18_bf16": _per(),
+    "r18_bf16_unfolded": _per(),
+    "lenet_deploy": _per(conv_int8=2, matmul_int8=3),
+    "lenet_dynamic": _per(conv_int8=2, matmul_int8=3),
+    "mlp_deploy": _per(matmul_int8=2),
+    "mlp_dynamic": _per(matmul_int8=2),
+    "mnv2_dynamic": _per(conv_int8=1, matmul_int8=35, depthwise_int8=17),
 }
+# engine paths checked by totals and forms only (no per-shape case rows;
+# not in the kernels line's per-path figures)
+ENGINE_TOTALS = ("r18_dynamic", "r18_deploy_256", "r18_bf16", "r18_bf16_unfolded",
+                 "mnv2_dynamic")
+# the launches by form of K1 and K2 on the MNIST paths (form rules: K1's
+# Hopper form needs C % 64 == 0 and a 1x1 or 3x3 kernel, K2's K % 16 == 0):
+# LeNet-5's convs (C = 1, 6; 5x5) and its fc2 / fc3 (K = 120, 84) on the
+# first forms, its fc1 (K = 400) and both MLP dense (K = 784, 256) on the
+# Hopper form
+MNIST_FORMS = {"lenet": {"conv_int8": {"first": 2}, "matmul_int8": {"hopper": 1, "first": 2}},
+               "mlp": {"conv_int8": {}, "matmul_int8": {"hopper": 2}}}
 # MobileNetV2's paths: K1 and K2 checked by totals, K23 by shape (its case table)
 MNV2_PATHS = ("mnv2_deploy", "mnv2_fused2")
 # paths run at batch 64 and checked by totals only (the shape tables are at
@@ -404,6 +472,9 @@ TOTALS_BATCH = 64
 SPLIT_REPEATS = 200   # runs of each forward held bit-identical to the first (a race shows)
 # the DeiT deploy forwards repeated at batch 64 (K2 on W8A8, fused_ln,
 # xla_int8 with K18, W4A8 "int8"; K10 on W4A8 "packed"; K13 on G128)
+# the engine paths repeated at batch 256
+ENGINE_REPEATS = ("r18_dynamic", "r18_deploy_256", "r18_bf16", "r18_bf16_unfolded",
+                  "lenet_deploy", "lenet_dynamic", "mlp_deploy", "mlp_dynamic")
 DEPLOY_REPEATS = ("deit_deploy", "deit_deploy_fused_ln", "deit_deploy_xla_int8",
                   "deit_deploy_w4a8", "deit_deploy_w4a8_int8", "deit_deploy_g128")
 
@@ -479,6 +550,10 @@ def conv_cases():
         (56, 256, 512, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},    # layer2.0.down
         (28, 512, 1024, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},   # layer3.0.down
         (14, 1024, 2048, 1, 2, False, True): {"r50_fused2": 1, "r50_block": 1},  # layer4.0.down
+        # LeNet-5's 5x5/s1/p0 convs (an eighth entry: the padding), fp32 out
+        # with relu: conv1 on the zero-padded 32^2 x 1 input, conv2 at 14^2 x 6
+        (32, 1, 6, 5, 1, True, False, 0): {"lenet_deploy": 1, "lenet_dynamic": 1},
+        (14, 6, 16, 5, 1, True, False, 0): {"lenet_deploy": 1, "lenet_dynamic": 1},
     }
 
 
@@ -515,6 +590,12 @@ def matmul_cases():
                                         "deit_deploy_xla_int8": 12},  # l*.fc2
         (1, 192, 1000, False, False): {"deit_deploy_fused_ln": 1,
                                         "deit_deploy_xla_int8": 1},  # head
+        # LeNet-5's fc1-fc3 and the MLP's fc1-fc2 (fp32 out)
+        (1, 400, 120, True, False): {"lenet_deploy": 1, "lenet_dynamic": 1},
+        (1, 120, 84, True, False): {"lenet_deploy": 1, "lenet_dynamic": 1},
+        (1, 84, 10, False, False): {"lenet_deploy": 1, "lenet_dynamic": 1},
+        (1, 784, 256, True, False): {"mlp_deploy": 1, "mlp_dynamic": 1},
+        (1, 256, 10, False, False): {"mlp_deploy": 1, "mlp_dynamic": 1},
     }
 
 
@@ -684,9 +765,16 @@ def depthwise_cases():
     return out
 
 
+def _conv_case(case):
+    """(H, C, OC, k, stride, relu, int8_out, pad): the padding is k // 2
+    unless the case gives it as an eighth entry."""
+    h, c, oc, k, s, relu, int8_out, *pad = case
+    return h, c, oc, k, s, relu, int8_out, pad[0] if pad else k // 2
+
+
 def _conv_key(case):
-    h, c, oc, k, s, relu, int8_out = case
-    return (BATCH, h, h, c, oc, k, k, s, k // 2, relu, int8_out)
+    h, c, oc, k, s, relu, int8_out, pad = _conv_case(case)
+    return (BATCH, h, h, c, oc, k, k, s, pad, relu, int8_out)
 
 
 def _mm_key(case):
@@ -728,7 +816,7 @@ def expected_by_shape(path: str, forwards: int):
 def _check_tables():
     """The case tables add up to the per-forward totals."""
     for path, totals in PER_FORWARD.items():
-        if path in TOTALS_ONLY:
+        if path in TOTALS_ONLY or path in ENGINE_TOTALS:
             continue
         got = {k: sum(v.values()) for k, v in expected_by_shape(path, 1).items()}
         if path in MNV2_PATHS:   # K1 and K2 by totals only
@@ -812,8 +900,7 @@ def check_conv_kernels(dev):
     rows = []
     conv_int8.by_form.clear()
     for case, per in conv_cases().items():
-        h, c, oc, k, s, relu, int8_out = case
-        pad = k // 2
+        h, c, oc, k, s, relu, int8_out, pad = _conv_case(case)
         x = _rand_int8(gen, (BATCH, h, h, c), dev)
         pk = pack_conv_weight(_rand_int8(gen, (k, k, c, oc), dev))
         scale, bias, osc = _epi_params(gen, oc, k * k * c, dev)
@@ -863,13 +950,14 @@ def check_matmul_kernel(dev):
         got = matmul_int8(x, pk, scale, bias, relu, osc)
         ref = matmul_int8_plain(x, pk, scale, bias, relu, osc)
         wt = pk.wk[:, :k].t()                            # [K, N], column-major
+        int_mm = k % 8 == 0 and n % 8 == 0
         rows.append(_row(
             "matmul_int8", _mm_key(case), f"{m}x{k}@{k}x{n}", got, ref,
             lambda: matmul_int8(x, pk, scale, bias, relu, osc),
             lambda: matmul_int8_plain(x, pk, scale, bias, relu, osc),
             2.0 * m * n * k, m * k + k * n + 8 * n + got.numel() * got.element_size(), per,
-            plain_iters=5, library=lambda: torch._int_mm(x, wt),
-            relu=relu, out="int8" if int8_out else "fp32", spun=True,
+            plain_iters=5, library=(lambda: torch._int_mm(x, wt)) if int_mm else None,
+            no_library=NO_INT_MM, relu=relu, out="int8" if int8_out else "fp32", spun=True,
             form=matmul_int8.by_form.most_common(1)[0][0] if matmul_int8.by_form else None))
         matmul_int8.by_form.clear()
         del x, got, ref
@@ -2084,7 +2172,7 @@ def check_repeats() -> None:
     its first."""
     want = {"r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_block",
             "deit_block_attn_int8", "deit_block_w4a8", "deit_block_w4", "deit_bf16_loose",
-            "deit_bf16_tight", *DEPLOY_REPEATS, *MNV2_PATHS}
+            "deit_bf16_tight", *DEPLOY_REPEATS, *MNV2_PATHS, *ENGINE_REPEATS}
     differ = {k: v["runs_differing"] for k, v in REPEATS.items() if v["runs_differing"]}
     emit({"phase": "repeat_forwards", "paths": len(REPEATS), "repeats": SPLIT_REPEATS,
           "runs_differing": {k: v["runs_differing"] for k, v in REPEATS.items()},
@@ -2465,17 +2553,138 @@ def block_contract(ctx, packs, x, cfg):
     return out
 
 
-def drive(eng, images, path, what):
+def drive(eng, images, path, what, by_shape=True):
     """Warm, then classify ``NB`` batches with the counts set to 0 just
-    before and read just after; checks the launches per kernel and shape."""
+    before and read just after; checks the launches per kernel and (with
+    ``by_shape``) per shape. The launches by form of that run stay
+    readable (``read_forms``) until the next launch."""
     eng.classify(images[:BATCH])                   # warm (first launches)
     eng.stats.images_timed, eng.stats.ms_total = 0, 0.0
     reset_counts()
     preds = eng.classify(images, pipeline=2)
     counts, shapes = read_counts()
     expect_counts(counts, path, NB, what)
-    expect_by_shape(shapes, path, NB, what)
+    if by_shape:
+        expect_by_shape(shapes, path, NB, what)
     return preds, counts, shapes
+
+
+def no_sync_forward(eng, xt):
+    """One forward with CUDA's sync debug mode at "error": any call that
+    synchronizes the host with the card raises (the gate)."""
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng._fn(eng.params, xt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def r18_dynamic_path(dev, card, store, images, ref_logits):
+    """ResNet-18 Engine.from_store(ctx="dynamic") at batch 256 (r18_dynamic):
+    driven through classify (K1 20, K2 1 a forward; by form: the 7x7 C = 3
+    stem on K1's first form), gated against the port's fp32 engine
+    (R18_DYNAMIC_FP32_COS) and bit-identical to its plain-version twin, one
+    forward under set_sync_debug_mode("error"), then timed in turns with
+    ctx="deploy" on the same store at the same batch (deploy, dynamic,
+    dynamic, deploy), both repeated SPLIT_REPEATS times, and profiled."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine
+
+    x0 = images[:BATCH]
+    xt = torch.from_numpy(x0).to(dev)
+    eng = Engine.from_store(store, ctx="dynamic", batch=BATCH, device=dev)
+    dep = Engine.from_store(store, ctx="deploy", batch=BATCH, device=dev)
+    preds, counts, _ = drive(eng, images, "r18_dynamic", "resnet18 dynamic", by_shape=False)
+    forms = read_forms()
+    logits = eng(x0).float().cpu().numpy()
+    if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+        raise AssertionError("resnet18 dynamic: classify and the forward disagree")
+    agree, cos = gate(logits, ref_logits, "resnet18 dynamic vs fp32", R18_DYNAMIC_FP32_COS,
+                      top1=False)
+    lp = plain_twin(eng, x0, "resnet18 dynamic")
+    if not np.array_equal(lp, logits):
+        raise AssertionError(f"resnet18 dynamic: kernels vs plain versions differ "
+                             f"{float(np.abs(lp - logits).max())}")
+    sync_out = no_sync_forward(eng, xt)
+    if not np.array_equal(sync_out.float().cpu().numpy(), logits):
+        raise AssertionError("resnet18 dynamic: the forward under sync debug mode differs")
+    drive(dep, images, "r18_deploy_256", "resnet18 deploy 256", by_shape=False)
+    dep_forms = read_forms()
+    dep_logits = dep(x0).float().cpu().numpy()
+    turns = {}
+    for name, e in (("deploy", dep), ("dynamic", eng), ("dynamic", eng), ("deploy", dep)):
+        turns.setdefault(name, []).append(time_ms(lambda: e._fn(e.params, xt), iters=10))
+    repeat_forward("r18_dynamic", lambda: eng._fn(eng.params, xt))
+    repeat_forward("r18_deploy_256", lambda: dep._fn(dep.params, xt))
+    ms = float(np.mean(turns["dynamic"]))
+    ms_dep = float(np.mean(turns["deploy"]))
+    emit({"phase": "main_path_r18_dynamic", "model": "resnet18", "size": 224, "batch": BATCH,
+          "batches": NB, "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
+          "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+          "launches_per_forward": {k: v / NB for k, v in counts.items()},
+          "launches_by_form": {k: forms[k] for k in ("conv_int8", "matmul_int8")},
+          "logits_cosine_vs_fp32": cos, "cosine_gate": R18_DYNAMIC_FP32_COS,
+          "top1_agreement_vs_fp32": agree, "top1_gated": False,
+          "logits_cosine_vs_deploy": numerics.diff(logits, dep_logits).cosine,
+          "top1_agreement_vs_deploy": numerics.top1_agreement(logits, dep_logits),
+          "logits_equal_plain_versions": True, "sync_debug_mode": "error, no synchronizing call",
+          "ms_per_batch_in_turns": turns, "deploy_ms_per_batch": ms_dep,
+          "deploy_img_per_s_classify": dep.stats.images_per_sec,
+          "deploy_launches_by_form": {k: dep_forms[k] for k in ("conv_int8", "matmul_int8")},
+          "dynamic_minus_deploy_ms": ms - ms_dep, "card": card})
+    profile_forward(eng, xt, "resnet18_dynamic")
+    profile_forward(dep, xt, "resnet18_deploy_256")
+    del eng, dep
+
+
+def r18_bf16_paths(dev, card, images, ref_logits):
+    """ResNet-18 Engine.bf16 at batch 256: the folded qforward(ObserveCtx)
+    forward, as bench.py:57-70 times it (r18_bf16), and resnet_forward on the
+    unfolded params, bf16 through every BN (r18_bf16_unfolded); PyTorch's
+    bf16 convs and matmuls (no kernel of the port launches), fp32 logits;
+    each gated against the port's fp32 engine (R18_BF16_FP32_COS), timed,
+    repeated SPLIT_REPEATS times; the folded one profiled."""
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models.resnet import (
+        ResNetConfig, flatten_folded, fold_resnet, init_resnet, qforward, resnet_forward,
+    )
+    from dlq_tpu_torch.quant.model_quant import ObserveCtx
+
+    cfg = ResNetConfig(depth=18, num_classes=1000)
+    params = init_resnet(SEED, cfg)
+    x0 = images[:BATCH]
+
+    def observe(p, x, c):
+        return qforward(ObserveCtx(p), x, c)
+
+    for path, fwd, p in (("r18_bf16", observe, flatten_folded(fold_resnet(params, cfg))),
+                         ("r18_bf16_unfolded", resnet_forward, params)):
+        eng = Engine.bf16(fwd, p, cfg, batch=BATCH, device=dev, name=path)
+        preds, counts, _ = drive(eng, images, path, f"resnet18 {path}", by_shape=False)
+        out = eng(x0)
+        if out.dtype != torch.float32:
+            raise AssertionError(f"resnet18 {path}: logits dtype {out.dtype}")
+        logits = out.cpu().numpy()
+        if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+            raise AssertionError(f"resnet18 {path}: classify and the forward disagree")
+        agree, cos = gate(logits, ref_logits, f"resnet18 {path} vs fp32", R18_BF16_FP32_COS,
+                          top1=False)
+        xt = torch.from_numpy(x0).to(dev, torch.bfloat16)
+        ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+        repeat_forward(path, lambda: eng._fn(eng.params, xt))
+        emit({"phase": f"main_path_{path}", "model": "resnet18", "size": 224, "batch": BATCH,
+              "batches": NB, "img_per_s_classify": eng.stats.images_per_sec,
+              "ms_per_batch": ms, "img_per_s_device": BATCH / (ms / 1e3),
+              "launches": counts, "logits_dtype": "float32",
+              "logits_cosine_vs_fp32": cos, "cosine_gate": R18_BF16_FP32_COS,
+              "top1_agreement_vs_fp32": agree, "top1_gated": False, "card": card})
+        if path == "r18_bf16":
+            profile_forward(eng, xt, "resnet18_bf16")
+        del eng
 
 
 def main_paths(dev, card, depth, images):
@@ -2640,6 +2849,13 @@ def main_paths(dev, card, depth, images):
                   "top1_gated": top1, "top1_vs_fp32": top1_report(lg, ref_logits[:64]),
                   "logits_equal_plain_versions": True})
             del e
+
+        # ---- the engine paths: ctx="dynamic" on the same store, Engine.bf16 ----
+        if depth == 18:
+            torch.cuda.empty_cache()
+            r18_dynamic_path(dev, card, tmp, images, ref_logits)
+    if depth == 18:
+        r18_bf16_paths(dev, card, images, ref_logits)
     torch.cuda.empty_cache()
     return out
 
@@ -2732,6 +2948,8 @@ def mnv2_paths(dev, card, images):
         profile_forward(eng, xt, "mobilenetv2_deploy")
         out[path] = (counts, shapes, forms)
         del eng, taps
+        mnv2_dynamic_gate(dev, card, tmp, x0[:MNV2_DYNAMIC_BATCH],
+                          ref_logits[:MNV2_DYNAMIC_BATCH])
 
         # ---- mnv2_fused2: make_qforward_fused under FullFusedCtx, same store ----
         qflat, scales, qcfg, _ = load_quantized(tmp)
@@ -2764,6 +2982,118 @@ def mnv2_paths(dev, card, images):
     out[path] = (counts2, shapes2, forms2)
     del eng2, ctx
     torch.cuda.empty_cache()
+    return out
+
+
+def mnv2_dynamic_gate(dev, card, store, x, ref_logits):
+    """MobileNetV2 Engine.from_store(ctx="dynamic") on the deploy path's
+    store, a gate at batch MNV2_DYNAMIC_BATCH: K1 1, K2 35, K23 17 a
+    forward, every K23 launch on its Hopper form; cosine against the fp32
+    forward (MNV2_DYNAMIC_FP32_COS); bit-identical to its plain-version
+    twin; one forward under set_sync_debug_mode("error")."""
+    from dlq_tpu_torch.engine import Engine
+
+    eng = Engine.from_store(store, ctx="dynamic", batch=len(x), device=dev)
+    eng(x)                                         # warm (first launches)
+    reset_counts()
+    logits = eng(x).float().cpu().numpy()
+    counts = read_counts()[0]
+    forms = read_forms()
+    expect_counts(counts, "mnv2_dynamic", 1, "mobilenetv2 dynamic")
+    agree, cos = gate(logits, ref_logits, "mobilenetv2 dynamic vs fp32", MNV2_DYNAMIC_FP32_COS,
+                      top1=False)
+    lp = plain_twin(eng, x, "mobilenetv2 dynamic")
+    if not np.array_equal(lp, logits):
+        raise AssertionError(f"mobilenetv2 dynamic: kernels vs plain versions differ "
+                             f"{float(np.abs(lp - logits).max())}")
+    sync_out = no_sync_forward(eng, torch.from_numpy(x).to(dev))
+    if not np.array_equal(sync_out.float().cpu().numpy(), logits):
+        raise AssertionError("mobilenetv2 dynamic: the forward under sync debug mode differs")
+    emit({"phase": "mnv2_dynamic", "model": "mobilenetv2", "width_mult": 1.0, "size": 224,
+          "batch": len(x), "launches": counts,
+          "launches_by_form": {k: forms[k] for k in ("conv_int8", "matmul_int8",
+                                                     "depthwise_int8")},
+          "logits_cosine_vs_fp32": cos, "cosine_gate": MNV2_DYNAMIC_FP32_COS,
+          "top1_agreement_vs_fp32": agree, "top1_gated": False,
+          "logits_equal_plain_versions": True, "sync_debug_mode": "error, no synchronizing call",
+          "card": card})
+    del eng
+
+
+def mnist_paths(dev, card):
+    """LeNet-5 and the MLP (seed-0 weights from the registry's builders):
+    calibrated on 8 images and quantized by Engine.quantized,
+    INT8_PER_CHANNEL, saved with save_quantized, then served by
+    Engine.from_store under ctx="deploy" and "dynamic" at batch 256 (28 x 28
+    x 1 images; the MLP's as 784-wide rows): driven through classify
+    (LeNet-5: K1 2, K2 3 a forward; the MLP: K2 2; per shape, and per form
+    as MNIST_FORMS), gated against the fp32 forward (MNIST_FP32_COS) and
+    bit-identical to the plain-version twin, the dynamic forward under
+    set_sync_debug_mode("error"), timed, repeated SPLIT_REPEATS times and
+    profiled. Returns {path: (counts, shapes)}."""
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models import get_model, lenet, mlp
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    imgs = np.random.default_rng(MNIST_SEED).normal(0, 1, (NB * BATCH, 28, 28, 1)).astype(
+        np.float32)
+    calib = np.random.default_rng(MNIST_CALIB_SEED).normal(0, 1, (8, 28, 28, 1)).astype(
+        np.float32)
+    out = {}
+    for model, tag, mod in (("lenet5", "lenet", lenet), ("mlp", "mlp", mlp)):
+        cfg, init, forward = get_model(model)
+        params = init(SEED, cfg)
+        xs, cs = (imgs, calib) if model == "lenet5" else (imgs.reshape(len(imgs), -1),
+                                                          calib.reshape(len(calib), -1))
+        x0 = xs[:BATCH]
+        xt = torch.from_numpy(x0).to(dev)
+        ref = Engine.fp32(forward, params, cfg, batch=BATCH, device=dev)(x0).float().cpu().numpy()
+        q = Engine.quantized(mod.qforward, mod.flatten_params(params), cfg, INT8_PER_CHANNEL,
+                             calib_batches=[cs], batch=BATCH, device=dev)
+        meta = {"config": {"num_classes": cfg.num_classes, "in_channels": cfg.in_channels}} \
+            if model == "lenet5" else {}
+        with tempfile.TemporaryDirectory() as tmp:
+            save_quantized(tmp, model, q.qflat, q.act_scales, INT8_PER_CHANNEL, meta=meta)
+            del q
+            for ctx in ("deploy", "dynamic"):
+                path, what = f"{tag}_{ctx}", f"{model} {ctx}"
+                eng = Engine.from_store(tmp, ctx=ctx, batch=BATCH, device=dev)
+                preds, counts, shapes = drive(eng, xs, path, what)
+                forms = {k: v for k, v in read_forms().items() if k in ("conv_int8", "matmul_int8")}
+                if forms != {k: {f: v * NB for f, v in by.items()}
+                             for k, by in MNIST_FORMS[tag].items()}:
+                    raise AssertionError(f"{what}: launches by form {forms}, expected "
+                                         f"{MNIST_FORMS[tag]} a forward")
+                logits = eng(x0).float().cpu().numpy()
+                if not np.array_equal(preds[:BATCH], logits.argmax(-1)):
+                    raise AssertionError(f"{what}: classify and the forward disagree")
+                agree, cos = gate(logits, ref, f"{what} vs fp32", MNIST_FP32_COS, top1=False)
+                lp = plain_twin(eng, x0, what)
+                if not np.array_equal(lp, logits):
+                    raise AssertionError(f"{what}: kernels vs plain versions differ "
+                                         f"{float(np.abs(lp - logits).max())}")
+                if ctx == "dynamic":
+                    sync_out = no_sync_forward(eng, xt)
+                    if not np.array_equal(sync_out.float().cpu().numpy(), logits):
+                        raise AssertionError(f"{what}: the forward under sync debug mode "
+                                             "differs")
+                ms = time_ms(lambda: eng._fn(eng.params, xt), iters=20)
+                repeat_forward(path, lambda: eng._fn(eng.params, xt))
+                emit({"phase": f"main_path_{path}", "model": model, "ctx": ctx,
+                      "input": list(x0.shape[1:]), "batch": BATCH, "batches": NB,
+                      "img_per_s_classify": eng.stats.images_per_sec, "ms_per_batch": ms,
+                      "img_per_s_device": BATCH / (ms / 1e3), "launches": counts,
+                      "launches_per_forward": {k: v / NB for k, v in counts.items()},
+                      "launches_by_form": forms,
+                      "logits_cosine_vs_fp32": cos, "cosine_gate": MNIST_FP32_COS,
+                      "top1_agreement_vs_fp32": agree, "top1_gated": False,
+                      "logits_equal_plain_versions": True,
+                      "sync_debug_mode": "error, no synchronizing call" if ctx == "dynamic"
+                      else None, "card": card})
+                profile_forward(eng, xt, f"{model}_{ctx}")
+                out[path] = (counts, shapes)
+                del eng
     return out
 
 
@@ -3733,8 +4063,8 @@ def summary(rows, paths):
                 raise AssertionError(f"{name} on {path}: no timed shape is this path's")
 
             def tot(f):
-                vals = [r.get(f) for r in rs]
-                return None if any(v is None for v in vals) else sum(n * v for n, v in zip(w, vals))
+                vals = [(n, r.get(f)) for n, r in zip(w, rs) if n]
+                return None if any(v is None for _, v in vals) else sum(n * v for n, v in vals)
 
             bounds = [(n * r["bound_ms"], r["bound_by"]) for n, r in zip(w, rs) if n]
             per_path.append({"path": path, "launches": counts[name], "forwards": forwards,
@@ -3841,6 +4171,8 @@ def main() -> int:
     paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
     mnv2 = mnv2_paths(dev, card, images)
+    del images
+    paths.update(mnist_paths(dev, card))
     check_repeats()
     probe_rows, probe_counts = probe_path()
     probe_exhaustive()

@@ -25,7 +25,9 @@ import torch
 from dlq_tpu_torch.device import DeviceLike, resolve_device
 from dlq_tpu_torch.ops.qops import resolve_depthwise
 from dlq_tpu_torch.quant.calibrate import calibrate
-from dlq_tpu_torch.quant.model_quant import DeployCtx, make_sites_fn, quantize_weights
+from dlq_tpu_torch.quant.model_quant import (
+    DeployCtx, DynamicDeployCtx, SimulateCtx, make_sites_fn, quantize_weights,
+)
 from dlq_tpu_torch.quant.qconfig import QConfig
 from dlq_tpu_torch.quant.quantize import QTensor
 from dlq_tpu_torch.timing import StageTimer
@@ -56,6 +58,17 @@ def to_device(tree: Any, device: torch.device) -> Any:
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
+def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast every floating tensor in nested dicts/lists to ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
     return tree
 
 
@@ -94,28 +107,55 @@ class Engine:
                       device=dev, **kw)
 
     @staticmethod
+    def bf16(model_forward, params, cfg, *, device: DeviceLike = None, **kw) -> "Engine":
+        """Every floating leaf of ``params`` and the input in bf16, fp32
+        logits out (``dlq_tpu/engine.py:120``): PyTorch's bf16 convs and
+        matmuls, as the reference leaves them to XLA. Serves the unfolded
+        ``resnet_forward`` and the folded ``qforward(ObserveCtx(p), ...)``."""
+        dev = resolve_device(device)
+        return Engine(lambda p, x: model_forward(p, x.to(torch.bfloat16), cfg).float(),
+                      cast_floats(to_device(params, dev), torch.bfloat16), device=dev,
+                      input_dtype=torch.bfloat16, **kw)
+
+    @staticmethod
     def quantized(qforward, flat_params, cfg, qcfg: QConfig,
                   calib_batches: Optional[Iterable] = None,
                   act_scales: Optional[Dict[str, torch.Tensor]] = None,
+                  simulate: bool = False, dynamic: bool = False,
                   depthwise: Optional[str] = None,
                   *, device: DeviceLike = None, **kw) -> "Engine":
         """PTQ an fp32 flat-param model into a deployed W8A8 engine
         (DeployCtx). ``calib_batches`` is required unless the config is
-        weight-only or ``act_scales`` are given. ``depthwise``: the
-        depthwise-conv implementation ("int8" | "fp32" | "stencil"),
-        resolved once here (``ops.qops.resolve_depthwise``)."""
+        weight-only, ``act_scales`` are given or ``dynamic``.
+        ``dynamic``: run-time activation scales (DynamicDeployCtx, no
+        calibration); ``simulate``: the fp32 fake-quant oracle
+        (SimulateCtx), with the reference's guards (``dlq_tpu/engine.py:157-166``).
+        ``depthwise``: the depthwise-conv implementation ("int8" | "fp32" |
+        "stencil"), resolved once here (``ops.qops.resolve_depthwise``)."""
+        if dynamic and qcfg.weight_only:
+            raise ValueError("dynamic=True quantizes activations at runtime; "
+                             "qcfg is weight-only (acts=None)")
+        if dynamic and simulate:
+            raise ValueError("simulate=True is the static fake-quant oracle; "
+                             "it has no dynamic variant")
         dw = resolve_depthwise(depthwise)
         dev = resolve_device(device)
         flat = to_device(flat_params, dev)
-        if not qcfg.weight_only and act_scales is None:
+        if not qcfg.weight_only and act_scales is None and not dynamic:
             if calib_batches is None:
-                raise ValueError("activation quantization needs calib_batches or act_scales")
+                raise ValueError("activation quantization needs calib_batches, act_scales, "
+                                 "or dynamic=True")
             batches = (torch.as_tensor(np.asarray(b), dtype=torch.float32, device=dev)
                        for b in calib_batches)
             act_scales = calibrate(make_sites_fn(qforward, cfg), flat, batches, qcfg)
         act_scales = to_device(act_scales or {}, dev)
         qflat = quantize_weights(flat, qcfg)
-        ctx = DeployCtx(qflat, act_scales, qcfg, depthwise=dw)
+        if dynamic:
+            ctx = DynamicDeployCtx(qflat, qcfg, depthwise=dw)
+        elif simulate:
+            ctx = SimulateCtx(qflat, act_scales, qcfg)
+        else:
+            ctx = DeployCtx(qflat, act_scales, qcfg, depthwise=dw)
         eng = Engine(lambda c, x: qforward(c, x, cfg), ctx, device=dev, **kw)
         eng.act_scales = act_scales
         eng.qflat = qflat
@@ -128,9 +168,13 @@ class Engine:
                    device: DeviceLike = None, **kw) -> "Engine":
         """Cold-start an engine from a quantized store (``quant.store``), no
         calibration data or fp32 weights. ResNet-18/34/50/101/152 with ctx
-        "deploy" | "pallas" | "fused" | "fused2" (fused2 = fully-int8
-        interchange; "fused" is BasicBlock-only, as the reference's
-        ``qforward_fused`` is); MobileNetV2 with the same four, each running
+        "deploy" | "pallas" | "fused" | "fused2" | "dynamic" (fused2 =
+        fully-int8 interchange; "fused" is BasicBlock-only, as the
+        reference's ``qforward_fused`` is; "dynamic" = DynamicDeployCtx,
+        run-time activation scales, which a weight-only store refuses);
+        LeNet-5 (``lenet5``, its config from the store's ``num_classes`` and
+        ``in_channels``) and the MLP (``mlp``, ``MLPConfig()``) with the same
+        five, each running its ``qforward``; MobileNetV2 with the same five, each running
         ``make_qforward`` under its context (``dlq_tpu/engine.py:245-252``;
         the config from ``num_classes`` and ``small_input`` only, as the
         reference's, so a store's width multiplier is not read), its
@@ -186,17 +230,26 @@ class Engine:
                     f"ctx='fused' is BasicBlock-only; {model} runs with ctx='fused2', "
                     "'deploy' or 'pallas'")
             qf = {"fused": qforward_fused, "fused2": qforward_fused2}.get(ctx, qforward)
+        elif model == "mlp":
+            from dlq_tpu_torch.models.mlp import MLPConfig, qforward as qf
+
+            cfg = MLPConfig()
+        elif model == "lenet5":
+            from dlq_tpu_torch.models.lenet import LeNetConfig, qforward as qf
+
+            cfg = LeNetConfig(num_classes=mcfg.get("num_classes", 10),
+                              in_channels=mcfg.get("in_channels", 1))
         else:
-            raise NotImplementedError(
-                f"from_store: model {model!r} is not ported yet (ROADMAP.md, queue A: "
-                "LeNet-5 and the MLP are A.2/A.8)")
+            raise ValueError(f"from_store: unsupported model {model}")
         if ctx == "dynamic":
-            raise NotImplementedError(
-                "ctx='dynamic' (DynamicDeployCtx) is not ported yet (ROADMAP.md, A.2/A.8)")
-        if ctx not in Ctxs:
-            raise ValueError(f"ctx must be one of {sorted(Ctxs)}, got {ctx!r}")
-        Ctx = Ctxs[ctx]
-        c = Ctx(to_device(qflat, dev), to_device(act_scales, dev), qcfg, depthwise=dw)
+            if qcfg.weight_only:
+                raise ValueError("ctx='dynamic' quantizes activations at runtime; this store is "
+                                 "weight-only (acts=None): use ctx='deploy'")
+            c = MQ.DynamicDeployCtx(to_device(qflat, dev), qcfg, depthwise=dw)
+        elif ctx in Ctxs:
+            c = Ctxs[ctx](to_device(qflat, dev), to_device(act_scales, dev), qcfg, depthwise=dw)
+        else:
+            raise ValueError(f"ctx must be one of {sorted([*Ctxs, 'dynamic'])}, got {ctx!r}")
         eng = Engine(lambda cc, x: qf(cc, x, cfg), c, device=dev, name=f"{model}_{ctx}", **kw)
         eng.qcfg = qcfg
         eng.model_cfg = cfg

@@ -44,6 +44,13 @@ def fp32_conv():
 # every device)
 # ---------------------------------------------------------------------------
 
+def he_uniform(rng: np.random.Generator, shape: Tuple[int, ...], fan_in: int) -> torch.Tensor:
+    """He/Kaiming uniform: U(-sqrt(6/fan_in), +sqrt(6/fan_in)) (the MLP's and
+    LeNet-5's init, ``dlq_tpu/models/common.py:33``)."""
+    bound = float(np.sqrt(6.0 / fan_in))
+    return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
+
+
 def kaiming_normal(rng: np.random.Generator, shape: Tuple[int, ...], fan_out: int) -> torch.Tensor:
     """fan_out-mode kaiming normal — torch's Conv2d default in resnet."""
     std = float(np.sqrt(2.0 / fan_out))
@@ -100,10 +107,13 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
 
 
 def batchnorm_inference(x: torch.Tensor, bn: Params, eps: float = BN_EPS) -> torch.Tensor:
-    """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis."""
+    """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis,
+    with the reference's dtype contract (``dlq_tpu/models/common.py:95-98``):
+    scale and shift are computed in fp32, then cast to ``x.dtype``, so a
+    bf16 ``x`` gives a bf16 result."""
     inv = torch.rsqrt(bn["var"].float() + eps)
-    scale = bn["gamma"] * inv
-    shift = bn["beta"] - bn["mean"] * bn["gamma"] * inv
+    scale = (bn["gamma"] * inv).to(x.dtype)
+    shift = (bn["beta"] - bn["mean"] * bn["gamma"] * inv).to(x.dtype)
     return x * scale + shift
 
 
@@ -127,6 +137,23 @@ def maxpool2d(x: torch.Tensor, window: int = 3, stride: int = 2, padding: int = 
         xf = xf.float()
     y = F.max_pool2d(xf, window, stride, padding).permute(0, 2, 3, 1)
     return y.to(x.dtype).contiguous()
+
+
+def avgpool2d(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """NHWC average pool with zero padding (``dlq_tpu/models/common.py:168``):
+    the window's taps summed in row-major order, as XLA's ``reduce_window``
+    sums them, then divided by ``window * window`` (exact for LeNet-5's
+    2x2 window: a power of two)."""
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    oh = (x.shape[1] - window) // stride + 1
+    ow = (x.shape[2] - window) // stride + 1
+    s = None
+    for i in range(window):
+        for j in range(window):
+            t = x[:, i: i + stride * (oh - 1) + 1: stride, j: j + stride * (ow - 1) + 1: stride]
+            s = t if s is None else s + t
+    return s / (window * window)
 
 
 def global_avgpool(x: torch.Tensor) -> torch.Tensor:

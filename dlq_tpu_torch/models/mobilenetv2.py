@@ -27,6 +27,7 @@ from dlq_tpu_torch.models.common import (
     kaiming_normal,
     relu6,
 )
+from dlq_tpu_torch.models.registry import register
 
 Params = Dict[str, Any]
 
@@ -227,3 +228,8 @@ def make_qforward_fused(meta: List[Dict[str, Any]]):
         return logits
 
     return qforward
+
+
+@register("mobilenetv2")
+def _build_mnv2(**kw):
+    return MobileNetV2Config(**kw), init_mobilenetv2, mobilenetv2_forward

@@ -33,6 +33,7 @@ from dlq_tpu_torch.models.common import (
     maxpool2d,
     relu,
 )
+from dlq_tpu_torch.models.registry import register
 
 Params = Dict[str, Any]
 
@@ -388,3 +389,14 @@ def qforward_fused2(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False)
         t["logits"] = logits
         return logits, t
     return logits
+
+
+def _resnet_builder(depth: int):
+    def build(**kw):
+        return ResNetConfig(depth=depth, **kw), init_resnet, resnet_forward
+
+    return build
+
+
+for _depth in sorted(_BLOCKS):
+    register(f"resnet{_depth}")(_resnet_builder(_depth))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.models.common import dense
+from dlq_tpu_torch.models.registry import register
 
 Params = Dict[str, Any]
 
@@ -279,3 +280,8 @@ def make_qforward(extras: Params, depth: int, heads: int, patch: int, dim: int,
         return logits
 
     return qforward
+
+
+@register("deit_tiny")
+def _build_deit_tiny(**kw):
+    return ViTConfig(**kw), init_vit, vit_forward

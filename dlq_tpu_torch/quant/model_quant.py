@@ -9,6 +9,9 @@ arithmetic:
                   dense on K2, depthwise convs on K23, W4A8 dense on K10, fp32
                   interchange; weight-only: group-wise int4 dense on K13
                   (W4A16), the rest dequantized
+  DynamicDeployCtx DeployCtx with each site's activation scale computed from
+                  its input at run time, on the device (no calibration)
+  SimulateCtx     the fp32 fake-quant oracle: no kernel runs
   PallasDeployCtx the reference's Pallas-routed deploy path; on this card the
                   same kernels as DeployCtx
   FusedDeployCtx  int8 interchange inside blocks (requant in the epilogue,
@@ -30,7 +33,7 @@ ops), and caches the per-site combined epilogue scales.
 Not ported yet (ROADMAP.md): tensor-parallel wire routing, the
 dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
 conv on K1, as under the reference's default ``rewrites=("mm1x1",)``), the
-s2d and uint8 stems, DynamicDeployCtx, SimulateCtx.
+s2d and uint8 stems.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ import numpy as np
 import torch
 
 from dlq_tpu_torch.models.common import conv2d, dense, maxpool2d, relu
-from dlq_tpu_torch.ops.conv_int8 import PackedConv, conv_int8
-from dlq_tpu_torch.ops.depthwise_int8 import is_depthwise_weight
+from dlq_tpu_torch.ops.conv_int8 import conv_int8
+from dlq_tpu_torch.ops.depthwise_int8 import PackedDepthwise, is_depthwise_weight
 from dlq_tpu_torch.ops.qops import (
     bias_or_zeros, combined_scale, conv1x1_int8, dense_int, depthwise_conv,
     depthwise_weight_packed, dequant_conv2d, int_weight_packed, is_depthwise, is_mm1x1, qconv2d,
@@ -120,8 +123,8 @@ class DeployCtx:
     the reference), and weight-only schemes dequantize the other sites.
 
     A site whose weight is ``[kh, kw, 1, C]`` (C > 1) is packed for K23; a
-    groups-1 conv on such a weight (one input channel, as no model of the
-    repo has) is packed K-major by ``qconv2d`` at each call."""
+    groups-1 conv on such a weight (one input channel: LeNet-5's conv1) is
+    packed K-major for K1 as well, at its first call (``conv_packed``)."""
 
     def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
                  qcfg: QConfig, depthwise: Optional[str] = None):
@@ -147,6 +150,7 @@ class DeployCtx:
                 pk = site_weight_packed(qw)
             if pk is not None:
                 self.packed[site] = pk
+        self._kmajor: Dict[str, Any] = {}
         self._comb: Dict[Any, torch.Tensor] = {}
         self._bias: Dict[str, torch.Tensor] = {}
 
@@ -160,6 +164,17 @@ class DeployCtx:
             b = self._bias[name] = bias_or_zeros(p.get("b"), self.packed[name].oc,
                                                  p["qw"].values.device)
         return b
+
+    def conv_packed(self, name: str, groups: int):
+        """The site's packed weight for a conv with ``groups``: a groups-1
+        conv on a one-input-channel weight (packed for K23 at
+        construction) gets a K-major copy for K1, made once."""
+        pk = self.packed.get(name)
+        if groups == 1 and isinstance(pk, PackedDepthwise):
+            if name not in self._kmajor:
+                self._kmajor[name] = int_weight_packed(self.qflat[name]["qw"])
+            pk = self._kmajor[name]
+        return pk
 
     def comb(self, name: str, s_in: float) -> torch.Tensor:
         """fp32 [OC] s_in * w_scale for site ``name`` (cached)."""
@@ -177,7 +192,7 @@ class DeployCtx:
                                   groups=groups, fuse_relu=fuse_relu)
         return qconv2d(x, p["qw"], p.get("b"), self.scale_t[name], stride=stride,
                        padding=padding, groups=groups, fuse_relu=fuse_relu,
-                       act_qmax=self.qcfg.acts.qmax, packed=self.packed.get(name),
+                       act_qmax=self.qcfg.acts.qmax, packed=self.conv_packed(name, groups),
                        depthwise=self.depthwise)
 
     def dense(self, name, x, *, fuse_relu=False):
@@ -188,6 +203,83 @@ class DeployCtx:
         return qdense(x, p["qw"], p.get("b"), act_scale=self.scale_t[name],
                       fuse_relu=fuse_relu, act_qmax=self.qcfg.acts.qmax,
                       packed=self.packed.get(name))
+
+
+class DynamicDeployCtx(DeployCtx):
+    """Calibration-free W8A8 (``dlq_tpu/quant/model_quant.py:216``): each
+    site's activation scale is computed from its input at run time,
+    ``max(amax(|x|) / qmax, 1e-12)``, then the site runs as under DeployCtx
+    (K1, K2, K23, K10) with that scale. fp32 interchange only.
+
+    The scale stays on the device: one ``aminmax`` pass reads the input
+    (``max(|x|) == max(max(x), -min(x))`` exactly), and ``/ qmax`` is a
+    multiply by the fp32 reciprocal of qmax, held as a device tensor: the
+    reference's engine jits this function, and XLA folds the division by
+    the constant into that multiply (eager JAX divides; ROADMAP.md C). No
+    host value is read, so a forward makes no synchronizing call."""
+
+    def __init__(self, qflat: FlatParams, qcfg: QConfig, depthwise: Optional[str] = None):
+        super().__init__(qflat, {}, qcfg, depthwise=depthwise)
+        dev = next(iter(qflat.values()))["qw"].values.device
+        self.inv_qmax = torch.tensor(np.float32(1.0) / np.float32(qcfg.acts.qmax), device=dev)
+
+    def act_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The 0-dim fp32 device scale of activation ``x``."""
+        lo, hi = torch.aminmax(x.float())
+        return torch.clamp_min(torch.maximum(hi, -lo) * self.inv_qmax, 1e-12)
+
+    def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False):
+        p = self.qflat[name]
+        return qconv2d(x, p["qw"], p.get("b"), self.act_scale(x), stride=stride,
+                       padding=padding, groups=groups, fuse_relu=fuse_relu,
+                       act_qmax=self.qcfg.acts.qmax, packed=self.conv_packed(name, groups),
+                       depthwise=self.depthwise)
+
+    def dense(self, name, x, *, fuse_relu=False):
+        p = self.qflat[name]
+        return qdense(x, p["qw"], p.get("b"), act_scale=self.act_scale(x),
+                      fuse_relu=fuse_relu, act_qmax=self.qcfg.acts.qmax,
+                      packed=self.packed.get(name))
+
+
+class SimulateCtx:
+    """The fp32 fake-quant oracle (``dlq_tpu/quant/model_quant.py:246``):
+    each site's input quantized to int8 with its static scale and
+    dequantized, the weight dequantized, then a float conv or dense (TF32
+    off). No kernel runs. The dequantized weights are made once per site."""
+
+    def __init__(self, qflat: FlatParams, act_scales: Optional[Dict[str, torch.Tensor]],
+                 qcfg: QConfig):
+        self.qflat = qflat
+        self.act_scales = act_scales or {}
+        self.qcfg = qcfg
+        self.scale_t = {k: v.float().reshape(()) for k, v in self.act_scales.items()}
+        self._w: Dict[str, torch.Tensor] = {}
+
+    def has(self, name):
+        return name in self.qflat
+
+    def weight(self, name: str) -> torch.Tensor:
+        w = self._w.get(name)
+        if w is None:
+            qw: QTensor = self.qflat[name]["qw"]
+            w = self._w[name] = dequantize(qw).reshape(qw.layout_shape)
+        return w
+
+    def _fake_act(self, name, x):
+        if self.qcfg.weight_only:
+            return x.float()
+        s = self.scale_t[name]
+        return quantize_act(x, s, self.qcfg.acts.qmax).float() * s
+
+    def conv(self, name, x, *, stride=1, padding=0, groups=1, fuse_relu=False):
+        y = conv2d(self._fake_act(name, x), self.weight(name), stride=stride, padding=padding,
+                   groups=groups, bias=self.qflat[name].get("b"))
+        return relu(y) if fuse_relu else y
+
+    def dense(self, name, x, *, fuse_relu=False):
+        y = dense(self._fake_act(name, x), self.weight(name), self.qflat[name].get("b"))
+        return relu(y) if fuse_relu else y
 
 
 class PallasDeployCtx(DeployCtx):
@@ -230,14 +322,12 @@ class FusedDeployCtx(DeployCtx):
             s_in = self.scale[name]
             xq = quantize_act(x, self.scale_t[name], self.qcfg.acts.qmax)
         out_scale = None if out_site is None else self.scale[out_site]
-        pk = self.packed[name]
+        pk = self.conv_packed(name, groups)
         if groups != 1:
             y = depthwise_conv(xq, pk, stride, padding, self.comb(name, s_in), self.bias(name),
                                self.depthwise, relu=fuse_relu, relu6=fuse_relu6,
                                out_scale=out_scale)
             return y if out_site is None else QAct(y, out_scale)
-        if not isinstance(pk, PackedConv):   # a groups-1 conv on a one-channel weight
-            pk = int_weight_packed(qw)
         if is_mm1x1(pk, stride, padding):
             y = conv1x1_int8(xq, pk, self.comb(name, s_in), self.bias(name), relu=fuse_relu,
                              out_scale=out_scale, relu6=fuse_relu6)

@@ -2257,3 +2257,122 @@ def test_relu6_epilogues_of_k1_k2_on_card():
             args = (xm, pk, scale * 6.0 if relu6 else scale, bias, False, osc)
             assert torch.equal(matmul_int8(*args, relu6=relu6),
                                matmul_int8_plain(*args, relu6=relu6)), (m, k, n, relu6, osc)
+
+
+def _dynamic_comb(x: torch.Tensor, w_scale: torch.Tensor):
+    """The int8 codes of ``x`` at its run-time scale and the combined
+    epilogue scale, as DynamicDeployCtx computes them on the card (the
+    scale a 0-dim device tensor that never reaches the host)."""
+    from dlq_tpu_torch.quant.quantize import quantize_act
+
+    lo, hi = torch.aminmax(x)
+    s = torch.clamp_min(torch.maximum(hi, -lo) * torch.tensor(np.float32(1) / np.float32(127),
+                                                               device=x.device), 1e-12)
+    return quantize_act(x, s), (w_scale * s).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3, 256])
+def test_lenet_convs_on_card(n):
+    """K1 at LeNet-5's two convs (5x5, pad 0: C = 1 -> 6 on the zero-padded
+    32^2 input, C = 6 -> 16 at 14^2; both on the first form, OC 6 and 16:
+    scalar stores), with the input's codes and the epilogue scale from a
+    run-time scale computed on the card, bit-identical to the plain version
+    with fp32 and int8 out, relu on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    import torch.nn.functional as F
+
+    from dlq_tpu_torch.ops.i8plan import conv_int8_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8100 + n)
+    x1 = F.pad(torch.from_numpy(rng.normal(0, 1, (n, 28, 28, 1)).astype(np.float32)).to(dev),
+               (0, 0, 2, 2, 2, 2))
+    x2 = torch.from_numpy(rng.uniform(0, 2, (n, 14, 14, 6)).astype(np.float32)).to(dev)
+    for x, c, oc in ((x1, 1, 6), (x2, 6, 16)):
+        pk = pack_conv_weight(_i8(rng, (5, 5, c, oc)).to(dev))
+        w_scale = torch.from_numpy(rng.uniform(0.002, 0.01, oc).astype(np.float32)).to(dev)
+        xq, comb = _dynamic_comb(x, w_scale)
+        assert xq.data_ptr() % 16 == 0
+        bias = torch.from_numpy(rng.normal(0, 0.3, oc).astype(np.float32)).to(dev)
+        h = x.shape[1]
+        for relu, osc in ((False, None), (True, None), (False, 0.05), (True, 0.05)):
+            assert conv_int8_form(h, h, c, oc, 5, 1, 0, osc is not None) == "first"
+            before = conv_int8.by_form["first"]
+            args = (xq, pk, 1, 0, comb, bias, relu, osc)
+            assert torch.equal(conv_int8(*args), conv_int8_plain(*args)), (c, relu, osc)
+            assert conv_int8.by_form["first"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [84, 120, 400, 784])
+@pytest.mark.parametrize("n", [10, 84, 120, 256])
+def test_mnist_dense_on_card(k, n):
+    """K2 at the MNIST models' dense shapes and their neighbours: N = 10,
+    84, 120, 256 against K = 84, 120 (first form: K % 16 != 0), 400 and
+    784 (Hopper form), at M = 256 and a ragged 37, fp32 (N = 10: 40-byte
+    rows) and int8 out (rows not 16-byte multiples but at 256), relu on
+    and off; the codes and epilogue scale from a run-time scale computed on
+    the card; bit-identical to the plain version, counted on its form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.ops.i8plan import matmul_int8_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8200 + k + n)
+    pk = pack_dense_weight(_i8(rng, (k, n)).to(dev))
+    w_scale = torch.from_numpy(rng.uniform(0.002, 0.01, n).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32)).to(dev)
+    for m in (256, 37):
+        x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+        xq, comb = _dynamic_comb(x, w_scale)
+        for relu, osc in ((False, None), (True, None), (False, 0.05), (True, 0.05)):
+            form = matmul_int8_form(k)
+            before = matmul_int8.by_form[form]
+            args = (xq, pk, comb, bias, relu, osc)
+            assert torch.equal(matmul_int8(*args), matmul_int8_plain(*args)), (m, relu, osc)
+            assert matmul_int8.by_form[form] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["lenet5", "mlp"])
+def test_mnist_engines_on_card(model, tmp_path):
+    """LeNet-5 and the MLP quantized on the card (Engine.quantized,
+    save_quantized), served by Engine.from_store under ctx="deploy" and
+    "dynamic": logits bit-identical to the same stores served on the CPU
+    (the plain versions), the dynamic forward making no synchronizing call
+    (set_sync_debug_mode("error")), and the launches per forward (LeNet-5:
+    K1 2, K2 3; MLP: K2 2, no K1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.models import get_model, lenet, mlp
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    mod = lenet if model == "lenet5" else mlp
+    cfg, init, _ = get_model(model)
+    rng = np.random.default_rng(8300)
+    shape = (28, 28, 1) if model == "lenet5" else (784,)
+    calib = [rng.normal(0, 1, (8,) + shape).astype(np.float32)]
+    x = rng.normal(0, 1, (64,) + shape).astype(np.float32)
+    q = Engine.quantized(mod.qforward, mod.flatten_params(init(0, cfg)), cfg, INT8_PER_CHANNEL,
+                         calib_batches=calib, batch=64)
+    meta = {"config": {"num_classes": 10, "in_channels": 1}} if model == "lenet5" else {}
+    save_quantized(str(tmp_path), model, q.qflat, q.act_scales, INT8_PER_CHANNEL, meta=meta)
+    want = {"lenet5": (2, 3), "mlp": (0, 2)}[model]
+    for ctx in ("deploy", "dynamic"):
+        eng = Engine.from_store(str(tmp_path), ctx=ctx, batch=64)
+        cpu = Engine.from_store(str(tmp_path), ctx=ctx, batch=64, device="cpu")
+        xt = torch.from_numpy(x).to(eng.device)
+        eng._fn(eng.params, xt)
+        conv_int8.launches = matmul_int8.launches = 0
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = eng._fn(eng.params, xt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert (conv_int8.launches, matmul_int8.launches) == want, ctx
+        assert torch.equal(got.cpu(), cpu(x)), ctx

@@ -320,9 +320,14 @@ def test_from_store_fused2_matches_jax_fused2(m, store):
     numerics.check(got, ref, atol=1e-4, what="fused2")
 
 
-def test_from_store_guards(store):
-    with pytest.raises(NotImplementedError, match="A.2/A.8"):
-        Engine.from_store(store, ctx="dynamic", device="cpu")
+def test_from_store_guards(m, store):
+    """ctx="dynamic" serves the store (run-time scales, K23 for the
+    depthwise convs) within 1e-4 of JAX's from_store(ctx="dynamic"); an
+    unknown ctx and an unknown depthwise implementation raise."""
+    ref = np.asarray(JEngine.from_store(store, ctx="dynamic", depthwise="int8", batch=4)(m["x"]))
+    got = Engine.from_store(store, ctx="dynamic", device="cpu", batch=4)(m["x"]).numpy()
+    numerics.check(got, ref, atol=1e-4, what="dynamic")
+    assert numerics.top1_agreement(got, ref) == 1.0
     with pytest.raises(ValueError, match="ctx must be one of"):
         Engine.from_store(store, ctx="block", device="cpu")
     with pytest.raises(ValueError, match="int8|fp32|stencil"):
