@@ -2,7 +2,8 @@
 DeiT-Tiny W8A8, DeiT-Tiny W4A8, DeiT-Tiny W4A16, DeiT-Tiny bf16 and the
 fused LayerNorms, DeiT-Tiny W8A8 with int8 attention, MobileNetV2 1.0x W8A8,
 224 px; ResNet-18 and MobileNetV2 with run-time activation scales, ResNet-18
-in bf16, LeNet-5 and the MNIST MLP; and the four lowering probes).
+in bf16, LeNet-5 and the MNIST MLP; the PTQ toolbox on ResNet-18 and
+DeiT-Tiny; and the four lowering probes).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -184,6 +185,30 @@ Phases, one JSON line each:
      against the fp32 forward (MNIST_FP32_COS), bit-identical to the
      plain-version twin, the dynamic forwards under
      set_sync_debug_mode("error"), timed and profiled;
+ 10d. the PTQ toolbox (ptq; seeded weights, stores written by the port):
+     (a) ResNet-18: the Hessians of 8 calibration images and GPTQ timed on
+     the card, its GPTQ codes against the port's on the CPU (at most
+     PTQ_GPTQ_CODE_SHARE differ, each site's GPTQ objective within
+     PTQ_GPTQ_OBJECTIVE_REL), round-to-nearest, GPTQ and GPTQ + bias
+     correction stores by ptq_auto(smooth="off"), each served by
+     from_store under deploy (K1 20, K2 1) and fused2 (K1 19, K2 1) at batch
+     256, gated against fp32 (PTQ_R18_FP32_COS); (d) auto_mixed_qconfig over
+     those Hessians at INT4A8 with a budget halfway between all-int4 and
+     all-int8, served under deploy (K1 20, K2 or K10 for the fc), gated
+     against fp32 (PTQ_MIXED_FP32_COS); (c) three make_qat_step steps at
+     batch 32, INT4A8, each timed by CUDA events, loss finite, every site
+     moved, QATCtx against DeployCtx on the trained weights (K1 20, K10 1)
+     at cosine > 0.999; (f) quant_error_report of fp32 against GPTQ taps,
+     logged by the port's RunLogger and read back; (b) DeiT-Tiny ptq_auto
+     (alpha searched, LN-foldable sites) on two calibration batches, folded
+     into the LN affines, saved and served by from_store(ctx="block") (K5,
+     K6, K7 12 each) against the sitewise SmoothDeployCtx forward at batch
+     64 (K2 50, K6's fp32 form 12) and fp32, and the same smoothed weights
+     at INT4A8 through pack_vit_blocks_w4a8(smooth=) (K8, K6, K9) against
+     their sitewise forward (K10 50); (e) uint8 images through ResNet-18
+     fused2 (the folded stem) and DeiT's block engine against the
+     normalized fp32 images, and the two ResNet stems' codes. Every served
+     forward is repeated SPLIT_REPEATS times;
  11. the probes (K19 probe_mosaic, K20 probe_batched_dot, K21 probe_block,
      K22 probe_stem: the ports of tools/probe_*.py): the probe entry point
      itself, each module's results() (its main() without the exit status)
@@ -477,6 +502,70 @@ ENGINE_REPEATS = ("r18_dynamic", "r18_deploy_256", "r18_bf16", "r18_bf16_unfolde
                   "lenet_deploy", "lenet_dynamic", "mlp_deploy", "mlp_dynamic")
 DEPLOY_REPEATS = ("deit_deploy", "deit_deploy_fused_ln", "deit_deploy_xla_int8",
                   "deit_deploy_w4a8", "deit_deploy_w4a8_int8", "deit_deploy_g128")
+
+# the ptq phase (the PTQ toolbox). Its gates sit just under the reference's
+# own figures on the same weights, calibration sets and inputs
+# (scripts/ptq_reference_error.py, CPU, 16 images; PERF.md §2):
+# ResNet-18 INT8_PER_CHANNEL vs fp32 under deploy / fused2: round-to-nearest
+# 0.99988 / 0.99988, GPTQ 0.99995 / 0.99994, GPTQ + bias correction
+# 0.99995 / 0.99994
+PTQ_R18_FP32_COS = {"rtn": 0.9998, "gptq": 0.9999, "gptq_bc": 0.9999}
+# the card's GPTQ codes (Hessians summed by cuBLAS) against the port's on
+# the CPU: GPTQ is chaotic in its Hessian at the last bit (act order swaps
+# near-equal diagonal entries, a flipped code carries its error along its
+# column): on the CPU, H scaled entrywise by 1 + 1e-7 N(0, 1) moves 2.74% of
+# ResNet-18's int8 codes (4.09% at a layer4 site) and 1e-6 moves 5.44%,
+# while each site's GPTQ objective tr(dW^T H dW) moves by at most 0.31%
+# (scripts/gptq_hessian_noise.py). So the codes are gated just above the
+# 1e-6 share and the objective (on the CPU's Hessian) at 2%
+PTQ_GPTQ_CODE_SHARE = 0.06
+PTQ_GPTQ_OBJECTIVE_REL = 0.02
+# the mixed store (INT4A8 with the sites auto_mixed_qconfig promotes to int8
+# at a budget halfway between all-int4 and all-int8) vs fp32: the
+# reference's own 0.99239
+PTQ_MIXED_FP32_COS = 0.992
+PTQ_QAT_BATCH = 32
+PTQ_QAT_LR = 0.001            # a fine-tuning rate (momentum 0.9, EMA 0.99: the defaults)
+PTQ_QAT_LABEL_SEED = SEED + 32
+# QATCtx vs DeployCtx on the trained weights: tests/test_qat.py:96's gate
+# (the reference's training step cannot differentiate the 224 px ResNet's
+# maxpool, so it has no figure of its own here)
+PTQ_QAT_PARITY_COS = 0.999
+PTQ_DEIT_CALIB_SEEDS = (SEED + 26, SEED + 27)
+PTQ_SITEWISE_BATCH = 64
+# DeiT-Tiny after ptq_auto (alpha 0.25 chosen, 24 LN-foldable sites): the
+# block forward vs fp32 (tanh) 0.99891 in the reference; its block forward
+# vs its sitewise SmoothDeployCtx forward (tanh) 0.99819 at W8A8 and 0.99824
+# at W4A8 (over 12 random-weight layers two int8 paths drift apart: the
+# reference's tiny-model gate of 0.999, tests/test_vit_blockfused.py:142,
+# does not hold at this depth in the reference itself); uint8 vs the
+# normalized image through the block forward 0.99864
+PTQ_DEIT_FP32_COS = 0.998
+PTQ_DEIT_TWIN_COS = 0.9975
+PTQ_DEIT_W4A8_TWIN_COS = 0.9975
+PTQ_U8_SEED = SEED + 8
+# ResNet-18 fused2 on uint8 vs the normalized image: the reference's own
+# 0.99995, its stems' codes equal on 0.95096, one step apart at most
+PTQ_U8_COS = 0.999            # tests/test_uint8_ingest.py:39, with top-1 1.0
+PTQ_U8_STEM_EQUAL = 0.93      # tests/test_uint8_ingest.py:64, at most one step apart
+PTQ_DEIT_U8_COS = 0.998
+# launches per forward of the ptq phase's paths (the smoothed sitewise DeiT
+# forwards run fp32 from layer 0's qkv on: a bf16 input times the fp32
+# reciprocal of s is fp32, so attention takes K6's fp32 form)
+PTQ_PER_FORWARD = {
+    "r18_deploy": _per(conv_int8=20, matmul_int8=1),
+    "r18_fused2": _per(conv_int8=19, matmul_int8=1),
+    "qat_deploy": _per(conv_int8=20, matmul_int4a8=1),
+    "deit_block": _per(vit_pre_w8=12, mhsa=12, vit_post_w8=12),
+    "deit_sitewise": _per(matmul_int8=50, mhsa_f32=12),
+    "deit_w4a8_block": _per(vit_pre_w4a8=12, mhsa=12, vit_post_w4a8=12),
+    "deit_w4a8_sitewise": _per(matmul_int4a8=50, mhsa_f32=12),
+}
+PTQ_REPEATS = (*(f"ptq_r18_{n}_{c}" for n in ("rtn", "gptq", "gptq_bc")
+                 for c in ("deploy", "fused2")),
+               "ptq_mixed_deploy", "ptq_qat_deploy", "ptq_deit_block", "ptq_deit_sitewise",
+               "ptq_deit_w4a8_block", "ptq_deit_w4a8_sitewise", "ptq_r18_u8_fused2",
+               "ptq_deit_block_u8")
 
 
 T0 = time.perf_counter()
@@ -2172,7 +2261,7 @@ def check_repeats() -> None:
     its first."""
     want = {"r18_fused2", "r18_block", "r50_fused2", "r50_block", "deit_block",
             "deit_block_attn_int8", "deit_block_w4a8", "deit_block_w4", "deit_bf16_loose",
-            "deit_bf16_tight", *DEPLOY_REPEATS, *MNV2_PATHS, *ENGINE_REPEATS}
+            "deit_bf16_tight", *DEPLOY_REPEATS, *MNV2_PATHS, *ENGINE_REPEATS, *PTQ_REPEATS}
     differ = {k: v["runs_differing"] for k, v in REPEATS.items() if v["runs_differing"]}
     emit({"phase": "repeat_forwards", "paths": len(REPEATS), "repeats": SPLIT_REPEATS,
           "runs_differing": {k: v["runs_differing"] for k, v in REPEATS.items()},
@@ -3825,6 +3914,452 @@ def _taps(eng, x, cfg, qf):
 
 
 # ---------------------------------------------------------------------------
+# phase 10d: the PTQ toolbox (ptq)
+# ---------------------------------------------------------------------------
+
+def ptq_expect(counts, key, what, hopper_k12=False):
+    """One forward's launches against PTQ_PER_FORWARD[key] (key may be a
+    dict of launches itself); every K5, K8, K9 launch (and with
+    ``hopper_k12`` every K1 and K2 launch) on its Hopper form. Returns the
+    launches by form."""
+    want = PTQ_PER_FORWARD[key] if isinstance(key, str) else key
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    forms = read_forms()
+    for k, by in forms.items():
+        if k in ("conv_int8", "matmul_int8") and not hopper_k12:
+            continue
+        if by.get("first") or by.get("hopper", 0) != counts[k]:
+            raise AssertionError(f"{what}: {k} launches by form {by}, expected all {counts[k]} "
+                                 "on the Hopper form")
+    return {k: v for k, v in forms.items() if v}
+
+
+def ptq_forward(fn, key, what, hopper_k12=False):
+    """``fn()`` once with every count set to 0 just before and read just
+    after: (fp32 logits on the host, launches, launches by form)."""
+    reset_counts()
+    with torch.inference_mode():
+        out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()[0]
+    return out.float().cpu().numpy(), counts, ptq_expect(counts, key, what, hopper_k12)
+
+
+def _codes(qw) -> np.ndarray:
+    """A QTensor's integer codes, int8 [K, O] on the host."""
+    from dlq_tpu_torch.quant.quantize import unpack_int4
+
+    q = unpack_int4(qw.values, tuple(qw.shape)) if qw.bits == 4 else qw.values
+    return q.cpu().numpy().reshape(-1, q.shape[-1])
+
+
+def _gptq_objective(w: torch.Tensor, qw, H: np.ndarray) -> float:
+    """GPTQ's objective ``tr(dW^T H dW)`` (float64, host) of codes ``qw`` for
+    the fp32 weight ``w``, rows in the Hessian's IHW order for a conv."""
+    from dlq_tpu_torch.quant.quantize import dequantize
+
+    w64 = w.cpu().numpy().astype(np.float64)
+    dw = w64 - dequantize(qw).cpu().numpy().astype(np.float64).reshape(qw.layout_shape)
+    if dw.ndim == 4:
+        dw = dw.transpose(2, 0, 1, 3)
+    dw = dw.reshape(-1, dw.shape[-1])
+    return float(np.einsum("ko,ko->", dw, H @ dw))
+
+
+def ptq_r18(dev, card, x0, tmp):
+    """(a) ResNet-18 at 224 px: the card's Hessians and GPTQ timed, its GPTQ
+    codes against the port's on the CPU, RTN / GPTQ / GPTQ + bias
+    correction stores by ptq_auto(smooth="off") served under deploy and
+    fused2 from save_quantized -> from_store, gated against fp32. Returns
+    what (d), (e) and (f) reuse."""
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.resnet import (
+        ResNetConfig, flatten_folded, fold_resnet, folded_forward, init_resnet, qforward,
+    )
+    from dlq_tpu_torch.quant.gptq import collect_hessians, gptq_quantize_weights
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.recipe import ptq_auto
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    cfg = ResNetConfig(depth=18, num_classes=1000)
+    folded = fold_resnet(init_resnet(SEED, cfg), cfg)
+    flat_cpu = flatten_folded(folded)
+    flat = to_device(flat_cpu, dev)
+    calib = [np.random.default_rng(SEED + 18).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)]
+    ref = Engine.fp32(folded_forward, folded, cfg, batch=BATCH, device=dev)(x0).float().cpu().numpy()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = collect_hessians(qforward, flat, cfg, calib)
+    torch.cuda.synchronize()
+    hess_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_card = gptq_quantize_weights(flat, INT8_PER_CHANNEL, col)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    col_cpu = collect_hessians(qforward, flat_cpu, cfg, calib)
+    hess_cpu_s = time.perf_counter() - t0
+    q_cpu = gptq_quantize_weights(flat_cpu, INT8_PER_CHANNEL, col_cpu)
+    differ = {s: int((_codes(q_card[s]["qw"]) != _codes(q_cpu[s]["qw"])).sum()) for s in q_cpu}
+    total = sum(_codes(q_cpu[s]["qw"]).size for s in q_cpu)
+    share = sum(differ.values()) / total
+    # GPTQ's objective, tr(dW^T H dW) on the CPU's Hessian, of either codes
+    obj = {s: (_gptq_objective(flat_cpu[s]["w"], q_card[s]["qw"], col_cpu.H[s]),
+               _gptq_objective(flat_cpu[s]["w"], q_cpu[s]["qw"], col_cpu.H[s])) for s in q_cpu}
+    obj_rel = max(abs(a - b) / b for a, b in obj.values())
+    emit({"phase": "ptq_r18_gptq", "model": "resnet18", "size": 224, "calibration_images": 8,
+          "sites": len(col.H), "hessians_s": hess_s, "gptq_s": gptq_s,
+          "hessians_cpu_s": hess_cpu_s, "gptq_codes_differing_card_vs_cpu": sum(differ.values()),
+          "gptq_codes": total, "gptq_code_share_differing": share,
+          "gptq_code_share_by_site": {s: d / _codes(q_cpu[s]["qw"]).size
+                                      for s, d in differ.items()},
+          "gate_share": PTQ_GPTQ_CODE_SHARE, "gptq_objective_rel_diff_max": obj_rel,
+          "gate_objective": PTQ_GPTQ_OBJECTIVE_REL, "card": card})
+    if share > PTQ_GPTQ_CODE_SHARE or obj_rel > PTQ_GPTQ_OBJECTIVE_REL:
+        raise AssertionError(f"resnet18 GPTQ: {share} of the codes differ between the card's "
+                             f"Hessians and the CPU's (gate {PTQ_GPTQ_CODE_SHARE}), objective "
+                             f"{obj_rel} apart (gate {PTQ_GPTQ_OBJECTIVE_REL})")
+    del q_card, q_cpu, col_cpu, flat_cpu
+
+    xt = torch.from_numpy(x0).to(dev)
+    stores, fused2_eng = {}, None
+    for name, kw in (("rtn", dict(gptq=False, bias_correct=False)),
+                     ("gptq", dict(bias_correct=False)), ("gptq_bc", {})):
+        t0 = time.perf_counter()
+        qflat, scales, sm = ptq_auto(qforward, flat, cfg, calib, INT8_PER_CHANNEL, smooth="off",
+                                     **kw)
+        torch.cuda.synchronize()
+        ptq_s = time.perf_counter() - t0
+        if sm:
+            raise AssertionError(f"ptq_auto(smooth='off') returned vectors for {sorted(sm)}")
+        root = f"{tmp}/r18_{name}"
+        save_quantized(root, "resnet18", qflat, scales, INT8_PER_CHANNEL,
+                       meta={"config": {"num_classes": 1000, "small_input": False}})
+        stores[name] = (root, qflat, scales)
+        for ctx in ("deploy", "fused2"):
+            path = f"ptq_r18_{name}_{ctx}"
+            eng = Engine.from_store(root, ctx=ctx, batch=BATCH, device=dev)
+            logits, counts, forms = ptq_forward(lambda: eng._fn(eng.params, xt), f"r18_{ctx}",
+                                                path, hopper_k12=ctx == "fused2")
+            agree, cos = gate(logits, ref, f"{path} vs fp32", PTQ_R18_FP32_COS[name], top1=False)
+            ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+            repeat_forward(path, lambda: eng._fn(eng.params, xt))
+            emit({"phase": path, "model": "resnet18", "rounding": name, "ctx": ctx,
+                  "batch": BATCH, "ptq_auto_s": ptq_s, "launches": counts,
+                  "launches_by_form": forms, "logits_cosine_vs_fp32": cos,
+                  "cosine_gate": PTQ_R18_FP32_COS[name], "top1_agreement_vs_fp32": agree,
+                  "ms_per_batch": ms, "card": card})
+            if name == "rtn" and ctx == "fused2":
+                fused2_eng = eng
+            else:
+                del eng
+    return {"cfg": cfg, "flat": flat, "col": col, "ref": ref, "stores": stores,
+            "fused2": fused2_eng}
+
+
+def ptq_mixed(dev, card, r18, x0, tmp):
+    """(d) auto_mixed_qconfig over (a)'s collector at INT4A8_PER_CHANNEL, a
+    weight-byte budget halfway between all-int4 and all-int8, served under
+    deploy from a store; launches by kernel from the wrapper counters."""
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.quant.model_quant import quantize_weights
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL
+    from dlq_tpu_torch.quant.quantize import effective_weight_scheme
+    from dlq_tpu_torch.quant.sensitivity import _stored_bytes, auto_mixed_qconfig
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    flat, cfg = r18["flat"], r18["cfg"]
+    lo = sum(_stored_bytes(p["w"].numel(), effective_weight_scheme(
+        tuple(p["w"].shape), INT4A8_PER_CHANNEL.scheme_for(s))) for s, p in flat.items())
+    hi = sum(p["w"].numel() for p in flat.values())
+    budget = (lo + hi) // 2
+    t0 = time.perf_counter()
+    mixed = auto_mixed_qconfig(flat, r18["col"], INT4A8_PER_CHANNEL, budget_bytes=budget)
+    mixed_s = time.perf_counter() - t0
+    qflat = quantize_weights(flat, mixed)
+    stored = sum(_stored_bytes(p["w"].numel(), effective_weight_scheme(
+        tuple(p["w"].shape), mixed.scheme_for(s))) for s, p in flat.items())
+    if not lo < stored <= budget:
+        raise AssertionError(f"mixed precision: {stored} weight bytes, budget {budget}, "
+                             f"all-int4 {lo}")
+    root = f"{tmp}/r18_mixed"
+    save_quantized(root, "resnet18", qflat, r18["stores"]["rtn"][2], mixed,
+                   meta={"config": {"num_classes": 1000, "small_input": False}})
+    eng = Engine.from_store(root, ctx="deploy", batch=BATCH, device=dev)
+    fc4 = eng.params.qflat["fc"]["qw"].bits == 4
+    want = _per(conv_int8=20, **({"matmul_int4a8": 1} if fc4 else {"matmul_int8": 1}))
+    xt = torch.from_numpy(x0).to(dev)
+    logits, counts, forms = ptq_forward(lambda: eng._fn(eng.params, xt), want, "ptq_mixed_deploy")
+    agree, cos = gate(logits, r18["ref"], "ptq_mixed_deploy vs fp32", PTQ_MIXED_FP32_COS,
+                      top1=False)
+    repeat_forward("ptq_mixed_deploy", lambda: eng._fn(eng.params, xt))
+    emit({"phase": "ptq_mixed_deploy", "model": "resnet18", "batch": BATCH,
+          "base": "INT4A8_PER_CHANNEL", "budget_bytes": budget, "all_int4_bytes": lo,
+          "all_int8_bytes": hi, "stored_bytes": stored, "auto_mixed_qconfig_s": mixed_s,
+          "int8_sites": [s for s, _ in mixed.weight_overrides],
+          "int4_sites": sorted(s for s, p in eng.params.qflat.items() if p["qw"].bits == 4),
+          "launches": {k: v for k, v in counts.items() if v}, "launches_by_form": forms,
+          "logits_cosine_vs_fp32": cos, "cosine_gate": PTQ_MIXED_FP32_COS,
+          "top1_agreement_vs_fp32": agree, "card": card})
+
+
+def ptq_qat(dev, card, r18, images):
+    """(c) three make_qat_step steps on ResNet-18 at 224 px, batch 32,
+    INT4A8_PER_CHANNEL, lr PTQ_QAT_LR, each timed with CUDA events; loss finite, params
+    moved; QATCtx against DeployCtx(quantize_weights(trained)) on K1 / K10."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.models.resnet import qforward
+    from dlq_tpu_torch.quant.calibrate import calibrate
+    from dlq_tpu_torch.quant.model_quant import DeployCtx, make_sites_fn, quantize_weights
+    from dlq_tpu_torch.quant.qat import QATCtx, make_qat_step
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL
+
+    cfg, flat = r18["cfg"], r18["flat"]
+    qcfg = INT4A8_PER_CHANNEL
+    x = torch.from_numpy(images[:PTQ_QAT_BATCH]).to(dev)
+    y = torch.from_numpy(np.random.default_rng(PTQ_QAT_LABEL_SEED).integers(
+        0, 1000, PTQ_QAT_BATCH)).to(dev)
+    scales = calibrate(make_sites_fn(qforward, cfg), flat, [x], qcfg)
+    step = make_qat_step(qforward, cfg, qcfg, lr=PTQ_QAT_LR)
+    vel = {s: {k: torch.zeros_like(v) for k, v in p.items() if v is not None}
+           for s, p in flat.items()}
+    f, ms, losses = flat, [], []
+    for _ in range(3):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        f, vel, scales, loss, acc = step(f, vel, scales, x, y)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+        losses.append(float(loss))
+    moved = sum(not torch.equal(f[s]["w"], flat[s]["w"]) for s in flat)
+    if not all(np.isfinite(losses)) or moved != len(flat):
+        raise AssertionError(f"qat: losses {losses}, {moved} of {len(flat)} sites moved")
+    with torch.inference_mode():
+        sim = qforward(QATCtx(f, scales, qcfg), x, cfg).float().cpu().numpy()
+    dctx = DeployCtx(quantize_weights(f, qcfg), scales, qcfg)
+    dep, counts, forms = ptq_forward(lambda: qforward(dctx, x, cfg), "qat_deploy",
+                                     "ptq_qat_deploy")
+    cos = numerics.diff(dep, sim).cosine
+    if cos <= PTQ_QAT_PARITY_COS:
+        raise AssertionError(f"qat deploy parity: cosine {cos} (need > {PTQ_QAT_PARITY_COS})")
+    repeat_forward("ptq_qat_deploy", lambda: qforward(dctx, x, cfg))
+    emit({"phase": "ptq_qat", "model": "resnet18", "size": 224, "batch": PTQ_QAT_BATCH,
+          "scheme": "INT4A8_PER_CHANNEL", "steps": 3, "ms_per_step": ms, "losses": losses,
+          "sites_moved": moved, "deploy_launches": {k: v for k, v in counts.items() if v},
+          "deploy_launches_by_form": forms, "deploy_vs_qatctx_cosine": cos,
+          "cosine_gate": PTQ_QAT_PARITY_COS,
+          "deploy_vs_qatctx_top1": numerics.top1_agreement(dep, sim), "card": card})
+
+
+def ptq_deit(dev, card, x0, tmp):
+    """(b) DeiT-Tiny W8A8 by ptq_auto(smooth="auto",
+    smooth_site_filter=VIT_LN_FOLDABLE) on two calibration batches, the
+    vectors folded into the LN affines, saved, served by
+    from_store(ctx="block") on K5 -> K6 -> K7 and gated against the sitewise
+    SmoothDeployCtx forward on K2 and against fp32; the same smoothed
+    weights at INT4A8 through pack_vit_blocks_w4a8(smooth=) on K8 -> K6 ->
+    K9 against their sitewise forward on K10. Returns the block store."""
+    from dlq_tpu_torch.engine import Engine, to_device
+    from dlq_tpu_torch.models.vit import (
+        ViTConfig, flatten_vit, init_vit, make_qforward, vit_extras, vit_forward,
+    )
+    from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w4a8, vit_forward_blockfused_w4a8c
+    from dlq_tpu_torch.quant.model_quant import quantize_weights
+    from dlq_tpu_torch.quant.qconfig import INT4A8_PER_CHANNEL, INT8_PER_CHANNEL
+    from dlq_tpu_torch.quant.recipe import VIT_LN_FOLDABLE, ptq_auto
+    from dlq_tpu_torch.quant.smooth import (
+        SmoothDeployCtx, apply_smooth, fold_smooth_into_ln_extras, search_smooth_alpha,
+    )
+    from dlq_tpu_torch.quant.store import save_quantized
+
+    cfg = ViTConfig()
+    params = to_device(init_vit(SEED, cfg), dev)
+    flat, ex = flatten_vit(params), vit_extras(params)
+    qf = make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim)
+    qf_site = make_qforward(ex, cfg.depth, cfg.heads, cfg.patch, cfg.dim, attn_impl="fused",
+                            gelu="tanh")
+    calib = [np.random.default_rng(s).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)
+             for s in PTQ_DEIT_CALIB_SEEDS]
+    xt = torch.from_numpy(x0).to(dev)
+    xs = xt[:PTQ_SITEWISE_BATCH]
+    with torch.inference_mode():
+        ref = vit_forward(params, xt, ViTConfig(gelu="tanh")).cpu().numpy()
+    t0 = time.perf_counter()
+    sm_search, alpha = search_smooth_alpha(qf, flat, cfg, calib, INT8_PER_CHANNEL,
+                                           site_filter=VIT_LN_FOLDABLE)
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qflat, scales, sm = ptq_auto(qf, flat, cfg, calib, INT8_PER_CHANNEL,
+                                 smooth_site_filter=VIT_LN_FOLDABLE)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    if set(sm) != set(sm_search) or not all(np.array_equal(sm[k], sm_search[k]) for k in sm):
+        raise AssertionError("deit ptq_auto: its vectors are not search_smooth_alpha's")
+    if not all(VIT_LN_FOLDABLE(k) for k in sm):
+        raise AssertionError(f"deit ptq_auto: vectors for {sorted(sm)}")
+    root = f"{tmp}/deit_auto"
+    save_quantized(root, "deit_tiny", qflat, scales, INT8_PER_CHANNEL,
+                   extras=fold_smooth_into_ln_extras(ex, sm),
+                   meta={"config": {k: getattr(cfg, k) for k in (
+                       "num_classes", "image_size", "patch", "dim", "depth", "heads",
+                       "mlp_ratio")}, "smooth_sites": sorted(sm)})
+    eng = Engine.from_store(root, ctx="block", batch=BATCH, device=dev)
+    blk, counts, forms = ptq_forward(lambda: eng._fn(eng.params, xt), "deit_block",
+                                     "ptq_deit_block")
+    sctx = SmoothDeployCtx(qflat, scales, INT8_PER_CHANNEL, sm)
+    site, c_site, f_site = ptq_forward(lambda: qf_site(sctx, xs, cfg), "deit_sitewise",
+                                       "ptq_deit_sitewise", hopper_k12=True)
+    _, cos_twin = gate(blk[:PTQ_SITEWISE_BATCH], site, "ptq_deit_block vs sitewise",
+                       PTQ_DEIT_TWIN_COS, top1=False)
+    agree, cos = gate(blk, ref, "ptq_deit_block vs fp32", PTQ_DEIT_FP32_COS, top1=False)
+    ms = time_ms(lambda: eng._fn(eng.params, xt), iters=10)
+    repeat_forward("ptq_deit_block", lambda: eng._fn(eng.params, xt))
+    repeat_forward("ptq_deit_sitewise", lambda: qf_site(sctx, xs, cfg))
+    emit({"phase": "ptq_deit_block", "model": "deit_tiny", "scheme": "INT8_PER_CHANNEL",
+          "batch": BATCH, "alpha": alpha, "smooth_sites": len(sm),
+          "search_smooth_alpha_s": search_s, "ptq_auto_s": ptq_s, "launches": counts,
+          "launches_by_form": forms, "sitewise_batch": PTQ_SITEWISE_BATCH,
+          "sitewise_launches": {k: v for k, v in c_site.items() if v},
+          "sitewise_launches_by_form": f_site, "logits_cosine_vs_sitewise": cos_twin,
+          "twin_gate": PTQ_DEIT_TWIN_COS, "logits_cosine_vs_fp32": cos,
+          "cosine_gate": PTQ_DEIT_FP32_COS, "top1_agreement_vs_fp32": agree,
+          "ms_per_batch": ms, "card": card})
+
+    q4 = quantize_weights(apply_smooth(flat, sm), INT4A8_PER_CHANNEL)
+    pack4 = pack_vit_blocks_w4a8(q4, scales, ex, cfg, tight=True, smooth=sm)
+    blk4, c4, f4 = ptq_forward(lambda: vit_forward_blockfused_w4a8c(pack4, xt, cfg, tight=True),
+                               "deit_w4a8_block", "ptq_deit_w4a8_block")
+    sctx4 = SmoothDeployCtx(q4, scales, INT4A8_PER_CHANNEL, sm)
+    site4, cs4, fs4 = ptq_forward(lambda: qf_site(sctx4, xs, cfg), "deit_w4a8_sitewise",
+                                  "ptq_deit_w4a8_sitewise")
+    _, cos_twin4 = gate(blk4[:PTQ_SITEWISE_BATCH], site4, "ptq_deit_w4a8_block vs sitewise",
+                        PTQ_DEIT_W4A8_TWIN_COS, top1=False)
+    agree4, cos4 = gate(blk4, ref, "ptq_deit_w4a8_block vs fp32", DEIT_W4A8_FP32_COS,
+                        top1=False)
+    repeat_forward("ptq_deit_w4a8_block",
+                   lambda: vit_forward_blockfused_w4a8c(pack4, xt, cfg, tight=True))
+    repeat_forward("ptq_deit_w4a8_sitewise", lambda: qf_site(sctx4, xs, cfg))
+    emit({"phase": "ptq_deit_w4a8_block", "model": "deit_tiny", "scheme": "INT4A8_PER_CHANNEL",
+          "batch": BATCH, "launches": c4, "launches_by_form": f4,
+          "sitewise_launches": {k: v for k, v in cs4.items() if v},
+          "sitewise_launches_by_form": fs4, "logits_cosine_vs_sitewise": cos_twin4,
+          "twin_gate": PTQ_DEIT_W4A8_TWIN_COS, "logits_cosine_vs_fp32": cos4,
+          "cosine_gate": DEIT_W4A8_FP32_COS, "top1_agreement_vs_fp32": agree4, "card": card})
+    return {"root": root, "block": eng}
+
+
+def ptq_uint8(dev, card, r18, deit):
+    """(e) uint8 ingest: ResNet-18 fused2 on uint8 images against the
+    normalized fp32 images, and the two stems' int8 codes; DeiT's block
+    engine on uint8 against normalized input."""
+    from dlq_tpu_torch import numerics
+    from dlq_tpu_torch.engine import Engine
+    from dlq_tpu_torch.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+    u8 = np.random.default_rng(PTQ_U8_SEED).integers(0, 256, (BATCH, 224, 224, 3)).astype(np.uint8)
+    xn = ((u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+    ut, nt = torch.from_numpy(u8).to(dev), torch.from_numpy(xn).to(dev)
+    f2 = r18["fused2"]
+    eng = Engine.from_store(r18["stores"]["rtn"][0], ctx="fused2", batch=BATCH, device=dev,
+                            input_dtype=torch.uint8)
+    got, counts, forms = ptq_forward(lambda: eng._fn(eng.params, ut), "r18_fused2",
+                                     "ptq_r18_u8_fused2", hopper_k12=True)
+    with torch.inference_mode():
+        norm = f2._fn(f2.params, nt).float().cpu().numpy()
+        a = f2.params.conv_stem_bf16("stem", nt, out_site="layer1.0.conv1").q
+        b = f2.params.conv_stem_bf16_u8("stem", ut, out_site="layer1.0.conv1").q
+        equal = float((a == b).float().mean())
+        worst = int((a.int() - b.int()).abs().max())
+    agree, cos = gate(got, norm, "ptq_r18_u8_fused2 vs normalized fp32", PTQ_U8_COS, top1=True)
+    if equal <= PTQ_U8_STEM_EQUAL or worst > 1:
+        raise AssertionError(f"uint8 stem: {equal} of codes equal, largest difference {worst}")
+    preds = eng.classify(u8)
+    if not np.array_equal(preds, got.argmax(-1)):
+        raise AssertionError("ptq_r18_u8_fused2: classify on uint8 and the forward disagree")
+    ms = time_ms(lambda: eng._fn(eng.params, ut), iters=10)
+    repeat_forward("ptq_r18_u8_fused2", lambda: eng._fn(eng.params, ut))
+    emit({"phase": "ptq_r18_u8_fused2", "model": "resnet18", "batch": BATCH,
+          "launches": counts, "launches_by_form": forms,
+          "logits_cosine_vs_normalized": cos, "top1_agreement_vs_normalized": agree,
+          "cosine_gate": PTQ_U8_COS, "stem_codes_equal": equal, "stem_codes_max_diff": worst,
+          "stem_gate": PTQ_U8_STEM_EQUAL, "ms_per_batch": ms,
+          "ms_per_batch_normalized": time_ms(lambda: f2._fn(f2.params, nt), iters=10),
+          "card": card})
+
+    blk = deit["block"]
+    beng = Engine.from_store(deit["root"], ctx="block", batch=BATCH, device=dev,
+                             input_dtype=torch.uint8)
+    gu, cu, fu = ptq_forward(lambda: beng._fn(beng.params, ut), "deit_block",
+                             "ptq_deit_block_u8")
+    with torch.inference_mode():
+        gn = blk._fn(blk.params, nt).float().cpu().numpy()
+    agree_d, cos_d = gate(gu, gn, "ptq_deit_block_u8 vs normalized fp32", PTQ_DEIT_U8_COS,
+                          top1=False)
+    repeat_forward("ptq_deit_block_u8", lambda: beng._fn(beng.params, ut))
+    emit({"phase": "ptq_deit_block_u8", "model": "deit_tiny", "batch": BATCH, "launches": cu,
+          "launches_by_form": fu, "logits_cosine_vs_normalized": cos_d,
+          "top1_agreement_vs_normalized": agree_d, "cosine_gate": PTQ_DEIT_U8_COS,
+          "ms_per_batch": time_ms(lambda: beng._fn(beng.params, ut), iters=10), "card": card})
+
+
+def ptq_report(card, r18, x0, tmp):
+    """(f) quant_error_report on (a)'s fp32 and GPTQ taps over two batches
+    of BATCH / 4, logged by the port's RunLogger and read back (JSONL and xlsx)."""
+    from dlq_tpu_torch.models.resnet import qforward
+    from dlq_tpu_torch.quant.error_report import quant_error_report
+    from dlq_tpu_torch.quant.model_quant import DeployCtx, ObserveCtx
+    from dlq_tpu_torch.quant.qconfig import INT8_PER_CHANNEL
+    from dlq_tpu_torch.runlog import RunLogger, read_xlsx_rows
+
+    cfg, flat = r18["cfg"], r18["flat"]
+    _, qflat, scales = r18["stores"]["gptq"]
+    dctx, octx = DeployCtx(qflat, scales, INT8_PER_CHANNEL), ObserveCtx(flat)
+    dev = next(iter(scales.values())).device
+
+    def taps(ctx):
+        def fn(x):
+            with torch.inference_mode():
+                return qforward(ctx, torch.from_numpy(x).to(dev), cfg, taps=True)
+        return fn
+
+    log = RunLogger(f"{tmp}/runlogs", script="chip_smoke_ptq.py", tag="gptq")
+    h = BATCH // 4
+    rep = quant_error_report(taps(octx), taps(dctx), [x0[:h], x0[h:2 * h]], logger=log,
+                             params_info={"model": "resnet18", "rounding": "gptq"})
+    rows = log.rows()
+    table = read_xlsx_rows(log.export_xlsx())
+    head = table[0]
+    if (len(rows) != 1 or rows[0]["m_top1_agreement"] != rep["top1_agreement"]
+            or len(table) != 2 or float(table[1][head.index("m_stem_cosine")])
+            != rep["stages"]["stem"]["cosine"]):
+        raise AssertionError("quant_error_report: the logged row does not read back")
+    emit({"phase": "ptq_error_report", "model": "resnet18", "rounding": "gptq",
+          "images": rep["images"], "worst_stage": rep["worst_stage"],
+          "top1_agreement": rep["top1_agreement"], "top5_agreement": rep["top5_agreement"],
+          "logits_cosine": rep["logits_cosine"],
+          "stage_cosine": {k: v["cosine"] for k, v in rep["stages"].items()},
+          "runlog_rows": len(rows), "xlsx_columns": len(head), "card": card})
+
+
+def ptq_paths(dev, card, images):
+    """The ptq phase, (a)-(f) of the PTQ toolbox on the card; every forward
+    it serves is repeated SPLIT_REPEATS times (repeat_forward)."""
+    x0 = images[:BATCH]
+    with tempfile.TemporaryDirectory() as tmp:
+        r18 = ptq_r18(dev, card, x0, tmp)
+        ptq_mixed(dev, card, r18, x0, tmp)
+        ptq_qat(dev, card, r18, images)
+        ptq_report(card, r18, x0, tmp)
+        deit = ptq_deit(dev, card, x0, tmp)
+        ptq_uint8(dev, card, r18, deit)
+        del r18, deit
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the probes (K19-K22)
 # ---------------------------------------------------------------------------
 
@@ -4171,6 +4706,7 @@ def main() -> int:
     paths.update(deit_bf16_paths(dev, card, deit, act_scales, images))
     del deit
     mnv2 = mnv2_paths(dev, card, images)
+    ptq_paths(dev, card, images)
     del images
     paths.update(mnist_paths(dev, card))
     check_repeats()

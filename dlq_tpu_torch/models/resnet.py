@@ -332,14 +332,17 @@ def qforward_fused2(ctx, x: torch.Tensor, cfg: ResNetConfig, taps: bool = False)
     """Fully-int8 interchange (use with FullFusedCtx / PallasBlockCtx):
     stem, maxpool, every block tensor and the residual junctions are int8;
     the only fp32 tensors are the input, the final junction, the pooled
-    feature vector and the logits. The 224 px stem is the bf16 stem."""
+    feature vector and the logits. The 224 px stem is the bf16 stem; a
+    uint8 image takes the stem with the preprocess fold
+    (``conv_stem_bf16_u8``, ``dlq_tpu/models/resnet.py:423``)."""
     t: Dict[str, torch.Tensor] = {}
     nb = cfg.blocks_per_stage
     first = "layer1.0.conv1"
     if cfg.small_input:
         y = ctx.conv("stem", x, stride=1, padding=1, fuse_relu=True, out_site=first)
     else:
-        y = ctx.conv_stem_bf16("stem", x, out_site=first)
+        u8 = x.dtype == torch.uint8 and hasattr(ctx, "conv_stem_bf16_u8")
+        y = (ctx.conv_stem_bf16_u8 if u8 else ctx.conv_stem_bf16)("stem", x, out_site=first)
         y = ctx.maxpool(y, 3, 2, 1)
     if taps:
         t["stem"] = _dequant_tap(y)

@@ -1,11 +1,12 @@
 """Numeric-diff metrics and acceptance gates (same definitions as
 ``dlq_tpu.numerics``: max_abs / mean_abs / cosine / relative L2, and top-k
-agreement). Inputs may be numpy arrays or tensors on any device."""
+agreement, the per-stage ``StageReport``). Inputs may be numpy arrays or
+tensors on any device."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -69,3 +70,38 @@ def top1_agreement(logits_a, logits_b) -> float:
     if a.ndim == 1:
         a, b = a[None], b[None]
     return float(np.mean(np.argmax(a, -1) == np.argmax(b, -1)))
+
+
+def topk_agreement(logits_a, logits_b, k: int = 5) -> float:
+    """Fraction of rows whose top-``k`` classes under ``logits_a`` hold the
+    argmax of ``logits_b``."""
+    a, b = _np(logits_a), _np(logits_b)
+    if a.ndim == 1:
+        a, b = a[None], b[None]
+    ta = np.argsort(-a, axis=-1)[:, :k]
+    ref = np.argmax(b, -1)[:, None]
+    return float(np.mean(np.any(ta == ref, axis=-1)))
+
+
+@dataclasses.dataclass
+class StageReport:
+    """Per-stage diff table."""
+
+    stages: Dict[str, Diff] = dataclasses.field(default_factory=dict)
+
+    def add(self, name: str, got, expect) -> Diff:
+        d = diff(got, expect)
+        self.stages[name] = d
+        return d
+
+    def worst(self) -> Optional[str]:
+        if not self.stages:
+            return None
+        return max(self.stages, key=lambda s: self.stages[s].max_abs)
+
+    def to_json(self) -> Dict[str, Dict[str, float]]:
+        return {k: v.to_json() for k, v in self.stages.items()}
+
+    def __str__(self) -> str:
+        w = max((len(s) for s in self.stages), default=0)
+        return "\n".join(f"{s:<{w}}  {d}" for s, d in self.stages.items())

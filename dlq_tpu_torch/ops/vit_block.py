@@ -108,6 +108,7 @@ import ctypes
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -188,6 +189,44 @@ def _epi(acc: torch.Tensor, s: Optional[torch.Tensor], b: torch.Tensor) -> torch
 # packing and embedding
 # ---------------------------------------------------------------------------
 
+def inverse_smooth(s) -> np.ndarray:
+    """``1 / s`` of a smoothing vector (numpy, a tensor or a number) in
+    fp32: an IEEE division, as the reference computes it."""
+    if isinstance(s, torch.Tensor):
+        s = s.detach().cpu().numpy()
+    return np.asarray(np.float32(1.0) / np.asarray(s, np.float32))
+
+
+def check_smooth_foldable(smooth: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The smoothing vectors that fold into a ViT's LN affines (``*.qkv`` and
+    ``*.fc1``, whose inputs are LN outputs); any other site raises the
+    reference's ValueError (``pallas_vit_block.py:789``,
+    ``dlq_tpu/quant/smooth.py:143``)."""
+    smooth = smooth or {}
+    bad = [k for k in smooth if not (k.endswith(".qkv") or k.endswith(".fc1"))]
+    if bad:
+        raise ValueError(
+            f"only *.qkv / *.fc1 smoothing vectors fold into the LN affines; got vectors for "
+            f"{bad} — use quant.recipe.VIT_LN_FOLDABLE as the smooth_site_filter, or deploy "
+            "sitewise with SmoothDeployCtx")
+    return smooth
+
+
+def smooth_folded_ln(ln: Dict[str, Any], smooth: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s LN affines with its ``l<i>.qkv`` / ``l<i>.fc1``
+    smoothing vectors folded in exactly (``pallas_vit_block.py:801``): the
+    qkv and fc1 inputs are LN outputs, so ``x / s`` is the LN with ``(g * (1
+    / s), b * (1 / s))`` in fp32. The residual stream is untouched."""
+    out = {"ln1": ln["ln1"], "ln2": ln["ln2"]}
+    for key, site in (("ln1", f"l{i}.qkv"), ("ln2", f"l{i}.fc1")):
+        s = smooth.get(site)
+        if s is not None:
+            g, b = ln[key]["g"], ln[key]["b"]
+            inv = torch.from_numpy(inverse_smooth(s)).to(g.device)
+            out[key] = {"g": g.float() * inv, "b": b.float() * inv}
+    return out
+
+
 def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Optional[Dict[str, Any]],
                      extras: Dict[str, Any], cfg, tight: bool,
                      smooth: Optional[Dict[str, Any]], kind: str) -> Dict[str, Any]:
@@ -200,10 +239,7 @@ def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Optional[Dict[str, Any]]
     scales, the four inverse activation scales per layer. Tensors stay on
     the device of ``qflat``."""
     what = f"pack_vit_blocks_{kind}"
-    if smooth:
-        raise NotImplementedError(
-            f"{what}: folding SmoothQuant vectors into the LN affines is not "
-            "ported yet (ROADMAP.md A.9)")
+    smooth = check_smooth_foldable(smooth)
     w4 = kind != "w8"
     _, Dp = vit_pads(cfg, tight)
     Hp = mlp_pad(cfg)
@@ -241,7 +277,7 @@ def _pack_vit_blocks(qflat: Dict[str, Any], act_scales: Optional[Dict[str, Any]]
         wp, sp, bp = site(f"l{i}.proj")
         wf1, sf1, bf1 = site(f"l{i}.fc1")
         wf2, sf2, bf2 = site(f"l{i}.fc2")
-        ln = extras["ln"][i]
+        ln = smooth_folded_ln(extras["ln"][i], smooth, i)
         qkv = torch.cat([F.pad(w, (0, Dp - w.shape[1])) for w in torch.chunk(wq, 3, -1)], -1)
         blk = {
             "wqkv": kmajor(qkv, Dp, 3 * Dp),
@@ -361,21 +397,29 @@ def stack_vit_blocks_w8(packed: Dict[str, Any], layers_per_kernel: int) -> List[
 stack_vit_blocks_w4a8 = stack_vit_blocks_w4 = stack_vit_blocks_w8
 
 
-def embed_tokens(packed: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
+def embed_tokens(packed: Dict[str, Any], x: torch.Tensor, cfg, mean=None,
+                 std=None) -> torch.Tensor:
     """Patch embedding [B, H, W, C] -> bf16 [B, N-1, D]: the bf16-rounded
     image against the bf16 patch weights with fp32 sums (an fp32 product of
     bf16-rounded operands, TF32 off), rounded to bf16, plus the bf16 bias
-    (``pallas_vit_block.py:719-730``)."""
-    if x.dtype == torch.uint8:
-        raise NotImplementedError(
-            "embed_tokens: raw uint8 ingest with the preprocess fold is not ported yet "
-            "(ROADMAP.md A.9)")
-    from dlq_tpu_torch.models.vit import patchify
+    (``pallas_vit_block.py:719-730``).
 
-    wf = packed["patch"]["w"]
-    xb = x.to(torch.bfloat16).float()
+    A uint8 image is ingested raw with the preprocess fold (``:704-716``,
+    ``preprocess.fold_u8``): the patch weights times ``1 / (255 std)`` in
+    fp32, rounded to bf16, against ``u - bf16(255 mean)``, unrounded as the
+    jitted reference keeps it (``mean``/``std`` default to ImageNet's)."""
+    from dlq_tpu_torch.models.vit import patchify
+    from dlq_tpu_torch.preprocess import fold_u8
+
+    p, D = cfg.patch, packed["patch"]["w"].shape[-1]
+    wf = packed["patch"]["w"].float()
+    if x.dtype == torch.uint8:
+        w4, xb = fold_u8(wf.reshape(p, p, x.shape[-1], D), x, mean, std)
+        wf = w4.reshape(-1, D)
+    else:
+        xb = x.to(torch.bfloat16).float()
     with fp32_matmul():
-        y = torch.matmul(patchify(xb, cfg.patch), wf.float()).to(torch.bfloat16)
+        y = torch.matmul(patchify(xb, p), wf).to(torch.bfloat16)
     return y + packed["patch"]["b"]
 
 

@@ -33,7 +33,7 @@ ops), and caches the per-site combined epilogue scales.
 Not ported yet (ROADMAP.md): tensor-parallel wire routing, the
 dpx/s2d/down_mm conv rewrites (a 1x1/s2 downsample runs as a direct
 conv on K1, as under the reference's default ``rewrites=("mm1x1",)``), the
-s2d and uint8 stems.
+s2d stem.
 """
 
 from __future__ import annotations
@@ -379,12 +379,32 @@ class FullFusedCtx(FusedDeployCtx):
         fp32 accumulation and fp32 output, bias, then the int8 requant with
         relu folded into the clip. Computed as an fp32 conv (TF32 off) of the
         bf16-rounded operands: a bf16 conv on CUDA would round its output."""
-        p = self.qflat[name]
-        qw: QTensor = p["qw"]
+        qw: QTensor = self.qflat[name]["qw"]
         w = dequantize(qw).reshape(qw.layout_shape).to(torch.bfloat16).float()
-        y = conv2d(x.to(torch.bfloat16).float(), w, stride=stride, padding=padding)
-        if p.get("b") is not None:
-            y = y + p["b"]
+        return self._stem(name, x.to(torch.bfloat16).float(), w, out_site, stride, padding)
+
+    def conv_stem_bf16_u8(self, name: str, u8: torch.Tensor, *, out_site: str, mean=None,
+                          std=None, stride=2, padding=3) -> QAct:
+        """uint8 image ingest with the preprocess fold
+        (``dlq_tpu/quant/model_quant.py:581``): the dequantized stem weight
+        times ``1 / (255 std)`` along I in fp32, rounded to bf16, against
+        ``u - bf16(255 mean)`` unrounded, as the jitted reference
+        (``preprocess.fold_u8``; zero padding of the shifted image is zero
+        padding of the normalized one); then as ``conv_stem_bf16``."""
+        from dlq_tpu_torch.preprocess import fold_u8
+
+        qw: QTensor = self.qflat[name]["qw"]
+        w, xb = fold_u8(dequantize(qw).reshape(qw.layout_shape), u8, mean, std)
+        return self._stem(name, xb, w, out_site, stride, padding)
+
+    def _stem(self, name: str, xb: torch.Tensor, w: torch.Tensor, out_site: str, stride,
+              padding) -> QAct:
+        """fp32 conv (TF32 off) of bf16-valued operands, bias, int8 requant
+        to ``out_site``'s scale with relu folded into the clip."""
+        y = conv2d(xb, w, stride=stride, padding=padding)
+        b = self.qflat[name].get("b")
+        if b is not None:
+            y = y + b
         q = torch.clamp(torch.round(fdiv(y, self.scale_t[out_site])), 0.0, self.qcfg.acts.qmax)
         return QAct(q.to(torch.int8), self.scale[out_site])
 

@@ -253,7 +253,8 @@ def test_routing_guards(tmp_path):
     W4A8 block engine, a weight-only per-OC int4 store the W4A16 one, and a
     group-wise weight-only store raises the reference's ValueError; conv
     contexts are refused; ``fused_ln=True`` and ``attn_impl="xla_int8"``
-    run; the unported SmoothQuant fold raises naming ROADMAP.md."""
+    run; the SmoothQuant fold takes an LN-foldable vector and refuses any
+    other site with the reference's ValueError."""
     m = quantized_vit("d96", depth=2)
     _jax_store(str(tmp_path / "w8"), m)
     eng = Engine.from_store(str(tmp_path / "w8"), ctx="block", batch=4, device="cpu")
@@ -279,5 +280,11 @@ def test_routing_guards(tmp_path):
     assert out.shape == (4, 10) and torch.isfinite(out).all()
     from dlq_tpu_torch.ops.vit_block import pack_vit_blocks_w8
 
-    with pytest.raises(NotImplementedError, match="A.9"):
-        pack_vit_blocks_w8(m["tq"], m["ts"], m["tex"], m["tcfg"], smooth={"l0.qkv": 1.0})
+    # the SmoothQuant LN fold is ported: a vector of a non-foldable site
+    # raises the reference's ValueError, an LN-foldable one packs
+    with pytest.raises(ValueError, match="fold"):
+        pack_vit_blocks_w8(m["tq"], m["ts"], m["tex"], m["tcfg"], smooth={"l0.proj": 1.0})
+    packed = pack_vit_blocks_w8(m["tq"], m["ts"], m["tex"], m["tcfg"], smooth={"l0.qkv": 2.0})
+    plain = pack_vit_blocks_w8(m["tq"], m["ts"], m["tex"], m["tcfg"])
+    assert torch.equal(packed["blocks"][0]["ln1"], plain["blocks"][0]["ln1"] * 0.5)
+    assert torch.equal(packed["blocks"][0]["ln2"], plain["blocks"][0]["ln2"])
